@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-This slice ports the dense serving path, so only `internlm2-1.8b` is
-registered; the other architectures of `repro.configs` arrive with the
-slices that port their families (ROADMAP.md queue A item 10)."""
+The port registers the architectures whose families it serves: the
+dense `internlm2-1.8b`, the MoE `qwen3-moe-30b-a3b` and the hybrid
+`zamba2-2.7b`; the other architectures of `repro.configs` arrive with
+the slices that port their families (ROADMAP.md queue A item 10)."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +23,8 @@ class ArchSpec:
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -17,7 +17,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "paged_prefill.cu")
+SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
+           "ssd_scan.cu")
 HEADERS = ("paged_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,6 +33,11 @@ DECODE_ARGTYPES = [_VOIDP] * 11 + [_INT] * 9 + [_VOIDP]
 #   chunk_len, page_positions, out, m, l, b, c, hq, hkv, d, page,
 #   max_pages, rows_per_tile, q_dtype, kv_dtype, partials, stream)
 PREFILL_ARGTYPES = [_VOIDP] * 12 + [_INT] * 11 + [_VOIDP]
+# repro_grouped_matmul(x, w, out, rows, E, C, K, F, dtype, vec, stream)
+GROUPED_ARGTYPES = [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP]
+# repro_ssd_intra_chunk(x, dt, A, B, C, y, s, cd, bh, nc, l, p, n, dtype,
+#   stream)
+SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
 
 
 def build_dir() -> Path:
@@ -111,6 +117,10 @@ class KernelLibrary:
         lib.repro_paged_decode.restype = ctypes.c_int
         lib.repro_paged_prefill.argtypes = PREFILL_ARGTYPES
         lib.repro_paged_prefill.restype = ctypes.c_int
+        lib.repro_grouped_matmul.argtypes = GROUPED_ARGTYPES
+        lib.repro_grouped_matmul.restype = ctypes.c_int
+        lib.repro_ssd_intra_chunk.argtypes = SSD_ARGTYPES
+        lib.repro_ssd_intra_chunk.restype = ctypes.c_int
         self.lib = lib
 
 

@@ -1,7 +1,8 @@
 """Serving entry point: paged continuous batching on the UniMem arena.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch internlm2-1.8b --requests 8 --max-new 32 \
+        --arch internlm2-1.8b|qwen3-moe-30b-a3b|zamba2-2.7b \
+        --requests 8 --max-new 32 \
         [--reduced] [--max-batch 4 --max-seq 128 --page-size 16] \
         [--prefill-chunk N] [--temperature T --top-k K --top-p P \
          --sample-seed S] [--kv-dtype int8|fp8|bf16] [--device cpu]
@@ -11,6 +12,11 @@ Builds the model with seeded random weights on the device (CUDA unless
 prompt lengths, runs the engine to completion and logs latency,
 throughput and pool statistics.  Each request gets its own sampling
 seed (base + uid), so reruns reproduce while requests decorrelate.
+The MoE and hybrid archs serve with their shipped `moe_dispatch="ep"` /
+`ssd_impl="xla"` (the einsum dispatch and the plain SSD); the
+grouped-matmul and SSD kernels are reached by serving
+`cfg.replace(moe_dispatch="grouped")` / `cfg.replace(ssd_impl="pallas")`
+through `LLMServer`.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.models.config import reduced_for_smoke
 from repro_torch.serve.api import LLMServer
 from repro_torch.serve.sampling import SamplingParams
@@ -29,7 +35,7 @@ log = get_logger("serve")
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--arch", default="internlm2-1.8b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=24)

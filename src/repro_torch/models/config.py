@@ -59,7 +59,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     router_z_coef: float = 1e-3
-    moe_dispatch: str = "scatter"
+    moe_dispatch: str = "scatter"        # scatter | grouped | ep | dense
 
     # ssm (Mamba-2 / SSD)
     ssm_state: int = 0
@@ -67,7 +67,7 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_groups: int = 1
     ssm_chunk: int = 256
-    ssd_impl: str = "xla"
+    ssd_impl: str = "xla"                # xla | pallas (the SSD kernel)
     conv_width: int = 4
 
     # hybrid (zamba2)
@@ -122,17 +122,50 @@ class ModelConfig:
     def group_size(self) -> int:
         return self.num_heads // max(1, self.num_kv_heads)
 
+    # ssm derived (Mamba-2 conventions)
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        # conv runs over x plus the B and C streams (Mamba-2 layout)
+        return self.ssm_inner + 2 * self.ssm_groups * self.ssm_state
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
-        if self.kv_dtype not in (None, *KV_DTYPES):
-            raise ValueError(f"kv_dtype must be one of {(None, *KV_DTYPES)}, "
-                             f"got {self.kv_dtype!r}")
+        """The reference's checks, raising ValueError where it asserts."""
+        def need(ok: bool, what: str) -> None:
+            if not ok:
+                raise ValueError(f"{self.name}: {what}")
+        need(self.kv_dtype in (None, *KV_DTYPES),
+             f"kv_dtype must be one of {(None, *KV_DTYPES)}, got "
+             f"{self.kv_dtype!r}")
         if self.family in ("dense", "moe", "encoder", "vlm", "hybrid"):
-            if not (self.num_heads > 0 and self.head_dim > 0
-                    and self.num_heads % max(1, self.num_kv_heads) == 0):
-                raise ValueError(f"{self.name}: bad attention geometry")
+            need(self.num_heads > 0 and self.head_dim > 0
+                 and self.num_heads % max(1, self.num_kv_heads) == 0,
+                 "bad attention geometry")
+        if self.family == "moe":
+            need(self.num_experts > 0 and self.experts_per_token > 0,
+                 "moe needs num_experts and experts_per_token")
+        if self.family in ("ssm", "hybrid"):
+            need(self.ssm_state > 0 and self.ssm_inner % self.ssm_head_dim == 0,
+                 "bad ssm geometry")
+        if self.family == "hybrid":
+            need(self.shared_attn_period > 0
+                 and self.num_layers % self.shared_attn_period == 0,
+                 "num_layers must be a multiple of shared_attn_period")
+        if self.family == "vlm":
+            need(self.frontend == "patch" and self.num_patches > 0,
+                 "vlm needs the patch frontend")
+        if self.family == "encoder":
+            need(not self.causal, "an encoder is not causal")
 
 
 def reduced_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,11 +1,14 @@
 """Parameter bridge from the reference's layout to the port's.
 
-The reference keeps one pytree whose `params["layers"]` leaves carry a
-leading layer axis (it scans over them); the port keeps a list of
-per-layer dicts (it loops).  Weights keep the reference's (d_in, d_out)
-layout in both, so `x @ w` is the same product.  The bridge goes through
-numpy; bfloat16 and float8 arrays (ml_dtypes on the numpy side) cross as
-raw bits, so every leaf arrives bit-exact.
+The reference stacks repeated blocks on leading axes (it scans over
+them); the port keeps lists (it loops): `layers` (L, ...) becomes a list
+of L per-layer dicts, and for the hybrid family `mamba` (G, P, ...) a
+G x P nested list, `shared` (num_shared_blocks, ...) a list of block
+dicts and `group_proj` (G, 2d, d) a list of G matrices.  Weights keep
+the reference's (d_in, d_out) layout in both, so `x @ w` is the same
+product.  The bridge goes through numpy; bfloat16 and float8 arrays
+(ml_dtypes on the numpy side) cross as raw bits, so every leaf arrives
+bit-exact.
 """
 from __future__ import annotations
 
@@ -33,13 +36,32 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree, shape, fn, index=()):
+    """Nested lists of `shape` whose entries are `tree` with its leading
+    axes indexed, each leaf through `fn`."""
+    if not shape:
+        return _map(tree, lambda a: fn(a[index]))
+    return [_unstack(tree, shape[1:], fn, index + (i,))
+            for i in range(shape[0])]
+
+
+def stacked_axes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The reference's stacked top-level keys of `cfg`'s family and the
+    lengths of their leading axes."""
+    if cfg.family == "hybrid":
+        G = cfg.num_layers // cfg.shared_attn_period
+        return {"mamba": (G, cfg.shared_attn_period),
+                "shared": (cfg.num_shared_blocks,), "group_proj": (G,)}
+    return {"layers": (cfg.num_layers,)}
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device):
     """Reference param pytree (numpy leaves) -> the port's params on
-    `device`: the stacked leading-L `layers` axis is split into
-    `cfg.num_layers` per-layer dicts."""
-    out = {k: _map(v, lambda a: tensor_from_numpy(a, device))
-           for k, v in np_tree.items() if k != "layers"}
-    out["layers"] = [
-        _map(np_tree["layers"], lambda a, i=i: tensor_from_numpy(a[i], device))
-        for i in range(cfg.num_layers)]
+    `device`, every stacked key split into lists (`stacked_axes`)."""
+    def to(a):
+        return tensor_from_numpy(a, device)
+    stacked = stacked_axes(cfg)
+    out = {k: _map(v, to) for k, v in np_tree.items() if k not in stacked}
+    for k, shape in stacked.items():
+        out[k] = _unstack(np_tree[k], shape, to)
     return out

@@ -27,8 +27,9 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device):
 
 # ----------------------------------------------------------------- RMSNorm
 
-def rmsnorm_init(cfg: ModelConfig, device):
-    return torch.ones((cfg.d_model,), dtype=cfg.params_dtype, device=device)
+def rmsnorm_init(cfg: ModelConfig, device, dim: int | None = None):
+    return torch.ones((dim or cfg.d_model,), dtype=cfg.params_dtype,
+                      device=device)
 
 
 def rmsnorm_apply(scale, x, eps: float):
@@ -123,8 +124,10 @@ def run_paged_prefill_attention(cfg: ModelConfig, q, k_pages, v_pages,
 
 # --------------------------------------------------------------------- MLP
 
-def mlp_init(gen, cfg: ModelConfig, device):
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen, cfg: ModelConfig, device, d_ff: int | None = None):
+    """The reference's leaves and standard deviations; `d_ff` overrides
+    the hidden width (MoE shared experts: num_shared * moe_d_ff)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.num_layers)
     pd = cfg.params_dtype

@@ -1,8 +1,10 @@
 """Model family registry — one functional interface per family.
 
-This slice ports the dense family only.  A family module exposes
+The port serves the dense, MoE and hybrid families from the paged
+arena.  A family module exposes
     init(seed, cfg, device) -> params
-    init_paged_cache(cfg, num_slots, page_size, *, device)
+    init_paged_cache(cfg, num_slots, page_size, max_batch, *, device)
+        page leaves (+ hybrid's per-slot conv/SSM state leaves)
     paged_prefill(params, cfg, chunk, arena, block_table, start, chunk_len)
     paged_decode_step(params, cfg, arena, block_table, positions, tokens)
 Both paged hooks return (arena, logits (b, vocab)); sampling belongs to
@@ -10,15 +12,17 @@ the serving step (serve/serve_step.py).
 """
 from __future__ import annotations
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, moe, transformer
 from repro_torch.models.config import ModelConfig
 
 FAMILIES = {
     "dense": transformer,
+    "moe": moe,
+    "hybrid": hybrid,
 }
 
 # families of the reference not ported yet (ROADMAP.md queue A item 10)
-_LATER = ("moe", "ssm", "hybrid", "encoder", "vlm")
+_LATER = ("ssm", "encoder", "vlm")
 
 
 def get_family(cfg: ModelConfig):

@@ -65,12 +65,13 @@ def head_weights(params, cfg: ModelConfig):
 # whose chunk_len is 0 are inert: their writes go to the null page and
 # their logits are garbage the engine ignores.
 
-def init_paged_cache(cfg: ModelConfig, num_slots: int, page_size: int, *,
-                     device):
+def init_paged_cache(cfg: ModelConfig, num_slots: int, page_size: int,
+                     max_batch: int = 0, *, device):
     """Physical page arena: `num_slots` includes the null slot the
-    caller reserves.  Under a quantized `cfg.kv_dtype` the K/V banks
-    store int8/fp8 and per-token-per-head f32 scale leaves ride beside
-    them."""
+    caller reserves.  `max_batch` is unused: attention-only families
+    carry no per-slot state (hybrid does).  Under a quantized
+    `cfg.kv_dtype` the K/V banks store int8/fp8 and per-token-per-head
+    f32 scale leaves ride beside them."""
     dtype = cfg.kv_store_dtype
     shape = (cfg.num_layers, num_slots, page_size,
              cfg.num_kv_heads, cfg.head_dim)

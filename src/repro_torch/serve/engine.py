@@ -26,7 +26,9 @@ int32 tokens and reading them is the tick's one synchronisation.
 Options the reference has and this slice does not port raise
 `NotImplementedError` naming the ROADMAP.md item that will port them:
 `layout="contiguous"`, `mesh`, `host_tier_pages`, `prefix_cache=True`,
-`speculate_k > 0`, `tenant_weights`, and non-dense families.
+`speculate_k > 0`, `tenant_weights`, and the families not ported
+(ssm, encoder, vlm).  Families with per-slot recurrent state (hybrid)
+share prompt pages but never skip their compute, as in the reference.
 """
 from __future__ import annotations
 
@@ -201,7 +203,12 @@ class ServingEngine:
         self.prefill_shapes: set[tuple[int, int]] = set()
 
         self.arena = PagedKVArena(cfg, num_pages=pool_pages,
-                                  page_size=page_size, device=self.device)
+                                  page_size=page_size, device=self.device,
+                                  max_batch=max_batch)
+        # families with contiguous per-slot state (hybrid conv/SSM) can
+        # share page MEMORY but never skip prefill COMPUTE: the skipped
+        # tokens' state would not exist for the new slot
+        self._slot_state = self.arena.state_bytes > 0
         self.prefill_fn, self.decode_fn = make_paged_serve_fns(cfg,
                                                                self.device)
         self.pool = self.arena.pool
@@ -303,9 +310,11 @@ class ServingEngine:
     def _match_prefix(self, req: Request):
         """Longest run of shareable full pages for this prompt, capped so
         at least one prompt position is always re-prefilled.  Returns
-        (written, adopted, hashes, store_hashes): `written` pages hold published K/V the new sequence skips; `adopted` pages
-        are being written by a co-prefilling slot with identical content
-        (the new sequence prefills through them too)."""
+        (written, adopted, hashes, store_hashes): `written` pages hold
+        published K/V the new sequence skips; `adopted` pages are being
+        written by a co-prefilling slot with identical content, or (for
+        per-slot-state families) are published pages it must still
+        recompute through."""
         hashes = self._page_hashes(req)
         limit = (req.virtual_len - 1) // self.page_size
         written, adopted, store_hashes = [], [], []
@@ -314,7 +323,7 @@ class ServingEngine:
             page = store.page_of(h)
             if page is not None:
                 store_hashes.append(h)
-                if not adopted:
+                if not adopted and not self._slot_state:
                     written.append(page)
                 else:                      # keep the run contiguous
                     adopted.append(page)
@@ -346,7 +355,11 @@ class ServingEngine:
     def _absorb_shared(self, s: _Slot):
         """Late-binding prefix sharing: adopt pages another slot has
         published since this one was admitted, skipping their chunks
-        (page-aligned prefill positions only)."""
+        (page-aligned prefill positions only).  Never for per-slot-state
+        families: skipping tokens would leave the slot's conv/SSM state
+        behind its page contents."""
+        if self._slot_state:
+            return
         ps = self.page_size
         store = self.prefix_store
         limit = (s.request.virtual_len - 1) // ps
@@ -706,8 +719,8 @@ class ServingEngine:
         free = self._free_slots()
         if not free:
             raise RuntimeError("no free slot to fork into")
-        src = next((s for s in self.slots.values()
-                    if s.request.uid == uid), None)
+        src_i, src = next(((i, s) for i, s in self.slots.items()
+                           if s.request.uid == uid), (None, None))
         if src is None or src.prefilling:
             raise ValueError(f"uid {uid} is not active")
         child_req = Request(uid=new_uid, prompt=src.request.prompt,
@@ -728,13 +741,16 @@ class ServingEngine:
         # at the fork point
         self._emitted[new_uid] = len(child.generated)
         self.slots[free[0]] = child
+        # state that cannot share pages (hybrid conv/SSM rows) is copied
+        self.arena.copy_slot_state(src_i, free[0])
 
     # ------------------------------------------------------------- stats
 
     def peak_kv_bytes(self) -> int:
-        """Device bytes the arena's page high-water mark ties down."""
+        """Device bytes the arena ties down: the page high-water mark
+        plus the per-slot state (hybrid conv/SSM rows, zero elsewhere)."""
         return (self.pool.stats().peak_allocated_pages
-                * self.arena.page_bytes)
+                * self.arena.page_bytes + self.arena.state_bytes)
 
     def stats(self) -> dict:
         return {

@@ -9,8 +9,11 @@ table entries point at it, so fused steps over a ragged batch write and
 read it harmlessly.  `core/unimem.py` is the allocator; the paged hooks
 in `models/transformer.py` and the two kernels are the dataplane.
 
-Page copies (copy-on-write, write-back) update the arena tensors in
-place.  The contiguous per-slot layout waits for a later slice.
+Any leaf other than the pages (hybrid: "conv"/"ssm") is contiguous
+per-ENGINE-slot state with the slot axis at `STATE_SLOT_AXIS`: pages
+copy on write, state rows copy on fork.  Page and state copies update
+the arena tensors in place.  The contiguous per-slot KV layout waits for
+a later slice.
 """
 from __future__ import annotations
 
@@ -22,17 +25,23 @@ import torch
 from repro_torch.core.unimem import SequencePageTable, UniMemPool, is_page_leaf
 from repro_torch.models.config import ModelConfig
 
+# slot axis of the per-slot state leaves ((G, P, max_batch, ...))
+STATE_SLOT_AXIS = 2
+
 
 @dataclass
 class PagedKVArena:
     """Device-side UniMem arena + host-side page allocator.
 
     `num_pages` is the POOL size; the device arrays carry one extra
-    physical slot (`null_page == num_pages`) that is never allocated."""
+    physical slot (`null_page == num_pages`) that is never allocated.
+    `max_batch` sizes the per-slot state some families keep beside the
+    pages (hybrid conv/SSM rows; batch row i == engine slot i)."""
     cfg: ModelConfig
     num_pages: int
     page_size: int
     device: torch.device
+    max_batch: int = 0
     kv: dict = field(default=None, repr=False)   # {"k","v"[,scales]}: (L, P+1, page, ...)
     pool: UniMemPool = field(default=None, repr=False)
 
@@ -41,7 +50,9 @@ class PagedKVArena:
             from repro_torch.models import registry
             fam = registry.get_family(self.cfg)
             self.kv = fam.init_paged_cache(self.cfg, self.num_pages + 1,
-                                           self.page_size, device=self.device)
+                                           self.page_size,
+                                           max_batch=self.max_batch,
+                                           device=self.device)
         if self.pool is None:
             self.pool = UniMemPool(self.num_pages, self.page_size)
 
@@ -61,6 +72,13 @@ class PagedKVArena:
                  for n, a in self.kv.items() if is_page_leaf(n))
         return kv // (self.num_pages + 1)
 
+    @property
+    def state_bytes(self) -> int:
+        """Bytes of the per-slot state (non-page leaves): zero for
+        attention-only families, the conv/SSM rows for hybrid."""
+        return sum(a.numel() * a.element_size()
+                   for n, a in self.kv.items() if not is_page_leaf(n))
+
     def block_table(self, seqs: list[SequencePageTable],
                     max_pages: int) -> np.ndarray:
         """(b, max_pages) physical page ids, padded with the null page."""
@@ -71,10 +89,19 @@ class PagedKVArena:
 
     def copy_page(self, src: int, dst: int) -> None:
         """Device-side page copy, in place (the COW fixup after
-        `SequencePageTable.cow_last_page`)."""
+        `SequencePageTable.cow_last_page`).  Only the page leaves move."""
         for name, a in self.kv.items():
             if is_page_leaf(name):
                 a[:, dst].copy_(a[:, src])
+
+    def copy_slot_state(self, src_slot: int, dst_slot: int) -> None:
+        """Copy the per-slot state rows (hybrid conv/SSM) of one engine
+        slot into another, in place: fork's counterpart of page sharing
+        for state that cannot be paged."""
+        for name, a in self.kv.items():
+            if not is_page_leaf(name):
+                a.select(STATE_SLOT_AXIS, dst_slot).copy_(
+                    a.select(STATE_SLOT_AXIS, src_slot))
 
     def read_page(self, page: int) -> dict:
         """One page's leaves as host tensors: leaf name -> (L, ...)."""

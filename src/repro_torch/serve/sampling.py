@@ -8,13 +8,14 @@ logits never reach the host.
 
 Greedy rows take the exact argmax, as in the reference.  Sampled rows
 apply the reference's temperature scaling, masked top-k and top-p
-(`filter_logits`, sampling.py:176-193), then draw by Gumbel argmax with
-noise from a `torch.Generator` on the logits' device, seeded by a fixed
-64-bit mix of (seed, emission index) — one generator per row.  Tokens
-are therefore a pure function of (prompt, SamplingParams), independent
-of batch composition and slot order, as DESIGN.md §6 requires; they are
-NOT the reference's threefry draws (a bit-exact threefry `fold_in` /
-`categorical` port is ROADMAP.md queue A item 5).
+(`filter_logits`, sampling.py:176-193), then draw exactly as the
+reference does: `categorical(fold_in(key(seed), step), logits)` under
+partitionable threefry, ported in `serve/prng.py`.  The threefry bits
+and the uniforms are bit-exact with `jax.random`; the Gumbel noise
+`-log(-log(u))` may differ from XLA's by an ulp of `log`, so a token
+could differ only where two candidates tie within that ulp.  Tokens are
+a pure function of (prompt, SamplingParams), independent of batch
+composition and slot order, as DESIGN.md §6 requires.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.serve import prng
 
 NEG_INF = -1e30
 
@@ -36,9 +39,9 @@ class SamplingParams:
     top_p:       nucleus sampling — keep the smallest prefix of the
                  sorted distribution with cumulative mass >= top_p
                  (1.0 = off).
-    seed:        per-request seed; token t is drawn with noise seeded by
-                 mix(seed, t), so a (prompt, params) pair replays
-                 identically.
+    seed:        per-request seed; token t is drawn with the threefry key
+                 fold_in(key(seed), t), so a (prompt, params) pair
+                 replays identically.
     max_new_tokens / stop: generation budget and stop-token set.
     speculative: opt-in flag for speculative decode (carried for wire
                  compatibility; this port has no speculative decode yet).
@@ -127,51 +130,60 @@ def greedy_state(batch: int) -> SamplingState:
     return state_for_slots(batch, ())
 
 
-def draw_seed(seed: int, step: int) -> int:
-    """Fixed 64-bit mix (splitmix64 finaliser) of a request seed and an
-    emission index: the seed of that token's noise generator."""
-    mask = (1 << 64) - 1
-    x = (((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-    x = (x + 0x9E3779B97F4A7C15) & mask
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
-    return x ^ (x >> 31)
+class DeviceKnobs(NamedTuple):
+    """What the sampled rows' draws read on the device: the per-row
+    filter knobs of every batch row, the threefry inputs of every row,
+    and the indices of the rows that sample."""
+    temperature: torch.Tensor       # (b,) f32
+    top_k: torch.Tensor             # (b,) i32
+    top_p: torch.Tensor             # (b,) f32
+    seed: torch.Tensor              # (b,) i32 bits of the u32 seed
+    step: torch.Tensor              # (b,) i32 emission counter
+    rows: torch.Tensor              # (r,) i32 rows with temperature > 0
 
 
 def host_knobs(state: SamplingState) -> tuple[np.ndarray, ...]:
-    """The per-row knobs the filter reads on the device, as int32 host
-    arrays (f32 fields bit-cast) to ride in the step's one host->device
+    """The knobs the draw reads on the device, as int32 host arrays
+    (f32 and u32 fields bit-cast) to ride in the step's one host->device
     copy; () when every row is greedy, since then nothing of them is
     read."""
     if not (state.temperature > 0.0).any():
         return ()
+    return _knob_arrays(state)
+
+
+def _knob_arrays(state: SamplingState) -> tuple[np.ndarray, ...]:
+    rows = np.nonzero(state.temperature > 0.0)[0]
     return (np.ascontiguousarray(state.temperature, np.float32).view(np.int32),
             np.asarray(state.top_k, np.int32),
-            np.ascontiguousarray(state.top_p, np.float32).view(np.int32))
+            np.ascontiguousarray(state.top_p, np.float32).view(np.int32),
+            np.ascontiguousarray(state.seed, np.uint32).view(np.int32),
+            np.asarray(state.step, np.int32),
+            rows.astype(np.int32))
 
 
-def device_knobs(arrays) -> tuple[torch.Tensor, ...] | None:
-    """Inverse of `host_knobs` on the device tensors it became:
-    (temperature f32, top_k i32, top_p f32), or None for ()."""
+def device_knobs(arrays) -> DeviceKnobs | None:
+    """Inverse of `host_knobs` on the device tensors it became, or None
+    for ()."""
     if not arrays:
         return None
-    t, k, p = arrays
-    return t.view(torch.float32), k, p.view(torch.float32)
+    t, k, p, seed, step, rows = arrays
+    return DeviceKnobs(t.view(torch.float32), k, p.view(torch.float32),
+                       seed, step, rows)
 
 
 def filter_logits(logits, state: SamplingState, knobs=None):
     """Temperature scaling, masked top-k, then masked top-p over the
     renormalized top-k survivors — sampling.py:176-193 of the reference,
-    row-vectorized.  `knobs` are the state's (temperature, top_k, top_p)
-    already on the logits' device (`device_knobs`); None copies them
-    from `state`.  Returns the scaled logits with cut entries at NEG_INF
+    row-vectorized.  `knobs` are the state's `DeviceKnobs` already on
+    the logits' device (`device_knobs`); None copies them from
+    `state`.  Returns the scaled logits with cut entries at NEG_INF
     (f32, logits' device)."""
     logits = logits.float()
     b, V = logits.shape
     if knobs is None:
-        knobs = tuple(torch.from_numpy(np.asarray(a)).to(logits.device)
-                      for a in (state.temperature, state.top_k, state.top_p))
-    temperature, top_k, top_p = knobs
+        knobs = _knobs_on(state, logits.device)
+    temperature, top_k, top_p = knobs[:3]
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
     neg = torch.full_like(scaled, NEG_INF)
     desc = torch.sort(scaled, dim=-1, descending=True).values
@@ -187,22 +199,26 @@ def filter_logits(logits, state: SamplingState, knobs=None):
     return torch.where(nucleus & (probs < thr), neg, scaled)
 
 
+def _knobs_on(state: SamplingState, device) -> DeviceKnobs:
+    return device_knobs([torch.from_numpy(a).to(device)
+                         for a in _knob_arrays(state)])
+
+
 def sample_tokens(logits, state: SamplingState, knobs=None):
     """(b, V) logits + per-slot SamplingState -> (b,) int32 tokens on
     the logits' device.  An all-greedy tick (the default) is one argmax;
     the filter and the draws run only when some row samples (decided on
-    the host state, so no device sync).  `knobs` as in `filter_logits`."""
+    the host state, so no device sync), and the draws only for the rows
+    that sample.  `knobs` as in `filter_logits`."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    rows = np.nonzero(state.temperature > 0.0)[0]
-    if rows.size == 0:
+    if not (state.temperature > 0.0).any():
         return greedy
+    if knobs is None:
+        knobs = _knobs_on(state, logits.device)
     scaled = filter_logits(logits, state, knobs)
-    V = scaled.shape[1]
+    rows = knobs.rows.long()
+    k0, k1 = prng.fold_in(knobs.seed[rows].long() & prng.MASK32,
+                          knobs.step[rows].long())
     out = greedy.clone()
-    for i in rows.tolist():
-        gen = torch.Generator(device=scaled.device)
-        gen.manual_seed(draw_seed(state.seed[i], state.step[i]))
-        u = torch.rand(V, generator=gen, device=scaled.device)
-        gumbel = -torch.log(-torch.log(u))
-        out[i] = torch.argmax(scaled[i] + gumbel).to(torch.int32)
+    out[rows] = prng.categorical(k0, k1, scaled[rows]).to(torch.int32)
     return out

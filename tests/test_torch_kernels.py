@@ -1,5 +1,6 @@
-"""The port's CUDA paged-attention kernels against their plain PyTorch
-versions, and the wrappers' routing.
+"""The port's CUDA kernels (paged decode and prefill attention, grouped
+matmul, SSD intra-chunk) against their plain PyTorch versions, and the
+wrappers' routing.
 
 Tests marked `cuda` need the card (the kernels have no CPU mode) and
 skip without one; this file imports neither JAX nor the reference, so it
@@ -18,8 +19,10 @@ import torch
 
 from repro_torch.core.unimem import quantize_kv
 from repro_torch.kernels import build
+from repro_torch.kernels.grouped_matmul import ops as gm
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_prefill import ops as pp
+from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.kernels.tolerance import TOLERANCE, worst_ratio
 
 QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -122,6 +125,98 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pa.paged_decode_attention(q, k, v, bt.cpu(), pos)
 
 
+def _grouped_case(dev, dtype, E, C, K, F, live):
+    """x with only its first rows[e] rows nonzero (the dropless buffer),
+    w, and rows; `live` False leaves rows None."""
+    rng = np.random.default_rng(E + C + K)
+    x = torch.from_numpy(rng.standard_normal((E, C, K), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, K, F), dtype=np.float32)
+                         * 0.05)
+    rows = None
+    if live:
+        r = rng.integers(0, max(2, C // 16), E).astype(np.int32)
+        r[::3] = 0
+        r[1] = C                                  # one expert full
+        x = x * torch.from_numpy(np.arange(C)[None, :, None]
+                                 < r[:, None, None])
+        rows = torch.from_numpy(r).to(dev)
+    return x.to(dtype).to(dev), w.to(dtype).to(dev), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E, C, K, F, live", [
+    (128, 64, 2048, 768, True),         # qwen3 decode, gate/up
+    (128, 64, 768, 2048, True),         # qwen3 decode, down
+    (16, 300, 256, 192, False),
+    (3, 37, 19, 45, True)])             # ragged C, K, F: masked edges
+def test_grouped_kernel_matches_plain_on_card(cuda_device, dtype, E, C, K, F,
+                                              live):
+    x, w, rows = _grouped_case(cuda_device, dtype, E, C, K, F, live)
+    before = gm.launches
+    got = gm.grouped_matmul(x, w, rows)
+    assert gm.launches == before + 1 and got.dtype == torch.float32
+    want = gm.grouped_matmul_plain(x, w, rows)
+    err, ratio = worst_ratio(got, want, *gm.TOLERANCE[dtype])
+    assert ratio <= 1.0, (err, ratio)
+    if rows is not None:
+        assert not got[0].any()                   # a dead expert: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh, nc, l, p, n", [(640, 1, 64, 64, 64),
+                                             (160, 1, 256, 64, 64),
+                                             (6, 3, 13, 16, 24),
+                                             (4, 2, 128, 128, 128)])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, dtype, bh, nc, l, p,
+                                          n):
+    if ssd.smem_bytes(dtype, l, p, n) > ssd.MAX_SMEM:
+        pytest.skip("needs more shared memory than a block has")
+    rng = np.random.default_rng(l)
+    x = torch.from_numpy(rng.standard_normal((bh, nc, l, p), dtype=np.float32))
+    B = torch.from_numpy(rng.standard_normal((bh, nc, l, n), dtype=np.float32))
+    C = torch.from_numpy(rng.standard_normal((bh, nc, l, n), dtype=np.float32))
+    dt = torch.from_numpy((rng.random((bh, nc, l)) * 0.1).astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, bh)
+    args = [t.to(dtype).to(cuda_device) for t in (x,)] + [
+        dt.to(cuda_device), A.to(cuda_device)] + [
+        t.to(dtype).to(cuda_device) for t in (B, C)]
+    before = ssd.launches
+    got = ssd.ssd_intra_chunk(*args)
+    assert ssd.launches == before + 1
+    want = ssd.ssd_intra_chunk_plain(*args)
+    for g, w_ in zip(got, want):
+        err, ratio = worst_ratio(g, w_, *ssd.TOLERANCE[dtype])
+        assert ratio <= 1.0, (err, ratio)
+
+
+@pytest.mark.cuda
+def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    x, w, rows = _grouped_case(cuda_device, torch.float32, 4, 8, 16, 8, True)
+    with pytest.raises(ValueError):                 # dtype mismatch
+        gm.grouped_matmul(x, w.bfloat16(), rows)
+    with pytest.raises(ValueError):                 # int64 rows
+        gm.grouped_matmul(x, w, rows.long())
+    with pytest.raises(ValueError):                 # rows on the CPU
+        gm.grouped_matmul(x, w, rows.cpu())
+    with pytest.raises(ValueError):                 # non-contiguous w
+        gm.grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2),
+                          rows)
+    xs = torch.zeros(2, 1, 16, 12, device=cuda_device)
+    dt = torch.zeros(2, 1, 16, device=cuda_device)
+    A = torch.zeros(2, device=cuda_device)
+    Bs = torch.zeros(2, 1, 16, 8, device=cuda_device)
+    with pytest.raises(ValueError):                 # p not a multiple of 8
+        ssd.ssd_intra_chunk(xs, dt, A, Bs, Bs)
+    with pytest.raises(ValueError):                 # chunk past 256
+        ssd.ssd_intra_chunk(torch.zeros(2, 1, 300, 8, device=cuda_device),
+                            torch.zeros(2, 1, 300, device=cuda_device), A,
+                            torch.zeros(2, 1, 300, 8, device=cuda_device),
+                            torch.zeros(2, 1, 300, 8, device=cuda_device))
+
+
 # ------------------------------------------------------ routing (CPU)
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -167,6 +262,23 @@ def test_tolerance_takes_the_kernels_rounding_and_refuses_a_page_read_twice(
     assert worst_ratio(got, want, *tol)[1] > 4.0
 
 
+def test_cpu_tensors_take_the_grouped_and_ssd_plain_versions():
+    x, w, rows = _grouped_case(torch.device("cpu"), torch.float32, 4, 24, 16,
+                               8, True)
+    rng = np.random.default_rng(5)
+    ins = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+           for s in ((3, 2, 8, 8), (3, 2, 8), (3,), (3, 2, 8, 16),
+                     (3, 2, 8, 16))]
+    ins[1], ins[2] = ins[1].abs() * 0.1, -ins[2].abs()
+    before = (gm.launches, ssd.launches)
+    torch.testing.assert_close(gm.grouped_matmul(x, w, rows),
+                               gm.grouped_matmul_plain(x, w, rows),
+                               rtol=0, atol=0)
+    for a, b in zip(ssd.ssd_intra_chunk(*ins), ssd.ssd_intra_chunk_plain(*ins)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (gm.launches, ssd.launches) == before
+
+
 def test_other_devices_are_refused():
     q = torch.empty(2, 4, 16, device="meta")
     kv = torch.empty(3, 4, 2, 16, device="meta")
@@ -176,6 +288,10 @@ def test_other_devices_are_refused():
         pa.paged_decode_attention(q, kv, kv, idx, pos)
     with pytest.raises(ValueError, match="cuda or cpu"):
         pp.paged_prefill_attention(q[:, None], kv, kv, idx, pos, pos)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gm.grouped_matmul(kv, kv.transpose(1, 2))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ssd.ssd_intra_chunk(kv, q, pos, kv, kv)
 
 
 def test_build_names_the_library_by_its_sources_inside_the_repo():

@@ -69,7 +69,7 @@ def test_config_has_every_reference_field_and_derivation():
 def test_bridge_round_trips_every_leaf_bit_exact(param_dtype):
     cfg = TINY["dense"].replace(param_dtype=param_dtype)
     params = jax_registry.get_family(cfg).init(jax.random.key(0), cfg)
-    back = params_to_numpy(port_params(params, cfg))
+    back = params_to_numpy(port_params(params, cfg), cfg)
     want = np_tree(params)
     flat_w = jax.tree_util.tree_leaves_with_path(want)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
@@ -85,7 +85,7 @@ def test_bridge_round_trips_every_leaf_bit_exact(param_dtype):
 def test_port_init_matches_reference_names_shapes_and_std():
     cfg = TINY["dense"].replace(d_model=128, d_ff=256, num_layers=4)
     jp = np_tree(jax_registry.get_family(cfg).init(jax.random.key(0), cfg))
-    pp = params_to_numpy(PT.init(0, port_cfg(cfg), "cpu"))
+    pp = params_to_numpy(PT.init(0, port_cfg(cfg), "cpu"), cfg)
     flat_j = jax.tree_util.tree_leaves_with_path(jp)
     flat_p = dict(jax.tree_util.tree_leaves_with_path(pp))
     assert sorted(map(str, flat_p)) == sorted(str(p) for p, _ in flat_j)

@@ -35,6 +35,7 @@ from repro_torch.core.unimem import SequencePageTable, UniMemOOM, UniMemPool
 from repro_torch.models import transformer as PT
 from repro_torch.serve.api import LLMServer
 from repro_torch.serve.engine import FinishEvent, Request, ServingEngine
+from repro_torch.serve import prng
 from repro_torch.serve.kv_cache import PagedKVArena
 from repro_torch.serve.sampling import (SamplingParams, device_knobs,
                                         filter_logits, greedy_state,
@@ -371,39 +372,81 @@ def test_sampling_knobs_ride_the_steps_one_transfer_bit_exactly():
     st = _sampled_state(state_for_slots, SamplingParams, 4)
     assert host_knobs(greedy_state(4)) == ()
     assert device_knobs(()) is None
-    *_, t, k, p = to_device("cpu", np.zeros((4, 3), np.int32), *host_knobs(st))
-    knobs = device_knobs((t, k, p))
+    arrays = host_knobs(st)
+    assert all(a.dtype == np.int32 for a in arrays)
+    _, *dev = to_device("cpu", np.zeros((4, 3), np.int32), *arrays)
+    knobs = device_knobs(dev)
     for got, want in zip(knobs, (st.temperature, st.top_k, st.top_p)):
         assert got.dtype == torch.from_numpy(want).dtype
         np.testing.assert_array_equal(got.numpy(), want)
+    # the u32 seed crosses as its bits; only the sampling rows are named
+    np.testing.assert_array_equal(knobs.seed.numpy().view(np.uint32), st.seed)
+    np.testing.assert_array_equal(knobs.step.numpy(), st.step)
+    np.testing.assert_array_equal(knobs.rows.numpy(), [0, 1, 2])
     torch.testing.assert_close(filter_logits(logits, st, knobs),
                                filter_logits(logits, st), rtol=0, atol=0)
     np.testing.assert_array_equal(sample_tokens(logits, st, knobs).numpy(),
                                   sample_tokens(logits, st).numpy())
 
 
+FILTERS = [dict(temperature=0.7, top_k=5), dict(temperature=1.3, top_p=0.8),
+           dict(temperature=0.9, top_k=12, top_p=0.6), dict(),
+           dict(temperature=1.0), dict(temperature=0.5, top_k=1),
+           dict(temperature=2.0, top_k=40, top_p=0.95)]
+
+
 def test_reference_draws_fall_inside_the_ports_kept_set():
+    """The port's draws ARE the reference's: the same tokens for 64 seeds
+    (and the largest u32 seed) x 4 emission indices x a matrix of
+    temperature / top-k / top-p rows (one greedy), at two vocab sizes."""
     rng = np.random.default_rng(8)
-    logits = (rng.standard_normal((4, 64)) * 2).astype(np.float32)
-    port_st = _sampled_state(state_for_slots, SamplingParams, 4)
-    kept = filter_logits(torch.from_numpy(logits), port_st).numpy() > -1e29
-    for seed in range(64):
-        cfgs = [JaxSP(temperature=0.7, top_k=5, seed=seed),
-                JaxSP(temperature=1.3, top_p=0.8, seed=seed),
-                JaxSP(temperature=0.9, top_k=12, top_p=0.6, seed=seed)]
-        st = jax_state(4, [(i, c, seed) for i, c in enumerate(cfgs)])
-        toks = np.asarray(jax_sample(jnp.asarray(logits), st))
-        for i in range(3):
-            assert kept[i, toks[i]], (seed, i, toks[i])
-        ours = sample_tokens(torch.from_numpy(logits),
-                             state_for_slots(4, [(i, SamplingParams(
-                                 temperature=c.temperature, top_k=c.top_k,
-                                 top_p=c.top_p, seed=seed), seed)
-                                 for i, c in enumerate(cfgs)])).numpy()
-        for i in range(3):
-            assert kept[i, ours[i]]
-    greedy = sample_tokens(torch.from_numpy(logits), port_st).numpy()
-    assert greedy[3] == logits[3].argmax()
+    b = len(FILTERS)
+    draws = 0
+    for V in (64, 1000):
+        logits = (rng.standard_normal((b, V)) * 2).astype(np.float32)
+        for seed in [*range(64), 0xFFFFFFFF]:
+            for step in (0, 1, 7, 4096):
+                st = jax_state(b, [(i, JaxSP(seed=seed, **f), step)
+                                   for i, f in enumerate(FILTERS)])
+                want = np.asarray(jax_sample(jnp.asarray(logits), st))
+                got = sample_tokens(torch.from_numpy(logits), state_for_slots(
+                    b, [(i, SamplingParams(seed=seed, **f), step)
+                        for i, f in enumerate(FILTERS)])).numpy()
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=str((V, seed, step)))
+                draws += b
+    assert draws == 2 * 65 * 4 * b
+
+
+@pytest.mark.parametrize("seed_step", [(0, 0), (0xFFFFFFFF, 0), (1, 1)])
+def test_threefry_fold_in_and_bits_are_bit_exact_with_jax(seed_step):
+    """`fold_in(key(seed), step)`, the 32-bit draws and the uniforms of
+    serve/prng.py against jax.random, for 256 (seed, step) pairs."""
+    rng = np.random.default_rng(12)
+    seeds = rng.integers(0, 2 ** 32, 256, dtype=np.uint64).astype(np.uint32)
+    steps = rng.integers(0, 2 ** 31, 256).astype(np.int32)
+    seeds[0], steps[0] = seed_step
+    keys = jax.vmap(lambda s, c: jax.random.fold_in(jax.random.key(s), c))(
+        seeds, steps)
+    k0, k1 = prng.fold_in(torch.from_numpy(seeds.astype(np.int64)),
+                          torch.from_numpy(steps.astype(np.int64)))
+    np.testing.assert_array_equal(
+        np.stack([k0.numpy(), k1.numpy()], -1).astype(np.uint32),
+        np.asarray(jax.random.key_data(keys)))
+    n = 300
+    want_bits = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (n,)))(keys))
+    np.testing.assert_array_equal(
+        prng.random_bits(k0, k1, n).numpy().astype(np.uint32), want_bits)
+    tiny = np.finfo(np.float32).tiny
+    want_u = np.asarray(jax.vmap(lambda k: jax.random.uniform(
+        k, (n,), minval=tiny, maxval=1.0))(keys))
+    np.testing.assert_array_equal(prng.uniform(k0, k1, n).numpy().view(
+        np.uint32), want_u.view(np.uint32))
+    # Gumbel noise: the same uniforms through each library's log, which
+    # may round differently in the last place
+    want_g = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (n,)))(keys))
+    np.testing.assert_allclose(prng.gumbel(k0, k1, n).numpy(), want_g,
+                               rtol=2e-6, atol=2e-6)
 
 
 def test_sampled_draw_is_pure_across_batch_composition_and_slot_order():
@@ -441,6 +484,29 @@ def test_sampled_engine_streams_replay_identically(dense):
     assert run([0, 1]) == run([1, 0])
 
 
+def test_sampled_engine_streams_match_the_reference(dense):
+    """Sampled requests (with one greedy) through the engine, with a
+    fork under its own seed: byte-identical to the reference engine."""
+    cfg, jp, pp = dense
+    ps = _prompts(13, (12, 25, 9), cfg.vocab_size)
+
+    def run(server_cls, sp_cls, params, **kw):
+        server = server_cls(cfg if server_cls is JaxServer else port_cfg(cfg),
+                            params, max_batch=4, max_seq=64, page_size=8,
+                            **kw)
+        streams = [server.generate(p, sp_cls(
+            max_new_tokens=9, seed=40 + i, **FILTERS[i]))
+            for i, p in enumerate(ps)]
+        next(streams[0])
+        child = streams[0].fork(sp_cls(temperature=1.1, top_k=30, seed=99,
+                                       max_new_tokens=9))
+        server.run()
+        return [s.drain().tokens for s in streams + [child]]
+
+    want = run(JaxServer, JaxSP, jp)
+    assert run(LLMServer, SamplingParams, pp, device="cpu") == want
+
+
 # ------------------------------------------------------ entry points
 
 def test_launch_serve_runs_on_cpu():
@@ -448,6 +514,18 @@ def test_launch_serve_runs_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
          "--device", "cpu", "--requests", "3", "--max-new", "4",
          "--max-seq", "64", "--page-size", "8"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert "served 3 requests" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b"])
+def test_launch_serve_runs_the_moe_and_hybrid_archs_on_cpu(arch):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--reduced", "--device", "cpu", "--requests", "3", "--max-new", "4",
+         "--max-seq", "64", "--page-size", "8", "--temperature", "0.8"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
@@ -474,7 +552,8 @@ def test_unported_engine_options_refuse(dense, kw):
         ServingEngine(port_cfg(cfg), pp, device="cpu", **kw)
 
 
-def test_unported_families_refuse(dense):
+@pytest.mark.parametrize("family", ["ssm", "encoder", "vlm"])
+def test_unported_families_refuse(dense, family):
     _, _, pp = dense
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(port_cfg(TINY["moe"]), pp, device="cpu")
+        ServingEngine(port_cfg(TINY[family]), pp, device="cpu")

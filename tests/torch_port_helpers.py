@@ -1,5 +1,6 @@
 """Shared helpers of the PyTorch-port tests (`test_torch_*.py`): config
-and parameter bridging between the JAX reference and the port."""
+and parameter bridging between the JAX reference and the port, for the
+dense, MoE and hybrid families."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,8 @@ import torch
 import jax
 
 from repro_torch.models.config import ModelConfig as PortConfig
-from repro_torch.models.convert import _BITCAST, _map, params_from_jax
+from repro_torch.models.convert import (_BITCAST, _map, params_from_jax,
+                                       stacked_axes)
 
 
 def port_cfg(cfg) -> PortConfig:
@@ -38,17 +40,30 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_to_numpy(params):
-    """The port's params -> the reference's layout as numpy (layers
-    restacked over a leading axis; bf16/fp8 leaves as raw bits)."""
+def params_to_numpy(params, cfg):
+    """The port's params -> the reference's layout as numpy (every
+    stacked key restacked over its leading axes; bf16/fp8 leaves as raw
+    bits)."""
+    stacked = stacked_axes(port_cfg(cfg))
     out = {k: _map(v, tensor_to_numpy)
-           for k, v in params.items() if k != "layers"}
-    per_layer = [_map(p, tensor_to_numpy) for p in params["layers"]]
+           for k, v in params.items() if k not in stacked}
 
-    def stack(path_trees):
-        first = path_trees[0]
+    def stack(trees):
+        first = trees[0]
+        if isinstance(first, list):
+            return stack([stack(t) for t in trees])
         if isinstance(first, dict):
-            return {k: stack([t[k] for t in path_trees]) for k in first}
-        return np.stack(path_trees)
-    out["layers"] = stack(per_layer)
+            return {k: stack([t[k] for t in trees]) for k in first}
+        if isinstance(first, torch.Tensor):
+            return np.stack([tensor_to_numpy(t) for t in trees])
+        return np.stack(trees)
+    for k in stacked:
+        out[k] = stack(params[k])
     return out
+
+
+def jax_family_params(cfg, seed: int = 0):
+    """(reference params, the port's params on the CPU) for `cfg`."""
+    from repro.models import registry
+    params = registry.get_family(cfg).init(jax.random.key(seed), cfg)
+    return params, port_params(params, cfg)
