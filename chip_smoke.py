@@ -7,7 +7,7 @@ Phases, each printing one JSON line (the script stops with a nonzero
 exit at the first failure):
 
 1. device + build: the card's name and power limit (nvidia-smi), then
-   the four CUDA kernels built from `src/repro_torch/kernels/csrc` with
+   the six CUDA kernels built from `src/repro_torch/kernels/csrc` with
    nvcc for sm_90a.
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
@@ -23,25 +23,45 @@ exit at the first failure):
    (128 experts, K x F 2048 x 768 and 768 x 2048, C 64 and 4096, with
    the live rows of a random top-8 routing and without) and the SSD
    intra-chunk kernel at zamba2-2.7b's (640 batch*heads, p = n = 64,
-   chunks of 64 and 256), in bf16 and f32, against their plain versions
-   by the same rule; timed beside one `torch.bmm` (grouped; SSD has no
-   single PyTorch call) and the bound.
-4. serve: `LLMServer` on internlm2-1.8b at full width and depth (bf16,
+   chunks of 64 and 256) and mamba2-130m's (24 heads, p 64, n 128, two
+   chunks of 256, one ragged chunk of 200 and one of 5), in bf16 and
+   f32, against their plain versions by the same rule; timed beside
+   one `torch.bmm` (grouped; SSD has no single PyTorch call) and the
+   bound.
+4. contiguous kernels: the split-KV decode kernel at the contiguous
+   decode shape (batch 8, S 1024, hq 16, hkv 8, d 128, positions spread
+   up to 1023 and one idle row past S) and the flash kernel at prompt
+   lengths 5, 200 and 511 (causal), one non-causal case and one with a
+   q_offset, in bf16 and f32, against their plain versions by the same
+   rule; each bf16 case timed beside one `scaled_dot_product_attention`
+   call and the bound.
+5. serve: `LLMServer` on internlm2-1.8b at full width and depth (bf16,
    seeded random weights): 8 prompts, one sampled, one stream forked
    after its first token; every stream finishes, no page leaks, each
    kernel launched 24 times per step call, and a second identical run
    gives byte-identical streams.
-5. serve_moe: the same on qwen3-moe-30b-a3b (48 layers, 128 experts,
+6. serve_moe: the same on qwen3-moe-30b-a3b (48 layers, 128 experts,
    `moe_dispatch="grouped"`): the grouped-matmul kernel launched 3 x 48
    times and each paged kernel 48 times per step call.
-6. serve_hybrid: the same on zamba2-2.7b (54 Mamba-2 layers, 9 shared
+7. serve_hybrid: the same on zamba2-2.7b (54 Mamba-2 layers, 9 shared
    attention applications, `ssd_impl="pallas"`), with two identical
    prompts: the SSD kernel launched 54 times per prefill call, each
    paged kernel 9 times per step call.
-7. card vs CPU: a 2-layer internlm2-width, a 2-layer qwen3-width and a
+8. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
+   (no fork: the layout refuses it): the flash kernel launched 24 times
+   per (batch=1) prefill call, the split-KV decode kernel 24 times per
+   decode call.
+9. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
+   the ssm family's contiguous layout): the SSD kernel launched 24
+   times per prefill call.
+10. card vs CPU: a 2-layer internlm2-width, a 2-layer qwen3-width and a
    12-layer (two shared applications) zamba2-width f32 model, one paged
    prefill and one paged decode step on the card (kernels) and on the
-   CPU (plain versions), logits, pages and state compared.
+   CPU (plain versions), logits, pages and state compared; and the
+   contiguous prefill and decode steps of the 2-layer internlm2-width
+   model (an idle row written past max_seq included) and of a 2-layer
+   mamba2-width f32 model (prompts of 300 and 200 tokens: SSD chunks of
+   256 and a ragged 200), logits and cache compared.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -368,40 +388,54 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                     live_rows=n_live, live_experts=experts)
             del x, w
     # ------------------------------------------------------------- SSD
-    bh, p, n = 8 * 80, 64, 64
-    for l in (64, 256):
-        x32 = torch.randn(bh, 1, l, p, generator=gdev, device=dev)
-        B32 = torch.randn(bh, 1, l, n, generator=gdev, device=dev) * 0.3
-        C32 = torch.randn(bh, 1, l, n, generator=gdev, device=dev) * 0.3
-        dt_ = torch.rand(bh, 1, l, generator=gdev, device=dev) * 0.1
-        A = (-torch.linspace(1.0, 16.0, 80, device=dev)).repeat(8)
+    # zamba2-2.7b (batch 8 x 80 heads, p = n = 64) and mamba2-130m (one
+    # prompt x 24 heads, p 64, n 128), at the chunk lengths their served
+    # prompts give: a full chunk of 256 (two of them for the 333- and
+    # 511-token prompts), a ragged 200-token chunk and a 5-token one
+    ssd_cases = (("zamba2", 8, 80, 1, 64, 64, 64),
+                 ("zamba2", 8, 80, 1, 256, 64, 64),
+                 ("mamba2", 1, 24, 2, 256, 64, 128),
+                 ("mamba2", 1, 24, 1, 200, 64, 128),
+                 ("mamba2", 1, 24, 1, 5, 64, 128))
+    for arch, batch, heads, nc, l, p, n in ssd_cases:
+        bh = batch * heads
+        x32 = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
+        B32 = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
+        C32 = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
+        dt_ = torch.rand(bh, nc, l, generator=gdev, device=dev) * 0.1
+        A = (-torch.linspace(1.0, 16.0, heads, device=dev)).repeat(batch)
         for dt in (bf16, f32):
             args = (x32.to(dt), dt_, A, B32.to(dt), C32.to(dt))
             got = ssd.ssd_intra_chunk(*args)
             want = ssd.ssd_intra_chunk_plain(*args)
             torch.cuda.synchronize()
-            errs = [hold(f"ssd bh{bh} l{l} p{p} n{n} {dt} {part}", g, w_,
-                         ssd.TOLERANCE[dt])
+            errs = [hold(f"ssd {arch} bh{bh} nc{nc} l{l} p{p} n{n} {dt} "
+                         f"{part}", g, w_, ssd.TOLERANCE[dt])
                     for part, g, w_ in zip(("y", "s", "cd"), got, want)]
-            if dt is not bf16:
+            if dt is not bf16 or (arch, l) not in (("zamba2", 64),
+                                                   ("zamba2", 256),
+                                                   ("mamba2", 256)):
                 continue
             # x, B, C in bf16, dt and A in f32 in; y, s, cd in f32 out
-            nbytes = (2 * bh * l * (p + 2 * n) + 4 * (bh * l + bh)
-                      + 4 * (bh * l * p + bh * n * p + bh))
+            rows_ = bh * nc
+            nbytes = (2 * rows_ * l * (p + 2 * n) + 4 * (rows_ * l + bh)
+                      + 4 * (rows_ * l * p + rows_ * n * p + rows_))
             pairs = l * (l + 1) // 2
-            ops = bh * (2 * pairs * (n + p) + 2 * l * n * p)
+            ops = rows_ * (2 * pairs * (n + p) + 2 * l * n * p)
             ms, by = bound(nbytes, ops)
-            times[f"ssd_intra_chunk l{l}"] = dict(
+            key = (f"ssd_intra_chunk l{l}" if arch == "zamba2"
+                   else f"ssd_intra_chunk {arch} nc{nc} l{l}")
+            times[key] = dict(
                 ms=time_ms(lambda: ssd.ssd_intra_chunk(*args), flush),
                 plain_ms=time_ms(lambda: ssd.ssd_intra_chunk_plain(*args),
                                  flush),
                 library_ms=None, bound_ms=ms, bound_by=by,
-                max_abs_err=max(errs))
+                max_abs_err=max(errs), bh=bh, nc=nc, p=p, n=n)
     emit({"phase": "moe_ssd_kernels", "cases": rows_out})
     emit({"phase": "moe_ssd_kernel_times", "card": card, "dtype": "bfloat16",
           "shapes": {"grouped": {"E": E, "top_k": k, "d_model": D,
                                  "moe_d_ff": FF},
-                     "ssd": {"bh": bh, "p": p, "n": n}},
+                     "ssd": "bh, nc, p and n in each case"},
           "library": {"grouped": "one torch.bmm over the same (E, C, K) and "
                                  "(E, K, F), every row",
                       "ssd": "none: no single PyTorch call computes it"},
@@ -410,21 +444,123 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
     return times
 
 
-# ------------------------------------------------------- phase 3: serve
+# ------------------------------------------ phase 4: contiguous kernels
+
+def phase_contig_kernels(torch, dev, card: str, flush):
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dk
+    from repro_torch.kernels.flash_attention import ops as fk
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, times = [], {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    # ------------------------------------------------ split-KV decode
+    b, S, hq, hkv, d = 8, 1024, 16, 8, 128
+    positions = torch.tensor([1023, 0, 511, 17, 700, 64, 255, 1500],
+                             dtype=torch.int32, device=dev)
+    q32, k32, v32 = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
+    for dt in (bf16, f32):
+        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+        got = dk.decode_attention(q, k, v, positions)
+        want = dk.decode_attention_plain(q, k, v, positions)
+        gp = dk.decode_partials(q, k, v, positions)
+        wp = dk.decode_partials_plain(q, k, v, positions)
+        torch.cuda.synchronize()
+        name = f"split-KV decode b{b} S{S} hq{hq} hkv{hkv} d{d} {dt}"
+        err = check(name, got, want, dt, rows)
+        check(name + " partials (acc)", gp[2], wp[2], dt, rows)
+        if dt is not bf16:
+            continue
+        live = torch.clamp(positions.long(), max=S - 1) + 1
+        n_live = int(live.sum())
+        nbytes = 2 * 2 * n_live * hkv * d + 2 * 2 * b * hq * d + 4 * b
+        ms, by = bound(nbytes, 4 * hq * d * n_live)
+        # SDPA over the whole cache, kv heads repeated beforehand
+        qs = q.reshape(b, 1, hq, d).transpose(1, 2).contiguous()
+        ks = k.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+        vs = v.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= positions[:, None].long())[:, None, None, :]
+        times["decode_attention"] = dict(
+            ms=time_ms(lambda: dk.decode_attention(q, k, v, positions), flush),
+            # the kernel alone, without the plain combine of its splits
+            kernel_only_ms=time_ms(lambda: dk.decode_partials(
+                q, k, v, positions), flush),
+            plain_ms=time_ms(lambda: dk.decode_attention_plain(
+                q, k, v, positions), flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), flush),
+            bound_ms=ms, bound_by=by, max_abs_err=err, live_rows=n_live)
+        del qs, ks, vs
+    # ---------------------------------------------------------- flash
+    hq, hkv, d = 16, 8, 128
+    for b, sq, skv, causal, off in ((1, 5, 5, True, 0), (1, 200, 200, True, 0),
+                                    (1, 511, 511, True, 0),
+                                    (2, 100, 130, False, 0),
+                                    (1, 64, 300, True, 236)):
+        q32, k32, v32 = (randn(b, sq, hq, d), randn(b, skv, hkv, d),
+                         randn(b, skv, hkv, d))
+        for dt in (bf16, f32):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            kw = dict(causal=causal, q_offset=off)
+            got = fk.flash_attention(q, k, v, **kw)
+            want = fk.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            name = (f"flash b{b} sq{sq} skv{skv} {'causal' if causal else 'full'}"
+                    f" q_offset {off} {dt}")
+            err = check(name, got, want, dt, rows)
+            if dt is not bf16:
+                continue
+            qi = torch.arange(sq)[:, None] + off
+            seen = ((torch.arange(skv)[None, :] <= qi) if causal
+                    else torch.ones(sq, skv, dtype=torch.bool))
+            pairs = b * int(seen.sum())
+            nbytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+            ms, by = bound(nbytes, 4 * hq * d * pairs)
+            qs = q.transpose(1, 2).contiguous()
+            ks = k.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+            vs = v.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+            sd_mask = seen.to(dev)[None, None] if causal and off else None
+            sd_causal = causal and not off
+            times[f"flash_attention sq{sq} skv{skv}"
+                  f"{'' if causal else ' full'}{f' off{off}' if off else ''}"] = dict(
+                ms=time_ms(lambda: fk.flash_attention(q, k, v, **kw), flush),
+                plain_ms=time_ms(lambda: fk.flash_attention_plain(
+                    q, k, v, **kw), flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=sd_mask, is_causal=sd_causal),
+                    flush),
+                bound_ms=ms, bound_by=by, max_abs_err=err)
+    emit({"phase": "contig_kernels", "cases": rows})
+    emit({"phase": "contig_kernel_times", "card": card, "dtype": "bfloat16",
+          "library": "one scaled_dot_product_attention call, kv heads "
+                     "repeated beforehand (decode: over the whole cache "
+                     "with a mask)",
+          "timing": "CUDA events, median of 30 after 5 warm-up, L2 flushed",
+          **times})
+    return times
+
+
+# ------------------------------------------------------- phase 5: serve
 
 PROMPT_LENS = (5, 17, 64, 100, 128, 200, 333, 511)
 SAMPLED = 3                 # the 100-token prompt samples
 FORKED = 7                  # the 511-token prompt's stream is forked
 
 
-def serve_once(torch, dev, cfg, params, prompts):
+def serve_once(torch, dev, cfg, params, prompts, layout=None):
     from repro_torch.serve.api import LLMServer
     from repro_torch.serve.engine import TokenEvent
     from repro_torch.serve.sampling import SamplingParams
 
     server = LLMServer(cfg, params, device=dev, max_batch=8,
-                       max_seq=1024, page_size=16)
+                       max_seq=1024, page_size=16, layout=layout)
     eng = server.engine
+    fork = eng.layout == "paged"          # the contiguous layout refuses it
     steps = {"prefill": [0.0, 0.0], "decode": [0.0, 0.0]}
 
     def timed(fn, acc):
@@ -460,7 +596,7 @@ def serve_once(torch, dev, cfg, params, prompts):
                 continue
             if isinstance(ev, TokenEvent) and s.uid not in ttft:
                 ttft[s.uid] = time.perf_counter() - t0
-            if (forked is None and s is streams[FORKED] and s.tokens
+            if (fork and forked is None and s is streams[FORKED] and s.tokens
                     and not s.finished and len(eng.slots) < eng.max_batch):
                 forked = s.fork()
                 streams.append(forked)
@@ -472,29 +608,36 @@ def serve_once(torch, dev, cfg, params, prompts):
 
 def kernel_modules():
     """name -> the wrapper module whose `launches` counts that kernel."""
+    from repro_torch.kernels.decode_attention import ops as dk
+    from repro_torch.kernels.flash_attention import ops as fk
     from repro_torch.kernels.grouped_matmul import ops as gm
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_prefill import ops as pp
     from repro_torch.kernels.ssd_scan import ops as ssd
     return {"paged_decode_attention": pa, "paged_prefill_attention": pp,
-            "grouped_matmul": gm, "ssd_intra_chunk": ssd}
+            "grouped_matmul": gm, "ssd_intra_chunk": ssd,
+            "decode_attention": dk, "flash_attention": fk}
 
 
 def expected_launches(cfg, st) -> dict:
     """Kernel launches one served run must make: each step call launches
-    each paged kernel once per attention layer (dense and MoE: every
-    layer; hybrid: every shared-block application), the grouped matmul
-    3 times per MoE layer, the SSD kernel once per Mamba layer of a
-    prefill call."""
+    its layout's attention kernel once per attention layer (dense and
+    MoE: every layer; hybrid: every shared-block application; ssm:
+    none) — paged decode/prefill on the arena, split-KV decode/flash on
+    the contiguous cache — the grouped matmul 3 times per MoE layer, the
+    SSD kernel once per Mamba layer of a prefill call."""
     pre, dec = st["prefill_calls"], st["decode_calls"]
-    attn = (cfg.num_layers // cfg.shared_attn_period
-            if cfg.family == "hybrid" else cfg.num_layers)
-    return {"paged_decode_attention": dec * attn,
-            "paged_prefill_attention": pre * attn,
+    attn = {"hybrid": cfg.num_layers // max(1, cfg.shared_attn_period),
+            "ssm": 0}.get(cfg.family, cfg.num_layers)
+    paged = st["layout"] == "paged"
+    return {"paged_decode_attention": dec * attn if paged else 0,
+            "paged_prefill_attention": pre * attn if paged else 0,
+            "decode_attention": 0 if paged else dec * attn,
+            "flash_attention": 0 if paged else pre * attn,
             "grouped_matmul": (3 * cfg.num_layers * (pre + dec)
                                if cfg.family == "moe" else 0),
             "ssd_intra_chunk": (cfg.num_layers * pre
-                                if cfg.family == "hybrid" else 0)}
+                                if cfg.family in ("hybrid", "ssm") else 0)}
 
 
 def free_card(torch) -> None:
@@ -502,11 +645,12 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False):
-    """Serve the 8 prompts (+ one fork) twice on `cfg` at full width and
-    depth; with `twins` the 333-token prompt is replaced by a copy of
-    the 200-token one, so identical prompts co-prefill.  Returns the
-    launches of the first run."""
+def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
+                layout=None):
+    """Serve the 8 prompts (+ one fork on the paged layout) twice on
+    `cfg` at full width and depth; with `twins` the 333-token prompt is
+    replaced by a copy of the 200-token one, so identical prompts
+    co-prefill.  Returns the launches of the first run."""
     import numpy as np
     from repro_torch.models import registry
 
@@ -526,11 +670,11 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False):
     for m in mods.values():                          # count the main path
         m.launches = 0
     server, streams, forked, ttft, wall, steps = serve_once(
-        torch, dev, cfg, params, prompts)
+        torch, dev, cfg, params, prompts, layout)
     launches = {name: m.launches for name, m in mods.items()}
     peak = torch.cuda.max_memory_allocated()
     st = server.stats
-    if forked is None:
+    if forked is None and st["layout"] == "paged":
         fail("the fork never happened (no free slot while its parent decoded)")
     for s in streams:
         if s.result is None or not s.finished:
@@ -556,12 +700,12 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False):
     free_card(torch)
 
     _, streams2, _, _, wall2, _ = serve_once(torch, dev, cfg, params,
-                                             prompts)
+                                             prompts, layout)
     if first != {s.uid: s.result.tokens for s in streams2}:
         fail("rerun streams differ")
     tokens = st["tokens_out"]
     emit({"phase": phase, "card": card, "arch": cfg.name,
-          "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "layout": st["layout"], "layers": cfg.num_layers, "dtype": cfg.dtype,
           "moe_dispatch": cfg.moe_dispatch, "ssd_impl": cfg.ssd_impl,
           "params_init_s": init_s,
           "streams": n_streams, "tokens_out": tokens,
@@ -570,7 +714,7 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False):
           "decode_calls": st["decode_calls"], "launches": launches,
           "peak_kv_bytes": st["peak_kv_bytes"],
           "peak_allocated_pages": st["pool"]["peak_allocated_pages"],
-          "prefix_store": st["prefix_store"],
+          "prefix_store": st.get("prefix_store"),
           "max_memory_allocated": peak,
           "wall_s": wall, "tokens_per_s": tokens / wall,
           "rerun_wall_s": wall2, "rerun_tokens_per_s": tokens / wall2,
@@ -585,7 +729,7 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False):
     return launches
 
 
-# ----------------------------------------------------- phase 4: parity
+# ----------------------------------------------------- phase 6: parity
 
 def phase_parity(torch, dev):
     from repro_torch.configs import get_arch
@@ -724,6 +868,74 @@ def phase_parity_family(torch, dev, cfg, label: str):
             fail(f"{label}: card vs CPU {k}: err {e}, err / bound {r}")
 
 
+def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
+    """A family's contiguous path on the card (kernels) and on the CPU
+    (the kernels' plain versions): batch=1 prefills of prompts of `lens`
+    tokens written into rows 0 and 1 of a 3-row cache of `S` rows, row
+    2 idle two short of S, then three decode steps, so an attention
+    cache's row 2 writes clamp at S - 1; logits and every cache leaf
+    held by the per-element rule, `pos` exactly."""
+    from repro_torch.kernels.tolerance import worst_ratio
+    from repro_torch.models import registry
+    from repro_torch.serve.kv_cache import clear_slot, slot_view
+
+    free_card(torch)
+    fam = registry.get_family(cfg)
+    params = fam.init(1, cfg, dev)
+    cpu = torch.device("cpu")
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    params_cpu = to(params, cpu)
+    b = 3
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             dtype=torch.int32) for n in lens]
+    dec_tokens = torch.randint(0, cfg.vocab_size, (3, b), generator=g,
+                               dtype=torch.int32)
+    ax = fam.cache_axes()
+    out = []
+    for where, prm in ((dev, params), (cpu, params_cpu)):
+        cache = fam.init_cache(cfg, b, S, device=where)
+        logits = []
+        with torch.inference_mode():
+            for slot, tok in enumerate(prompts):
+                clear_slot(cache, slot, ax)
+                _, lg = fam.prefill(prm, cfg, {"tokens": tok[None].to(where)},
+                                    slot_view(cache, slot, ax))
+                logits.append(lg.cpu())
+            cache["pos"][2] = S - 2
+            for t in range(3):
+                cache, ld = fam.decode_step(prm, cfg, cache,
+                                            dec_tokens[t].to(where))
+                logits.append(ld.cpu())
+        out.append((logits, {k: v.cpu() for k, v in cache.items()}))
+    del params, params_cpu
+    (lg_g, c_g), (lg_c, c_c) = out
+    if not torch.equal(c_g.pop("pos"), c_c.pop("pos")):
+        fail(f"{label}: card vs CPU pos differ")
+    for c in (c_g, c_c):          # one SSM head's (p, n) state is a row,
+        if "ssm" in c:            # as in phase_parity_family
+            c["ssm"] = c["ssm"].flatten(-2)
+    rtol, atol = 1e-3, 1e-3
+    res = {**{f"logits_{i}": worst_ratio(a, b_, rtol, atol)
+              for i, (a, b_) in enumerate(zip(lg_g, lg_c))},
+           **{f"cache_{k}": worst_ratio(c_g[k], c_c[k], rtol, atol)
+              for k in c_c}}
+    emit({"phase": "parity", "config": label,
+          "rtol": rtol, "atol_x_row_max": atol,
+          "max_abs_err": {k: v[0] for k, v in res.items()},
+          "worst_err_over_bound": {k: v[1] for k, v in res.items()}})
+    for k, (e, r) in res.items():
+        if not r <= 1.0:
+            fail(f"{label}: card vs CPU {k}: err {e}, err / bound {r}")
+
+
 # --------------------------------------------------------------- main
 
 def main() -> int:
@@ -755,6 +967,7 @@ def main() -> int:
     timings = phase_kernels(torch, dev, card)
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     timings.update(phase_moe_ssd_kernels(torch, dev, card, flush_buf.zero_))
+    timings.update(phase_contig_kernels(torch, dev, card, flush_buf.zero_))
     del flush_buf
     dense = get_arch("internlm2-1.8b").model
     moe = get_arch("qwen3-moe-30b-a3b").model.replace(moe_dispatch="grouped")
@@ -763,8 +976,20 @@ def main() -> int:
     moe_launches = phase_serve(torch, dev, card, "serve_moe", moe)
     hybrid_launches = phase_serve(torch, dev, card, "serve_hybrid", hybrid,
                                   twins=True)
+    contig_launches = phase_serve(torch, dev, card, "serve_contiguous", dense,
+                                  layout="contiguous")
+    ssm = get_arch("mamba2-130m").model.replace(ssd_impl="pallas")
+    ssm_launches = phase_serve(torch, dev, card, "serve_ssm", ssm)
     phase_parity(torch, dev)
     f32 = dict(dtype="float32", param_dtype="float32")
+    phase_parity_contiguous(
+        torch, dev, dense.replace(num_layers=2, attention_impl="flash_pallas",
+                                  **f32),
+        "internlm2-1.8b width, 2 layers, f32, contiguous", (20, 13), 64)
+    # prompts of two full chunks (300 -> 2 x 256) and one ragged chunk
+    phase_parity_contiguous(
+        torch, dev, ssm.replace(num_layers=2, **f32),
+        "mamba2-130m width, 2 layers, f32, contiguous", (300, 200), 512)
     phase_parity_family(torch, dev, moe.replace(num_layers=2, **f32),
                         "qwen3-moe-30b-a3b width, 2 layers, f32")
     phase_parity_family(
@@ -772,11 +997,15 @@ def main() -> int:
         hybrid.replace(num_layers=2 * hybrid.shared_attn_period, **f32),
         "zamba2-2.7b width, 12 layers (2 shared applications), f32")
 
-    # each kernel's launches come from the served run of its family
+    # each kernel's launches come from the served runs that drive it
     launches["grouped_matmul"] = moe_launches["grouped_matmul"]
-    launches["ssd_intra_chunk"] = hybrid_launches["ssd_intra_chunk"]
+    launches["ssd_intra_chunk"] = (hybrid_launches["ssd_intra_chunk"]
+                                   + ssm_launches["ssd_intra_chunk"])
+    launches["decode_attention"] = contig_launches["decode_attention"]
+    launches["flash_attention"] = contig_launches["flash_attention"]
     main_case = {"grouped_matmul": "grouped_matmul C64",
-                 "ssd_intra_chunk": "ssd_intra_chunk l64"}
+                 "ssd_intra_chunk": "ssd_intra_chunk l64",
+                 "flash_attention": "flash_attention sq511 skv511"}
     sources = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -789,7 +1018,13 @@ def main() -> int:
             "src/repro/kernels/grouped_matmul/kernel.py:36"),
         "ssd_intra_chunk": (
             "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan/kernel.py:55")}
+            "src/repro/kernels/ssd_scan/kernel.py:55"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:51"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:64")}
     rows = []
     for name, (src, rep) in sources.items():
         t = timings[main_case.get(name, name)]

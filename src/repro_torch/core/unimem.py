@@ -174,6 +174,11 @@ class UniMemPool:
     def pages_for(self, num_tokens: int) -> int:
         return -(-num_tokens // self.page_size)
 
+    def can_admit(self, num_tokens: int) -> bool:
+        """Would a sequence of `num_tokens` fit right now (the contiguous
+        layout's full-footprint reservation)?"""
+        return self.pages_for(num_tokens) <= self.free_pages
+
     def stats(self) -> PoolStats:
         alloc = self.num_pages - len(self._free)
         shared = sum(1 for rc in self._refcount.values() if rc > 1)

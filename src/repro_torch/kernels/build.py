@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu")
 HEADERS = ("paged_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +38,12 @@ GROUPED_ARGTYPES = [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP]
 # repro_ssd_intra_chunk(x, dt, A, B, C, y, s, cd, bh, nc, l, p, n, dtype,
 #   stream)
 SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
+# repro_decode_attention(q, k, v, positions, m, l, acc, b, hq, hkv, S, d,
+#   splits, split_len, dtype, stream)
+SPLIT_DECODE_ARGTYPES = [_VOIDP] * 7 + [_INT] * 8 + [_VOIDP]
+# repro_flash_attention(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset,
+#   causal, dtype, stream)
+FLASH_ARGTYPES = [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP]
 
 
 def build_dir() -> Path:
@@ -121,6 +127,10 @@ class KernelLibrary:
         lib.repro_grouped_matmul.restype = ctypes.c_int
         lib.repro_ssd_intra_chunk.argtypes = SSD_ARGTYPES
         lib.repro_ssd_intra_chunk.restype = ctypes.c_int
+        lib.repro_decode_attention.argtypes = SPLIT_DECODE_ARGTYPES
+        lib.repro_decode_attention.restype = ctypes.c_int
+        lib.repro_flash_attention.argtypes = FLASH_ARGTYPES
+        lib.repro_flash_attention.restype = ctypes.c_int
         self.lib = lib
 
 

@@ -20,10 +20,12 @@
 // n 64, chunk l 8 to 256) that is 18 flops per byte at l 64 and 58 at
 // l 256: below the card's bf16 tensor-core ridge (~295), so the bound
 // is the bytes.  The design moves each byte once: one block per
-// (batch*head, chunk), like the TPU grid cell, stages the chunk's B, C
-// and x in shared memory, so the (l x l) score matrix and the (n x p)
-// state never touch device memory; the block walks its output rows in
-// tiles of 16, computing a score tile and then those rows.  Known
+// (batch*head, chunk), like the TPU grid cell, stages the chunk's B and
+// x in shared memory, so the (l x l) score matrix and the (n x p) state
+// never touch device memory; the block walks its output rows in tiles
+// of 16, staging those rows of C, computing a score tile and then those
+// rows of y.  Only a tile of C is held, so that l 256 with n 128 in f32
+// (mamba2-130m's prefill chunk) fits one block's shared memory.  Known
 // limits, left for later work: the products run on CUDA cores (no
 // mma), whose f32 rate (67 TFLOP/s, ridge ~20) is what this design hits
 // at l 256; the cumsum is one thread's loop; at l 256 in f32 the staged
@@ -59,7 +61,7 @@ template <typename T>
 __host__ __device__ inline size_t smem_bytes(int l, int p, int n) {
   const size_t pad = row_pad<T>();
   return sizeof(float) * (3 * (size_t)l + (size_t)kTileRows * (l + 1)) +
-         sizeof(T) * ((size_t)l * (2 * (n + pad) + (p + pad)));
+         sizeof(T) * ((size_t)(l + kTileRows) * (n + pad) + (size_t)l * (p + pad));
 }
 
 template <typename T>
@@ -79,14 +81,13 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* wv = dtv + l;
   float* sc = wv + l;                       // [kTileRows][l + 1] score tile
   T* Bs = reinterpret_cast<T*>(sc + kTileRows * lds);
-  T* Cs = Bs + l * ldn;
-  T* Xs = Cs + l * ldn;
+  T* Cs = Bs + l * ldn;                     // [kTileRows][ldn] rows of C
+  T* Xs = Cs + kTileRows * ldn;
 
   for (int i = threadIdx.x; i < l; i += kThreads) dtv[i] = dt[row0 + i];
   for (int i = threadIdx.x; i < l * n; i += kThreads) {
     const int r = i / n, c = i - (i / n) * n;
     Bs[r * ldn + c] = B[(row0 + r) * n + c];
-    Cs[r * ldn + c] = Cm[(row0 + r) * n + c];
   }
   for (int i = threadIdx.x; i < l * p; i += kThreads) {
     const int r = i / p, c = i - (i / p) * p;
@@ -109,13 +110,18 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   // y, one tile of kTileRows output rows at a time
   for (int i0 = 0; i0 < l; i0 += kTileRows) {
+    for (int idx = threadIdx.x; idx < kTileRows * n; idx += kThreads) {
+      const int ii = idx / n, c = idx - (idx / n) * n;
+      if (i0 + ii < l) Cs[ii * ldn + c] = Cm[(row0 + i0 + ii) * n + c];
+    }
+    __syncthreads();
     for (int idx = threadIdx.x; idx < kTileRows * l; idx += kThreads) {
       const int ii = idx / l, j = idx - (idx / l) * l, i = i0 + ii;
       float v = 0.f;                        // masked before exp
       if (i < l && j <= i) {
         float cb = 0.f;
         for (int k = 0; k < n; ++k)
-          cb = fmaf(to_f32(Cs[i * ldn + k]), to_f32(Bs[j * ldn + k]), cb);
+          cb = fmaf(to_f32(Cs[ii * ldn + k]), to_f32(Bs[j * ldn + k]), cb);
         v = round_to<T>(cb * expf(seg[i] - seg[j]) * dtv[j]);
       }
       sc[ii * lds + j] = v;

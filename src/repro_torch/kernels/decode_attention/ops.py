@@ -1,0 +1,202 @@
+"""Split-KV decode attention (flash-decoding) over a contiguous cache:
+the Hopper kernel's wrapper, its plain PyTorch version and the combine.
+
+Port of `repro.kernels.decode_attention` (TPU kernel
+`decode_attention_pallas`, kernel.py:51).  One decode query per batch
+row attends over its row of a contiguous (b, S, hkv, d) cache, masked
+to the positions `kv_pos <= positions[b]`.  The S axis is cut into
+`kv_splits` slices; each (batch row, kv head, split) reduces its slice
+for the `group` query heads that share the kv head into an f32
+online-softmax summary (m, l, acc), and `combine_splits` merges the
+summaries by log-sum-exp — in plain PyTorch, as the reference computes
+it outside Pallas.
+
+* `decode_attention` — the entry point.  A CUDA tensor launches the
+  hand-written kernel (`kernels/csrc/decode_attention.cu`) or raises on
+  a device, dtype, shape or layout it does not take; a CPU tensor takes
+  the plain version.  There is no fallback between the two.  `launches`
+  counts kernel launches.
+* `decode_attention_plain` — the same function in batched torch.
+* `decode_partials` / `decode_partials_plain` — the split summaries
+  (m, l, acc) before the combine, from the kernel or in batched torch.
+
+Where the port differs from the TPU kernel, with the same result:
+  * any S: a split is `ceil(S / kv_splits)` rows and the last one is
+    shorter (the TPU kernel asserts `S % kv_splits == 0`); splits past
+    S are empty;
+  * rows past `positions[b]` are skipped, not masked.  A split with no
+    visible row has m = -1e30, l = 0 and acc = 0 (the TPU kernel's has
+    m = -1e30 and p = exp(0) per masked row); `combine_splits` weights
+    it by exp(-1e30 - m_max) = 0 either way.  A position at or past S
+    (an idle engine row whose write was clamped to S - 1) sees every
+    row, as `kv_pos <= pos` says.
+Both versions compute scores in f32, keep l as the sum of the f32
+probabilities, and round p to V's dtype before the PV product, as the
+TPU kernel does (kernel.py:45): bf16 rounds p there, f32 is exact.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build as B
+
+NEG_INF = -1e30
+
+# kernel launches since import (reset by callers that count a run)
+launches = 0
+
+# element-type codes of the C interface (csrc/decode_attention.cu)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel geometry limits (csrc/decode_attention.cu)
+THREADS = 128
+MAX_ROW_ELEMS = THREADS * 32
+TILE_TOKENS = 32
+MAX_SMEM = 232_448
+MAX_HEAD_DIM = 256
+
+
+def split_len(S: int, kv_splits: int) -> int:
+    """Rows of the cache in each split (the last split may be shorter)."""
+    return max(1, -(-S // kv_splits))
+
+
+def combine_splits(m, l, acc, b: int, hq: int, d: int, out_dtype):
+    """Merge per-split partial softmax summaries: the log-sum-exp
+    reduction of the reference (kernel.py:94).  m, l: (b*hkv, splits,
+    group); acc: (b*hkv, splits, group, d).  Returns (b, hq, d)."""
+    m_max = m.amax(dim=1, keepdim=True)                       # (bh,1,g)
+    corr = torch.exp(m - m_max)                               # (bh,s,g)
+    l_tot = (l * corr).sum(dim=1)                             # (bh,g)
+    acc_tot = (acc * corr[..., None]).sum(dim=1)              # (bh,g,d)
+    o = acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+    return o.reshape(b, hq, d).to(out_dtype)
+
+
+def decode_partials_plain(q, k_cache, v_cache, positions, *, kv_splits=8):
+    """q: (b, hq, d); k_cache/v_cache: (b, S, hkv, d); positions: (b,)
+    inclusive newest index.  Returns the split summaries m, l
+    (b*hkv, kv_splits, group) and acc (b*hkv, kv_splits, group, d), f32."""
+    b, hq, d = q.shape
+    S, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    L = split_len(S, kv_splits)
+    pad = kv_splits * L - S
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) / math.sqrt(d)
+    kv_pos = torch.arange(kv_splits * L, device=q.device)
+    mask = (kv_pos[None, :] <= positions.long()[:, None]) & (kv_pos < S)
+    mask = mask.reshape(b, 1, 1, kv_splits, L)
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    s = s.reshape(b, hkv, g, kv_splits, L)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                        # (b,hkv,g,c)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    v = torch.nn.functional.pad(v_cache, (0, 0, 0, 0, 0, pad))
+    v = v.reshape(b, kv_splits, L, hkv, d)
+    acc = torch.einsum("bhgcl,bclhd->bhgcd", p.to(v.dtype).float(), v.float())
+    m = m.permute(0, 1, 3, 2).reshape(b * hkv, kv_splits, g)
+    l = l.permute(0, 1, 3, 2).reshape(b * hkv, kv_splits, g)
+    acc = acc.permute(0, 1, 3, 2, 4).reshape(b * hkv, kv_splits, g, d)
+    return m, l, acc
+
+
+def decode_attention_plain(q, k_cache, v_cache, positions, *, kv_splits=8):
+    """`decode_partials_plain` merged by `combine_splits`: (b, hq, d) in
+    q's dtype."""
+    b, hq, d = q.shape
+    m, l, acc = decode_partials_plain(q, k_cache, v_cache, positions,
+                                      kv_splits=kv_splits)
+    return combine_splits(m, l, acc, b, hq, d, q.dtype)
+
+
+# ----------------------------------------------------------- the kernel
+
+def smem_bytes(group: int, d: int) -> int:
+    """Dynamic shared memory of one block (decode_attention.cu)."""
+    t = TILE_TOKENS
+    return 4 * (group * (d + 1) + t * (d + 1) + t * d + group * t + 3 * group)
+
+
+def _launch(q, k_cache, v_cache, positions, kv_splits: int):
+    global launches
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes float32 or "
+                         f"bfloat16")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError("the caches must have q's dtype")
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError("want q (b, hq, d) and caches (b, S, hkv, d)")
+    b, hq, d = q.shape
+    _, S, hkv, dk = k_cache.shape
+    if k_cache.shape[0] != b or dk != d:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if hq % hkv:
+        raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
+    if positions.dtype != torch.int32 or tuple(positions.shape) != (b,):
+        raise ValueError("positions must be int32 (b,)")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("positions", positions)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    g = hq // hkv
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernel takes multiples of 8 up "
+                         f"to {MAX_HEAD_DIM}")
+    if g * d > MAX_ROW_ELEMS:
+        raise ValueError(f"{g} query rows x head_dim {d} exceed one block's "
+                         f"{MAX_ROW_ELEMS} accumulators")
+    if kv_splits < 1 or b * hkv > 2 ** 31 - 1 or kv_splits > 65535:
+        raise ValueError(f"grid of {b * hkv} x {kv_splits} out of range")
+    smem = smem_bytes(g, d)
+    if smem > MAX_SMEM:
+        raise ValueError(f"head_dim {d} needs more shared memory than a "
+                         f"block has")
+    dev = q.device
+    m = torch.empty((b * hkv, kv_splits, g), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    acc = torch.empty((b * hkv, kv_splits, g, d), dtype=torch.float32,
+                      device=dev)
+    lib = B.library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            positions.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            b, hq, hkv, S, d, kv_splits, split_len(S, kv_splits),
+            DTYPE_CODES[q.dtype], stream)
+    B.check(err, "decode_attention")
+    launches += 1
+    return m, l, acc
+
+
+def decode_partials(q, k_cache, v_cache, positions, *, kv_splits=8):
+    """q: (b, hq, d); k_cache/v_cache: (b, S, hkv, d) in q's dtype;
+    positions: (b,) int32 inclusive newest index (at or past S: every
+    row).  Returns the split summaries (m, l, acc) f32, as
+    `decode_partials_plain` does."""
+    if q.device.type == "cpu":
+        return decode_partials_plain(q, k_cache, v_cache, positions,
+                                     kv_splits=kv_splits)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _launch(q, k_cache, v_cache, positions, kv_splits)
+
+
+def decode_attention(q, k_cache, v_cache, positions, *, kv_splits=8):
+    """`decode_partials` merged by `combine_splits`: (b, hq, d) in q's
+    dtype."""
+    b, hq, d = q.shape
+    m, l, acc = decode_partials(q, k_cache, v_cache, positions,
+                                kv_splits=kv_splits)
+    return combine_splits(m, l, acc, b, hq, d, q.dtype)

@@ -71,7 +71,7 @@ def smem_bytes(dtype, l: int, p: int, n: int) -> int:
     size = torch.empty((), dtype=dtype).element_size()
     pad = 1 if size == 4 else 2
     return (4 * (3 * l + TILE_ROWS * (l + 1))
-            + size * l * (2 * (n + pad) + (p + pad)))
+            + size * ((l + TILE_ROWS) * (n + pad) + l * (p + pad)))
 
 
 def _launch(x, dt, A, B_, C):

@@ -1,8 +1,9 @@
-"""Serving entry point: paged continuous batching on the UniMem arena.
+"""Serving entry point: continuous batching on the UniMem arena (paged)
+or on per-slot contiguous caches.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch internlm2-1.8b|qwen3-moe-30b-a3b|zamba2-2.7b \
-        --requests 8 --max-new 32 \
+        --arch internlm2-1.8b|qwen3-moe-30b-a3b|zamba2-2.7b|mamba2-130m \
+        --requests 8 --max-new 32 [--layout paged|contiguous] \
         [--reduced] [--max-batch 4 --max-seq 128 --page-size 16] \
         [--prefill-chunk N] [--temperature T --top-k K --top-p P \
          --sample-seed S] [--kv-dtype int8|fp8|bf16] [--device cpu]
@@ -12,6 +13,8 @@ Builds the model with seeded random weights on the device (CUDA unless
 prompt lengths, runs the engine to completion and logs latency,
 throughput and pool statistics.  Each request gets its own sampling
 seed (base + uid), so reruns reproduce while requests decorrelate.
+Every family with a paged path defaults to the paged layout; the
+pure-SSM mamba2-130m serves from the contiguous one.
 The MoE and hybrid archs serve with their shipped `moe_dispatch="ep"` /
 `ssd_impl="xla"` (the einsum dispatch and the plain SSD); the
 grouped-matmul and SSD kernels are reached by serving
@@ -42,6 +45,10 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--layout", default=None,
+                    choices=["paged", "contiguous"],
+                    help="KV layout (default: paged where the family has "
+                         "a paged path, else contiguous)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens prefilled per engine step")
     ap.add_argument("--seed", type=int, default=0)
@@ -75,7 +82,7 @@ def main(argv=None):
 
     server = LLMServer(cfg, device=args.device, seed=args.seed,
                        max_batch=args.max_batch, max_seq=args.max_seq,
-                       page_size=args.page_size,
+                       page_size=args.page_size, layout=args.layout,
                        prefill_chunk=args.prefill_chunk)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):

@@ -2,7 +2,8 @@
 
 The reference stacks repeated blocks on leading axes (it scans over
 them); the port keeps lists (it loops): `layers` (L, ...) becomes a list
-of L per-layer dicts, and for the hybrid family `mamba` (G, P, ...) a
+of L per-layer dicts (dense, MoE and ssm families), and for the hybrid
+family `mamba` (G, P, ...) a
 G x P nested list, `shared` (num_shared_blocks, ...) a list of block
 dicts and `group_proj` (G, 2d, d) a list of G matrices.  Weights keep
 the reference's (d_in, d_out) layout in both, so `x @ w` is the same

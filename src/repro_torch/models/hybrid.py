@@ -1,7 +1,7 @@
-"""Hybrid SSM + shared-attention model (zamba2 family): the paged
-serving hooks.
+"""Hybrid SSM + shared-attention model (zamba2 family): the serving
+hooks, contiguous and paged.
 
-Port of the paged half of `repro.models.hybrid`.  A Mamba-2 backbone
+Port of the serving half of `repro.models.hybrid`.  A Mamba-2 backbone
 with a SHARED transformer block applied every `shared_attn_period`
 layers (zamba2-2.7b: every 6 of 54, 9 applications alternating between
 `num_shared_blocks` = 2 blocks).  The shared block runs on
@@ -24,6 +24,11 @@ pages AND state IN PLACE and return the arena: a row's state starts
 from zero when its chunk starts at position 0, and is written back only
 where the row advanced (prefill: chunk_len > 0; decode: position > 0),
 so decode-active and empty rows keep theirs.
+
+The contiguous cache (`init_cache`) holds the same conv/SSM rows with
+the batch on axis 2 beside (G, b, max_seq, hkv, hd) K/V and a (b,) pos;
+its hooks update it in place too, and decode advances every row's
+state, idle rows included, as the reference does.
 """
 from __future__ import annotations
 
@@ -85,6 +90,113 @@ def _select_shared(params, cfg: ModelConfig, g: int):
     return params["shared"][g % cfg.num_shared_blocks]
 
 
+def _shared_tail(sp, scfg, cat, o, proj_g, h):
+    """Attention output -> MLP -> projection back onto the hidden state."""
+    cat = cat + o @ sp["attn"]["wo"]
+    h2 = L.rmsnorm_apply(sp["ln2"], cat, scfg.norm_eps)
+    cat = cat + L.mlp_apply(sp["mlp"], scfg, h2)
+    return h + cat @ proj_g
+
+
+# ---------------------------------------------------------------- serving
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
+               device):
+    dtype = dtype or cfg.compute_dtype
+    G, P = _groups(cfg)
+    kv_shape = (G, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return {
+        "conv": zeros((G, P, batch, cfg.conv_width - 1, cfg.conv_channels)),
+        "ssm": zeros((G, P, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state)),
+        "k": zeros(kv_shape),
+        "v": zeros(kv_shape),
+        "pos": zeros((batch,), torch.int32),
+    }
+
+
+def cache_axes():
+    """The reference's logical axes; the conv/SSM batch axis is 2."""
+    kv = (None, "act_batch", "act_kv_seq", None, None)
+    return {
+        "conv": (None, None, "act_batch", None, "ssm_inner"),
+        "ssm": (None, None, "act_batch", "act_ssm_heads", None, None),
+        "k": kv,
+        "v": kv,
+        "pos": ("act_batch",),
+    }
+
+
+def prefill(params, cfg: ModelConfig, batch, cache):
+    """Whole prompts from position 0: the Mamba blocks' final conv tails
+    and SSM states and the shared attention's K/V land in the cache, in
+    place.  Returns (cache, logits at the last position (b, vocab))."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    scfg = _shared_cfg(cfg)
+    G, P = _groups(cfg)
+    x = L.embed_tokens(params["embed"], cfg, tokens)
+    x0 = x
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    for g in range(G):
+        for i in range(P):
+            p = params["mamba"][g][i]
+            hn = L.rmsnorm_apply(p["ln"], x, cfg.norm_eps)
+            out, (S, tail) = M.block_apply(p["mixer"], cfg, hn,
+                                           return_state=True)
+            x = x + out
+            cache["conv"][g, i].copy_(tail)
+            cache["ssm"][g, i].copy_(S)
+        sp = _select_shared(params, cfg, g)
+        cat = torch.cat([x, x0], dim=-1)
+        hn = L.rmsnorm_apply(sp["ln1"], cat, cfg.norm_eps)
+        q, k, v = L.attention_qkv(sp["attn"], scfg, hn, positions)
+        o = L.run_attention(scfg, q, k, v).reshape(b, s, scfg.q_dim)
+        x = _shared_tail(sp, scfg, cat, o, params["group_proj"][g], x)
+        cache["k"][g, :, :s].copy_(k)
+        cache["v"][g, :, :s].copy_(v)
+    cache["pos"].fill_(s)
+    h = L.rmsnorm_apply(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
+    return cache, logits[:, 0]
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """One decode step for every row: the SSM recurrence on each row's
+    state and split-KV attention over the shared blocks' contiguous K/V.
+    Returns (cache, logits (b, vocab))."""
+    scfg = _shared_cfg(cfg)
+    G, P = _groups(cfg)
+    pos = cache["pos"]
+    x = L.embed_tokens(params["embed"], cfg, tokens[:, None])[:, 0]   # (b, d)
+    x0 = x
+    for g in range(G):
+        for i in range(P):
+            p = params["mamba"][g][i]
+            conv, ssm = cache["conv"][g, i], cache["ssm"][g, i]
+            hn = L.rmsnorm_apply(p["ln"], x, cfg.norm_eps)
+            y, conv_c, ssm_c = M.block_step(p["mixer"], cfg, hn, conv, ssm)
+            x = x + y
+            conv.copy_(conv_c)
+            ssm.copy_(ssm_c)
+        sp = _select_shared(params, cfg, g)
+        cat = torch.cat([x, x0], dim=-1)[:, None, :]                   # (b,1,2d)
+        hn = L.rmsnorm_apply(sp["ln1"], cat, cfg.norm_eps)
+        q, k, v = L.attention_qkv(sp["attn"], scfg, hn, pos[:, None])
+        k_g, v_g = cache["k"][g], cache["v"][g]
+        T._scatter_kv(k_g, k, pos)
+        T._scatter_kv(v_g, v, pos)
+        o = L.run_decode_attention(scfg, q[:, 0], k_g, v_g, pos)
+        x = _shared_tail(sp, scfg, cat[:, 0], o, params["group_proj"][g], x)
+    cache["pos"].add_(1)
+    h = L.rmsnorm_apply(params["ln_f"], x[:, None], cfg.norm_eps)
+    logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
+    return cache, logits[:, 0]
+
+
 # ------------------------------------------------- paged serving (UniMem)
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, page_size: int,
@@ -107,14 +219,6 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, page_size: int,
             arena[name] = torch.zeros(kv_shape[:-1], dtype=torch.float32,
                                       device=device)
     return arena
-
-
-def _shared_tail(sp, scfg, cat, o, proj_g, h):
-    """Attention output -> MLP -> projection back onto the hidden state."""
-    cat = cat + o @ sp["attn"]["wo"]
-    h2 = L.rmsnorm_apply(sp["ln2"], cat, scfg.norm_eps)
-    cat = cat + L.mlp_apply(sp["mlp"], scfg, h2)
-    return h + cat @ proj_g
 
 
 def paged_prefill(params, cfg: ModelConfig, chunk, arena, block_table,

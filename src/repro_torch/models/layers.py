@@ -1,11 +1,18 @@
 """Shared building blocks: norms, rotary, GQA projections, MLPs,
-embeddings, and the paged-attention dispatch.
+embeddings, and the attention dispatch (contiguous and paged).
 
 Port of the serving subset of `repro.models.layers`.  Plain functions
 on tensors with the reference's names and parameter layouts: weights are
 (d_in, d_out), so `x @ w` is the reference's product.  The reference's
 sharding constraints and vocab-parallel lookup have no counterpart on
 one card and are dropped.
+
+Attention over contiguous K/V (`run_attention`, `run_decode_attention`)
+launches the flash and split-KV decode kernels for CUDA tensors,
+whatever `cfg.attention_impl` says; for CPU tensors it follows
+`attention_impl` as the reference does: `"dense"` and `"flash_xla"` take
+the ported XLA paths below, `"flash_pallas"` the kernels' plain
+versions.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_prefill.ops import paged_prefill_attention
 
@@ -87,6 +96,117 @@ def attention_qkv(p, cfg: ModelConfig, x, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# --------------------------------------------------------------- attention
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(kv, hq: int):
+    """(b, s, hkv, d) -> (b, s, hq, d), each kv head repeated over its
+    query group."""
+    hkv = kv.shape[2]
+    if hkv == hq:
+        return kv
+    return kv.repeat_interleave(hq // hkv, dim=2)
+
+
+def dense_attention(q, k, v, *, causal: bool, q_offset=0):
+    """q: (b, sq, hq, d); k, v: (b, skv, hkv, d).  One masked softmax
+    (the reference's small-scale path)."""
+    b, sq, hq, d = q.shape
+    k, v = _repeat_kv(k, hq), _repeat_kv(v, hq)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p, v)
+
+
+def flash_xla_attention(q, k, v, *, causal: bool, chunk: int, q_offset=0):
+    """Online-softmax attention, a loop over KV chunks (the reference's
+    XLA scan; the flash kernel is its twin on the card)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    chunk = min(chunk, skv)
+    pad = (-skv) % chunk
+    if pad:      # pad KV to a chunk multiple; padded slots are masked below
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / math.sqrt(d)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    for c0 in range(0, skv + pad, chunk):
+        k_i = _repeat_kv(k[:, c0:c0 + chunk], hq)
+        v_i = _repeat_kv(v[:, c0:c0 + chunk], hq)
+        pos_i = torch.arange(c0, c0 + chunk, device=q.device)
+        s = torch.einsum("bqhd,bshd->bhqs", q, k_i).float() * scale
+        valid = (pos_i < skv)[None, :]
+        if causal:
+            valid = valid & (q_pos[:, None] >= pos_i[None, :])
+        if causal or pad:
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqs,bshd->bhqd", p.to(v_i.dtype), v_i)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.movedim(1, 2).to(q.dtype)                          # (b,sq,hq,d)
+
+
+def decode_attention(q, k_cache, v_cache, position):
+    """Single-token decode: q (b, hq, d); caches (b, S, hkv, d);
+    position: (b,) index of the newly written token (every row at or
+    before it is visible).  Returns (b, hq * d)."""
+    b, hq, d = q.shape
+    S, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache).float() / math.sqrt(d)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= position.long()[:, None])                           # (b, S)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache)
+    return o.reshape(b, hq * d)
+
+
+def run_decode_attention(cfg: ModelConfig, q, k_cache, v_cache, position):
+    """Decode attention over ONE layer's contiguous cache: the split-KV
+    kernel on the card; on the CPU the XLA path above, or the kernel's
+    plain version under `flash_pallas`.  Returns (b, hq * d)."""
+    b, hq, d = q.shape
+    if q.device.type == "cpu" and cfg.attention_impl != "flash_pallas":
+        return decode_attention(q, k_cache, v_cache, position)
+    return decode_ops.decode_attention(q, k_cache, v_cache,
+                                       position).reshape(b, hq * d)
+
+
+def run_attention(cfg: ModelConfig, q, k, v, *, q_offset=0):
+    """Attention of contiguous q (b, sq, hq, d) over k, v (b, skv, hkv,
+    d): the flash kernel on the card; on the CPU the path
+    `cfg.attention_impl` names.  Returns (b, sq, hq, d)."""
+    if q.device.type == "cpu":
+        if cfg.attention_impl == "dense":
+            return dense_attention(q, k, v, causal=cfg.causal,
+                                   q_offset=q_offset)
+        if cfg.attention_impl == "flash_xla":
+            return flash_xla_attention(q, k, v, causal=cfg.causal,
+                                       chunk=cfg.attn_chunk,
+                                       q_offset=q_offset)
+        if cfg.attention_impl != "flash_pallas":
+            raise ValueError(
+                f"unknown attention_impl {cfg.attention_impl!r}")
+    return flash_ops.flash_attention(q, k, v, causal=cfg.causal,
+                                     q_offset=q_offset)
 
 
 def _check_single_arena(cfg: ModelConfig):

@@ -1,17 +1,23 @@
-"""Mamba-2 (SSD, state-space duality) blocks: the serving subset the
-hybrid family runs.
+"""Mamba-2 (SSD, state-space duality): the pure-SSM family (mamba2-130m)
+and the blocks the hybrid family runs.
 
 Port of `repro.models.mamba2`: the chunked SSD scan, the single-token
-recurrence, the depthwise causal conv and the stateful block bodies
-(`block_prefill_chunk`, `block_step`).  Within a chunk the SSD is its
+recurrence, the depthwise causal conv, the block bodies (`block_apply`
+for whole prompts, `block_prefill_chunk`, `block_step`) and the ssm
+family's serving hooks.  Within a chunk the SSD is its
 dual (masked decay-weighted "attention") form; across chunks a short
 Python loop over the chunk states carries the recurrence, where the
 reference scans.  `ssd_impl="pallas"` takes the intra-chunk part
 through the SSD kernel (`kernels/ssd_scan`), `"xla"` through the plain
 torch form of the reference's XLA branch.
 
-The pure-SSM family (mamba2-130m) serves from the contiguous layout in
-the reference; it waits for the slice that ports that layout.
+The ssm family's state is O(1) per sequence, so it has nothing to page:
+it serves from the contiguous layout (`init_cache`: per-layer conv
+tails (L, b, width-1, channels), SSM states (L, b, h, p, n) and a (b,)
+pos), and its hooks update that cache in place.  A prompt shorter than
+width - 1 gets a conv tail padded with the zeros the causal conv reads
+before position 0 (the reference's `_conv_tail` returns a shorter tail,
+which its engine cannot insert).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 NEG_INF = -1e30
 
@@ -128,6 +135,13 @@ def _depthwise(window, w, b_, c: int):
     return acc.to(window.dtype) + b_
 
 
+def causal_conv_apply(w, b_, x):
+    """Depthwise causal conv over a whole sequence.  w: (width, ch); x:
+    (b, s, ch)."""
+    window = F.pad(x, (0, 0, w.shape[0] - 1, 0))
+    return _depthwise(window, w, b_, x.shape[1])
+
+
 def causal_conv_step(w, b_, conv_cache, x_new):
     """conv_cache: (b, width-1, ch); x_new: (b, ch).  Returns (new cache,
     y (b, ch))."""
@@ -182,6 +196,39 @@ def _expand_groups(cfg: ModelConfig, bc):
 def _dt_and_A(p, dt):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     return dt, -torch.exp(p["A_log"].float())
+
+
+def block_apply(p, cfg: ModelConfig, u, initial_state=None,
+                return_state=False):
+    """u: (b, s, d) -> (b, s, d), a whole sequence (prefill).  With
+    `return_state` also (final SSM state (b, h, p, n), conv tail (b,
+    width-1, channels))."""
+    b, s, _ = u.shape
+    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
+    xBC = F.silu(causal_conv_apply(p["conv_w"], p["conv_b"], xBC))
+    x, B, C = _split_xbc(cfg, xBC)
+    x = x.reshape(b, s, h, pdim)
+    B = _expand_groups(cfg, B)
+    C = _expand_groups(cfg, C)
+    dt, A = _dt_and_A(p, dt)
+    y, S = ssd_chunked(x, dt, A, B, C, cfg.ssm_chunk, initial_state,
+                       impl=cfg.ssd_impl)
+    y = y + p["D"].to(y.dtype)[:, None] * x
+    y = y.reshape(b, s, cfg.ssm_inner)
+    y = L.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, (S, _conv_tail(cfg, u, p))
+    return out
+
+
+def _conv_tail(cfg: ModelConfig, u, p):
+    """The last (width-1) pre-conv xBC rows — the decode conv cache —
+    with zero rows before position 0 when the sequence is shorter."""
+    w1 = cfg.conv_width - 1
+    _, xBC, _ = _split_proj(cfg, u[:, -w1:] @ p["in_proj"])
+    return F.pad(xBC, (0, 0, w1 - xBC.shape[1], 0))
 
 
 def block_prefill_chunk(p, cfg: ModelConfig, u, conv_cache, ssm_state,
@@ -242,3 +289,92 @@ def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
 def layer_init(gen, cfg: ModelConfig, device):
     return {"ln": L.rmsnorm_init(cfg, device),
             "mixer": block_init(gen, cfg, device)}
+
+
+# ------------------------------------------------------------------- model
+
+def init(seed: int, cfg: ModelConfig, device):
+    """Seeded random parameters of the ssm family with the reference's
+    names, shapes, layouts and standard deviations (drawn from a
+    `torch.Generator` on `device`, not the reference's bits)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {
+        "embed": L.embedding_init(gen, cfg, device),
+        "layers": [layer_init(gen, cfg, device)
+                   for _ in range(cfg.num_layers)],
+        "ln_f": L.rmsnorm_init(cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
+                                   cfg.params_dtype, device)
+    return params
+
+
+# ----------------------------------------------------------------- serving
+
+# SSM state is O(1) per sequence — nothing to page; the engine serves
+# this family from the contiguous layout.
+init_paged_cache = None
+paged_prefill = None
+paged_decode_step = None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int = 0, dtype=None,
+               *, device):
+    """O(1) in sequence length (max_seq unused)."""
+    dtype = dtype or cfg.compute_dtype
+    n = cfg.num_layers
+    return {
+        "conv": torch.zeros((n, batch, cfg.conv_width - 1,
+                             cfg.conv_channels), dtype=dtype, device=device),
+        "ssm": torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def cache_axes():
+    """The reference's logical axes of each cache leaf."""
+    return {
+        "conv": (None, "act_batch", None, "ssm_inner"),
+        "ssm": (None, "act_batch", "act_ssm_heads", None, None),
+        "pos": ("act_batch",),
+    }
+
+
+def prefill(params, cfg: ModelConfig, batch, cache):
+    """Whole prompts: each layer's final conv tail and SSM state land in
+    the cache, in place.  Returns (cache, logits at the last position
+    (b, vocab))."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    x = L.embed_tokens(params["embed"], cfg, tokens)
+    for layer, p in enumerate(params["layers"]):
+        hn = L.rmsnorm_apply(p["ln"], x, cfg.norm_eps)
+        out, (S, tail) = block_apply(p["mixer"], cfg, hn, return_state=True)
+        x = x + out
+        cache["conv"][layer].copy_(tail)
+        cache["ssm"][layer].copy_(S)
+    cache["pos"].fill_(s)
+    h = L.rmsnorm_apply(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
+    return cache, logits[:, 0]
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """One token for every row (idle rows advance too, as in the
+    reference).  Returns (cache, logits (b, vocab))."""
+    x = L.embed_tokens(params["embed"], cfg, tokens[:, None])[:, 0]   # (b, d)
+    for layer, p in enumerate(params["layers"]):
+        conv, ssm = cache["conv"][layer], cache["ssm"][layer]
+        hn = L.rmsnorm_apply(p["ln"], x, cfg.norm_eps)
+        y, conv_c, ssm_c = block_step(p["mixer"], cfg, hn, conv, ssm)
+        x = x + y
+        conv.copy_(conv_c)
+        ssm.copy_(ssm_c)
+    cache["pos"].add_(1)
+    h = L.rmsnorm_apply(params["ln_f"], x[:, None], cfg.norm_eps)
+    logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
+    return cache, logits[:, 0]

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts transformer (qwen3-moe family): the paged serving
-hooks.
+"""Mixture-of-Experts transformer (qwen3-moe family): the serving hooks,
+contiguous and paged.
 
 Port of the serving half of `repro.models.moe`.  Top-k token-choice
 routing with the SERVING dispatch of the reference: dropless
@@ -189,6 +189,32 @@ def init(seed: int, cfg: ModelConfig, device):
     return params
 
 
+# ---------------------------------------------------------------- serving
+#
+# The dense transformer's contiguous cache and bodies with expert
+# dispatch in place of the MLP.
+
+init_cache = T.init_cache
+cache_axes = T.cache_axes
+
+
+def _moe_ffn(p, cfg: ModelConfig, hn, valid):
+    """Per-layer FFN of the serving bodies: dropless expert dispatch, a
+    pure per-token function, so `valid` needs no masking."""
+    del valid
+    return moe_apply(p["moe"], cfg, hn, dropless=True)
+
+
+def prefill(params, cfg: ModelConfig, batch, cache):
+    """`transformer.prefill`'s contract with expert dispatch."""
+    return T.prefill(params, cfg, batch, cache, ffn_fn=_moe_ffn)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """`transformer.decode_step`'s contract with expert dispatch."""
+    return T.decode_step(params, cfg, cache, tokens, ffn_fn=_moe_ffn)
+
+
 # ------------------------------------------------- paged serving (UniMem)
 #
 # The same page arena as the dense transformer (identical attention
@@ -197,13 +223,6 @@ def init(seed: int, cfg: ModelConfig, device):
 # through the expert stack each step.
 
 init_paged_cache = T.init_paged_cache
-
-
-def _moe_ffn(p, cfg: ModelConfig, hn, valid):
-    """Per-layer FFN of the paged bodies: dropless expert dispatch, a
-    pure per-token function, so `valid` needs no masking."""
-    del valid
-    return moe_apply(p["moe"], cfg, hn, dropless=True)
 
 
 def paged_prefill(params, cfg: ModelConfig, chunk, arena, block_table,

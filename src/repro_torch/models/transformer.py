@@ -1,19 +1,26 @@
 """Decoder-only transformer LM (llama-style, GQA, silu-GLU or relu^2):
-the paged serving hooks of the dense family.
+the serving hooks of the dense family, contiguous and paged.
 
-Port of the paged half of `repro.models.transformer`.  Parameters are a
+Port of the serving half of `repro.models.transformer`.  Parameters are a
 plain dict with the reference's names and layouts, except that
 `params["layers"]` is a LIST of per-layer dicts instead of one pytree
 stacked over a leading layer axis (`models/convert.py` maps between the
 two): the layer loop is a Python loop, where the reference scans.
 
+The contiguous cache (`init_cache`) is {"k", "v": (L, b, max_seq, hkv,
+hd), "pos": (b,) int32}; `prefill` fills a batch from position 0 and
+`decode_step` writes every row's token at its own `pos` (clamped to
+max_seq - 1, as the reference's `dynamic_update_slice` clamps) and
+advances every row.
+
 The paged arena is a dict of (L, slots, page, hkv, hd) tensors (plus
 (L, slots, page, hkv) f32 scale leaves when `cfg.kv_dtype` is int8/fp8)
-whose LAST slot is the null page.  The hooks update it IN PLACE
-(`index_put_`) and return it: that replaces the reference's functional
-`.at[].set` update, which its serving step donates so XLA can reuse the
-buffer.  The contiguous-cache paths and `paged_verify` (speculative
-decode) wait for later slices.
+whose LAST slot is the null page.
+
+Both hooks update their cache IN PLACE and return it: that replaces the
+reference's functional updates, which its serving steps donate so XLA
+can reuse the buffer.  `paged_verify` (speculative decode) waits for a
+later slice.
 """
 from __future__ import annotations
 
@@ -56,6 +63,86 @@ def init(seed: int, cfg: ModelConfig, device):
 
 def head_weights(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+# ---------------------------------------------------------------- serving
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
+               device):
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_axes():
+    """The reference's logical axes of each cache leaf (the batch axis
+    is "act_batch")."""
+    kv = (None, "act_batch", "act_kv_seq", None, None)
+    return {"k": kv, "v": kv, "pos": ("act_batch",)}
+
+
+def _mlp_ffn(p, cfg: ModelConfig, hn, valid):
+    """Default per-layer FFN of the serving bodies.  `valid`: (b, s) row
+    mask or None — ignored by the dense MLP (row-local)."""
+    del valid
+    return L.mlp_apply(p["mlp"], cfg, hn)
+
+
+def prefill(params, cfg: ModelConfig, batch, cache, ffn_fn=_mlp_ffn):
+    """Run whole prompts of one length from position 0: fill the cache
+    rows [0, s) and set pos = s, in place.  batch: {"tokens": (b, s)}.
+    Returns (cache, logits at the last position (b, vocab))."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    x = L.embed_tokens(params["embed"], cfg, tokens)
+    for layer, p in enumerate(params["layers"]):
+        hn = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], cfg, hn, positions)
+        o = L.run_attention(cfg, q, k, v).reshape(b, s, cfg.q_dim)
+        x = x + o @ p["attn"]["wo"]
+        hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        x = x + ffn_fn(p, cfg, hn, None)
+        cache["k"][layer, :, :s].copy_(k)
+        cache["v"][layer, :, :s].copy_(v)
+    cache["pos"].fill_(s)
+    h = L.rmsnorm_apply(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    logits = L.logits_from_hidden(head_weights(params, cfg), cfg, h)
+    return cache, logits[:, 0]
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, ffn_fn=_mlp_ffn):
+    """One decode step.  tokens: (b,) int32; cache["pos"]: (b,) per-row
+    lengths.  Every row writes its token's K/V at its own pos and
+    advances, idle rows included.  Returns (cache, logits (b, vocab))."""
+    pos = cache["pos"]
+    x = L.embed_tokens(params["embed"], cfg, tokens[:, None])   # (b, 1, d)
+    for layer, p in enumerate(params["layers"]):
+        hn = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        q, k, v = L.attention_qkv(p["attn"], cfg, hn, pos[:, None])
+        k_l, v_l = cache["k"][layer], cache["v"][layer]
+        _scatter_kv(k_l, k, pos)
+        _scatter_kv(v_l, v, pos)
+        o = L.run_decode_attention(cfg, q[:, 0], k_l, v_l, pos)
+        x = x + (o @ p["attn"]["wo"])[:, None, :]
+        hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        x = x + ffn_fn(p, cfg, hn, None)
+    cache["pos"].add_(1)
+    h = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    logits = L.logits_from_hidden(head_weights(params, cfg), cfg, h)
+    return cache, logits[:, 0]
+
+
+def _scatter_kv(cache_l, kv_new, pos):
+    """cache_l: (b, S, hkv, d); kv_new: (b, 1, hkv, d); pos: (b,).  Write
+    row i at pos[i] in place, clamped into [0, S-1] as the reference's
+    `dynamic_update_slice` clamps its start (an idle row's pos passes S)."""
+    b, S = cache_l.shape[:2]
+    idx = torch.clamp(pos.long(), 0, S - 1)
+    cache_l[torch.arange(b, device=cache_l.device), idx] = \
+        kv_new[:, 0].to(cache_l.dtype)
 
 
 # ------------------------------------------------- paged serving (UniMem)
@@ -123,13 +210,6 @@ def _last_valid(x, chunk_len):
     """x: (b, c, d) -> (b, 1, d) row at index chunk_len-1 (clamped)."""
     idx = torch.clamp(chunk_len.long() - 1, min=0)
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
-
-
-def _mlp_ffn(p, cfg: ModelConfig, hn, valid):
-    """Default per-layer FFN for the paged bodies.  `valid`: (b, s) row
-    mask — ignored by the dense MLP (row-local)."""
-    del valid
-    return L.mlp_apply(p["mlp"], cfg, hn)
 
 
 def _layer_leaves(arena, layer: int):

@@ -1,9 +1,10 @@
-"""Continuous-batching serving engine, paged-native on the UniMem arena.
+"""Continuous-batching serving engine, paged-native on the UniMem arena,
+with the contiguous per-slot layout beside it.
 
-Port of the single-arena paged path of `repro.serve.engine`; the
-scheduling logic is the reference's line for line, so on the same
-requests the port makes the same admission, chunking, preemption and
-fork decisions and (greedy) emits the same tokens:
+Port of the single-arena paged path and the contiguous path of
+`repro.serve.engine`; the scheduling logic is the reference's line for
+line, so on the same requests the port makes the same admission,
+chunking, preemption and fork decisions and emits the same tokens:
 
   * pages are allocated LAZILY as sequences grow — admission reserves
     only the first prefill chunk (watermark admission);
@@ -23,12 +24,20 @@ fork decisions and (greedy) emits the same tokens:
 Sampling runs inside the step (`serve/serve_step.py`): the step returns
 int32 tokens and reading them is the tick's one synchronisation.
 
-Options the reference has and this slice does not port raise
+`layout="contiguous"` keeps one (max_batch, max_seq) cache instead of
+the arena: admission reserves a request's whole footprint in the pool
+and prefills its prompt in one batch=1 call written straight into its
+row, every tick decodes every row, and retirement zeroes the row.  It is
+the default for families without a paged path (ssm); `fork` and
+speculative decode need the paged layout.
+
+Options the reference has and the port does not yet raise
 `NotImplementedError` naming the ROADMAP.md item that will port them:
-`layout="contiguous"`, `mesh`, `host_tier_pages`, `prefix_cache=True`,
-`speculate_k > 0`, `tenant_weights`, and the families not ported
-(ssm, encoder, vlm).  Families with per-slot recurrent state (hybrid)
-share prompt pages but never skip their compute, as in the reference.
+`mesh` (item 12), `host_tier_pages` and `prefix_cache=True` (item 7),
+`speculate_k > 0` (item 9), `tenant_weights` (item 11), and the encoder
+and vlm families (item 10).  Families with per-slot recurrent state
+(hybrid) share prompt pages but never skip their compute, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -38,13 +47,15 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 
-from repro_torch.core.unimem import SequencePageTable, UniMemOOM
+from repro_torch.core.unimem import SequencePageTable, UniMemOOM, UniMemPool
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
-from repro_torch.serve.kv_cache import PagedKVArena
+from repro_torch.serve.kv_cache import PagedKVArena, clear_slot, slot_view
 from repro_torch.serve.prefix_store import PrefixStore
-from repro_torch.serve.sampling import SamplingParams, state_for_slots
-from repro_torch.serve.serve_step import make_paged_serve_fns
+from repro_torch.serve.sampling import (SamplingParams, sample_tokens,
+                                        state_for_slots)
+from repro_torch.serve.serve_step import (init_cache, make_paged_serve_fns,
+                                          make_serve_fns)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 
@@ -138,8 +149,9 @@ def _params_on(tree, device):
 
 
 class ServingEngine:
-    """Paged continuous-batching engine on one device (`device=None`
-    means CUDA, and raises without a GPU).
+    """Continuous-batching engine on one device (`device=None` means
+    CUDA, and raises without a GPU): paged by default, contiguous for
+    families without a paged path or on request.
 
     Chunk widths snap UP to `prefill_buckets` — powers of two from 8 up
     to `prefill_chunk`, plus `prefill_chunk` itself — so the set of
@@ -160,10 +172,6 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  speculate_k: int = 0,
                  tenant_weights: dict[str, float] | None = None):
-        if layout not in (None, "paged", "contiguous"):
-            raise ValueError(f"unknown layout {layout!r}")
-        if layout == "contiguous":
-            _refuse("layout='contiguous'", "item 10 (contiguous paths)")
         if mesh is not None:
             _refuse("sharded serving (mesh)", "item 12")
         if host_tier_pages:
@@ -175,8 +183,14 @@ class ServingEngine:
             _refuse("speculative decode (speculate_k > 0)", "item 9")
         if tenant_weights is not None:
             _refuse("tenant budget shares (tenant_weights)", "item 11")
-        if not registry.has_paged(cfg):    # raises for unported families
+        registry.get_family(cfg)           # raises for unported families
+        if layout is None:
+            layout = "paged" if registry.has_paged(cfg) else "contiguous"
+        if layout == "paged" and not registry.has_paged(cfg):
             raise ValueError(f"family {cfg.family!r} has no paged path")
+        if layout not in ("paged", "contiguous"):
+            raise ValueError(f"unknown layout {layout!r}")
+        self.layout = layout
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _params_on(params, self.device)
@@ -202,17 +216,32 @@ class ServingEngine:
              if (1 << b) < self.prefill_chunk} | {self.prefill_chunk})
         self.prefill_shapes: set[tuple[int, int]] = set()
 
-        self.arena = PagedKVArena(cfg, num_pages=pool_pages,
-                                  page_size=page_size, device=self.device,
-                                  max_batch=max_batch)
-        # families with contiguous per-slot state (hybrid conv/SSM) can
-        # share page MEMORY but never skip prefill COMPUTE: the skipped
-        # tokens' state would not exist for the new slot
-        self._slot_state = self.arena.state_bytes > 0
-        self.prefill_fn, self.decode_fn = make_paged_serve_fns(cfg,
-                                                               self.device)
-        self.pool = self.arena.pool
-        self.prefix_store = PrefixStore(self.pool)
+        if layout == "paged":
+            self.arena = PagedKVArena(cfg, num_pages=pool_pages,
+                                      page_size=page_size,
+                                      device=self.device,
+                                      max_batch=max_batch)
+            # families with contiguous per-slot state (hybrid conv/SSM)
+            # can share page MEMORY but never skip prefill COMPUTE: the
+            # skipped tokens' state would not exist for the new slot
+            self._slot_state = self.arena.state_bytes > 0
+            self.prefill_fn, self.decode_fn = make_paged_serve_fns(
+                cfg, self.device)
+            self.pool = self.arena.pool
+            self.prefix_store = PrefixStore(self.pool)
+            self.cache = None
+        else:
+            # pages only count the reservations; the K/V (or conv/SSM
+            # state) lives in one (max_batch, max_seq) cache
+            self.arena = None
+            self.prefix_store = None
+            self._slot_state = False
+            self.cache = init_cache(cfg, max_batch, max_seq,
+                                    device=self.device)
+            self.cache_ax = registry.get_family(cfg).cache_axes()
+            self.pool = UniMemPool(pool_pages, page_size)
+            self.prefill_fn, self.decode_fn = make_serve_fns(cfg,
+                                                             self.device)
 
         self.pending: list[Request] = []
         self.slots: dict[int, _Slot] = {}        # slot index -> state
@@ -427,6 +456,37 @@ class ServingEngine:
             self.slots[slot] = s
             self._register_prefix(s)    # shared pages are already written
 
+    def _admit_contiguous(self):
+        """Admission reserves the request's whole footprint, then ONE
+        batch=1 prefill of its prompt writes its cache row in place (the
+        row is zeroed first, so it equals the reference's fresh batch=1
+        cache inserted at the slot) and its first token is sampled on
+        the device."""
+        free = self._free_slots()
+        while free and self.pending:
+            req = self.pending[0]
+            if not self.pool.can_admit(req.max_footprint):
+                break                            # UniMem backpressure
+            self.pending.pop(0)
+            slot = free.pop(0)
+            pages = SequencePageTable(self.pool)
+            pages.append_tokens(req.max_footprint)
+            clear_slot(self.cache, slot, self.cache_ax)
+            _, logits = self.prefill_fn(
+                self.params, {"tokens": req.prompt[None, :]},
+                slot_view(self.cache, slot, self.cache_ax))
+            self.prefill_calls += 1
+            self.prefill_tokens += req.virtual_len
+            s = _Slot(request=req, pages=pages,
+                      admitted_at=time.perf_counter(), order=self._admitted,
+                      prefill_pos=req.virtual_len)
+            # the first token samples on the device (emission counter 0)
+            first = sample_tokens(logits,
+                                  state_for_slots(1, [(0, req.sampling, 0)]))
+            self._emit(s, int(first.cpu()[0]))
+            self.slots[slot] = s
+            self._admitted += 1
+
     # ----------------------------------------------------------- prefill
 
     def _bucket_width(self, n: int) -> int:
@@ -570,7 +630,10 @@ class ServingEngine:
         the decode share of the token budget (when a ratio is set)."""
         active = {i: s for i, s in self.slots.items() if not s.prefilling
                   and s.generated}
-        budget = self._decode_slot_budget()
+        # the contiguous step writes K/V and advances pos for EVERY row,
+        # so excluding a row there would corrupt its cache: no budget
+        budget = (self._decode_slot_budget() if self.layout == "paged"
+                  else None)
         if budget is None or len(active) <= budget:
             return active
         keep = sorted(active.items(), key=lambda kv: kv[1].order)[:budget]
@@ -598,15 +661,31 @@ class ServingEngine:
         self.arena.kv, nxt = self.decode_fn(
             self.params, self.arena.kv, bt, positions, tokens,
             self._sampling_state(active))
+        self._emit_decoded(active, nxt)
+
+    def _emit_decoded(self, active: dict[int, _Slot], nxt) -> None:
+        """Shared tail of both decode layouts: count the call, read the
+        step's tokens (the tick's one sync) and emit them."""
         self.decode_calls += 1
-        nxt = nxt.cpu().numpy()                  # the tick's one sync
+        nxt = nxt.cpu().numpy()
         for i, s in active.items():
             self._emit(s, self._next_token(s, int(nxt[i])))
 
+    def _decode_contiguous(self, active: dict[int, _Slot]):
+        if not active:
+            return
+        tokens = np.zeros((self.max_batch,), np.int32)
+        for i, s in active.items():
+            tokens[i] = s.last_token
+        self.cache, nxt = self.decode_fn(self.params, self.cache, tokens,
+                                         self._sampling_state(active))
+        self._emit_decoded(active, nxt)
+
     def _finish_slot(self, i: int, s: _Slot, reason: str) -> Result:
         """THE single slot-retirement path (natural retire and cancel):
-        emit the FinishEvent, release the prefix-store refs, free the
-        pages."""
+        emit the FinishEvent, release the prefix-store refs and free the
+        pages (paged), or free the reservation and zero the cache row
+        (contiguous)."""
         result = Result(
             uid=s.request.uid, tokens=list(s.generated),
             prompt_len=len(s.request.prompt),
@@ -616,7 +695,10 @@ class ServingEngine:
         self._events.append(FinishEvent(uid=s.request.uid, reason=reason,
                                         result=result))
         self._emitted.pop(s.request.uid, None)
-        self._drop_store_refs(s)
+        if self.layout == "paged":
+            self._drop_store_refs(s)
+        else:
+            clear_slot(self.cache, i, self.cache_ax)
         s.pages.release()
         del self.slots[i]
         return result
@@ -669,7 +751,7 @@ class ServingEngine:
         """Proactive backpressure: when allocation crosses the high
         watermark, preempt youngest slots (never the oldest) until the
         pool is back under."""
-        if self.high_watermark is None:
+        if self.high_watermark is None or self.layout != "paged":
             return
         limit = int(self.high_watermark * self.pool.num_pages)
         while ((self.pool.num_pages - self.pool.free_pages) > limit
@@ -679,10 +761,16 @@ class ServingEngine:
                 break
 
     def step(self):
-        self._admit_paged()
+        if self.layout == "paged":
+            self._admit_paged()
+        else:
+            self._admit_contiguous()
         self._prefill_tick()
         self._enforce_high_watermark()
-        self._decode_plain(self._decode_rows())
+        if self.layout == "paged":
+            self._decode_plain(self._decode_rows())
+        else:
+            self._decode_contiguous(self._decode_rows())
         self.steps += 1
         self._retire()
 
@@ -715,7 +803,9 @@ class ServingEngine:
         every page (refcounts, zero copies) and diverges lazily — the
         first write into the shared partial last page triggers
         copy-on-write.  `sampling` gives the child its own regime; None
-        inherits the parent's."""
+        inherits the parent's.  Paged layout only."""
+        if self.layout != "paged":
+            raise ValueError("fork requires the paged layout")
         free = self._free_slots()
         if not free:
             raise RuntimeError("no free slot to fork into")
@@ -747,13 +837,18 @@ class ServingEngine:
     # ------------------------------------------------------------- stats
 
     def peak_kv_bytes(self) -> int:
-        """Device bytes the arena ties down: the page high-water mark
-        plus the per-slot state (hybrid conv/SSM rows, zero elsewhere)."""
-        return (self.pool.stats().peak_allocated_pages
-                * self.arena.page_bytes + self.arena.state_bytes)
+        """Device bytes the cache layout ties down: the arena's page
+        high-water mark plus its per-slot state (hybrid conv/SSM rows,
+        zero elsewhere); the contiguous cache's full footprint, reserved
+        up front."""
+        if self.layout == "paged":
+            return (self.pool.stats().peak_allocated_pages
+                    * self.arena.page_bytes + self.arena.state_bytes)
+        return sum(a.numel() * a.element_size() for a in self.cache.values())
 
     def stats(self) -> dict:
-        return {
+        out = {
+            "layout": self.layout,
             "device": str(self.device),
             "steps": self.steps,
             "tokens_out": self.tokens_out,
@@ -770,5 +865,7 @@ class ServingEngine:
             "prefill_shapes": sorted(self.prefill_shapes),
             "prefill_decode_ratio": self.prefill_decode_ratio,
             "pool": self.pool.stats().__dict__,
-            "prefix_store": self.prefix_store.stats(),
         }
+        if self.prefix_store is not None:       # prompt-page reuse traffic
+            out["prefix_store"] = self.prefix_store.stats()
+        return out

@@ -12,8 +12,14 @@ in `models/transformer.py` and the two kernels are the dataplane.
 Any leaf other than the pages (hybrid: "conv"/"ssm") is contiguous
 per-ENGINE-slot state with the slot axis at `STATE_SLOT_AXIS`: pages
 copy on write, state rows copy on fork.  Page and state copies update
-the arena tensors in place.  The contiguous per-slot KV layout waits for
-a later slice.
+the arena tensors in place.
+
+The contiguous layout (`layout="contiguous"`) keeps one (max_batch,
+max_seq) cache per family instead (`init_cache`); `clear_slot` and
+`slot_view` address one batch row of it through each leaf's batch axis,
+found in the family's `cache_axes()`.  Admission prefills through the
+view of a cleared row, which leaves the cache as the reference's
+`insert_slot` of a fresh batch=1 prefill would.
 """
 from __future__ import annotations
 
@@ -124,3 +130,27 @@ class PagedKVArena:
             return False
         self.copy_page(*moved)
         return True
+
+
+# ------------------------------------------------------- contiguous slots
+
+def batch_axis_index(axes: tuple) -> int:
+    """Index of the batch dim in a cache leaf's logical axes tuple."""
+    return axes.index("act_batch") if "act_batch" in axes else 0
+
+
+def clear_slot(cache: dict, slot: int, cache_axes: dict) -> dict:
+    """Zero a finished row in place (pos -> 0 keeps it inert in masked
+    attention); returns the cache."""
+    for name, a in cache.items():
+        a.select(batch_axis_index(tuple(cache_axes[name])), slot).zero_()
+    return cache
+
+
+def slot_view(cache: dict, slot: int, cache_axes: dict) -> dict:
+    """Row `slot` of a batched cache as a batch=1 cache of VIEWS: a
+    prefill run on it writes the row in place.  After `clear_slot`, that
+    equals the reference's `insert_slot` of the same prefill run on a
+    fresh batch=1 cache, without the full-size batch=1 copy."""
+    return {name: a.narrow(batch_axis_index(tuple(cache_axes[name])), slot, 1)
+            for name, a in cache.items()}

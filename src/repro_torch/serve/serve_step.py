@@ -1,9 +1,13 @@
-"""Serving steps: paged prefill and decode with in-step sampling.
+"""Serving steps: prefill and decode with in-step sampling, over the
+contiguous cache (`make_serve_fns`) or the paged arena
+(`make_paged_serve_fns`).
 
-Port of `repro.serve.serve_step.make_paged_serve_fns`.  The reference
-jits two closures and donates the arena so XLA updates it in place; here
-the closures run eagerly under `torch.inference_mode()` and the paged
-hooks update the arena tensors in place (`index_put_`).
+Port of `repro.serve.serve_step`.  The reference jits the closures and
+donates the cache so XLA updates it in place; here the closures run
+eagerly under `torch.inference_mode()` and the family hooks update the
+cache or arena tensors in place.  The reference's `decode_many` (a
+fixed-schedule scan the engine does not use) is not ported yet
+(ROADMAP.md queue A item 11).
 
 Per call, the engine's host-built numpy tables (tokens, positions or
 start/chunk_len, block table), and the sampling knobs when a row
@@ -34,6 +38,40 @@ def to_device(device, *arrays: np.ndarray) -> list[torch.Tensor]:
         out.append(buf[o:o + n].view(np.shape(a)))
         o += n
     return out
+
+
+def make_serve_fns(cfg: ModelConfig, device):
+    """Closures over the family's contiguous-cache hooks.
+
+    prefill(params, batch, cache) -> (cache, logits (b, vocab))
+        `batch` is {"tokens": (b, s)} host int32: whole prompts of one
+        length from position 0.  The engine samples the first token
+        from the logits on the device.
+    decode(params, cache, tokens, sampling) -> (cache, next_tokens (b,))
+        Every row advances; only int32 tokens leave the step.
+
+    The returned tokens are an int32 device tensor."""
+    fam = registry.get_family(cfg)
+    device = torch.device(device)
+
+    @torch.inference_mode()
+    def prefill(params, batch, cache):
+        tokens, = to_device(device, batch["tokens"])
+        return fam.prefill(params, cfg, {"tokens": tokens}, cache)
+
+    @torch.inference_mode()
+    def decode(params, cache, tokens, sampling: SamplingState):
+        tok, *knobs = to_device(device, tokens, *host_knobs(sampling))
+        cache, logits = fam.decode_step(params, cfg, cache, tok)
+        return cache, sample_tokens(logits, sampling, device_knobs(knobs))
+
+    return prefill, decode
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device):
+    """The family's contiguous cache for `batch` rows of `max_seq`."""
+    return registry.get_family(cfg).init_cache(cfg, batch, max_seq,
+                                               device=device)
 
 
 def make_paged_serve_fns(cfg: ModelConfig, device):

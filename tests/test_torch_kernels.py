@@ -1,6 +1,7 @@
 """The port's CUDA kernels (paged decode and prefill attention, grouped
-matmul, SSD intra-chunk) against their plain PyTorch versions, and the
-wrappers' routing.
+matmul, SSD intra-chunk, split-KV decode and flash attention over
+contiguous K/V) against their plain PyTorch versions, and the wrappers'
+routing.
 
 Tests marked `cuda` need the card (the kernels have no CPU mode) and
 skip without one; this file imports neither JAX nor the reference, so it
@@ -19,6 +20,8 @@ import torch
 
 from repro_torch.core.unimem import quantize_kv
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import ops as dk
+from repro_torch.kernels.flash_attention import ops as fk
 from repro_torch.kernels.grouped_matmul import ops as gm
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_prefill import ops as pp
@@ -168,7 +171,8 @@ def test_grouped_kernel_matches_plain_on_card(cuda_device, dtype, E, C, K, F,
 @pytest.mark.parametrize("bh, nc, l, p, n", [(640, 1, 64, 64, 64),
                                              (160, 1, 256, 64, 64),
                                              (6, 3, 13, 16, 24),
-                                             (4, 2, 128, 128, 128)])
+                                             (4, 2, 128, 128, 128),
+                                             (24, 2, 256, 64, 128)])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, dtype, bh, nc, l, p,
                                           n):
     if ssd.smem_bytes(dtype, l, p, n) > ssd.MAX_SMEM:
@@ -217,7 +221,127 @@ def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(
                             torch.zeros(2, 1, 300, 8, device=cuda_device))
 
 
+# (b, hq, hkv, d, S, positions): the contiguous decode shape with an idle
+# row past S, zamba2's shared attention (hq = hkv = 32, d 160), and a
+# tiny cache whose S is not a multiple of the 8 splits
+SPLIT_CASES = [(8, 16, 8, 128, 1024, (1023, 0, 511, 17, 700, 64, 255, 1500)),
+               (2, 32, 32, 160, 1000, (5, 999)),
+               (3, 4, 2, 16, 61, (0, 60, 70))]
+# (b, sq, skv, hq, hkv, d, causal, q_offset): prompts of 5, 200 and 511
+# (internlm2 heads), non-causal ragged, a chunk at an offset, zamba2's
+# shared attention, and a tiny GQA case
+FLASH_CASES = [(1, 5, 5, 16, 8, 128, True, 0), (1, 200, 200, 16, 8, 128, True, 0),
+               (1, 511, 511, 16, 8, 128, True, 0),
+               (2, 100, 130, 16, 8, 128, False, 0),
+               (1, 64, 300, 16, 8, 128, True, 236),
+               (1, 77, 77, 32, 32, 160, True, 0), (2, 40, 40, 4, 2, 16, True, 0)]
+
+
+def _split_inputs(dev, dtype, b, hq, hkv, d, S, positions):
+    g = torch.Generator().manual_seed(31)
+    q = torch.randn(b, hq, d, generator=g).to(dev, dtype)
+    k = torch.randn(b, S, hkv, d, generator=g).to(dev, dtype)
+    v = torch.randn(b, S, hkv, d, generator=g).to(dev, dtype)
+    return q, k, v, torch.tensor(positions, dtype=torch.int32, device=dev)
+
+
+def _flash_inputs(dev, dtype, b, sq, skv, hq, hkv, d):
+    g = torch.Generator().manual_seed(32)
+    return (torch.randn(b, sq, hq, d, generator=g).to(dev, dtype),
+            torch.randn(b, skv, hkv, d, generator=g).to(dev, dtype),
+            torch.randn(b, skv, hkv, d, generator=g).to(dev, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: f"b{c[0]}-S{c[4]}")
+def test_split_decode_kernel_matches_plain_on_card(cuda_device, dtype, case):
+    args = _split_inputs(cuda_device, dtype, *case)
+    before = dk.launches
+    got = dk.decode_attention(*args)
+    parts = dk.decode_partials(*args)
+    assert dk.launches == before + 2
+    torch.cuda.synchronize()
+    _assert_close(got, dk.decode_attention_plain(*args), dtype)
+    _assert_close(parts[2], dk.decode_partials_plain(*args)[2], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: f"sq{c[1]}-skv{c[2]}-h{c[3]}-"
+                                       f"{'causal' if c[6] else 'full'}-off{c[7]}")
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, case):
+    b, sq, skv, hq, hkv, d, causal, off = case
+    q, k, v = _flash_inputs(cuda_device, dtype, b, sq, skv, hq, hkv, d)
+    before = fk.launches
+    got = fk.flash_attention(q, k, v, causal=causal, q_offset=off)
+    assert fk.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_close(got, fk.flash_attention_plain(q, k, v, causal=causal,
+                                                q_offset=off), dtype)
+
+
+@pytest.mark.cuda
+def test_contiguous_kernel_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    q, k, v, pos = _split_inputs(cuda_device, torch.float32,
+                                 *SPLIT_CASES[2])
+    with pytest.raises(ValueError):                 # int64 positions
+        dk.decode_attention(q, k, v, pos.long())
+    with pytest.raises(ValueError):                 # caches of another dtype
+        dk.decode_attention(q, k.bfloat16(), v.bfloat16(), pos)
+    with pytest.raises(ValueError):                 # non-contiguous cache
+        dk.decode_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                            v, pos)
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, 1, 8, 8, 4, 2, 24)
+    with pytest.raises(ValueError):                 # d not a multiple of 16
+        fk.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, 1, 8, 8, 4, 2, 16)
+    with pytest.raises(ValueError):                 # negative q_offset
+        fk.flash_attention(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError):                 # k, v of another dtype
+        fk.flash_attention(q, k.float(), v.float())
+
+
 # ------------------------------------------------------ routing (CPU)
+
+def test_cpu_tensors_take_the_split_decode_and_flash_plain_versions():
+    cpu = torch.device("cpu")
+    args = _split_inputs(cpu, torch.float32, *SPLIT_CASES[2])
+    before = (dk.launches, fk.launches)
+    torch.testing.assert_close(dk.decode_attention(*args),
+                               dk.decode_attention_plain(*args),
+                               rtol=0, atol=0)
+    q, k, v = _flash_inputs(cpu, torch.float32, 2, 40, 40, 4, 2, 16)
+    torch.testing.assert_close(fk.flash_attention(q, k, v, q_offset=3),
+                               fk.flash_attention_plain(q, k, v, q_offset=3),
+                               rtol=0, atol=0)
+    assert (dk.launches, fk.launches) == before
+    meta = torch.empty(2, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dk.decode_attention(meta, meta[:, None], meta[:, None], meta[:, 0])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fk.flash_attention(meta[:, None], meta[:, None], meta[:, None])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_and_flash_shared_memory_fits_the_main_path_widths(dtype):
+    # the wrappers refuse a layout past a block's 227 KB: every width the
+    # port serves (head_dim 16 to 160, GQA groups of 1 and 2) fits
+    for d in (16, 32, 128, 160, 256):
+        assert fk.smem_bytes(dtype, d) <= fk.MAX_SMEM
+        for g in (1, 2):
+            assert dk.smem_bytes(g, d) <= dk.MAX_SMEM
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_shared_memory_fits_the_served_chunks(dtype):
+    # a full 256-row chunk at zamba2-2.7b's (p = n = 64) and mamba2-130m's
+    # (p 64, n 128) widths fits one block, in f32 as in bf16
+    for p, n in ((64, 64), (64, 128)):
+        assert ssd.smem_bytes(dtype, 256, p, n) <= ssd.MAX_SMEM
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     case = _case(torch.device("cpu"), torch.float32, None, mp=8)

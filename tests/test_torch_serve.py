@@ -542,7 +542,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(dense):
         LLMServer(port_cfg(cfg))
 
 
-@pytest.mark.parametrize("kw", [dict(layout="contiguous"), dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(host_tier_pages=8),
                                 dict(prefix_cache=True), dict(speculate_k=2),
                                 dict(tenant_weights={})])
@@ -552,7 +552,7 @@ def test_unported_engine_options_refuse(dense, kw):
         ServingEngine(port_cfg(cfg), pp, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("family", ["ssm", "encoder", "vlm"])
+@pytest.mark.parametrize("family", ["encoder", "vlm"])
 def test_unported_families_refuse(dense, family):
     _, _, pp = dense
     with pytest.raises(NotImplementedError, match="ROADMAP"):
