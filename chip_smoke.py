@@ -7,7 +7,7 @@ Phases, each printing one JSON line (the script stops with a nonzero
 exit at the first failure):
 
 1. device + build: the card's name and power limit (nvidia-smi), then
-   the six CUDA kernels built from `src/repro_torch/kernels/csrc` with
+   the eight CUDA kernels built from `src/repro_torch/kernels/csrc` with
    nvcc for sm_90a.
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
@@ -35,26 +35,37 @@ exit at the first failure):
    q_offset, in bf16 and f32, against their plain versions by the same
    rule; each bf16 case timed beside one `scaled_dot_product_attention`
    call and the bound.
-5. serve: `LLMServer` on internlm2-1.8b at full width and depth (bf16,
+5. ws/os matmul kernels: the weight-stationary and output-stationary
+   matmuls against their plain version at `tests/test_kernels.py`'s
+   shapes in f32 and bf16 and at the four regimes of the dataflow sweep
+   (`ws_dataflow.SWEEP`, m padded to 128, full width) in bf16, decode
+   b=16 also in f32 and WS also with a 512-deep weight tile at both
+   decode regimes, by the same rule ((1e-4, 1e-4) f32, (1e-3, 1e-3)
+   bf16); each bf16 regime timed beside one cuBLAS call
+   (`torch.mm(x, w, out_dtype=torch.float32)`), the bound and the
+   traffic model's WS and OS bytes at the blocks used.  Then the
+   dataflow sweep itself (`ws_dataflow.run(device="cuda")`), which must
+   pass and launch each kernel once.
+6. serve: `LLMServer` on internlm2-1.8b at full width and depth (bf16,
    seeded random weights): 8 prompts, one sampled, one stream forked
    after its first token; every stream finishes, no page leaks, each
    kernel launched 24 times per step call, and a second identical run
    gives byte-identical streams.
-6. serve_moe: the same on qwen3-moe-30b-a3b (48 layers, 128 experts,
+7. serve_moe: the same on qwen3-moe-30b-a3b (48 layers, 128 experts,
    `moe_dispatch="grouped"`): the grouped-matmul kernel launched 3 x 48
    times and each paged kernel 48 times per step call.
-7. serve_hybrid: the same on zamba2-2.7b (54 Mamba-2 layers, 9 shared
+8. serve_hybrid: the same on zamba2-2.7b (54 Mamba-2 layers, 9 shared
    attention applications, `ssd_impl="pallas"`), with two identical
    prompts: the SSD kernel launched 54 times per prefill call, each
    paged kernel 9 times per step call.
-8. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
+9. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
    (no fork: the layout refuses it): the flash kernel launched 24 times
    per (batch=1) prefill call, the split-KV decode kernel 24 times per
    decode call.
-9. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
+10. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
    the ssm family's contiguous layout): the SSD kernel launched 24
    times per prefill call.
-10. card vs CPU: a 2-layer internlm2-width, a 2-layer qwen3-width and a
+11. card vs CPU: a 2-layer internlm2-width, a 2-layer qwen3-width and a
    12-layer (two shared applications) zamba2-width f32 model, one paged
    prefill and one paged decode step on the card (kernels) and on the
    CPU (plain versions), logits, pages and state compared; and the
@@ -62,6 +73,15 @@ exit at the first failure):
    model (an idle row written past max_seq included) and of a 2-layer
    mamba2-width f32 model (prompts of 300 and 200 tokens: SSD chunks of
    256 and a ragged 200), logits and cache compared.
+12. paper: every module of the port's paper harness
+   (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
+   the dataflow sweep on the card) passes, the ws and os kernels each
+   launched once (by the sweep's check) and no other kernel.
+13. resnet50: ResNet-50 at full width and depth (224 x 224, bf16,
+   seeded weights) at batch 1 and 8: images per second from CUDA
+   events (three rounds), the device's busy time and kernels per
+   forward from torch.profiler, and peak memory; and the card against
+   the CPU in f32 at batch 1, logits within 5e-4 of the largest |logit|.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -545,7 +565,147 @@ def phase_contig_kernels(torch, dev, card: str, flush):
     return times
 
 
-# ------------------------------------------------------- phase 5: serve
+# ---------------------------------------- phase 5: ws/os matmul kernels
+
+# (m, k, n) of tests/test_kernels.py's ws_matmul cases
+WS_TEST_SHAPES = ((128, 128, 128), (256, 128, 384), (128, 512, 256),
+                  (384, 256, 128))
+# launches of each of the ws and os kernels in one run of the dataflow
+# sweep (its kernel check calls each wrapper once)
+WS_PATH_LAUNCHES = 1
+# timed iterations per regime (train mlp's calls take tens of ms)
+WS_ITERS = {"decode b=16": 30, "decode b=128": 20, "prefill chunk": 10,
+            "train mlp": 3}
+
+
+def count_path(fn):
+    """fn() with every kernel's count set to 0 just before it; returns
+    (fn's result, the launches it made)."""
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    out = fn()
+    return out, {name: m.launches for name, m in mods.items()}
+
+
+def check_sweep_launches(phase: str, launches: dict) -> None:
+    """One run of the dataflow sweep launches the ws and os kernels
+    WS_PATH_LAUNCHES times each and no other kernel."""
+    want = {name: 0 for name in launches}
+    want.update(ws_matmul=WS_PATH_LAUNCHES, os_matmul=WS_PATH_LAUNCHES)
+    if launches != want:
+        fail(f"{phase}: kernel launches {launches} != expected {want}")
+
+
+def phase_ws_kernels(torch, dev, card: str, flush):
+    from repro_torch.benchmarks import ws_dataflow
+    from repro_torch.kernels.tolerance import worst_ratio
+    from repro_torch.kernels.ws_matmul import ops as wm
+
+    gdev = torch.Generator(device=dev).manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, times = [], {}
+    small = torch.ones(16, 16, dtype=bf16, device=dev)
+    try:                   # the yardstick: one cuBLAS call, bf16 in, f32 out
+        torch.mm(small, small, out_dtype=f32)
+        library = lambda x, w: torch.mm(x, w, out_dtype=f32)
+        library_note = "torch.mm(x, w, out_dtype=torch.float32)"
+    except TypeError:
+        library = torch.mm
+        library_note = "torch.mm(x, w), bf16 out: this torch has no out_dtype"
+
+    def hold(name, got, want, dt):
+        rtol, atol = wm.TOLERANCE[dt]
+        err, ratio = worst_ratio(got, want, rtol, atol)
+        rows.append({"case": name, "max_abs_err": err, "rtol": rtol,
+                     "atol_x_row_max": atol, "worst_err_over_bound": ratio})
+        if not ratio <= 1.0:
+            emit({"phase": "ws_kernels", "failed": rows[-1]})
+            fail(f"kernel {name} disagrees with its plain version: "
+                 f"err / bound {ratio}")
+        return err
+
+    cases = [("test shape", m, k, n, dt, None)
+             for m, k, n in WS_TEST_SHAPES for dt in (f32, bf16)]
+    for regime, m, k, n in ws_dataflow.SWEEP:
+        m = -(-m // 128) * 128                       # padded as the sweep pads
+        cases.append((regime, m, k, n, bf16, regime))
+        if regime == "decode b=16":
+            cases.append((regime, m, k, n, f32, None))
+    for name, m, k, n, dt, timed in cases:
+        x = torch.randn(m, k, generator=gdev, device=dev).to(dt)
+        w = (torch.randn(k, n, generator=gdev, device=dev) * k ** -0.5).to(dt)
+        want = wm.matmul_plain(x, w)
+        errs = {}
+        for kern, bk in (("ws", 128), ("os", 128), ("ws", 512)):
+            if bk == 512 and not (timed or "").startswith("decode"):
+                continue
+            got = getattr(wm, f"{kern}_matmul")(x, w, block_k=bk)
+            torch.cuda.synchronize()
+            errs[f"{kern} bk{bk}"] = hold(f"{kern}_matmul bk{bk} {name} "
+                                          f"(m{m} k{k} n{n}) {dt}",
+                                          got, want, dt)
+            del got
+        del want
+        if not timed:
+            del x, w
+            continue
+        iters = WS_ITERS[timed]
+        warm = min(5, iters)
+        nbytes = 2 * m * k + 2 * k * n + 4 * m * n
+        ms, by = bound(nbytes, 2 * m * n * k)
+        splits = wm.ws_splits(m // 128, n // 128, sms)
+        t = dict(
+            ms=time_ms(lambda: wm.ws_matmul(x, w), flush, iters, warm),
+            os_ms=time_ms(lambda: wm.os_matmul(x, w), flush, iters, warm),
+            plain_ms=time_ms(lambda: wm.matmul_plain(x, w), flush, iters,
+                             warm),
+            library_ms=time_ms(lambda: library(x, w), flush, iters, warm),
+            bound_ms=ms, bound_by=by, m=m, k=k, n=n, iters=iters,
+            ws_splits=splits, max_abs_err=errs)
+        model = wm.hbm_traffic_model(m, n, k)          # blocks 128, 128, 128
+        t["model_bytes_bk128"] = {
+            "weight_stationary": model["weight_stationary"],
+            # the S blocks that share an n tile each read its weights
+            "weight_stationary_at_splits": (model["weight_stationary"]
+                                            + (splits - 1) * k * n * 2),
+            "output_stationary": model["output_stationary"]}
+        if timed.startswith("decode"):
+            t["ws_bk512_ms"] = time_ms(
+                lambda: wm.ws_matmul(x, w, block_k=512), flush, iters, warm)
+            m512 = wm.hbm_traffic_model(m, n, k, bk=512)
+            t["model_bytes_bk512"] = {
+                "weight_stationary": m512["weight_stationary"],
+                "weight_stationary_at_splits": (m512["weight_stationary"]
+                                                + (splits - 1) * k * n * 2)}
+        times[timed] = t
+        del x, w
+        free_card(torch)
+    emit({"phase": "ws_kernels", "cases": rows})
+    emit({"phase": "ws_kernel_times", "card": card, "dtype": "bfloat16",
+          "blocks": "128 x 128 x 128 unless named", "library": library_note,
+          "timing": "CUDA events, median of `iters` after up to 5 warm-up, "
+                    "L2 flushed", **times})
+
+    # the sweep itself, through the wrappers, on the card
+    res, launches = count_path(lambda: ws_dataflow.run(device=dev))
+    emit({"phase": "ws_dataflow", **res, "launches": launches})
+    if not res["ok"]:
+        fail(f"ws_dataflow: {res}")
+    check_sweep_launches("ws_dataflow", launches)
+    d16 = times["decode b=16"]
+    timings = {}
+    for kern, ms_key in (("ws_matmul", "ms"), ("os_matmul", "os_ms")):
+        timings[kern] = dict(
+            ms=d16[ms_key], plain_ms=d16["plain_ms"],
+            library_ms=d16["library_ms"], bound_ms=d16["bound_ms"],
+            bound_by=d16["bound_by"],
+            max_abs_err=d16["max_abs_err"][f"{kern[:2]} bk128"])
+    return timings, launches
+
+
+# ------------------------------------------------------- phase 6: serve
 
 PROMPT_LENS = (5, 17, 64, 100, 128, 200, 333, 511)
 SAMPLED = 3                 # the 100-token prompt samples
@@ -607,16 +767,19 @@ def serve_once(torch, dev, cfg, params, prompts, layout=None):
 
 
 def kernel_modules():
-    """name -> the wrapper module whose `launches` counts that kernel."""
+    """name -> the wrapper module (or counter) whose `launches` counts
+    that kernel."""
     from repro_torch.kernels.decode_attention import ops as dk
     from repro_torch.kernels.flash_attention import ops as fk
     from repro_torch.kernels.grouped_matmul import ops as gm
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_prefill import ops as pp
     from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ws_matmul import ops as wm
     return {"paged_decode_attention": pa, "paged_prefill_attention": pp,
             "grouped_matmul": gm, "ssd_intra_chunk": ssd,
-            "decode_attention": dk, "flash_attention": fk}
+            "decode_attention": dk, "flash_attention": fk,
+            "ws_matmul": wm.WS, "os_matmul": wm.OS}
 
 
 def expected_launches(cfg, st) -> dict:
@@ -625,7 +788,8 @@ def expected_launches(cfg, st) -> dict:
     MoE: every layer; hybrid: every shared-block application; ssm:
     none) — paged decode/prefill on the arena, split-KV decode/flash on
     the contiguous cache — the grouped matmul 3 times per MoE layer, the
-    SSD kernel once per Mamba layer of a prefill call."""
+    SSD kernel once per Mamba layer of a prefill call, and no ws or os
+    matmul (no serving path runs them)."""
     pre, dec = st["prefill_calls"], st["decode_calls"]
     attn = {"hybrid": cfg.num_layers // max(1, cfg.shared_attn_period),
             "ssm": 0}.get(cfg.family, cfg.num_layers)
@@ -637,7 +801,17 @@ def expected_launches(cfg, st) -> dict:
             "grouped_matmul": (3 * cfg.num_layers * (pre + dec)
                                if cfg.family == "moe" else 0),
             "ssd_intra_chunk": (cfg.num_layers * pre
-                                if cfg.family in ("hybrid", "ssm") else 0)}
+                                if cfg.family in ("hybrid", "ssm") else 0),
+            "ws_matmul": 0, "os_matmul": 0}
+
+
+def tree_to(tree, d):
+    """A parameter tree (dicts and lists of tensors) moved to device d."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, d) for v in tree]
+    return tree.to(d)
 
 
 def free_card(torch) -> None:
@@ -729,7 +903,7 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
     return launches
 
 
-# ----------------------------------------------------- phase 6: parity
+# ----------------------------------------------------- phase 11: parity
 
 def phase_parity(torch, dev):
     from repro_torch.configs import get_arch
@@ -740,15 +914,8 @@ def phase_parity(torch, dev):
         num_layers=2, dtype="float32", param_dtype="float32")
     params = transformer.init(1, cfg, dev)
 
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
     cpu = torch.device("cpu")
-    params_cpu = to(params, cpu)
+    params_cpu = tree_to(params, cpu)
     page, P, mp, b, c = 16, 32, 8, 4, 16
     g = torch.Generator().manual_seed(3)
     bt = torch.full((b, mp), P, dtype=torch.int32)
@@ -805,14 +972,7 @@ def phase_parity_family(torch, dev, cfg, label: str):
     params = fam.init(1, cfg, dev)
     cpu = torch.device("cpu")
 
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
-    params_cpu = to(params, cpu)
+    params_cpu = tree_to(params, cpu)
     page, P, mp, b, c = 16, 8, 4, 2, 8
     g = torch.Generator().manual_seed(4)
     bt = torch.full((b, mp), P, dtype=torch.int32)
@@ -884,14 +1044,7 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
     params = fam.init(1, cfg, dev)
     cpu = torch.device("cpu")
 
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
-
-    params_cpu = to(params, cpu)
+    params_cpu = tree_to(params, cpu)
     b = 3
     g = torch.Generator().manual_seed(6)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
@@ -936,6 +1089,123 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
             fail(f"{label}: card vs CPU {k}: err {e}, err / bound {r}")
 
 
+# ------------------------------------------------------ phase 12: paper
+
+def phase_paper(torch, dev):
+    """Every module of the port's paper harness on the card; returns the
+    kernel launches of the run."""
+    from repro_torch.benchmarks import run as paper
+
+    results, launches = count_path(lambda: paper.run_all(dev))
+    emit({"phase": "paper", "results": results, "launches": launches})
+    bad = [r["name"] for r in results if not r["ok"]]
+    if bad:
+        fail(f"paper harness: {bad} failed")
+    check_sweep_launches("paper", launches)
+    return launches
+
+
+# ---------------------------------------------------- phase 13: resnet50
+
+RESNET_ITERS = 20           # back-to-back forwards per timed round
+RESNET_ROUNDS = 3
+RESNET_PROFILED = 5         # forwards under torch.profiler
+# card against CPU, f32: |card - cpu| <= RESNET_TOL * max |cpu logit|.
+# 53 convolutions of up to 4,608-term f32 sums, in another order and
+# through cuDNN's own algorithms (Winograd/FFT transforms round
+# differently), with TF32 off; TF32 keeps about three digits and would
+# exceed it.
+RESNET_TOL = 5e-4
+
+
+def device_busy(torch, fn, calls: int) -> tuple[float, float]:
+    """(ms of device kernel time, kernels) per call of fn, from
+    torch.profiler over `calls` calls: the self device time of every
+    device event, as the profiler's own table totals it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    return busy_us / 1e3 / calls, sum(e.count for e in dev_events) / calls
+
+
+def phase_resnet50(torch, dev, card: str):
+    from repro_torch.models.resnet import (init_resnet50, resnet50_forward,
+                                           resnet50_total_macs)
+
+    free_card(torch)
+    g = torch.Generator(device=dev).manual_seed(50)
+    params = init_resnet50(0, dev, torch.bfloat16)
+    runs = {}
+    with torch.inference_mode():
+        for batch in (1, 8):
+            images = torch.randn(batch, 224, 224, 3, generator=g,
+                                 device=dev).to(torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            logits = resnet50_forward(params, images)
+            torch.cuda.synchronize()
+            if (tuple(logits.shape) != (batch, 1000)
+                    or not bool(torch.isfinite(logits).all())):
+                fail(f"resnet50 batch {batch}: logits {tuple(logits.shape)}"
+                     f" not finite or of the wrong shape")
+            for _ in range(3):
+                resnet50_forward(params, images)
+            rounds = []
+            for _ in range(RESNET_ROUNDS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(RESNET_ITERS):
+                    resnet50_forward(params, images)
+                b.record()
+                b.synchronize()
+                rounds.append(a.elapsed_time(b) / RESNET_ITERS)
+            ms = statistics.median(rounds)
+            busy, kernels = device_busy(
+                torch, lambda: resnet50_forward(params, images),
+                RESNET_PROFILED)
+            runs[str(batch)] = {"ms_per_batch": ms,
+                                "img_per_s": batch * 1e3 / ms,
+                                "rounds_ms_per_batch": rounds,
+                                "device_busy_ms_per_batch": busy,
+                                "device_idle_share": 1 - busy / ms,
+                                "kernels_per_forward": kernels,
+                                "max_memory_allocated":
+                                    torch.cuda.max_memory_allocated()}
+    del params
+    free_card(torch)
+
+    params = init_resnet50(1, dev, torch.float32)
+    cpu = torch.device("cpu")
+    params_cpu = tree_to(params, cpu)
+    images = torch.randn(1, 224, 224, 3, generator=g, device=dev)
+    with torch.inference_mode():
+        got = resnet50_forward(params, images).cpu()
+        want = resnet50_forward(params_cpu, images.cpu())
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ratio = err / (RESNET_TOL * scale)
+    emit({"phase": "resnet50", "card": card, "image": 224, "dtype": "bfloat16",
+          "gmacs_per_image": resnet50_total_macs(224) / 1e9,
+          "timing": f"CUDA events, median of {RESNET_ROUNDS} rounds of "
+                    f"{RESNET_ITERS} back-to-back forwards after 4 warm-up, "
+                    f"eager, cuDNN channels_last; device busy from "
+                    f"torch.profiler over {RESNET_PROFILED} more forwards",
+          "batches": runs,
+          "parity": {"dtype": "float32", "batch": 1, "max_abs_err": err,
+                     "max_abs_logit": scale, "rtol_of_max_logit": RESNET_TOL,
+                     "err_over_bound": ratio}})
+    if not ratio <= 1.0:
+        fail(f"resnet50 card vs CPU: err {err} > {RESNET_TOL} x {scale}")
+
+
 # --------------------------------------------------------------- main
 
 def main() -> int:
@@ -968,6 +1238,9 @@ def main() -> int:
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     timings.update(phase_moe_ssd_kernels(torch, dev, card, flush_buf.zero_))
     timings.update(phase_contig_kernels(torch, dev, card, flush_buf.zero_))
+    ws_timings, ws_launches = phase_ws_kernels(torch, dev, card,
+                                               flush_buf.zero_)
+    timings.update(ws_timings)
     del flush_buf
     dense = get_arch("internlm2-1.8b").model
     moe = get_arch("qwen3-moe-30b-a3b").model.replace(moe_dispatch="grouped")
@@ -996,6 +1269,8 @@ def main() -> int:
         torch, dev,
         hybrid.replace(num_layers=2 * hybrid.shared_attn_period, **f32),
         "zamba2-2.7b width, 12 layers (2 shared applications), f32")
+    paper_launches = phase_paper(torch, dev)
+    phase_resnet50(torch, dev, card)
 
     # each kernel's launches come from the served runs that drive it
     launches["grouped_matmul"] = moe_launches["grouped_matmul"]
@@ -1003,6 +1278,8 @@ def main() -> int:
                                    + ssm_launches["ssd_intra_chunk"])
     launches["decode_attention"] = contig_launches["decode_attention"]
     launches["flash_attention"] = contig_launches["flash_attention"]
+    for name in ("ws_matmul", "os_matmul"):   # the dataflow sweep, run twice
+        launches[name] = ws_launches[name] + paper_launches[name]
     main_case = {"grouped_matmul": "grouped_matmul C64",
                  "ssd_intra_chunk": "ssd_intra_chunk l64",
                  "flash_attention": "flash_attention sq511 skv511"}
@@ -1024,7 +1301,13 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:51"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:64")}
+            "src/repro/kernels/flash_attention/kernel.py:64"),
+        "ws_matmul": (
+            "src/repro_torch/kernels/csrc/ws_matmul.cu",
+            "src/repro/kernels/ws_matmul/kernel.py:49"),
+        "os_matmul": (
+            "src/repro_torch/kernels/csrc/ws_matmul.cu",
+            "src/repro/kernels/ws_matmul/kernel.py:87")}
     rows = []
     for name, (src, rep) in sources.items():
         t = timings[main_case.get(name, name)]

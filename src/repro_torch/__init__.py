@@ -2,9 +2,10 @@
 
 The JAX package `repro` is the reference; this package mirrors its
 module paths and names (`repro_torch.models.transformer` is the
-counterpart of `repro.models.transformer`, and so on) and serves the
-dense transformer family through the paged UniMem arena on one NVIDIA
-H100.  The two paged-attention kernels are hand-written CUDA C++ for
+counterpart of `repro.models.transformer`, and so on), serves the
+dense, MoE, hybrid and SSM families on one NVIDIA H100, and carries the
+paper side (the analytic chip models, ResNet-50 and the dataflow
+ablation, `benchmarks/`).  Its kernels are hand-written CUDA C++ for
 `sm_90a` (`kernels/csrc/`), built at first use with `nvcc` and bound
 through `ctypes`.
 

@@ -1,1 +1,2 @@
-"""Host-side UniMem page pool and the quantized-page contract."""
+"""Host-side UniMem page pool and the quantized-page contract; the
+paper's analytic chip models (datapath, hwmodel, projection, simulator)."""

@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
-           "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu")
+           "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu",
+           "ws_matmul.cu")
 HEADERS = ("paged_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +45,11 @@ SPLIT_DECODE_ARGTYPES = [_VOIDP] * 7 + [_INT] * 8 + [_VOIDP]
 # repro_flash_attention(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset,
 #   causal, dtype, stream)
 FLASH_ARGTYPES = [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP]
+# repro_ws_matmul(x, w, out, M, N, K, bm, bn, bk, splits, dtype, vec,
+#   stream)
+WS_ARGTYPES = [_VOIDP] * 3 + [_INT] * 9 + [_VOIDP]
+# repro_os_matmul(x, w, out, M, N, K, bm, bn, dtype, vec, stream)
+OS_ARGTYPES = [_VOIDP] * 3 + [_INT] * 7 + [_VOIDP]
 
 
 def build_dir() -> Path:
@@ -131,6 +137,10 @@ class KernelLibrary:
         lib.repro_decode_attention.restype = ctypes.c_int
         lib.repro_flash_attention.argtypes = FLASH_ARGTYPES
         lib.repro_flash_attention.restype = ctypes.c_int
+        lib.repro_ws_matmul.argtypes = WS_ARGTYPES
+        lib.repro_ws_matmul.restype = ctypes.c_int
+        lib.repro_os_matmul.argtypes = OS_ARGTYPES
+        lib.repro_os_matmul.restype = ctypes.c_int
         self.lib = lib
 
 

@@ -1,1 +1,2 @@
-"""Dense transformer family: config, layers, paged hooks, registry."""
+"""Model families (config, layers, serving hooks, registry) and
+ResNet-50, the paper's workload."""

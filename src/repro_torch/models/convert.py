@@ -7,7 +7,8 @@ family `mamba` (G, P, ...) a
 G x P nested list, `shared` (num_shared_blocks, ...) a list of block
 dicts and `group_proj` (G, 2d, d) a list of G matrices.  Weights keep
 the reference's (d_in, d_out) layout in both, so `x @ w` is the same
-product.  The bridge goes through numpy; bfloat16 and float8 arrays
+product.  ResNet-50's convolution weights are the exception: HWIO in the
+reference, OIHW in `channels_last` in the port (`resnet_params_from_jax`).  The bridge goes through numpy; bfloat16 and float8 arrays
 (ml_dtypes on the numpy side) cross as raw bits, so every leaf arrives
 bit-exact.
 """
@@ -65,4 +66,24 @@ def params_from_jax(np_tree, cfg: ModelConfig, device):
     out = {k: _map(v, to) for k, v in np_tree.items() if k not in stacked}
     for k, shape in stacked.items():
         out[k] = _unstack(np_tree[k], shape, to)
+    return out
+
+
+def resnet_params_from_jax(np_tree, device):
+    """Reference ResNet-50 params (numpy leaves; conv weights HWIO) ->
+    the port's (`models/resnet.py`: conv weights OIHW in
+    `channels_last`, the rest as they are) on `device`."""
+    def conv(p):
+        w = tensor_from_numpy(np.transpose(p["w"], (3, 2, 0, 1)), device)
+        return {"w": w.contiguous(memory_format=torch.channels_last),
+                "scale": tensor_from_numpy(p["scale"], device),
+                "bias": tensor_from_numpy(p["bias"], device)}
+    out = {}
+    for name, p in np_tree.items():
+        if name == "fc":
+            out[name] = _map(p, lambda a: tensor_from_numpy(a, device))
+        elif name == "conv1":
+            out[name] = conv(p)
+        else:
+            out[name] = {k: conv(v) for k, v in p.items()}
     return out

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of `src/repro_torch` (nor
 `chip_smoke.py`) imports `jax` or the reference package `repro`, and
-importing the serving API loads no JAX."""
+importing the serving API or the paper harness loads no JAX."""
 from __future__ import annotations
 
 import ast
@@ -33,8 +33,8 @@ def test_port_module_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-def test_importing_the_serving_api_loads_no_jax():
-    code = ("import sys, repro_torch.serve.api, repro_torch.launch.serve; "
+def _assert_importing_loads_no_jax(modules: str):
+    code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -42,3 +42,14 @@ def test_importing_the_serving_api_loads_no_jax():
                           env={"PYTHONPATH": str(ROOT / "src"),
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_serving_api_loads_no_jax():
+    _assert_importing_loads_no_jax(
+        "repro_torch.serve.api, repro_torch.launch.serve")
+
+
+def test_importing_the_paper_harness_loads_no_jax():
+    _assert_importing_loads_no_jax(
+        "repro_torch.benchmarks.run, repro_torch.configs.sunrise_chip, "
+        "repro_torch.models.resnet")
