@@ -12,12 +12,16 @@ exit at the first failure):
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
-   columns; prefill chunks of 1, 7 and 64 with ragged chunk lengths
+   columns; prefill chunks of 1, 7, 8 and 64 with ragged chunk lengths
    including 0), in bf16 and f32, with page_positions + POS_PAD holes +
    partials, and with int8 and fp8 pages, each output element within
    rtol |plain| + atol * max |plain row| (`repro_torch/kernels/
-   tolerance.py`).  The main-path case is timed: kernel, plain version,
-   one `scaled_dot_product_attention` call over the gathered K/V (a
+   tolerance.py`).  bf16 prefill with bf16 pages takes the tensor-core
+   design (each case names its design); it is also held at c 64 at
+   qwen3-moe-30b-a3b's width (hq 32, hkv 4) and zamba2-2.7b's (hq 32,
+   hkv 32, d 160).  The main-path cases are timed, and prefill also at
+   those two widths: kernel, plain version, one
+   `scaled_dot_product_attention` call over the gathered K/V (a
    yardstick the port never calls) and the bound.
 3. moe/ssd kernels: the grouped matmul at qwen3-moe-30b-a3b's shapes
    (128 experts, K x F 2048 x 768 and 768 x 2048, C 64 and 4096, with
@@ -101,6 +105,10 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 ROOT = Path(__file__).resolve().parent
+# (arch, hq, hkv, head_dim) of the served widths the prefill kernel is
+# also held and timed at, beside internlm2-1.8b's (16, 8, 128)
+PREFILL_WIDTHS = (("qwen3-moe-30b-a3b", 32, 4, 128),
+                  ("zamba2-2.7b", 32, 32, 160))
 
 
 def emit(obj) -> None:
@@ -138,10 +146,10 @@ def time_ms(fn, flush, iters: int = 30, warmup: int = 5) -> float:
 class KernelBench:
     """Main-path geometry and arenas for the kernel phase."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, hq=16, hkv=8, d=128):
         self.torch = torch
         self.dev = dev
-        self.b, self.hq, self.hkv, self.d, self.page, self.mp = 8, 16, 8, 128, 16, 64
+        self.b, self.hq, self.hkv, self.d, self.page, self.mp = 8, hq, hkv, d, 16, 64
         g = torch.Generator(device="cpu").manual_seed(0)
         self.P = self.b * self.mp                       # pages; null = P
         perm = torch.randperm(self.P, generator=g).to(torch.int32)
@@ -235,14 +243,19 @@ def phase_kernels(torch, dev, card: str):
             results["decode"] = dict(q=q, kp=kp, vp=vp, err=err)
 
     # ---------------------------------------------------------- prefill
+    # bf16 q with bf16 pages takes the tensor-core design, every other
+    # pair the CUDA-core one (paged_prefill/ops.py `route`)
     clen_for = {1: [1, 0, 1, 1, 1, 0, 1, 1],
                 7: [7, 3, 0, 7, 1, 7, 5, 2],
+                8: [8, 2, 0, 8, 5, 1, 8, 3],
                 64: [64, 17, 0, 64, 33, 1, 64, 40]}
     start = torch.tensor([959, 0, 448, 0, 600, 63, 191, 900],
                          dtype=torch.int32, device=dev)
     for c, qdt, kvdt, mode in ((1, bf16, bf16, "plain"),
                                (7, bf16, bf16, "plain"),
+                               (8, bf16, bf16, "plain"),
                                (64, bf16, bf16, "plain"),
+                               (64, bf16, bf16, "holes+partials"),
                                (64, f32, f32, "plain"),
                                (7, bf16, bf16, "holes+partials"),
                                (64, f32, f32, "holes+partials"),
@@ -261,10 +274,27 @@ def phase_kernels(torch, dev, card: str):
         want = pp.paged_prefill_attention_plain(q, kp, vp, kb.bt, start,
                                                 clen, **kw)
         torch.cuda.synchronize()
-        name = f"prefill c={c} {qdt} q, {kvdt} pages, {mode}"
+        name = (f"prefill c={c} {qdt} q, {kvdt} pages, {mode} "
+                f"({pp.route(qdt, kvdt)})")
         err = check(name, got, want, qdt, rows)
         if (c, qdt, kvdt, mode) == (64, bf16, bf16, "plain"):
-            results["prefill"] = dict(q=q, kp=kp, vp=vp, clen=clen, err=err)
+            results["prefill"] = dict(kb=kb, q=q, kp=kp, vp=vp, clen=clen,
+                                      err=err)
+    # the other served widths, c 64, bf16: qwen3-moe-30b-a3b and zamba2-2.7b
+    clen = torch.tensor(clen_for[64], dtype=torch.int32, device=dev)
+    for arch, hq_a, hkv_a, d_a in PREFILL_WIDTHS:
+        kba = KernelBench(torch, dev, hq=hq_a, hkv=hkv_a, d=d_a)
+        kp, vp, _, _ = kba.pages(bf16)
+        q = kba.q((b, 64, hq_a, d_a), bf16)
+        got = pp.paged_prefill_attention(q, kp, vp, kba.bt, start, clen)
+        want = pp.paged_prefill_attention_plain(q, kp, vp, kba.bt, start,
+                                                clen)
+        torch.cuda.synchronize()
+        name = (f"prefill c=64 {bf16} q, {bf16} pages, plain, {arch} "
+                f"(hq {hq_a}, hkv {hkv_a}, d {d_a})")
+        err = check(name, got, want, bf16, rows)
+        results[f"prefill {arch}"] = dict(kb=kba, q=q, kp=kp, vp=vp,
+                                          clen=clen, err=err)
     emit({"phase": "kernels", "cases": rows})
 
     # ------------------------------------------- timing, main-path case
@@ -276,18 +306,22 @@ def phase_kernels(torch, dev, card: str):
                  + 4 * int(((live + page - 1) // page).sum()) + 4 * b)
     dec_ops = 4 * hq * d * int(live.sum())
     timings = {}
-    bt_l = kb.bt.long()
-    S = kb.mp * page
+    kv_pos = torch.arange(kb.mp * page, device=dev)
 
-    def sdpa_inputs(qq, c):
-        k = dec["kp"][bt_l].reshape(b, S, hkv, d)
-        v = dec["vp"][bt_l].reshape(b, S, hkv, d)
-        k = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
-        v = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
-        return qq.reshape(b, c, hq, d).transpose(1, 2).contiguous(), k, v
+    def sdpa_inputs(kbx, qq, kp, vp, c):
+        """q, K and V gathered and repeated over the query group, (b, h,
+        s, d): the SDPA yardstick's inputs."""
+        S = kbx.mp * kbx.page
+        bt_l = kbx.bt.long()
+        g = kbx.hq // kbx.hkv
+        k = kp[bt_l].reshape(b, S, kbx.hkv, kbx.d)
+        v = vp[bt_l].reshape(b, S, kbx.hkv, kbx.d)
+        k = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        v = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        return (qq.reshape(b, c, kbx.hq, kbx.d).transpose(1, 2).contiguous(),
+                k, v)
 
-    kv_pos = torch.arange(S, device=dev)
-    qd, kd, vd = sdpa_inputs(dec["q"], 1)
+    qd, kd, vd = sdpa_inputs(kb, dec["q"], dec["kp"], dec["vp"], 1)
     mask_d = (kv_pos[None, :] <= kb.positions[:, None].long())[:, None, None, :]
     timings["paged_decode_attention"] = dict(
         ms=time_ms(lambda: pa.paged_decode_attention(
@@ -298,31 +332,39 @@ def phase_kernels(torch, dev, card: str):
             qd, kd, vd, attn_mask=mask_d), kb.flush),
         bytes=dec_bytes, ops=dec_ops, max_abs_err=dec["err"])
 
-    pre = results["prefill"]
-    c = 64
-    clen = pre["clen"].long()
-    st = start.long()
-    need = torch.where(clen > 0, st + clen, torch.zeros_like(st))
-    vis = sum(int(st[i]) * int(clen[i]) + int(clen[i]) * (int(clen[i]) + 1) // 2
-              for i in range(b))                     # visible (query, key) pairs
-    pre_bytes = (2 * int(need.sum()) * hkv * d * elt + 2 * b * c * hq * d * elt
-                 + 4 * int(((need + page - 1) // page).sum()) + 8 * b)
-    pre_ops = 4 * hq * d * vis
-    qp, kpp, vpp = sdpa_inputs(pre["q"], c)
-    qpos = st[:, None] + torch.arange(c, device=dev)[None, :]
-    mask_p = ((kv_pos[None, None, :] <= qpos[:, :, None])
-              & (torch.arange(c, device=dev)[None, :, None]
-                 < clen[:, None, None]))[:, None]
-    timings["paged_prefill_attention"] = dict(
-        ms=time_ms(lambda: pp.paged_prefill_attention(
-            pre["q"], pre["kp"], pre["vp"], kb.bt, start, pre["clen"]),
-            kb.flush),
-        plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
-            pre["q"], pre["kp"], pre["vp"], kb.bt, start, pre["clen"]),
-            kb.flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qp, kpp, vpp, attn_mask=mask_p), kb.flush),
-        bytes=pre_bytes, ops=pre_ops, max_abs_err=pre["err"])
+    def prefill_timing(pre, c=64):
+        """Kernel, plain version and SDPA over the gathered K/V at one
+        width; the bytes are the live K/V (each visible token once), q
+        and out, the walked table entries and start/chunk_len."""
+        kbx, q, kp, vp = pre["kb"], pre["q"], pre["kp"], pre["vp"]
+        clen = pre["clen"].long()
+        st = start.long()
+        need = torch.where(clen > 0, st + clen, torch.zeros_like(st))
+        vis = sum(int(st[i]) * int(clen[i])
+                  + int(clen[i]) * (int(clen[i]) + 1) // 2
+                  for i in range(b))                 # visible (query, key) pairs
+        nbytes = (2 * int(need.sum()) * kbx.hkv * kbx.d * elt
+                  + 2 * b * c * kbx.hq * kbx.d * elt
+                  + 4 * int(((need + page - 1) // page).sum()) + 8 * b)
+        qs, ks, vs = sdpa_inputs(kbx, q, kp, vp, c)
+        qpos = st[:, None] + torch.arange(c, device=dev)[None, :]
+        mask = ((kv_pos[None, None, :] <= qpos[:, :, None])
+                & (torch.arange(c, device=dev)[None, :, None]
+                   < clen[:, None, None]))[:, None]
+        args = (q, kp, vp, kbx.bt, start, pre["clen"])
+        return dict(
+            ms=time_ms(lambda: pp.paged_prefill_attention(*args), kbx.flush),
+            plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(*args),
+                             kbx.flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), kbx.flush),
+            bytes=nbytes, ops=4 * kbx.hq * kbx.d * vis,
+            max_abs_err=pre["err"])
+
+    timings["paged_prefill_attention"] = prefill_timing(results["prefill"])
+    for arch, *_ in PREFILL_WIDTHS:
+        timings[f"paged_prefill_attention {arch}"] = prefill_timing(
+            results[f"prefill {arch}"])
     for name, t in timings.items():
         t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
                                   t["ops"] / PEAK_OPS["bfloat16"])
@@ -330,7 +372,9 @@ def phase_kernels(torch, dev, card: str):
                          >= t["ops"] / PEAK_OPS["bfloat16"] else "operations")
     emit({"phase": "kernel_times", "card": card, "dtype": "bfloat16",
           "shapes": {"b": b, "hq": hq, "hkv": hkv, "d": d, "page": page,
-                     "max_pages": kb.mp, "prefill_c": c},
+                     "max_pages": kb.mp, "prefill_c": 64,
+                     "prefill_widths": {a: {"hq": x, "hkv": y, "d": z}
+                                        for a, x, y, z in PREFILL_WIDTHS}},
           "timing": "CUDA events, median of 30 after 5 warm-up, L2 flushed",
           **{k: {kk: vv for kk, vv in v.items()} for k, v in timings.items()}})
     return timings

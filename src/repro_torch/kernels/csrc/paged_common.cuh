@@ -1,7 +1,10 @@
 // Shared device code of the two paged-attention kernels (decode and
-// chunk prefill) for Hopper (sm_90a).
+// chunk prefill) for Hopper (sm_90a): the CUDA-core machine that paged
+// decode runs for every dtype pair, and chunk prefill for f32 q and for
+// int8/fp8 pages.  bf16 prefill with bf16 pages runs its own tensor-core
+// design instead (paged_prefill.cu, namespace tc).
 //
-// Both kernels are one machine: a thread block owns R query rows of one
+// Both kernels are one machine here: a thread block owns R query rows of one
 // (batch row, kv head) pair, walks that batch row's block table through
 // the page arena tile by tile, and folds each tile into an f32 online
 // softmax carry (m, l, acc).  Decode is the R = group case with one
@@ -17,10 +20,13 @@
 // (bf16; 2 x 16 B for f32, 8 B for int8/fp8) and stops at the last page
 // any of its rows can see, so no byte past the causal limit moves; the
 // whole GQA group (or chunk tile) shares every page it loads.  Known
-// limits, left for later work: no tensor cores (scores and the PV
-// product run on CUDA cores from shared memory), no split over the KV
-// length (decode at batch 8 launches 8 x 8 = 64 blocks on 132 SMs), and
-// no asynchronous copy overlapping the next tile's load with compute.
+// limits of this machine, left for later work: no tensor cores (scores
+// and the PV product run on CUDA cores from f32 in shared memory), small
+// tiles (rows x d <= 4096, so a chunk's rows are split over blocks that
+// each re-read the walk), no split over the KV length (decode at batch 8
+// launches 8 x 8 = 64 blocks on 132 SMs), and no asynchronous copy
+// overlapping the next tile's load with compute.  The bf16 prefill
+// design lifts the first, second and last of these.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -124,8 +124,7 @@ def smem_bytes(rows: int, d: int, page: int) -> int:
                 + 2 * tp)
 
 
-def check_kernel_inputs(q, k_pages, v_pages, index_tensors, k_scale, v_scale,
-                        rows: int):
+def check_kernel_inputs(q, k_pages, v_pages, index_tensors, k_scale, v_scale):
     """Raise ValueError on anything the CUDA kernels do not take.
     Returns the (q, kv) element-type codes."""
     dev = q.device
@@ -165,16 +164,22 @@ def check_kernel_inputs(q, k_pages, v_pages, index_tensors, k_scale, v_scale,
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernel takes multiples of 8 "
                          f"up to {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return DTYPE_CODES[q.dtype], DTYPE_CODES[kv_dtype]
+
+
+def check_row_tile(rows: int, d: int, page: int) -> None:
+    """Raise ValueError on a block of `rows` query rows that the CUDA-core
+    machine (paged_common.cuh attend_rows) cannot hold at this head dim
+    and page size."""
     if rows * d > MAX_ROW_ELEMS or rows > THREADS:
         raise ValueError(f"{rows} query rows x head_dim {d} exceed one "
                          f"block's {MAX_ROW_ELEMS} accumulators")
     if smem_bytes(rows, d, page) > MAX_SMEM:
         raise ValueError(f"page {page} x head_dim {d} needs more shared "
                          f"memory than a block has")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    return DTYPE_CODES[q.dtype], DTYPE_CODES[kv_dtype]
 
 
 def _ptr(t):
@@ -192,7 +197,8 @@ def _launch_decode(q, k_pages, v_pages, block_table, positions,
     if page_positions is not None:
         index["page_positions"] = page_positions
     qc, kc = check_kernel_inputs(q, k_pages, v_pages, index, k_scale,
-                                 v_scale, rows=hq // hkv)
+                                 v_scale)
+    check_row_tile(hq // hkv, d, k_pages.shape[1])
     mp = block_table.shape[1]
     if tuple(block_table.shape) != (b, mp) or tuple(positions.shape) != (b,):
         raise ValueError("block_table must be (b, max_pages), positions (b,)")

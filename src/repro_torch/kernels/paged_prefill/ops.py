@@ -13,6 +13,22 @@ as decode; rows past `chunk_len` are exact zeros.
 * `paged_prefill_attention_plain` — gather plus masked f32 softmax,
   written from `ref.paged_prefill_attention_ref` (scores in f32, output
   in q's dtype; see `kernels/paged_attention/ops.py`).
+
+The kernel has two designs, fixed by the (q, pages) dtype pair
+(`route`); neither falls back to the other:
+
+* bf16 q with bf16 pages, what every served configuration runs: a
+  flash-style tensor-core kernel (mma.sync bf16 -> f32, 64 packed rows
+  per block, 64-token KV tiles through a 2-stage cp.async ring, the
+  online softmax and the O accumulator in registers).  p is rounded to
+  bf16 before the PV product, as the TPU kernel rounds p to V's dtype,
+  also under `partials` (where the plain version keeps p in f32).  It
+  takes head dims that are multiples of 16 up to 256 and raises on
+  others.
+* f32 q, or int8 / fp8 pages: the CUDA-core machine shared with paged
+  decode (f32 scores and p, from shared memory).  f32 stays off the
+  tensor cores because there it would be TF32, which the port never
+  uses; quantized pages are dequantised to f32 as they land.
 """
 from __future__ import annotations
 
@@ -23,7 +39,7 @@ import torch
 from repro_torch.kernels import build as B
 from repro_torch.kernels.paged_attention.ops import (
     MAX_ROW_ELEMS, NEG_INF, _gather_kv, _kv_positions, _ptr,
-    check_kernel_inputs)
+    check_kernel_inputs, check_row_tile)
 
 # kernel launches since import (reset by callers that count a run)
 launches = 0
@@ -31,6 +47,18 @@ launches = 0
 # packed query rows per block: up to 64, and rows x head_dim within the
 # block's register accumulators
 MAX_TILE_ROWS = 64
+
+# the tensor-core design's geometry (paged_prefill.cu namespace tc)
+TC_ROWS = 64           # packed query rows per block, 16 per warp
+TC_TILE_TOKENS = 64    # kv tokens per tile
+TC_STAGES = 2          # K/V tiles in flight (cp.async ring)
+TC_META_SLOTS = 3      # per-token (arena row, position) ring, one tile ahead
+TC_PAD = 8             # bf16 elements of shared-memory row padding
+# shared memory of one SM, and what the card reserves per resident block
+SM_SMEM = 233_472
+BLOCK_RESERVED_SMEM = 1_024
+
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
@@ -71,9 +99,44 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
     return o.to(q.dtype)
 
 
+def route(q_dtype, kv_dtype) -> str:
+    """Which design takes a (q, pages) dtype pair: bf16 with bf16 on
+    tensor cores, every other pair the kernel takes on CUDA cores."""
+    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
 def rows_per_tile(c: int, group: int, d: int) -> int:
-    """Packed (chunk position, group member) rows one block takes."""
+    """Packed (chunk position, group member) rows one block of the
+    CUDA-core design takes (the tensor-core design takes TC_ROWS)."""
     return max(1, min(c * group, MAX_TILE_ROWS, MAX_ROW_ELEMS // d))
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core block
+    (paged_prefill.cu `tc::smem_bytes`): Q and the K/V ring in bf16 at
+    row stride d + 8, then the meta ring's int32 rows and positions."""
+    return (2 * (1 + 2 * TC_STAGES) * TC_ROWS * (d + TC_PAD)
+            + 4 * 2 * TC_META_SLOTS * TC_TILE_TOKENS)
+
+
+def tc_blocks_per_sm(d: int) -> int:
+    """Tensor-core blocks resident on one SM, as shared memory allows."""
+    return SM_SMEM // (tc_smem_bytes(d) + BLOCK_RESERVED_SMEM)
+
+
+def check_tc_geometry(k_pages) -> None:
+    """Raise ValueError on a bf16 arena the tensor-core design does not
+    take: head dims that are not multiples of 16 (check_kernel_inputs
+    caps them at 256), and token rows past int32 indexing."""
+    P, page, hkv, d = k_pages.shape
+    if d % 16:
+        raise ValueError(f"head_dim {d}: the bf16 prefill kernel takes "
+                         f"multiples of 16 up to 256")
+    if P * page * hkv >= 2 ** 31:
+        raise ValueError("the arena has too many token rows for int32 "
+                         "indexing")
 
 
 def _launch_prefill(q, k_pages, v_pages, block_table, start, chunk_len,
@@ -87,9 +150,14 @@ def _launch_prefill(q, k_pages, v_pages, block_table, start, chunk_len,
              "chunk_len": chunk_len}
     if page_positions is not None:
         index["page_positions"] = page_positions
-    rpt = rows_per_tile(c, hq // hkv, d)
     qc, kc = check_kernel_inputs(q, k_pages, v_pages, index, k_scale,
-                                 v_scale, rows=rpt)
+                                 v_scale)
+    if route(q.dtype, k_pages.dtype) == TENSOR_CORES:
+        check_tc_geometry(k_pages)
+        rpt = 0    # the tensor-core design's tile is fixed in the kernel
+    else:
+        rpt = rows_per_tile(c, hq // hkv, d)
+        check_row_tile(rpt, d, k_pages.shape[1])
     mp = block_table.shape[1]
     if (tuple(block_table.shape) != (b, mp) or tuple(start.shape) != (b,)
             or tuple(chunk_len.shape) != (b,)):
@@ -128,7 +196,10 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, start,
     chunk geometry.  Returns (b, c, hq, d) in q's dtype; rows past
     chunk_len are exact zeros.  `page_positions`, `partials`,
     `k_scale`/`v_scale` as in `paged_decode_attention` (partials:
-    m (b, c, hq), l (b, c, hq), acc (b, c, hq, d) f32)."""
+    m (b, c, hq), l (b, c, hq), acc (b, c, hq, d) f32).  On a CUDA
+    tensor, bf16 q with bf16 pages takes the tensor-core design (head
+    dims multiples of 16 up to 256), every other pair the CUDA-core
+    one (`route`)."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, block_table, start, chunk_len,

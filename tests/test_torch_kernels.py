@@ -112,6 +112,118 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, dtype, c, quant):
     assert not got[2].any()                       # inert row: exact zeros
 
 
+# (group, head_dim, kv heads) of the served bf16 widths: internlm2-1.8b,
+# qwen3-moe-30b-a3b, zamba2-2.7b
+TC_WIDTHS = [(2, 128, 8), (8, 128, 4), (1, 160, 32)]
+
+
+def _tc_chunk(case, c, where, dev):
+    """start 0 on every row, or mid-sequence; chunk_len full, ragged
+    (c // 3) and 0 in both."""
+    start = [0, 0, 0, 0] if where == "start" else [959, 0, 448, 600]
+    clen = [c, max(1, c // 3), 0, c]
+    return (torch.tensor(start, dtype=torch.int32, device=dev),
+            torch.tensor(clen, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,d,hkv", TC_WIDTHS)
+@pytest.mark.parametrize("c", [1, 7, 8, 64])
+@pytest.mark.parametrize("where", ["start", "mid"])
+def test_tensor_core_prefill_matches_plain_on_card(cuda_device, group, d,
+                                                   hkv, c, where):
+    case = _case(cuda_device, torch.bfloat16, None, group=group, hkv=hkv,
+                 d=d)
+    q = torch.randn(4, c, case["hq"], d, device=cuda_device).bfloat16()
+    start, clen = _tc_chunk(case, c, where, cuda_device)
+    args = (q, case["k"], case["v"], case["bt"], start, clen)
+    before = pp.launches
+    got = pp.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert pp.launches == before + 1
+    _assert_close(got, pp.paged_prefill_attention_plain(*args),
+                  torch.bfloat16)
+    assert not got[2].any()                       # chunk_len 0: exact zeros
+    assert not got[1, max(1, c // 3):].any()      # ragged tail: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,d,hkv", TC_WIDTHS)
+@pytest.mark.parametrize("c", [7, 64])
+def test_tensor_core_prefill_partials_with_holes_match_plain_on_card(
+        cuda_device, group, d, hkv, c):
+    case = _case(cuda_device, torch.bfloat16, None, group=group, hkv=hkv,
+                 d=d)
+    q = torch.randn(4, c, case["hq"], d, device=cuda_device).bfloat16()
+    start, clen = _tc_chunk(case, c, "mid", cuda_device)
+    args = (q, case["k"], case["v"], case["bt"], start, clen)
+    kw = dict(page_positions=case["holes"], partials=True)
+    got = pp.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = pp.paged_prefill_attention_plain(*args, **kw)
+    _assert_close(got, want, torch.bfloat16)
+    m, l, acc = got
+    assert not l[2].any() and not acc[2].any()    # chunk_len 0: empty carry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [4, 48, 128])
+@pytest.mark.parametrize("holes", [False, True])
+def test_tensor_core_prefill_walks_other_page_sizes(cuda_device, page,
+                                                    holes):
+    # 16 pages of 4 per tile; a 48-token page padded to a 64-token tile;
+    # a 128-token page in two 64-token slices
+    case = _case(cuda_device, torch.bfloat16, None, mp=-(-1056 // page),
+                 page=page)
+    q = torch.randn(4, 64, case["hq"], case["d"],
+                    device=cuda_device).bfloat16()
+    start, clen = _tc_chunk(case, 64, "mid", cuda_device)
+    args = (q, case["k"], case["v"], case["bt"], start, clen)
+    kw = dict(page_positions=case["holes"], partials=True) if holes else {}
+    got = pp.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, pp.paged_prefill_attention_plain(*args, **kw),
+                  torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row, col", [(0, 30), (3, 20)])
+def test_tensor_core_prefill_fails_the_check_on_a_page_read_twice(
+        cuda_device, row, col):
+    case = _case(cuda_device, torch.bfloat16, None)
+    q = torch.randn(4, 64, case["hq"], case["d"],
+                    device=cuda_device).bfloat16()
+    start, clen = _tc_chunk(case, 64, "mid", cuda_device)
+    want = pp.paged_prefill_attention_plain(q, case["k"], case["v"],
+                                            case["bt"], start, clen)
+    bad = case["bt"].clone()
+    bad[row, col] = bad[row, col + 1]
+    got = pp.paged_prefill_attention(q, case["k"], case["v"], bad, start,
+                                     clen)
+    torch.cuda.synchronize()
+    assert worst_ratio(got, want, *TOLERANCE[torch.bfloat16])[1] > 4.0
+
+
+@pytest.mark.cuda
+def test_tensor_core_prefill_refuses_head_dims_off_its_tiles(cuda_device):
+    for d in (24, 40):
+        case = _case(cuda_device, torch.bfloat16, None, d=d, mp=8)
+        q = torch.randn(4, 8, case["hq"], d, device=cuda_device).bfloat16()
+        start, clen = _tc_chunk(case, 8, "start", cuda_device)
+        before = pp.launches
+        with pytest.raises(ValueError, match="multiples of 16"):
+            pp.paged_prefill_attention(q, case["k"], case["v"], case["bt"],
+                                       start, clen)
+        assert pp.launches == before
+        # the CUDA-core design still takes the same width in f32
+        got = pp.paged_prefill_attention(q.float(), case["k"].float(),
+                                         case["v"].float(), case["bt"],
+                                         start, clen)
+        _assert_close(got, pp.paged_prefill_attention_plain(
+            q.float(), case["k"].float(), case["v"].float(), case["bt"],
+            start, clen), torch.float32)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     case = _case(cuda_device, torch.float32, None)
@@ -342,6 +454,35 @@ def test_ssd_shared_memory_fits_the_served_chunks(dtype):
     # (p 64, n 128) widths fits one block, in f32 as in bf16
     for p, n in ((64, 64), (64, 128)):
         assert ssd.smem_bytes(dtype, 256, p, n) <= ssd.MAX_SMEM
+
+def test_prefill_routes_by_the_dtype_pair():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert pp.route(bf16, bf16) == pp.TENSOR_CORES
+    for pair in ((f32, f32), (bf16, torch.int8), (bf16, torch.float8_e4m3fn),
+                 (f32, torch.int8), (f32, torch.float8_e4m3fn)):
+        assert pp.route(*pair) == pp.CUDA_CORES
+    # the CUDA-core design keeps rows x head_dim within its accumulators;
+    # the tensor-core one takes TC_ROWS = 64 whatever the chunk
+    assert pp.rows_per_tile(64, 2, 128) == 32
+    assert pp.rows_per_tile(64, 1, 160) == 25
+    assert pp.rows_per_tile(1, 2, 128) == 2
+
+
+@pytest.mark.parametrize("arch,d,group,c,blocks", [
+    ("internlm2-1.8b", 128, 2, 64, 2), ("qwen3-moe-30b-a3b", 128, 8, 64, 8),
+    ("zamba2-2.7b", 160, 1, 64, 1)])
+def test_tensor_core_prefill_geometry_fits_two_blocks_per_sm(arch, d, group,
+                                                             c, blocks):
+    # 64 packed rows per block over 64-token tiles in a 2-stage ring
+    assert pp.TC_ROWS == pp.TC_TILE_TOKENS == 64 and pp.TC_STAGES == 2
+    assert pp.tc_smem_bytes(d) <= pa.MAX_SMEM
+    assert pp.tc_blocks_per_sm(d) >= 2, arch
+    # blocks per (batch row, kv head) at the served 64-token chunk
+    assert -(-c * group // pp.TC_ROWS) == blocks
+    # every multiple of 16 up to 256 fits one block
+    for dd in range(16, 257, 16):
+        assert pp.tc_smem_bytes(dd) <= pa.MAX_SMEM
+
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     case = _case(torch.device("cpu"), torch.float32, None, mp=8)

@@ -20,6 +20,7 @@ from repro.kernels.paged_prefill.ref import paged_prefill_attention_ref
 from repro_torch.core.unimem import dequantize_kv, quantize_kv
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_prefill import ops as pp
+from repro_torch.kernels.tolerance import TOLERANCE, worst_ratio
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 QUANT = {"int8": (torch.int8, jnp.int8),
@@ -178,6 +179,52 @@ def test_plain_quantized_pages_match_reference(quant, kind, partials):
         start, clen = _chunk(case, 7)
         got, want = _prefill(case, q, start, clen, **kw)
     _cmp(got, want)
+
+
+# the served bf16 widths beside the matrix: zamba2-2.7b (group 1, d 160)
+# and qwen3-moe-30b-a3b (group 8, d 128)
+BF16_GEOMETRY = GEOMETRY + [(1, 160, 16), (8, 128, 16)]
+
+
+@pytest.mark.parametrize("group,d,page", BF16_GEOMETRY)
+@pytest.mark.parametrize("mode", ["plain", "holes+partials"])
+def test_plain_prefill_in_bf16_and_reference_in_bf16_match_exact_attention(
+        group, d, page, mode):
+    # what the card runs: bf16 q and pages.  Each bf16 version rounds in
+    # its own places (the reference its scores, the plain version p
+    # before the PV product, as the TPU kernel does), so each is held by
+    # kernels/tolerance.py's bf16 rule to the exact answer on the same
+    # bf16 inputs: the reference evaluated in f32
+    case = Case(14, group, d, page)
+    c = 7
+    q = case.rng.standard_normal((4, c, case.hq, d)).astype(np.float32)
+    start, clen = _chunk(case, c)
+    ppos = case.holes() if mode != "plain" else None
+    partials = mode != "plain"
+
+    def ref(dtype):
+        args = [jnp.asarray(x, jnp.bfloat16).astype(dtype)
+                for x in (q, case.k, case.v)]
+        out = paged_prefill_attention_ref(
+            *args, jnp.asarray(case.bt), jnp.asarray(start),
+            jnp.asarray(clen), partials=partials,
+            page_positions=None if ppos is None else jnp.asarray(ppos))
+        return tuple(torch.from_numpy(np.array(o.astype(jnp.float32)))
+                     for o in (out if partials else (out,)))
+
+    got = pp.paged_prefill_attention(
+        torch.from_numpy(q).bfloat16(), case.tk.bfloat16(),
+        case.tv.bfloat16(), torch.from_numpy(case.bt),
+        torch.from_numpy(start), torch.from_numpy(clen), partials=partials,
+        page_positions=None if ppos is None else torch.from_numpy(ppos))
+    if not partials:
+        assert got.dtype == torch.bfloat16
+        assert not got[2].float().any()            # inert row: exact zeros
+        got = (got,)
+    exact = ref(jnp.float32)
+    tol = TOLERANCE[torch.bfloat16]
+    assert worst_ratio(got, exact, *tol)[1] <= 1.0
+    assert worst_ratio(ref(jnp.bfloat16), exact, *tol)[1] <= 1.0
 
 
 # ------------------------------------------------------- quantization
