@@ -44,12 +44,17 @@ exit at the first failure):
    shapes in f32 and bf16 and at the four regimes of the dataflow sweep
    (`ws_dataflow.SWEEP`, m padded to 128, full width) in bf16, decode
    b=16 also in f32 and WS also with a 512-deep weight tile at both
-   decode regimes, by the same rule ((1e-4, 1e-4) f32, (1e-3, 1e-3)
-   bf16); each bf16 regime timed beside one cuBLAS call
-   (`torch.mm(x, w, out_dtype=torch.float32)`), the bound and the
-   traffic model's WS and OS bytes at the blocks used.  Then the
-   dataflow sweep itself (`ws_dataflow.run(device="cuda")`), which must
-   pass and launch each kernel once.
+   decode regimes, and at 640 x 1536 @ 1536 x 8448 with bk 96 and
+   640 x 2560 @ 2560 x 8448 with the deepest tile WS takes (5 M tiles
+   over 2 blocks), in f32 and bf16, by the same rule ((1e-4, 1e-4) f32,
+   (1e-3, 1e-3) bf16); each bf16 regime timed beside one cuBLAS call
+   (`torch.mm(x, w, out_dtype=torch.float32)`), the bound, the traffic
+   model's WS and OS bytes at the blocks used, WS against its model
+   bytes' time, OS's TFLOP/s, the blocks per SM (the occupancy API,
+   which must equal ops.py's mirror) and WS at the splits beside the
+   chosen one.  Then the dataflow sweep itself
+   (`ws_dataflow.run(device="cuda")`), which must pass and launch each
+   kernel once.
 6. serve: `LLMServer` on internlm2-1.8b at full width and depth (bf16,
    seeded random weights): 8 prompts, one sampled, one stream forked
    after its first token; every stream finishes, no page leaks, each
@@ -670,21 +675,28 @@ def phase_ws_kernels(torch, dev, card: str, flush):
                  f"err / bound {ratio}")
         return err
 
-    cases = [("test shape", m, k, n, dt, None)
+    # (name, m, k, n, dtype, timed regime, WS's bks); OS runs at bk 128
+    cases = [("test shape", m, k, n, dt, None, (128,))
              for m, k, n in WS_TEST_SHAPES for dt in (f32, bf16)]
     for regime, m, k, n in ws_dataflow.SWEEP:
         m = -(-m // 128) * 128                       # padded as the sweep pads
-        cases.append((regime, m, k, n, bf16, regime))
+        cases.append((regime, m, k, n, bf16, regime,
+                      (128, 512) if regime.startswith("decode") else (128,)))
         if regime == "decode b=16":
-            cases.append((regime, m, k, n, f32, None))
-    for name, m, k, n, dt, timed in cases:
+            cases.append((regime, m, k, n, f32, None, (128,)))
+    # 5 M tiles over 2 blocks (3 + 2): a bk that is no multiple of the
+    # bf16 slice, and the deepest weight tile the wrapper lets WS hold
+    for dt in (f32, bf16):
+        cases.append(("bk 96", 640, 1536, 8448, dt, None, (96,)))
+        cases.append(("largest bk", 640, 2560, 8448, dt, None,
+                      (wm.MAX_BK[dt],)))
+    for name, m, k, n, dt, timed, ws_bks in cases:
         x = torch.randn(m, k, generator=gdev, device=dev).to(dt)
         w = (torch.randn(k, n, generator=gdev, device=dev) * k ** -0.5).to(dt)
         want = wm.matmul_plain(x, w)
         errs = {}
-        for kern, bk in (("ws", 128), ("os", 128), ("ws", 512)):
-            if bk == 512 and not (timed or "").startswith("decode"):
-                continue
+        for kern, bk in [("ws", ws_bks[0]), ("os", 128)] + [
+                ("ws", b) for b in ws_bks[1:]]:
             got = getattr(wm, f"{kern}_matmul")(x, w, block_k=bk)
             torch.cuda.synchronize()
             errs[f"{kern} bk{bk}"] = hold(f"{kern}_matmul bk{bk} {name} "
@@ -699,7 +711,10 @@ def phase_ws_kernels(torch, dev, card: str, flush):
         warm = min(5, iters)
         nbytes = 2 * m * k + 2 * k * n + 4 * m * n
         ms, by = bound(nbytes, 2 * m * n * k)
-        splits = wm.ws_splits(m // 128, n // 128, sms)
+        m_tiles, n_tiles = m // 128, n // 128
+        plan = wm.plan((m, k), (k, n), bf16)
+        splits = wm.ws_splits(m_tiles, n_tiles, sms)
+        per = -(-m_tiles // splits)
         t = dict(
             ms=time_ms(lambda: wm.ws_matmul(x, w), flush, iters, warm),
             os_ms=time_ms(lambda: wm.os_matmul(x, w), flush, iters, warm),
@@ -708,6 +723,24 @@ def phase_ws_kernels(torch, dev, card: str, flush):
             library_ms=time_ms(lambda: library(x, w), flush, iters, warm),
             bound_ms=ms, bound_by=by, m=m, k=k, n=n, iters=iters,
             ws_splits=splits, max_abs_err=errs)
+        # blocks per SM: the occupancy API on the launch as configured,
+        # beside ops.py's mirror of it
+        t["blocks_per_sm"] = {
+            "ws": wm.launched_blocks_per_sm(bf16, "ws", 128, per, dev),
+            "os": wm.launched_blocks_per_sm(bf16, "os", 128, 1, dev)}
+        mirror = {"ws": wm.blocks_per_sm(wm.smem_bytes(
+                      bf16, wm.w_slots(bf16, 128, resident=per > 1)),
+                      resident=per > 1),
+                  "os": wm.blocks_per_sm(wm.smem_bytes(bf16, wm.STAGES))}
+        if t["blocks_per_sm"] != mirror:
+            fail(f"ws_kernels {timed}: blocks per SM {t['blocks_per_sm']} "
+                 f"!= ops.py's mirror {mirror}")
+        # wave quantisation: WS at the splits beside the chosen one
+        t["ws_ms_by_splits"] = {
+            str(-(-m_tiles // -(-m_tiles // s))): time_ms(
+                lambda: wm._launch_ws(x, w, plan, splits=s), flush, iters,
+                warm)
+            for s in range(max(1, splits - 1), min(m_tiles, splits + 1) + 1)}
         model = wm.hbm_traffic_model(m, n, k)          # blocks 128, 128, 128
         t["model_bytes_bk128"] = {
             "weight_stationary": model["weight_stationary"],
@@ -715,14 +748,21 @@ def phase_ws_kernels(torch, dev, card: str, flush):
             "weight_stationary_at_splits": (model["weight_stationary"]
                                             + (splits - 1) * k * n * 2),
             "output_stationary": model["output_stationary"]}
+        # WS against the time its dataflow's bytes take; OS's rate
+        t["ws_byte_ms"] = (t["model_bytes_bk128"]["weight_stationary_at_splits"]
+                           / HBM_BYTES_PER_S * 1e3)
+        t["ws_over_byte_time"] = t["ms"] / t["ws_byte_ms"]
+        t["os_tflops"] = 2 * m * n * k / t["os_ms"] / 1e9
         if timed.startswith("decode"):
             t["ws_bk512_ms"] = time_ms(
                 lambda: wm.ws_matmul(x, w, block_k=512), flush, iters, warm)
+            t["ws_bk512_splits"] = s512 = wm.ws_splits(m_tiles, n_tiles,
+                                                       sms)
             m512 = wm.hbm_traffic_model(m, n, k, bk=512)
             t["model_bytes_bk512"] = {
                 "weight_stationary": m512["weight_stationary"],
                 "weight_stationary_at_splits": (m512["weight_stationary"]
-                                                + (splits - 1) * k * n * 2)}
+                                                + (s512 - 1) * k * n * 2)}
         times[timed] = t
         del x, w
         free_card(torch)

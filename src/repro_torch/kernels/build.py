@@ -50,6 +50,8 @@ FLASH_ARGTYPES = [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP]
 WS_ARGTYPES = [_VOIDP] * 3 + [_INT] * 9 + [_VOIDP]
 # repro_os_matmul(x, w, out, M, N, K, bm, bn, dtype, vec, stream)
 OS_ARGTYPES = [_VOIDP] * 3 + [_INT] * 7 + [_VOIDP]
+# repro_matmul_blocks_per_sm(os, dtype, bk, per, int* blocks)
+BLOCKS_PER_SM_ARGTYPES = [_INT] * 4 + [ctypes.POINTER(_INT)]
 
 
 def build_dir() -> Path:
@@ -141,6 +143,8 @@ class KernelLibrary:
         lib.repro_ws_matmul.restype = ctypes.c_int
         lib.repro_os_matmul.argtypes = OS_ARGTYPES
         lib.repro_os_matmul.restype = ctypes.c_int
+        lib.repro_matmul_blocks_per_sm.argtypes = BLOCKS_PER_SM_ARGTYPES
+        lib.repro_matmul_blocks_per_sm.restype = ctypes.c_int
         self.lib = lib
 
 
