@@ -7,8 +7,10 @@ Phases, each printing one JSON line (the script stops with a nonzero
 exit at the first failure):
 
 1. device + build: the card's name and power limit (nvidia-smi), then
-   the eight CUDA kernels built from `src/repro_torch/kernels/csrc` with
-   nvcc for sm_90a.
+   the CUDA kernels built from `src/repro_torch/kernels/csrc` with nvcc
+   for sm_90a (the eight ports of the TPU kernels and split-KV decode's
+   combine), with ptxas's registers and spills of every head-dim
+   instance of the bf16 flash and paged-prefill kernels (`tc_ptxas`).
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
@@ -32,13 +34,16 @@ exit at the first failure):
    f32, against their plain versions by the same rule; timed beside
    one `torch.bmm` (grouped; SSD has no single PyTorch call) and the
    bound.
-4. contiguous kernels: the split-KV decode kernel at the contiguous
-   decode shape (batch 8, S 1024, hq 16, hkv 8, d 128, positions spread
-   up to 1023 and one idle row past S) and the flash kernel at prompt
-   lengths 5, 200 and 511 (causal), one non-causal case and one with a
-   q_offset, in bf16 and f32, against their plain versions by the same
-   rule; each bf16 case timed beside one `scaled_dot_product_attention`
-   call and the bound.
+4. contiguous kernels: the split-KV decode kernel and its combine
+   kernel at the contiguous decode shape (batch 8, S 1024, hq 16, hkv 8,
+   d 128, positions spread up to 1023 and one idle row past S) and the
+   flash kernel at prompt lengths 5, 200 and 511 (causal), one
+   non-causal case and one with a q_offset, and at 511 tokens at
+   qwen3-moe-30b-a3b's (hq 32, hkv 4) and zamba2-2.7b's (hq 32, hkv 32,
+   d 160) widths, in bf16 (tensor cores) and f32 (CUDA cores), against
+   their plain versions by the same rule; each bf16 case timed beside
+   one `scaled_dot_product_attention` call and the bound, and the
+   combine alone beside `combine_splits`.
 5. ws/os matmul kernels: the weight-stationary and output-stationary
    matmuls against their plain version at `tests/test_kernels.py`'s
    shapes in f32 and bf16 and at the four regimes of the dataflow sweep
@@ -69,8 +74,8 @@ exit at the first failure):
    paged kernel 9 times per step call.
 9. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
    (no fork: the layout refuses it): the flash kernel launched 24 times
-   per (batch=1) prefill call, the split-KV decode kernel 24 times per
-   decode call.
+   per (batch=1) prefill call, the split-KV decode kernel and its
+   combine kernel 24 times each per decode call.
 10. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
    the ssm family's contiguous layout): the SSD kernel launched 24
    times per prefill call.
@@ -542,6 +547,11 @@ def phase_contig_kernels(torch, dev, card: str, flush):
         name = f"split-KV decode b{b} S{S} hq{hq} hkv{hkv} d{d} {dt}"
         err = check(name, got, want, dt, rows)
         check(name + " partials (acc)", gp[2], wp[2], dt, rows)
+        # the combine kernel alone, against its plain version on the
+        # kernel's own summaries
+        cargs = (*gp, b, hq, d, dt)
+        cerr = check(name + " combine", dk.combine_splits_kernel(*cargs),
+                     dk.combine_splits(*cargs), dt, rows)
         if dt is not bf16:
             continue
         live = torch.clamp(positions.long(), max=S - 1) + 1
@@ -556,21 +566,41 @@ def phase_contig_kernels(torch, dev, card: str, flush):
                 <= positions[:, None].long())[:, None, None, :]
         times["decode_attention"] = dict(
             ms=time_ms(lambda: dk.decode_attention(q, k, v, positions), flush),
-            # the kernel alone, without the plain combine of its splits
+            # the split kernel alone, and the combine kernel alone
             kernel_only_ms=time_ms(lambda: dk.decode_partials(
                 q, k, v, positions), flush),
+            combine_ms=time_ms(lambda: dk.combine_splits_kernel(*cargs),
+                               flush),
             plain_ms=time_ms(lambda: dk.decode_attention_plain(
                 q, k, v, positions), flush),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask), flush),
             bound_ms=ms, bound_by=by, max_abs_err=err, live_rows=n_live)
+        # the combine: summaries (m, l, acc) read once, out written once;
+        # 2 f32 flops per acc element
+        n_acc = gp[2].numel()
+        c_bytes = 4 * (2 * gp[0].numel() + n_acc) + 2 * b * hq * d
+        c_ops = 2 * n_acc
+        c_ms = 1e3 * max(c_bytes / HBM_BYTES_PER_S, c_ops / PEAK_OPS["float32"])
+        times["combine_splits"] = dict(
+            ms=times["decode_attention"]["combine_ms"],
+            plain_ms=time_ms(lambda: dk.combine_splits(*cargs), flush),
+            library_ms=None, bound_ms=c_ms,
+            bound_by=("bytes" if c_bytes / HBM_BYTES_PER_S
+                      >= c_ops / PEAK_OPS["float32"] else "operations"),
+            max_abs_err=cerr)
         del qs, ks, vs
     # ---------------------------------------------------------- flash
-    hq, hkv, d = 16, 8, 128
-    for b, sq, skv, causal, off in ((1, 5, 5, True, 0), (1, 200, 200, True, 0),
-                                    (1, 511, 511, True, 0),
-                                    (2, 100, 130, False, 0),
-                                    (1, 64, 300, True, 236)):
+    # internlm2-1.8b's heads (hq 16, hkv 8, d 128), then a 511-token
+    # prompt at the other served widths (PREFILL_WIDTHS)
+    flash_cases = [(1, 5, 5, True, 0, 16, 8, 128, ""),
+                   (1, 200, 200, True, 0, 16, 8, 128, ""),
+                   (1, 511, 511, True, 0, 16, 8, 128, ""),
+                   (2, 100, 130, False, 0, 16, 8, 128, ""),
+                   (1, 64, 300, True, 236, 16, 8, 128, "")]
+    flash_cases += [(1, 511, 511, True, 0, hq_a, hkv_a, d_a, f" {arch}")
+                    for arch, hq_a, hkv_a, d_a in PREFILL_WIDTHS]
+    for b, sq, skv, causal, off, hq, hkv, d, width in flash_cases:
         q32, k32, v32 = (randn(b, sq, hq, d), randn(b, skv, hkv, d),
                          randn(b, skv, hkv, d))
         for dt in (bf16, f32):
@@ -580,7 +610,8 @@ def phase_contig_kernels(torch, dev, card: str, flush):
             want = fk.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             name = (f"flash b{b} sq{sq} skv{skv} {'causal' if causal else 'full'}"
-                    f" q_offset {off} {dt}")
+                    f" q_offset {off}{width} (hq {hq}, hkv {hkv}, d {d}) {dt}"
+                    f" ({fk.route(dt)})")
             err = check(name, got, want, dt, rows)
             if dt is not bf16:
                 continue
@@ -596,19 +627,21 @@ def phase_contig_kernels(torch, dev, card: str, flush):
             sd_mask = seen.to(dev)[None, None] if causal and off else None
             sd_causal = causal and not off
             times[f"flash_attention sq{sq} skv{skv}"
-                  f"{'' if causal else ' full'}{f' off{off}' if off else ''}"] = dict(
+                  f"{'' if causal else ' full'}{f' off{off}' if off else ''}"
+                  f"{width}"] = dict(
                 ms=time_ms(lambda: fk.flash_attention(q, k, v, **kw), flush),
                 plain_ms=time_ms(lambda: fk.flash_attention_plain(
                     q, k, v, **kw), flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=sd_mask, is_causal=sd_causal),
                     flush),
-                bound_ms=ms, bound_by=by, max_abs_err=err)
+                bound_ms=ms, bound_by=by, max_abs_err=err,
+                design=fk.route(dt))
     emit({"phase": "contig_kernels", "cases": rows})
     emit({"phase": "contig_kernel_times", "card": card, "dtype": "bfloat16",
           "library": "one scaled_dot_product_attention call, kv heads "
                      "repeated beforehand (decode: over the whole cache "
-                     "with a mask)",
+                     "with a mask); the combine has none",
           "timing": "CUDA events, median of 30 after 5 warm-up, L2 flushed",
           **times})
     return times
@@ -862,8 +895,8 @@ def kernel_modules():
     from repro_torch.kernels.ws_matmul import ops as wm
     return {"paged_decode_attention": pa, "paged_prefill_attention": pp,
             "grouped_matmul": gm, "ssd_intra_chunk": ssd,
-            "decode_attention": dk, "flash_attention": fk,
-            "ws_matmul": wm.WS, "os_matmul": wm.OS}
+            "decode_attention": dk, "combine_splits": dk.COMBINE,
+            "flash_attention": fk, "ws_matmul": wm.WS, "os_matmul": wm.OS}
 
 
 def expected_launches(cfg, st) -> dict:
@@ -871,7 +904,8 @@ def expected_launches(cfg, st) -> dict:
     its layout's attention kernel once per attention layer (dense and
     MoE: every layer; hybrid: every shared-block application; ssm:
     none) — paged decode/prefill on the arena, split-KV decode/flash on
-    the contiguous cache — the grouped matmul 3 times per MoE layer, the
+    the contiguous cache, where split-KV decode's combine kernel follows
+    each split launch — the grouped matmul 3 times per MoE layer, the
     SSD kernel once per Mamba layer of a prefill call, and no ws or os
     matmul (no serving path runs them)."""
     pre, dec = st["prefill_calls"], st["decode_calls"]
@@ -881,6 +915,7 @@ def expected_launches(cfg, st) -> dict:
     return {"paged_decode_attention": dec * attn if paged else 0,
             "paged_prefill_attention": pre * attn if paged else 0,
             "decode_attention": 0 if paged else dec * attn,
+            "combine_splits": 0 if paged else dec * attn,
             "flash_attention": 0 if paged else pre * attn,
             "grouped_matmul": (3 * cfg.num_layers * (pre + dec)
                                if cfg.family == "moe" else 0),
@@ -1292,6 +1327,30 @@ def phase_resnet50(torch, dev, card: str):
 
 # --------------------------------------------------------------- main
 
+def tc_ptxas(log: str) -> dict:
+    """ptxas's registers and spills of each head-dim instance of the two
+    bf16 tensor-core attention kernels (flash_attention.cu and
+    paged_prefill.cu), from the build's compiler log:
+    {"flash d128": "Used ... registers ...; ... spill loads", ...}."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(r"(flash|prefill)_tc_kernelILi(\d+)E", ln)
+            cur = None
+            if m:
+                cur = (f"{'flash' if m[1] == 'flash' else 'paged_prefill'}"
+                       f" d{m[2]}")
+                out.setdefault(cur, [])
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            item = ln.split("ptxas info    : ")[-1].strip()
+            if item not in out[cur]:
+                out[cur].append(item)
+    return {k: "; ".join(v) for k, v in sorted(
+        out.items(), key=lambda kv: (kv[0].split()[0],
+                                     int(kv[0].split()[1][1:])))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1316,7 +1375,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.path.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0), "ptxas": ptxas})
+          "device": torch.cuda.get_device_name(0), "ptxas": ptxas,
+          "tc_ptxas": tc_ptxas(lib.compiler_log)})
 
     timings = phase_kernels(torch, dev, card)
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
@@ -1361,6 +1421,7 @@ def main() -> int:
     launches["ssd_intra_chunk"] = (hybrid_launches["ssd_intra_chunk"]
                                    + ssm_launches["ssd_intra_chunk"])
     launches["decode_attention"] = contig_launches["decode_attention"]
+    launches["combine_splits"] = contig_launches["combine_splits"]
     launches["flash_attention"] = contig_launches["flash_attention"]
     for name in ("ws_matmul", "os_matmul"):   # the dataflow sweep, run twice
         launches[name] = ws_launches[name] + paper_launches[name]
@@ -1383,6 +1444,10 @@ def main() -> int:
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:51"),
+        # the merge the reference computes in XLA beside its Pallas kernel
+        "combine_splits": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:94"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:64"),

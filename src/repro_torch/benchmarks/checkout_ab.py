@@ -1,0 +1,111 @@
+"""Time checkouts of this repository in turns on one card: the kernels of
+contiguous serving (flash attention, split-KV decode and its combine),
+paged prefill beside them, and the contiguous serving path.
+
+    python3 src/repro_torch/benchmarks/checkout_ab.py ROOT [ROOT ...]
+
+Each ROOT is a checkout of the repository: the parent commit unpacked
+with `git archive` into a directory that `.gitignore` lists, say, and
+`.`.  The roots run in the order given, each in a process of its own, so
+give them in turns (parent, change, change, parent).  Each process
+imports its ROOT's `chip_smoke.py` and `src/`, builds that checkout's
+kernels, and runs chip_smoke's phases `kernels` (paged decode and
+prefill), `contig_kernels` (split-KV decode, flash) and
+`serve_contiguous` (internlm2-1.8b at full depth, contiguous layout),
+which print their JSON lines as in chip_smoke.  Then it prints one line
+{"ab": ROOT, ...}: the card, ptxas's report of the bf16 tensor-core
+attention kernels (parsed by this checkout's `chip_smoke.tc_ptxas`;
+empty where ROOT's library was already built), the kernel times and the
+contiguous serve's step times.  Needs one CUDA card; exits nonzero when
+a root's phases fail.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[3]       # this checkout's root
+
+
+def _this_chip_smoke():
+    """This checkout's chip_smoke.py, loaded apart from ROOT's."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_one(root: Path) -> dict:
+    """ROOT's phases on the card; returns the summary line."""
+    parse = _this_chip_smoke().tc_ptxas
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+
+    if not torch.cuda.is_available():
+        raise SystemExit("checkout_ab: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    lib = kbuild.library()
+    build_s = time.perf_counter() - t0
+    timings = cs.phase_kernels(torch, dev, card)
+    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    contig = cs.phase_contig_kernels(torch, dev, card, flush_buf.zero_)
+    del flush_buf
+    steps = {}
+    real_emit = cs.emit
+
+    def keep(obj):
+        if obj.get("phase") == "serve_contiguous":
+            steps.update(wall_s=obj["wall_s"], step_s=obj["step_s"],
+                         prefill_calls=obj["prefill_calls"],
+                         decode_calls=obj["decode_calls"],
+                         launches=obj["launches"])
+        real_emit(obj)
+
+    cs.emit = keep
+    cs.phase_serve(torch, dev, card, "serve_contiguous",
+                   get_arch("internlm2-1.8b").model, layout="contiguous")
+    cs.emit = real_emit
+    pick = ("ms", "kernel_only_ms", "combine_ms", "plain_ms", "library_ms",
+            "bound_ms")
+    times = {k: {kk: v[kk] for kk in pick if kk in v}
+             for k, v in {**timings, **contig}.items()
+             if k.startswith(("flash", "decode_attention", "combine",
+                              "paged_prefill"))}
+    return {"ab": str(root), "card": card, "build_s": build_s,
+            "tc_ptxas": parse(lib.compiler_log), "times": times,
+            "serve_contiguous": steps}
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps(run_one(Path(argv[1]).resolve())), flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in argv:
+        proc = subprocess.run([sys.executable, __file__, "--one", root])
+        if proc.returncode != 0:
+            print(f"checkout_ab: {root} failed (exit {proc.returncode})",
+                  file=sys.stderr)
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
            "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu",
            "ws_matmul.cu")
-HEADERS = ("paged_common.cuh",)
+HEADERS = ("paged_common.cuh", "mma_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,8 @@ SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
 # repro_decode_attention(q, k, v, positions, m, l, acc, b, hq, hkv, S, d,
 #   splits, split_len, dtype, stream)
 SPLIT_DECODE_ARGTYPES = [_VOIDP] * 7 + [_INT] * 8 + [_VOIDP]
+# repro_combine_splits(m, l, acc, out, bh, group, d, splits, dtype, stream)
+COMBINE_ARGTYPES = [_VOIDP] * 4 + [_INT] * 5 + [_VOIDP]
 # repro_flash_attention(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset,
 #   causal, dtype, stream)
 FLASH_ARGTYPES = [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP]
@@ -137,6 +139,8 @@ class KernelLibrary:
         lib.repro_ssd_intra_chunk.restype = ctypes.c_int
         lib.repro_decode_attention.argtypes = SPLIT_DECODE_ARGTYPES
         lib.repro_decode_attention.restype = ctypes.c_int
+        lib.repro_combine_splits.argtypes = COMBINE_ARGTYPES
+        lib.repro_combine_splits.restype = ctypes.c_int
         lib.repro_flash_attention.argtypes = FLASH_ARGTYPES
         lib.repro_flash_attention.restype = ctypes.c_int
         lib.repro_ws_matmul.argtypes = WS_ARGTYPES

@@ -8,9 +8,11 @@
 // the `group` = hq / hkv query heads that share kv head h and the cache
 // rows [split * split_len, (split + 1) * split_len) of batch row b, and
 // writes that split's f32 online-softmax summary: m and l (group,) and
-// acc (group, d), at [(b * hkv + h) * splits + split].  The caller merges
-// the splits by log-sum-exp (`combine_splits`, plain PyTorch, as the
-// reference computes it outside Pallas).
+// acc (group, d), at [(b * hkv + h) * splits + split].  A second kernel,
+// `combine_kernel`, merges the splits by log-sum-exp into out (b, hq, d)
+// in q's type: the reference computes that merge outside Pallas, in XLA
+// (kernel.py:94 `combine_splits`); the port runs it as one launch so a
+// decode step's attention is two launches and no PyTorch arithmetic.
 //
 // Only the rows kv_pos <= positions[b] are read: the rest of the split
 // is skipped, so an empty split writes m = -1e30, l = 0, acc = 0, which
@@ -29,7 +31,9 @@
 // decode batch of 8 x 8 kv heads launches 8 x 64 blocks instead of 64.
 // Known limits, left for later work: CUDA cores (no mma) for the scores
 // and the PV product, and no asynchronous copy overlapping the next
-// tile's load with compute.
+// tile's load with compute.  The combine reads the f32 summaries once
+// (splits x group x (d + 2) floats per block) and writes the output once:
+// bound by those bytes, and at decode sizes by its launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +48,12 @@ constexpr int kTile = 32;
 constexpr float kNegInf = -1e30f;
 
 enum DTypeCode { kF32 = 0, kBF16 = 1 };
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -244,6 +254,59 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* posi
   return cudaGetLastError();
 }
 
+// The log-sum-exp merge of the splits (reference kernel.py:94), one block
+// per (batch row, kv head), threads over group x d: m_max over the splits,
+// corr = exp(m - m_max), l_tot = sum l corr, acc_tot = sum acc corr, out =
+// acc_tot / max(l_tot, 1e-30).  An empty split (m = -1e30, l = 0, acc = 0)
+// gets weight exp(-1e30 - m_max) = 0, or adds 0 where every split is empty.
+// Shared memory: corr [splits][group], then l_tot [group], f32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
+               const float* __restrict__ acc, T* __restrict__ out, int group, int d,
+               int splits) {
+  extern __shared__ float csm[];
+  float* corr = csm;
+  float* l_tot = csm + splits * group;
+  const long long bh = blockIdx.x;
+  const float* mb = m + bh * splits * group;
+  const float* lb = l + bh * splits * group;
+  for (int gi = threadIdx.x; gi < group; gi += kThreads) {
+    float m_max = kNegInf;
+    for (int s = 0; s < splits; ++s) m_max = fmaxf(m_max, mb[s * group + gi]);
+    float lt = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float c = expf(mb[s * group + gi] - m_max);
+      corr[s * group + gi] = c;
+      lt += lb[s * group + gi] * c;
+    }
+    l_tot[gi] = lt;
+  }
+  __syncthreads();
+  const float* ab = acc + bh * splits * group * d;
+  for (int e = threadIdx.x; e < group * d; e += kThreads) {
+    const int gi = e / d;
+    float a = 0.f;
+    for (int s = 0; s < splits; ++s) a += ab[(long long)s * group * d + e] * corr[s * group + gi];
+    out[bh * group * d + e] = from_f32<T>(a / fmaxf(l_tot[gi], 1e-30f));
+  }
+}
+
+template <typename T>
+cudaError_t launch_combine(const void* m, const void* l, const void* acc, void* out, int bh,
+                           int group, int d, int splits, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)(splits + 1) * group;
+  auto kern = combine_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<bh, kThreads, smem, stream>>>(static_cast<const float*>(m),
+                                       static_cast<const float*>(l),
+                                       static_cast<const float*>(acc), static_cast<T*>(out),
+                                       group, d, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace repro_dec
 
 // q (b, hq, d) and caches (b, S, hkv, d), all f32 or all bf16 (dtype
@@ -264,5 +327,22 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
   if (dtype == kF32)
     return static_cast<int>(launch<float>(q, k_cache, v_cache, positions, m, l, acc, b,
                                           hq, hkv, S, d, splits, split_len, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// m, l (bh, splits, group) and acc (bh, splits, group, d) f32, as
+// repro_decode_attention writes them; out (bh * group, d) = (b, hq, d) in
+// the dtype of code 0 / 1 (f32 / bf16).  Returns the CUDA error of the
+// launch.
+extern "C" int repro_combine_splits(const void* m, const void* l, const void* acc,
+                                    void* out, int bh, int group, int d, int splits,
+                                    int dtype, void* stream) {
+  using namespace repro_dec;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return static_cast<int>(
+        launch_combine<__nv_bfloat16>(m, l, acc, out, bh, group, d, splits, s));
+  if (dtype == kF32)
+    return static_cast<int>(launch_combine<float>(m, l, acc, out, bh, group, d, splits, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,6 +47,7 @@
 // over the KV length for small chunks, quantized pages on tensor cores.
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "paged_common.cuh"
 
 namespace repro {
@@ -89,6 +90,7 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 
 namespace tc {
 
+using namespace ::repro_mma;
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;        // packed query rows per block, 16 per warp
@@ -105,59 +107,6 @@ __host__ __device__ constexpr int ld(int d) { return d + kPad; }
 __host__ __device__ constexpr size_t smem_bytes(int d) {
   return sizeof(bf16) * (size_t)(1 + 2 * kStages) * kRows * ld(d) +
          sizeof(int) * (size_t)2 * kMetaSlots * kTok;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = fill ? 16 : 0;   // source size 0: the 16 bytes become zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // The block's walk over its batch row's table: tiles of kTok tokens,

@@ -74,7 +74,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace repro_ws {
+
+using namespace ::repro_mma;
 
 constexpr int kThreads = 256;            // 8 warps
 // __launch_bounds__ minimum blocks per SM: two (at most 128 registers)
@@ -119,21 +123,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = fill ? 16 : 0;   // source size 0: the 16 bytes become zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Fill an (R x C) region of shared memory (row stride ldd) from a
 // row-major global region (row stride lds): rows at or past rows_ok and
 // columns at or past cols_ok become zeros.  kVec: one cp.async per VEC
@@ -163,29 +152,6 @@ __device__ __forceinline__ void fill(T* dst, int ldd, const T* src, long long ld
 }
 
 // ------------------------------------------------------------ bf16 tile
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The block's 128 x 128 f32 sums on tensor cores: warp (wm, wn) = (warp
 // / 2, warp % 2) holds rows 32 wm .. +32 and columns 64 wn .. +64 as

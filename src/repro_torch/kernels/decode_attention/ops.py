@@ -8,15 +8,20 @@ to the positions `kv_pos <= positions[b]`.  The S axis is cut into
 `kv_splits` slices; each (batch row, kv head, split) reduces its slice
 for the `group` query heads that share the kv head into an f32
 online-softmax summary (m, l, acc), and `combine_splits` merges the
-summaries by log-sum-exp — in plain PyTorch, as the reference computes
-it outside Pallas.
+summaries by log-sum-exp (the reference computes that merge outside
+Pallas, in XLA).
 
 * `decode_attention` — the entry point.  A CUDA tensor launches the
-  hand-written kernel (`kernels/csrc/decode_attention.cu`) or raises on
-  a device, dtype, shape or layout it does not take; a CPU tensor takes
-  the plain version.  There is no fallback between the two.  `launches`
-  counts kernel launches.
+  hand-written split kernel and then the combine kernel
+  (`kernels/csrc/decode_attention.cu`) on the current stream, with no
+  PyTorch arithmetic between or after them, or raises on a device,
+  dtype, shape or layout they do not take; a CPU tensor takes the plain
+  version.  There is no fallback between the two.  `launches` counts the
+  split kernel's launches, `COMBINE.launches` the combine kernel's
+  (`combine_splits_kernel`).
 * `decode_attention_plain` — the same function in batched torch.
+* `combine_splits` — the merge in plain PyTorch: the combine kernel's
+  plain version.
 * `decode_partials` / `decode_partials_plain` — the split summaries
   (m, l, acc) before the combine, from the kernel or in batched torch.
 
@@ -37,6 +42,7 @@ TPU kernel does (kernel.py:45): bf16 rounds p there, f32 is exact.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -44,8 +50,10 @@ from repro_torch.kernels import build as B
 
 NEG_INF = -1e30
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import (reset by callers that count a run): the
+# split kernel's, and the combine kernel's
 launches = 0
+COMBINE = SimpleNamespace(launches=0)
 
 # element-type codes of the C interface (csrc/decode_attention.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -193,10 +201,48 @@ def decode_partials(q, k_cache, v_cache, positions, *, kv_splits=8):
     return _launch(q, k_cache, v_cache, positions, kv_splits)
 
 
+def combine_splits_kernel(m, l, acc, b: int, hq: int, d: int, out_dtype):
+    """`combine_splits` on the card: the combine kernel over CUDA
+    summaries m, l (b*hkv, splits, group) and acc (b*hkv, splits, group,
+    d), f32 and contiguous.  Raises on what the kernel does not take."""
+    if m.device.type != "cuda":
+        raise ValueError(f"the combine kernel runs on cuda, not {m.device}")
+    if out_dtype not in DTYPE_CODES:
+        raise ValueError(f"out dtype {out_dtype}: the kernel writes float32 "
+                         f"or bfloat16")
+    if m.dim() != 3 or l.shape != m.shape or acc.shape != (*m.shape, d):
+        raise ValueError("want m, l (b*hkv, splits, group) and acc "
+                         "(b*hkv, splits, group, d)")
+    bh, splits, g = m.shape
+    if bh * g != b * hq:
+        raise ValueError(f"{bh} x {g} summaries do not make ({b}, {hq}) "
+                         f"query rows")
+    for name, t in (("m", m), ("l", l), ("acc", acc)):
+        if t.dtype != torch.float32 or t.device != m.device:
+            raise ValueError(f"{name} must be float32 on {m.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if 4 * (splits + 1) * g > MAX_SMEM:
+        raise ValueError(f"{splits} splits x group {g} exceed the combine "
+                         f"kernel's shared memory")
+    out = torch.empty((b, hq, d), dtype=out_dtype, device=m.device)
+    lib = B.library().lib
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        err = lib.repro_combine_splits(
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), bh, g,
+            d, splits, DTYPE_CODES[out_dtype], stream)
+    B.check(err, "combine_splits")
+    COMBINE.launches += 1
+    return out
+
+
 def decode_attention(q, k_cache, v_cache, positions, *, kv_splits=8):
-    """`decode_partials` merged by `combine_splits`: (b, hq, d) in q's
-    dtype."""
+    """`decode_partials` merged by `combine_splits` (on a CUDA tensor,
+    the combine kernel): (b, hq, d) in q's dtype."""
     b, hq, d = q.shape
     m, l, acc = decode_partials(q, k_cache, v_cache, positions,
                                 kv_splits=kv_splits)
-    return combine_splits(m, l, acc, b, hq, d, q.dtype)
+    if q.device.type == "cpu":
+        return combine_splits(m, l, acc, b, hq, d, q.dtype)
+    return combine_splits_kernel(m, l, acc, b, hq, d, q.dtype)

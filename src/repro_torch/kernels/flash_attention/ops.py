@@ -16,6 +16,18 @@ at or before its own position.
   counts kernel launches.
 * `flash_attention_plain` — one masked f32 softmax in batched torch.
 
+The kernel has two designs, fixed by the dtype (`route`); neither falls
+back to the other:
+
+* bf16, what every served configuration runs: a flash-style
+  tensor-core kernel (mma.sync bf16 -> f32).  A block takes 64 packed
+  (query position, group member) rows of one (batch row, kv head), so
+  the whole GQA group shares each K/V tile; 64-key K/V tiles arrive
+  through a 2-stage cp.async ring; the online softmax and the O
+  accumulator stay in registers.  Head dims: multiples of 16 up to 256.
+* f32, taken only by the parity checks: CUDA cores, 32 x 32 tiles
+  (tensor cores would make it TF32, which the port never uses).
+
 Both compute scores in f32, keep l as the sum of the f32
 probabilities, and round p to V's dtype before the PV product, as the
 TPU kernel does (kernel.py:57): bf16 rounds p there, f32 is exact.  The
@@ -29,6 +41,8 @@ import math
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.kernels.paged_prefill.ops import (BLOCK_RESERVED_SMEM,
+                                                   SM_SMEM)
 
 NEG_INF = -1e30
 
@@ -38,11 +52,19 @@ launches = 0
 # element-type codes of the C interface (csrc/flash_attention.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel geometry (csrc/flash_attention.cu Tiles / Layout): query rows,
-# kv rows and shared-memory row padding per dtype
-TILES = {torch.bfloat16: (64, 64, 8), torch.float32: (32, 32, 4)}
+# the f32 CUDA-core design's geometry (flash_attention.cu Layout): query
+# rows, keys and shared-memory row padding per tile
+F32_TILE = (32, 32, 4)
+# the bf16 tensor-core design's geometry (flash_attention.cu namespace tc)
+TC_ROWS = 64           # packed query rows per block, 16 per warp
+TC_TILE_TOKENS = 64    # keys per K/V tile
+TC_STAGES = 2          # K/V tiles in flight (cp.async ring)
+TC_PAD = 8             # bf16 elements of shared-memory row padding
 MAX_SMEM = 232_448
 MAX_HEAD_DIM = 256
+MAX_GRID_Y = 65535
+
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 
 def flash_attention_plain(q, k, v, *, causal=True, q_offset=0):
@@ -69,18 +91,44 @@ def flash_attention_plain(q, k, v, *, causal=True, q_offset=0):
 
 # ----------------------------------------------------------- the kernel
 
+def route(dtype) -> str:
+    """Which design takes a dtype: bf16 on tensor cores, f32 on CUDA
+    cores."""
+    return TENSOR_CORES if dtype == torch.bfloat16 else CUDA_CORES
+
+
 def _round128(n: int) -> int:
     return -(-n // 128) * 128
 
 
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core block
+    (flash_attention.cu `tc::smem_bytes`): Q and the K/V ring in bf16 at
+    row stride d + 8."""
+    return 2 * (1 + 2 * TC_STAGES) * TC_ROWS * (d + TC_PAD)
+
+
+def tc_blocks_per_sm(d: int) -> int:
+    """Tensor-core blocks resident on one SM, as shared memory allows."""
+    return SM_SMEM // (tc_smem_bytes(d) + BLOCK_RESERVED_SMEM)
+
+
+def tc_tiles(sq: int, group: int) -> int:
+    """Blocks of packed rows per (batch row, kv head): the tensor-core
+    grid is (b * hkv, tc_tiles(sq, group))."""
+    return -(-sq * group // TC_ROWS)
+
+
 def smem_bytes(dtype, d: int) -> int:
-    """Dynamic shared memory of one block (flash_attention.cu Layout)."""
-    bq, bkv, pad = TILES[dtype]
-    e = torch.tensor([], dtype=dtype).element_size()
-    ldq, lds, ldp, ldo = d + pad, bkv + 4, bkv + pad, d + 4
-    return (_round128(e * bq * ldq) + 2 * _round128(e * bkv * ldq)
-            + _round128(4 * bq * lds) + _round128(e * bq * ldp)
-            + _round128(4 * bq * ldo) + 2 * _round128(4 * bq))
+    """Dynamic shared memory of one block of the design `dtype` takes
+    (the f32 one: flash_attention.cu Layout, f32 Q/K/V, S/P, O, m, l)."""
+    if route(dtype) == TENSOR_CORES:
+        return tc_smem_bytes(d)
+    bq, bkv, pad = F32_TILE
+    ldq, lds, ldo = d + pad, bkv + 4, d + 4
+    return (_round128(4 * bq * ldq) + 2 * _round128(4 * bkv * ldq)
+            + _round128(4 * bq * lds) + _round128(4 * bq * ldo)
+            + 2 * _round128(4 * bq))
 
 
 def _launch(q, k, v, causal: bool, q_offset: int):
@@ -111,8 +159,13 @@ def _launch(q, k, v, causal: bool, q_offset: int):
                          f"up to {MAX_HEAD_DIM}")
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} must be >= 0")
-    if b * hq > 65535:
-        raise ValueError(f"b * hq = {b * hq} exceeds the grid's 65535")
+    if route(q.dtype) == TENSOR_CORES:
+        if tc_tiles(sq, hq // hkv) > MAX_GRID_Y or b * hkv >= 2 ** 31:
+            raise ValueError(f"sq {sq} x group {hq // hkv} or b * hkv "
+                             f"{b * hkv} exceeds the grid")
+    elif b * hq > MAX_GRID_Y:
+        raise ValueError(f"b * hq = {b * hq} exceeds the grid's "
+                         f"{MAX_GRID_Y}")
     if smem_bytes(q.dtype, d) > MAX_SMEM:
         raise ValueError(f"head_dim {d} needs more shared memory than a "
                          f"block has")

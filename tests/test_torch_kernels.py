@@ -394,6 +394,77 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, case):
                                                 q_offset=off), dtype)
 
 
+# (b, sq, skv, causal, q_offset) at internlm2's heads: prompts of 1, 5,
+# 63, 64, 65 and 511 tokens, chunks whose keys run past sq at an offset
+# (skv not a multiple of 64), keys past the causal diagonal, non-causal
+TC_LENGTHS = [(1, 1, 1, True, 0), (1, 5, 5, True, 0), (2, 63, 63, True, 0),
+              (1, 64, 64, True, 0), (1, 65, 65, True, 0),
+              (1, 511, 511, True, 0), (1, 65, 300, True, 235),
+              (2, 64, 200, True, 100), (1, 1, 257, True, 256),
+              (2, 100, 130, False, 0), (1, 63, 100, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_flash_tensor_cores_match_plain_across_widths(cuda_device, group, d):
+    # 2 kv heads, a 77-token prompt (ragged packed tiles at every group)
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, 2, 77, 77,
+                            2 * group, 2, d)
+    before = fk.launches
+    got = fk.flash_attention(q, k, v)
+    assert fk.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_close(got, fk.flash_attention_plain(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_LENGTHS,
+                         ids=lambda c: f"b{c[0]}-sq{c[1]}-skv{c[2]}-"
+                                       f"{'causal' if c[3] else 'full'}-off{c[4]}")
+def test_flash_tensor_cores_match_plain_across_lengths(cuda_device, case):
+    b, sq, skv, causal, off = case
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, b, sq, skv, 16, 8,
+                            128)
+    got = fk.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    _assert_close(got, fk.flash_attention_plain(q, k, v, causal=causal,
+                                                q_offset=off), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: f"b{c[0]}-S{c[4]}")
+def test_combine_kernel_matches_plain_on_card(cuda_device, dtype, case):
+    # the plain split summaries: empty splits (position 0, short rows), a
+    # position past S, S not a multiple of the 8 splits (S 61); and one
+    # (batch row, kv head) whose every split is empty gives exact zeros
+    q, k, v, pos = _split_inputs(cuda_device, dtype, *case)
+    b, hq, d = q.shape
+    m, l, acc = (t.contiguous() for t in dk.decode_partials_plain(q, k, v, pos))
+    m[0], l[0], acc[0] = dk.NEG_INF, 0.0, 0.0
+    before = (dk.launches, dk.COMBINE.launches)
+    got = dk.combine_splits_kernel(m, l, acc, b, hq, d, dtype)
+    assert (dk.launches, dk.COMBINE.launches) == (before[0], before[1] + 1)
+    torch.cuda.synchronize()
+    want = dk.combine_splits(m, l, acc, b, hq, d, dtype)
+    _assert_close(got, want, dtype)
+    g = m.shape[2]
+    assert not got.reshape(-1, d)[:g].any()
+
+
+@pytest.mark.cuda
+def test_decode_attention_launches_the_split_and_the_combine_once(
+        cuda_device):
+    args = _split_inputs(cuda_device, torch.bfloat16, *SPLIT_CASES[0])
+    before = (dk.launches, dk.COMBINE.launches)
+    got = dk.decode_attention(*args)
+    assert (dk.launches, dk.COMBINE.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_close(got, dk.decode_attention_plain(*args), torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_contiguous_kernel_wrappers_refuse_what_the_kernels_do_not_take(
         cuda_device):
@@ -421,7 +492,7 @@ def test_contiguous_kernel_wrappers_refuse_what_the_kernels_do_not_take(
 def test_cpu_tensors_take_the_split_decode_and_flash_plain_versions():
     cpu = torch.device("cpu")
     args = _split_inputs(cpu, torch.float32, *SPLIT_CASES[2])
-    before = (dk.launches, fk.launches)
+    before = (dk.launches, dk.COMBINE.launches, fk.launches)
     torch.testing.assert_close(dk.decode_attention(*args),
                                dk.decode_attention_plain(*args),
                                rtol=0, atol=0)
@@ -429,7 +500,10 @@ def test_cpu_tensors_take_the_split_decode_and_flash_plain_versions():
     torch.testing.assert_close(fk.flash_attention(q, k, v, q_offset=3),
                                fk.flash_attention_plain(q, k, v, q_offset=3),
                                rtol=0, atol=0)
-    assert (dk.launches, fk.launches) == before
+    assert (dk.launches, dk.COMBINE.launches, fk.launches) == before
+    with pytest.raises(ValueError, match="runs on cuda"):
+        dk.combine_splits_kernel(*dk.decode_partials(*args), 3, 4, 16,
+                                 torch.float32)
     meta = torch.empty(2, 4, 16, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         dk.decode_attention(meta, meta[:, None], meta[:, None], meta[:, 0])
@@ -440,11 +514,37 @@ def test_cpu_tensors_take_the_split_decode_and_flash_plain_versions():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_and_flash_shared_memory_fits_the_main_path_widths(dtype):
     # the wrappers refuse a layout past a block's 227 KB: every width the
-    # port serves (head_dim 16 to 160, GQA groups of 1 and 2) fits
+    # port serves (head_dim 16 to 160, GQA groups of 1 and 2) fits.  bf16
+    # takes the tensor-core layout (Q and a 2-stage K/V ring, bf16), f32
+    # the CUDA-core one
     for d in (16, 32, 128, 160, 256):
         assert fk.smem_bytes(dtype, d) <= fk.MAX_SMEM
         for g in (1, 2):
             assert dk.smem_bytes(g, d) <= dk.MAX_SMEM
+    if dtype == torch.bfloat16:
+        assert fk.smem_bytes(dtype, 128) == fk.tc_smem_bytes(128) == 87_040
+        assert fk.tc_smem_bytes(160) == 107_520
+
+
+def test_flash_routes_by_dtype():
+    assert fk.route(torch.bfloat16) == fk.TENSOR_CORES
+    assert fk.route(torch.float32) == fk.CUDA_CORES
+
+
+@pytest.mark.parametrize("arch,hq,hkv,d,tiles", [
+    ("internlm2-1.8b", 16, 8, 128, 16), ("zamba2-2.7b", 32, 32, 160, 8),
+    ("group of 8", 32, 4, 128, 64)])
+def test_flash_tensor_core_geometry_fits_two_blocks_per_sm(arch, hq, hkv, d,
+                                                           tiles):
+    # 64 packed rows per block over 64-key tiles in a 2-stage ring
+    assert fk.TC_ROWS == fk.TC_TILE_TOKENS == 64 and fk.TC_STAGES == 2
+    assert fk.tc_blocks_per_sm(d) >= 2, arch
+    # packed tiles per kv head at a 511-token prompt: 16 at group 2, so
+    # internlm2's 8 kv heads launch 128 blocks on 132 SMs
+    assert fk.tc_tiles(511, hq // hkv) == tiles
+    # every multiple of 16 up to 256 fits one block
+    for dd in range(16, fk.MAX_HEAD_DIM + 1, 16):
+        assert fk.tc_smem_bytes(dd) <= fk.MAX_SMEM
 
 
 
