@@ -10,7 +10,8 @@ exit at the first failure):
    the CUDA kernels built from `src/repro_torch/kernels/csrc` with nvcc
    for sm_90a (the eight ports of the TPU kernels and split-KV decode's
    combine), with ptxas's registers and spills of every head-dim
-   instance of the bf16 flash and paged-prefill kernels (`tc_ptxas`).
+   instance of the bf16 flash, paged-prefill and paged-decode kernels
+   (`tc_ptxas`).
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
@@ -18,13 +19,16 @@ exit at the first failure):
    including 0), in bf16 and f32, with page_positions + POS_PAD holes +
    partials, and with int8 and fp8 pages, each output element within
    rtol |plain| + atol * max |plain row| (`repro_torch/kernels/
-   tolerance.py`).  bf16 prefill with bf16 pages takes the tensor-core
-   design (each case names its design); it is also held at c 64 at
-   qwen3-moe-30b-a3b's width (hq 32, hkv 4) and zamba2-2.7b's (hq 32,
-   hkv 32, d 160).  The main-path cases are timed, and prefill also at
-   those two widths: kernel, plain version, one
-   `scaled_dot_product_attention` call over the gathered K/V (a
-   yardstick the port never calls) and the bound.
+   tolerance.py`).  bf16 q with bf16 pages takes the tensor-core
+   designs (decode: split over the KV length; each case names its
+   design); bf16 decode (plain, and holes + partials) and prefill at c
+   64 are also held at qwen3-moe-30b-a3b's width (hq 32, hkv 4) and
+   zamba2-2.7b's (hq 32, hkv 32, d 160).  The main-path cases are
+   timed, and bf16 decode and prefill also at those two widths: kernel,
+   plain version, one `scaled_dot_product_attention` call over the
+   gathered K/V (a yardstick the port never calls) and the bound;
+   decode also with its split rule, its grid's blocks and the blocks
+   that walk pages.
 3. moe/ssd kernels: the grouped matmul at qwen3-moe-30b-a3b's shapes
    (128 experts, K x F 2048 x 768 and 768 x 2048, C 64 and 4096, with
    the live rows of a random top-8 routing and without) and the SSD
@@ -115,8 +119,9 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 ROOT = Path(__file__).resolve().parent
-# (arch, hq, hkv, head_dim) of the served widths the prefill kernel is
-# also held and timed at, beside internlm2-1.8b's (16, 8, 128)
+# (arch, hq, hkv, head_dim) of the served widths the paged decode,
+# paged prefill and flash kernels are also held and timed at, beside
+# internlm2-1.8b's (16, 8, 128)
 PREFILL_WIDTHS = (("qwen3-moe-30b-a3b", 32, 4, 128),
                   ("zamba2-2.7b", 32, 32, 160))
 
@@ -230,7 +235,14 @@ def phase_kernels(torch, dev, card: str):
     rows = []
     results = {}
 
+    # the other served widths: qwen3-moe-30b-a3b and zamba2-2.7b
+    wide = {arch: KernelBench(torch, dev, hq=hq_a, hkv=hkv_a, d=d_a)
+            for arch, hq_a, hkv_a, d_a in PREFILL_WIDTHS}
+
     # ---------------------------------------------------------- decode
+    # bf16 q with bf16 pages takes the tensor-core design (split over the
+    # KV length, one launch), every other pair the CUDA-core one
+    # (paged_attention/ops.py `route`)
     for qdt, kvdt, mode in ((bf16, bf16, "plain"), (f32, f32, "plain"),
                             (bf16, bf16, "holes+partials"),
                             (f32, f32, "holes+partials"),
@@ -247,10 +259,28 @@ def phase_kernels(torch, dev, card: str):
         want = pa.paged_decode_attention_plain(q, kp, vp, kb.bt,
                                                kb.positions, **kw)
         torch.cuda.synchronize()
-        name = f"decode {qdt} q, {kvdt} pages, {mode}"
+        name = f"decode {qdt} q, {kvdt} pages, {mode} ({pa.route(qdt, kvdt)})"
         err = check(name, got, want, qdt, rows)
         if (qdt, kvdt, mode) == (bf16, bf16, "plain"):
-            results["decode"] = dict(q=q, kp=kp, vp=vp, err=err)
+            results["decode"] = dict(kb=kb, q=q, kp=kp, vp=vp, err=err)
+    for arch, kba in wide.items():
+        kp, vp, _, _ = kba.pages(bf16)
+        q = kba.q((b, kba.hq, kba.d), bf16)
+        for mode in ("plain", "holes+partials"):
+            kw = ({} if mode == "plain"
+                  else dict(page_positions=kba.holes(), partials=True))
+            got = pa.paged_decode_attention(q, kp, vp, kba.bt, kba.positions,
+                                            **kw)
+            want = pa.paged_decode_attention_plain(q, kp, vp, kba.bt,
+                                                   kba.positions, **kw)
+            torch.cuda.synchronize()
+            name = (f"decode {bf16} q, {bf16} pages, {mode}, {arch} (hq "
+                    f"{kba.hq}, hkv {kba.hkv}, d {kba.d}) "
+                    f"({pa.route(bf16, bf16)})")
+            err = check(name, got, want, bf16, rows)
+            if mode == "plain":
+                results[f"decode {arch}"] = dict(kb=kba, q=q, kp=kp, vp=vp,
+                                                 err=err)
 
     # ---------------------------------------------------------- prefill
     # bf16 q with bf16 pages takes the tensor-core design, every other
@@ -293,7 +323,7 @@ def phase_kernels(torch, dev, card: str):
     # the other served widths, c 64, bf16: qwen3-moe-30b-a3b and zamba2-2.7b
     clen = torch.tensor(clen_for[64], dtype=torch.int32, device=dev)
     for arch, hq_a, hkv_a, d_a in PREFILL_WIDTHS:
-        kba = KernelBench(torch, dev, hq=hq_a, hkv=hkv_a, d=d_a)
+        kba = wide[arch]
         kp, vp, _, _ = kba.pages(bf16)
         q = kba.q((b, 64, hq_a, d_a), bf16)
         got = pp.paged_prefill_attention(q, kp, vp, kba.bt, start, clen)
@@ -309,12 +339,6 @@ def phase_kernels(torch, dev, card: str):
 
     # ------------------------------------------- timing, main-path case
     elt = 2                                          # bf16 bytes
-    # decode: live K/V of every row, q, out, the walked table entries
-    live = (kb.positions.long() + 1)
-    dec = results["decode"]
-    dec_bytes = (2 * int(live.sum()) * hkv * d * elt + 2 * b * hq * d * elt
-                 + 4 * int(((live + page - 1) // page).sum()) + 4 * b)
-    dec_ops = 4 * hq * d * int(live.sum())
     timings = {}
     kv_pos = torch.arange(kb.mp * page, device=dev)
 
@@ -331,16 +355,46 @@ def phase_kernels(torch, dev, card: str):
         return (qq.reshape(b, c, kbx.hq, kbx.d).transpose(1, 2).contiguous(),
                 k, v)
 
-    qd, kd, vd = sdpa_inputs(kb, dec["q"], dec["kp"], dec["vp"], 1)
-    mask_d = (kv_pos[None, :] <= kb.positions[:, None].long())[:, None, None, :]
-    timings["paged_decode_attention"] = dict(
-        ms=time_ms(lambda: pa.paged_decode_attention(
-            dec["q"], dec["kp"], dec["vp"], kb.bt, kb.positions), kb.flush),
-        plain_ms=time_ms(lambda: pa.paged_decode_attention_plain(
-            dec["q"], dec["kp"], dec["vp"], kb.bt, kb.positions), kb.flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask_d), kb.flush),
-        bytes=dec_bytes, ops=dec_ops, max_abs_err=dec["err"])
+    def decode_timing(dec):
+        """Kernel, plain version and SDPA over the gathered K/V at one
+        width; the bytes are the live K/V of every row, q, out, the
+        walked table entries and the positions.  Beside them the bf16
+        design's split rule and its blocks: all of the grid, and those
+        that walk pages (a split wholly past its row's position exits);
+        and the kernel's floor, the same call with every row at
+        position 0 (one token, one split, no merge)."""
+        kbx = dec["kb"]
+        live = kbx.positions.long() + 1
+        pages = (live + page - 1) // page
+        nbytes = (2 * int(live.sum()) * kbx.hkv * kbx.d * elt
+                  + 2 * b * kbx.hq * kbx.d * elt + 4 * int(pages.sum()) + 4 * b)
+        qs, ks, vs = sdpa_inputs(kbx, dec["q"], dec["kp"], dec["vp"], 1)
+        mask = (kv_pos[None, :] <= kbx.positions[:, None].long())[:, None,
+                                                                  None, :]
+        args = (dec["q"], dec["kp"], dec["vp"], kbx.bt, kbx.positions)
+        first = (*args[:4], torch.zeros_like(kbx.positions))
+        pps = pa.split_pages(page)
+        splits = pa.num_splits(kbx.mp, page)
+        return dict(
+            ms=time_ms(lambda: pa.paged_decode_attention(*args), kbx.flush),
+            plain_ms=time_ms(lambda: pa.paged_decode_attention_plain(*args),
+                             kbx.flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), kbx.flush),
+            bytes=nbytes, ops=4 * kbx.hq * kbx.d * int(live.sum()),
+            max_abs_err=dec["err"],
+            split_rule=(f"split_pages = max(1, {pa.SPLIT_TOKENS} // page) = "
+                        f"{pps} pages; splits = ceil(max_pages / split_pages) "
+                        f"= {splits}; grid (b * hkv, splits)"),
+            blocks=b * kbx.hkv * splits,
+            live_blocks=kbx.hkv * int(((pages + pps - 1) // pps).sum()),
+            floor_ms=time_ms(lambda: pa.paged_decode_attention(*first),
+                             kbx.flush))
+
+    timings["paged_decode_attention"] = decode_timing(results["decode"])
+    for arch, *_ in PREFILL_WIDTHS:
+        timings[f"paged_decode_attention {arch}"] = decode_timing(
+            results[f"decode {arch}"])
 
     def prefill_timing(pre, c=64):
         """Kernel, plain version and SDPA over the gathered K/V at one
@@ -383,8 +437,8 @@ def phase_kernels(torch, dev, card: str):
     emit({"phase": "kernel_times", "card": card, "dtype": "bfloat16",
           "shapes": {"b": b, "hq": hq, "hkv": hkv, "d": d, "page": page,
                      "max_pages": kb.mp, "prefill_c": 64,
-                     "prefill_widths": {a: {"hq": x, "hkv": y, "d": z}
-                                        for a, x, y, z in PREFILL_WIDTHS}},
+                     "widths": {a: {"hq": x, "hkv": y, "d": z}
+                                for a, x, y, z in PREFILL_WIDTHS}},
           "timing": "CUDA events, median of 30 after 5 warm-up, L2 flushed",
           **{k: {kk: vv for kk, vv in v.items()} for k, v in timings.items()}})
     return timings
@@ -1328,18 +1382,19 @@ def phase_resnet50(torch, dev, card: str):
 # --------------------------------------------------------------- main
 
 def tc_ptxas(log: str) -> dict:
-    """ptxas's registers and spills of each head-dim instance of the two
-    bf16 tensor-core attention kernels (flash_attention.cu and
-    paged_prefill.cu), from the build's compiler log:
+    """ptxas's registers and spills of each head-dim instance of the
+    three bf16 tensor-core attention kernels (flash_attention.cu,
+    paged_prefill.cu and paged_attention.cu), from the build's compiler
+    log:
     {"flash d128": "Used ... registers ...; ... spill loads", ...}."""
     import re
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"(flash|prefill)_tc_kernelILi(\d+)E", ln)
+            m = re.search(r"(flash|prefill|decode)_tc_kernelILi(\d+)E", ln)
             cur = None
             if m:
-                cur = (f"{'flash' if m[1] == 'flash' else 'paged_prefill'}"
+                cur = (f"{'flash' if m[1] == 'flash' else 'paged_' + m[1]}"
                        f" d{m[2]}")
                 out.setdefault(cur, [])
         elif cur is not None and ("registers" in ln or "spill" in ln):

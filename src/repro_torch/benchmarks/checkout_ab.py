@@ -1,6 +1,7 @@
-"""Time checkouts of this repository in turns on one card: the kernels of
-contiguous serving (flash attention, split-KV decode and its combine),
-paged prefill beside them, and the contiguous serving path.
+"""Time checkouts of this repository in turns on one card: the paged
+attention kernels (decode and prefill), the kernels of contiguous
+serving (flash attention, split-KV decode and its combine), and both
+serving paths of internlm2-1.8b.
 
     python3 src/repro_torch/benchmarks/checkout_ab.py ROOT [ROOT ...]
 
@@ -10,14 +11,16 @@ with `git archive` into a directory that `.gitignore` lists, say, and
 give them in turns (parent, change, change, parent).  Each process
 imports its ROOT's `chip_smoke.py` and `src/`, builds that checkout's
 kernels, and runs chip_smoke's phases `kernels` (paged decode and
-prefill), `contig_kernels` (split-KV decode, flash) and
-`serve_contiguous` (internlm2-1.8b at full depth, contiguous layout),
-which print their JSON lines as in chip_smoke.  Then it prints one line
-{"ab": ROOT, ...}: the card, ptxas's report of the bf16 tensor-core
-attention kernels (parsed by this checkout's `chip_smoke.tc_ptxas`;
-empty where ROOT's library was already built), the kernel times and the
-contiguous serve's step times.  Needs one CUDA card; exits nonzero when
-a root's phases fail.
+prefill), `contig_kernels` (split-KV decode, flash), `serve` and
+`serve_contiguous` (internlm2-1.8b at full depth, paged and contiguous),
+which print their JSON lines as in chip_smoke, and times ROOT's paged
+decode kernel at the main path in every dtype pair it takes (chip_smoke
+times only bf16 with bf16), on the card and on the host.  Then it prints
+one line {"ab": ROOT, ...}: the card, ptxas's report of the bf16
+tensor-core attention kernels (parsed by this checkout's
+`chip_smoke.tc_ptxas`; empty where ROOT's library was already built),
+the kernel times and each serve's step times.  Needs one CUDA card;
+exits nonzero when a root's phases fail.
 """
 from __future__ import annotations
 
@@ -38,6 +41,38 @@ def _this_chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def decode_routes(torch, cs, dev, calls: int = 500) -> dict:
+    """ROOT's paged decode kernel at chip_smoke's main-path geometry in
+    every dtype pair it takes: the device time (CUDA-event medians, L2
+    flushed, as chip_smoke times) and the host's, `enqueue_us`: the mean
+    wall time of one call over `calls` calls made back to back without a
+    synchronise (the wrapper's checks and the launch, which serving pays
+    once per attention layer)."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    kb = cs.KernelBench(torch, dev)
+    out = {}
+    for qdt, kvdt in ((torch.bfloat16, torch.bfloat16),
+                      (torch.float32, torch.float32),
+                      (torch.bfloat16, torch.int8),
+                      (torch.bfloat16, torch.float8_e4m3fn)):
+        kp, vp, ks, vs = kb.pages(kvdt)
+        q = kb.q((kb.b, kb.hq, kb.d), qdt)
+
+        def call():
+            return pa.paged_decode_attention(q, kp, vp, kb.bt, kb.positions,
+                                             k_scale=ks, v_scale=vs)
+        ms = cs.time_ms(call, kb.flush)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        enqueue_us = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        out[f"paged_decode {qdt} q, {kvdt} pages"] = {
+            "ms": ms, "enqueue_us": enqueue_us}
+    return out
 
 
 def run_one(root: Path) -> dict:
@@ -65,30 +100,32 @@ def run_one(root: Path) -> dict:
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     contig = cs.phase_contig_kernels(torch, dev, card, flush_buf.zero_)
     del flush_buf
+    routes = decode_routes(torch, cs, dev)
     steps = {}
     real_emit = cs.emit
 
     def keep(obj):
-        if obj.get("phase") == "serve_contiguous":
-            steps.update(wall_s=obj["wall_s"], step_s=obj["step_s"],
-                         prefill_calls=obj["prefill_calls"],
-                         decode_calls=obj["decode_calls"],
-                         launches=obj["launches"])
+        if obj.get("phase") in ("serve", "serve_contiguous"):
+            steps[obj["phase"]] = dict(
+                wall_s=obj["wall_s"], step_s=obj["step_s"],
+                prefill_calls=obj["prefill_calls"],
+                decode_calls=obj["decode_calls"], launches=obj["launches"])
         real_emit(obj)
 
     cs.emit = keep
-    cs.phase_serve(torch, dev, card, "serve_contiguous",
-                   get_arch("internlm2-1.8b").model, layout="contiguous")
+    dense = get_arch("internlm2-1.8b").model
+    cs.phase_serve(torch, dev, card, "serve", dense)
+    cs.phase_serve(torch, dev, card, "serve_contiguous", dense,
+                   layout="contiguous")
     cs.emit = real_emit
     pick = ("ms", "kernel_only_ms", "combine_ms", "plain_ms", "library_ms",
-            "bound_ms")
+            "bound_ms", "blocks", "live_blocks", "floor_ms", "enqueue_us")
     times = {k: {kk: v[kk] for kk in pick if kk in v}
-             for k, v in {**timings, **contig}.items()
+             for k, v in {**timings, **contig, **routes}.items()
              if k.startswith(("flash", "decode_attention", "combine",
-                              "paged_prefill"))}
+                              "paged_prefill", "paged_decode"))}
     return {"ab": str(root), "card": card, "build_s": build_s,
-            "tc_ptxas": parse(lib.compiler_log), "times": times,
-            "serve_contiguous": steps}
+            "tc_ptxas": parse(lib.compiler_log), "times": times, **steps}
 
 
 def main(argv: list[str]) -> int:

@@ -20,16 +20,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
            "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu",
            "ws_matmul.cu")
-HEADERS = ("paged_common.cuh", "mma_common.cuh")
+HEADERS = ("paged_common.cuh", "mma_common.cuh", "paged_tc.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 # repro_paged_decode(q, k, v, k_scale, v_scale, block_table, positions,
-#   page_positions, out, m, l, b, hq, hkv, d, page, max_pages, q_dtype,
-#   kv_dtype, partials, stream)
-DECODE_ARGTYPES = [_VOIDP] * 11 + [_INT] * 9 + [_VOIDP]
+#   page_positions, out, m, l, part, tickets, b, hq, hkv, d, page,
+#   max_pages, pages_per_split, q_dtype, kv_dtype, partials, stream)
+DECODE_ARGTYPES = [_VOIDP] * 13 + [_INT] * 10 + [_VOIDP]
 # repro_paged_prefill(q, k, v, k_scale, v_scale, block_table, start,
 #   chunk_len, page_positions, out, m, l, b, c, hq, hkv, d, page,
 #   max_pages, rows_per_tile, q_dtype, kv_dtype, partials, stream)

@@ -1,8 +1,8 @@
 // Shared device code of the two paged-attention kernels (decode and
-// chunk prefill) for Hopper (sm_90a): the CUDA-core machine that paged
-// decode runs for every dtype pair, and chunk prefill for f32 q and for
-// int8/fp8 pages.  bf16 prefill with bf16 pages runs its own tensor-core
-// design instead (paged_prefill.cu, namespace tc).
+// chunk prefill) for Hopper (sm_90a): the CUDA-core machine that both
+// run for f32 q and for int8/fp8 pages.  bf16 q with bf16 pages runs
+// tensor-core designs instead (paged_attention.cu namespace dec_tc,
+// paged_prefill.cu namespace tc, over paged_tc.cuh's tile walk).
 //
 // Both kernels are one machine here: a thread block owns R query rows of one
 // (batch row, kv head) pair, walks that batch row's block table through
@@ -17,16 +17,16 @@
 // read (decode does 4 flops per K/V element pair and per query row, far
 // below the card's ~295 flop/byte ridge).  The design reads each live
 // page once per (batch row, kv head) block with 16-byte vector loads
-// (bf16; 2 x 16 B for f32, 8 B for int8/fp8) and stops at the last page
-// any of its rows can see, so no byte past the causal limit moves; the
+// (2 x 16 B for f32, 8 B for int8/fp8) and stops at the last page any
+// of its rows can see, so no byte past the causal limit moves; the
 // whole GQA group (or chunk tile) shares every page it loads.  Known
 // limits of this machine, left for later work: no tensor cores (scores
 // and the PV product run on CUDA cores from f32 in shared memory), small
 // tiles (rows x d <= 4096, so a chunk's rows are split over blocks that
 // each re-read the walk), no split over the KV length (decode at batch 8
 // launches 8 x 8 = 64 blocks on 132 SMs), and no asynchronous copy
-// overlapping the next tile's load with compute.  The bf16 prefill
-// design lifts the first, second and last of these.
+// overlapping the next tile's load with compute.  The bf16 designs lift
+// all four; moving f32 and int8/fp8 onto them is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,8 +68,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// 8 consecutive elements -> f32, as one or two vector loads.  The
-// caller guarantees 8-element alignment (d % 8 == 0, 16-byte base).
+// 8 consecutive page elements -> f32, as one or two vector loads (bf16
+// pages take the tensor-core designs).  The caller guarantees
+// 8-element alignment (d % 8 == 0, 16-byte base).
 template <typename T> __device__ __forceinline__ void load8(const T* p, float* o);
 
 template <> __device__ __forceinline__ void load8<float>(const float* p, float* o) {
@@ -77,14 +78,6 @@ template <> __device__ __forceinline__ void load8<float>(const float* p, float* 
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-template <> __device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                                 float* o) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = __bfloat162float(e[i]);
 }
 
 template <> __device__ __forceinline__ void load8<int8_t>(const int8_t* p, float* o) {

@@ -47,8 +47,7 @@
 // over the KV length for small chunks, quantized pages on tensor cores.
 #include <type_traits>
 
-#include "mma_common.cuh"
-#include "paged_common.cuh"
+#include "paged_tc.cuh"
 
 namespace repro {
 
@@ -90,73 +89,16 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 
 namespace tc {
 
-using namespace ::repro_mma;
-using bf16 = __nv_bfloat16;
-
 constexpr int kRows = 64;        // packed query rows per block, 16 per warp
-constexpr int kTok = 64;         // kv tokens per tile
 constexpr int kStages = 2;       // K/V ring
-constexpr int kMetaSlots = 3;    // per-token (row, position) ring, one tile ahead
-constexpr int kPad = 8;          // bf16 elements of row padding (16 bytes)
-constexpr int kMasked = 0x7fffffff;   // position of a token no row sees
 
 // Shared memory, mirrored by kernels/paged_prefill/ops.py `tc_smem_bytes`:
 // Q [64][d + 8], K and V [2][64][d + 8] bf16, then the meta ring
 // [3][64] arena rows and [3][64] positions (int32).
-__host__ __device__ constexpr int ld(int d) { return d + kPad; }
 __host__ __device__ constexpr size_t smem_bytes(int d) {
   return sizeof(bf16) * (size_t)(1 + 2 * kStages) * kRows * ld(d) +
          sizeof(int) * (size_t)2 * kMetaSlots * kTok;
 }
-
-// The block's walk over its batch row's table: tiles of kTok tokens,
-// `tp` whole page columns each (page <= 64), or `spp` 64-token slices of
-// one column (page > 64).  Tokens at positions past max_lim are skipped.
-struct Walk {
-  const int* bt;      // table row
-  const int* ppos;    // page positions row, or nullptr (column j at j * page)
-  int page, hkv, h, n_cols, tp, spp, max_lim;
-
-  // page column of tile t's token tt (-1: padding) and its offset w in the page
-  __device__ __forceinline__ int locate(int t, int tt, int& w) const {
-    int pj;
-    if (spp == 1) {
-      pj = tt / page;
-      w = tt - pj * page;
-      if (pj >= tp) return -1;
-    } else {
-      pj = 0;
-      w = (t % spp) * kTok + tt;
-      if (w >= page) return -1;
-    }
-    const int col = (t / spp) * tp + pj;
-    return col < n_cols ? col : -1;
-  }
-
-  // the token's arena row (-1: skipped) and kv position (kMasked when
-  // skipped), from its column's first position b0 and physical page
-  __device__ __forceinline__ void resolve(int col, int w, int b0, int slot, int& row,
-                                          int& pos) const {
-    row = -1;
-    pos = kMasked;
-    if (col < 0 || b0 > max_lim - w) return;    // b0 + w > max_lim, without overflow
-    row = (slot * page + w) * hkv + h;
-    pos = b0 + w;
-  }
-
-  // both table reads of a column, independent of each other
-  __device__ __forceinline__ void read(int col, int& b0, int& slot) const {
-    b0 = ppos != nullptr ? ppos[col] : col * page;
-    slot = bt[col];
-  }
-
-  __device__ __forceinline__ void token(int t, int tt, int& row, int& pos) const {
-    int w = 0, b0 = 0, slot = 0;
-    const int col = locate(t, tt, w);
-    if (col >= 0) read(col, b0, slot);
-    resolve(col, w, b0, slot, row, pos);
-  }
-};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -221,16 +163,8 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 
   // K/V copies of tile t into ring stage s from meta slot t % 3
   auto issue = [&](int t, int s) {
-    const int* mrow = meta_row + (t % kMetaSlots) * kTok;
-    bf16* kd = ks + s * kTok * LD;
-    bf16* vd = vs + s * kTok * LD;
-    for (int i = tid; i < kTok * CPR; i += kThreads) {
-      const int tt = i / CPR, e = (i - tt * CPR) * 8;
-      const int row = mrow[tt];
-      const long long off = (long long)(row >= 0 ? row : 0) * D + e;
-      cp_async16(kd + tt * LD + e, kp + off, row >= 0);
-      cp_async16(vd + tt * LD + e, vp + off, row >= 0);
-    }
+    issue_tile<D>(meta_row + (t % kMetaSlots) * kTok, ks + s * kTok * LD, vs + s * kTok * LD,
+                  kp, vp);
   };
 
   // prologue: meta of tiles 0 and 1, then Q with tile 0 as one group

@@ -16,11 +16,34 @@ slots, only the query and the (b, hq, d) output travel.
   written from the reference oracle `ref.paged_decode_attention_ref`.
   Scores are computed in f32 from f32 casts of q and K (the oracle
   rounds them through q's dtype first); the output is in q's dtype.
+* `paged_decode_attention_splits_plain` — the bf16 kernel's arithmetic
+  in plain PyTorch: per-split (m, l, acc) over whole-page splits of the
+  table, merged by log-sum-exp (or, with `partials`, left as the merged
+  raw carry).
 
-The kernel keeps p in f32 for the PV product (the TPU kernel rounds p
-to V's dtype first), so in bf16 it differs from the plain version by
-bf16 rounding of p and of the output; `chip_smoke.py` states the
-tolerance it holds each dtype to.
+The kernel has two designs, fixed by the (q, pages) dtype pair
+(`route`); neither falls back to the other:
+
+* bf16 q with bf16 pages, what every served configuration runs: one
+  launch of a tensor-core kernel split over the KV length.  Block
+  (batch row x kv head, split) walks `split_pages(page)` whole pages
+  (128 tokens, or one page when a page is longer) through a 2-stage
+  cp.async ring of 64-token bf16 tiles; the query group (at most
+  TC_GROUP_ROWS rows) is one m16 tile of mma.sync products; p is
+  rounded to bf16 before the PV product, as the TPU kernel rounds p to
+  V's dtype.  The splits merge in the same launch: each writes its f32
+  carry to the device's scratch and the last to arrive (an atomic
+  ticket per batch row and kv head) merges them.  The number of splits
+  comes from max_pages and the page size alone: the host never reads
+  `positions`.  It takes head dims that are multiples of 16 up to 256
+  and raises on others.
+* f32 q, or int8 / fp8 pages: the CUDA-core machine shared with paged
+  prefill (f32 scores and p, from shared memory, one block per batch
+  row and kv head).  It keeps p in f32 for the PV product.
+
+In bf16 each design thus differs from the plain version by bf16
+rounding of p or of the output; `kernels/tolerance.py` states the
+tolerance each dtype is held to.
 """
 from __future__ import annotations
 
@@ -51,6 +74,21 @@ MAX_ROW_ELEMS = THREADS * 32
 TILE_TOKENS = 64
 MAX_SMEM = 232_448
 MAX_HEAD_DIM = 256
+
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+
+# the bf16 tensor-core decode design's geometry (paged_attention.cu
+# namespace dec_tc; paged_tc.cuh)
+TC_GROUP_ROWS = 16     # query group rows per block: one m16 tile
+TC_WARPS = 4           # each takes 16 tokens of a tile
+TC_TILE_TOKENS = 64    # kv tokens per tile
+TC_STAGES = 2          # K/V tiles in flight (cp.async ring)
+TC_META_SLOTS = 3      # per-token (arena row, position) ring, one tile ahead
+TC_PAD = 8             # bf16 elements of shared-memory row padding
+SPLIT_TOKENS = 128     # kv tokens per split, in whole pages
+
+# the device's split scratch and merge counters (`_scratch`)
+_SCRATCH: dict = {}
 
 
 def default_page_positions(block_table, page_size: int):
@@ -114,7 +152,73 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_table, positions,
     return o.reshape(b, hq, d).to(q.dtype)
 
 
+def split_pages(page: int) -> int:
+    """Table columns per split of the bf16 design: SPLIT_TOKENS worth of
+    whole pages, at least one."""
+    return max(1, SPLIT_TOKENS // page)
+
+
+def num_splits(max_pages: int, page: int) -> int:
+    """Splits of a (b, max_pages) table: what the host knows, never the
+    positions."""
+    return -(-max_pages // split_pages(page))
+
+
+def paged_decode_attention_splits_plain(q, k_pages, v_pages, block_table,
+                                        positions, page_positions=None,
+                                        partials=False, pages_per_split=None):
+    """The bf16 kernel's arithmetic: the table cut into splits of
+    `pages_per_split` whole pages (default `split_pages(page)`), each
+    reduced to an f32 carry (m, l, acc) with p rounded to V's dtype for
+    the PV product (exact in f32), an empty split's carry (m = -1e30,
+    l = 0, acc = 0) weighted 0; the splits merged by log-sum-exp.
+    Returns (b, hq, d) in q's dtype, or with `partials` the merged raw
+    carry (m (b, hq), l (b, hq), acc (b, hq, d)) f32."""
+    b, hq, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    mp = block_table.shape[1]
+    g = hq // hkv
+    pps = pages_per_split or split_pages(page)
+    n = -(-mp // pps)
+    k, v = _gather_kv(k_pages, v_pages, block_table, None, None)
+    kv_pos = _kv_positions(block_table, page_positions, page)
+    pad = n * pps * page - mp * page
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=POS_PAD)
+    L = pps * page
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(d)
+    mask = (kv_pos <= positions[:, None]).reshape(b, 1, 1, n, L)
+    s = s.reshape(b, hkv, g, n, L)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                    # (b, hkv, g, n)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgnt,bnthd->bhgnd", p.to(v.dtype).float(),
+                       v.reshape(b, n, L, hkv, d).float())
+    # the merge: empty splits (l == 0) take weight 0
+    m_tot = torch.where(l > 0, m, torch.full_like(m, NEG_INF)).amax(-1)
+    w = torch.where(l > 0, torch.exp(m - m_tot[..., None]),
+                    torch.zeros_like(m))
+    l_tot = (l * w).sum(-1)
+    acc_tot = (acc * w[..., None]).sum(-2)                # (b, hkv, g, d)
+    if partials:
+        return (m_tot.reshape(b, hq), l_tot.reshape(b, hq),
+                acc_tot.reshape(b, hq, d))
+    o = acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+    return o.reshape(b, hq, d).to(q.dtype)
+
+
 # ----------------------------------------------------------- the kernel
+
+def route(q_dtype, kv_dtype) -> str:
+    """Which design takes a (q, pages) dtype pair: bf16 with bf16 on
+    tensor cores, every other pair the kernel takes on CUDA cores."""
+    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
+        return TENSOR_CORES
+    return CUDA_CORES
+
 
 def smem_bytes(rows: int, d: int, page: int) -> int:
     """Dynamic shared memory of one block (paged_common.cuh smem_bytes)."""
@@ -182,6 +286,56 @@ def check_row_tile(rows: int, d: int, page: int) -> None:
                          f"memory than a block has")
 
 
+def tc_smem_bytes(d: int, splits: int) -> int:
+    """Dynamic shared memory of one tensor-core decode block
+    (paged_attention.cu `dec_tc::smem_bytes`): Q in bf16 at row stride
+    d + 8; the K/V ring, whose space the merges take after the walk (the
+    warps' f32 O, m, l and weights, the block's m and l; then the
+    splits' m and l and the merged m and l); the meta ring's int32 rows
+    and positions."""
+    rows, warps = TC_GROUP_ROWS, TC_WARPS
+    ring = 2 * 2 * TC_STAGES * TC_TILE_TOKENS * (d + TC_PAD)
+    merge = 4 * max(warps * rows * (d + 3) + 2 * rows,
+                    (2 * splits + 2) * rows)
+    return (2 * rows * (d + TC_PAD) + max(ring, merge)
+            + 4 * 2 * TC_META_SLOTS * TC_TILE_TOKENS)
+
+
+def check_tc_geometry(k_pages, group: int, splits: int) -> None:
+    """Raise ValueError on a bf16 call the tensor-core decode design does
+    not take: head dims that are not multiples of 16 (check_kernel_inputs
+    caps them at 256), query groups past one m16 tile, more splits than
+    one block's shared memory merges, and token rows past int32
+    indexing."""
+    P, page, hkv, d = k_pages.shape
+    if d % 16:
+        raise ValueError(f"head_dim {d}: the bf16 decode kernel takes "
+                         f"multiples of 16 up to 256")
+    if group > TC_GROUP_ROWS:
+        raise ValueError(f"query group {group}: the bf16 decode kernel "
+                         f"takes at most {TC_GROUP_ROWS} rows per kv head")
+    if tc_smem_bytes(d, splits) > MAX_SMEM:
+        raise ValueError(f"{splits} splits need more shared memory to "
+                         f"merge than a block has")
+    if P * page * hkv >= 2 ** 31:
+        raise ValueError("the arena has too many token rows for int32 "
+                         "indexing")
+
+
+def _scratch(dev, floats: int, rows: int):
+    """The device's split scratch (`floats` f32) and merge counters
+    (`rows` int32, 0 between calls: the kernel's last split resets its
+    own), grown as needed and never cleared per call.  Two calls in
+    flight on two streams would share them; the port runs one stream."""
+    part, tickets = _SCRATCH.get(dev, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < rows:
+        tickets = torch.zeros(rows, dtype=torch.int32, device=dev)
+    _SCRATCH[dev] = (part, tickets)
+    return part, tickets
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -198,8 +352,14 @@ def _launch_decode(q, k_pages, v_pages, block_table, positions,
         index["page_positions"] = page_positions
     qc, kc = check_kernel_inputs(q, k_pages, v_pages, index, k_scale,
                                  v_scale)
-    check_row_tile(hq // hkv, d, k_pages.shape[1])
-    mp = block_table.shape[1]
+    page, mp = k_pages.shape[1], block_table.shape[1]
+    tensor_cores = route(q.dtype, k_pages.dtype) == TENSOR_CORES
+    if tensor_cores:
+        pps = split_pages(page)
+        check_tc_geometry(k_pages, hq // hkv, num_splits(mp, page))
+    else:
+        pps = 0    # the CUDA-core design walks the whole table per block
+        check_row_tile(hq // hkv, d, page)
     if tuple(block_table.shape) != (b, mp) or tuple(positions.shape) != (b,):
         raise ValueError("block_table must be (b, max_pages), positions (b,)")
     if page_positions is not None and page_positions.shape != block_table.shape:
@@ -212,15 +372,19 @@ def _launch_decode(q, k_pages, v_pages, block_table, positions,
     else:
         out = torch.empty_like(q)
         m = l = None
+    part = tickets = None
+    if tensor_cores:
+        part, tickets = _scratch(dev, (2 + d) * b * hq * num_splits(mp, page),
+                                 b * hkv)
     lib = B.library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_paged_decode(
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale),
             _ptr(v_scale), _ptr(block_table), _ptr(positions),
-            _ptr(page_positions), _ptr(out), _ptr(m), _ptr(l),
-            b, hq, hkv, d, k_pages.shape[1], mp, qc, kc, int(partials),
-            stream)
+            _ptr(page_positions), _ptr(out), _ptr(m), _ptr(l), _ptr(part),
+            _ptr(tickets), b, hq, hkv, d, page, mp, pps, qc, kc,
+            int(partials), stream)
     B.check(err, "paged_decode_attention")
     launches += 1
     return (m, l, out) if partials else out
@@ -240,7 +404,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, positions, *,
     carry (m (b, hq), l (b, hq), acc (b, hq, d)) f32 instead of the
     normalized output.  `k_scale`/`v_scale` ((P, page, hkv) f32) are a
     quantized (int8/fp8) arena's per-token scales, dequantized inside
-    the page walk.  Returns (b, hq, d) in q's dtype."""
+    the page walk.  Returns (b, hq, d) in q's dtype.  On a CUDA tensor,
+    bf16 q with bf16 pages takes the tensor-core design (one launch,
+    split over the KV length; head dims multiples of 16 up to 256, query
+    groups up to 16), every other pair the CUDA-core one (`route`)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_table, positions,

@@ -38,8 +38,8 @@ import torch
 
 from repro_torch.kernels import build as B
 from repro_torch.kernels.paged_attention.ops import (
-    MAX_ROW_ELEMS, NEG_INF, _gather_kv, _kv_positions, _ptr,
-    check_kernel_inputs, check_row_tile)
+    CUDA_CORES, MAX_ROW_ELEMS, NEG_INF, TENSOR_CORES, _gather_kv,
+    _kv_positions, _ptr, check_kernel_inputs, check_row_tile, route)
 
 # kernel launches since import (reset by callers that count a run)
 launches = 0
@@ -57,8 +57,6 @@ TC_PAD = 8             # bf16 elements of shared-memory row padding
 # shared memory of one SM, and what the card reserves per resident block
 SM_SMEM = 233_472
 BLOCK_RESERVED_SMEM = 1_024
-
-TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
@@ -97,14 +95,6 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
     o = torch.einsum("bhgcs,bshd->bchgd", p, v).reshape(b, c, hq, d)
     o = torch.where(q_valid[..., None, None], o, torch.zeros_like(o))
     return o.to(q.dtype)
-
-
-def route(q_dtype, kv_dtype) -> str:
-    """Which design takes a (q, pages) dtype pair: bf16 with bf16 on
-    tensor cores, every other pair the kernel takes on CUDA cores."""
-    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
-        return TENSOR_CORES
-    return CUDA_CORES
 
 
 def rows_per_tile(c: int, group: int, d: int) -> int:

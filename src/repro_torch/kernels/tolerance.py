@@ -7,10 +7,10 @@ row's head_dim, or one batch row's heads for the partials' m and l):
 
 bf16: p is rounded to bf16 for the PV product in one version and not
 the other, and both round the output to bf16 once.  The CUDA-core
-kernels (paged decode, the f32/int8/fp8 prefill) keep p in f32 where
-the plain version rounds it; the tensor-core bf16 prefill kernel rounds
-p to bf16, as the TPU kernel rounds p to V's type, also under
-`partials`, where the plain version keeps p in f32.  The output
+kernels (paged decode and prefill with int8/fp8 pages) keep p in f32
+where the plain version rounds it; the tensor-core bf16 paged decode
+and prefill kernels round p to bf16, as the TPU kernel rounds p to V's
+type, also under `partials`, where the plain version keeps p in f32.  The output
 rounding is at most an ulp (a relative 2**-7 < rtol); p's rounding
 moves an element by up to 2**-9 of the terms it sums, which can exceed
 |plain| where they cancel, so `atol` is scaled by the row.  The scores

@@ -240,6 +240,137 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         pa.paged_decode_attention(q, k, v, bt.cpu(), pos)
 
 
+def _split_case(dev, group, d, page, hkv=2, seed=22):
+    """bf16 arena and table over three splits of the tensor-core decode
+    design, rows ending at position 0, on the last token of split 0, on
+    the first of split 1, one past it, and past the whole table (an idle
+    row); shuffled pages, null-page tails, and a holes table (every
+    other column POS_PAD)."""
+    split = pa.split_pages(page) * page
+    mp = -(-3 * split // page)
+    positions = np.array([0, split - 1, split, split + 1, mp * page + 7],
+                         np.int32)
+    b = len(positions)
+    rng = np.random.default_rng(seed)
+    P = b * mp
+    k, v = (torch.from_numpy(rng.standard_normal((P + 1, page, hkv, d),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    live = np.minimum(positions // page + 1, mp)
+    perm = rng.permutation(P).astype(np.int32).reshape(b, mp)
+    bt = np.where(np.arange(mp)[None] < live[:, None], perm, P)
+    holes = (np.arange(mp, dtype=np.int32) * page)[None].repeat(b, 0)
+    holes[:, 1::2] = pa.POS_PAD
+    q = torch.from_numpy(rng.standard_normal((b, group * hkv, d),
+                                             dtype=np.float32))
+    as_dev = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)
+    return dict(q=q.bfloat16().to(dev), k=k.bfloat16().to(dev),
+                v=v.bfloat16().to(dev), bt=as_dev(bt),
+                positions=as_dev(positions), holes=as_dev(holes))
+
+
+def _tc_decode(case, **kw):
+    args = (case["q"], case["k"], case["v"], case["bt"], case["positions"])
+    before = pa.launches
+    got = pa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    return got, pa.paged_decode_attention_plain(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d", [64, 128, 160])
+@pytest.mark.parametrize("mode", ["plain", "holes+partials"])
+def test_tensor_core_decode_matches_plain_on_card(cuda_device, group, d,
+                                                  mode):
+    case = _split_case(cuda_device, group, d, 16)
+    kw = ({} if mode == "plain"
+          else dict(page_positions=case["holes"], partials=True))
+    got, want = _tc_decode(case, **kw)
+    _assert_close(got, want, torch.bfloat16)
+    if mode == "plain":
+        assert got.dtype == torch.bfloat16
+    else:
+        assert all(t.dtype == torch.float32 for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [4, 16, 48, 128])
+@pytest.mark.parametrize("holes", [False, True])
+def test_tensor_core_decode_walks_other_page_sizes(cuda_device, page, holes):
+    # 32 pages of 4 per split in 16-page tiles; a 48-token page padded
+    # to a 64-token tile, two per split; one 128-token page per split in
+    # two 64-token slices
+    case = _split_case(cuda_device, 2, 128, page)
+    kw = dict(page_positions=case["holes"], partials=True) if holes else {}
+    got, want = _tc_decode(case, **kw)
+    _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tensor_core_decode_partials_keep_the_empty_carry(cuda_device):
+    # a row whose every visible column is a POS_PAD hole: m = -1e30,
+    # l = 0, acc = 0, as the plain version keeps them
+    case = _split_case(cuda_device, 2, 128, 16)
+    holes = case["holes"].clone()
+    holes[1:3] = pa.POS_PAD
+    m, l, acc = _tc_decode(case, page_positions=holes, partials=True)[0]
+    assert (m[1:3] == pa.NEG_INF).all()
+    assert not l[1:3].any() and not acc[1:3].any()
+
+
+@pytest.mark.cuda
+def test_tensor_core_decode_resets_its_merge_counters(cuda_device):
+    # the last split of each (batch row, kv head) resets its counter, so
+    # the same call twice gives the same bits and leaves them at 0
+    case = _split_case(cuda_device, 8, 128, 16, hkv=4)
+    first, want = _tc_decode(case)
+    second, _ = _tc_decode(case)
+    assert torch.equal(first, second)
+    _assert_close(second, want, torch.bfloat16)
+    tickets = pa._SCRATCH[case["q"].device][1]
+    assert not tickets.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row, col", [(1, 0), (4, 20)])
+def test_tensor_core_decode_fails_the_check_on_a_page_read_twice(
+        cuda_device, row, col):
+    case = _split_case(cuda_device, 2, 128, 16)
+    want = pa.paged_decode_attention_plain(case["q"], case["k"], case["v"],
+                                           case["bt"], case["positions"])
+    bad = case["bt"].clone()
+    bad[row, col] = bad[row, col + 1]
+    got = pa.paged_decode_attention(case["q"], case["k"], case["v"], bad,
+                                    case["positions"])
+    torch.cuda.synchronize()
+    assert worst_ratio(got, want, *TOLERANCE[torch.bfloat16])[1] > 4.0
+
+
+@pytest.mark.cuda
+def test_tensor_core_decode_refuses_what_its_tiles_do_not_take(cuda_device):
+    for d in (24, 40):
+        case = _case(cuda_device, torch.bfloat16, None, d=d, mp=8)
+        q = torch.randn(4, case["hq"], d, device=cuda_device).bfloat16()
+        args = (case["k"], case["v"], case["bt"],
+                torch.clamp(case["positions"], max=127))
+        before = pa.launches
+        with pytest.raises(ValueError, match="multiples of 16"):
+            pa.paged_decode_attention(q, *args)
+        assert pa.launches == before
+        # the CUDA-core design still takes the same width in f32
+        f32 = (q.float(), case["k"].float(), case["v"].float(), *args[2:])
+        _assert_close(pa.paged_decode_attention(*f32),
+                      pa.paged_decode_attention_plain(*f32), torch.float32)
+    case = _case(cuda_device, torch.bfloat16, None, group=32, hkv=2, d=16,
+                 mp=8)
+    q = torch.randn(4, 64, 16, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="at most 16"):
+        pa.paged_decode_attention(q, case["k"], case["v"], case["bt"],
+                                  torch.clamp(case["positions"], max=127))
+
+
 def _grouped_case(dev, dtype, E, C, K, F, live):
     """x with only its first rows[e] rows nonzero (the dropless buffer),
     w, and rows; `live` False leaves rows None."""
@@ -582,6 +713,35 @@ def test_tensor_core_prefill_geometry_fits_two_blocks_per_sm(arch, d, group,
     # every multiple of 16 up to 256 fits one block
     for dd in range(16, 257, 16):
         assert pp.tc_smem_bytes(dd) <= pa.MAX_SMEM
+
+
+def test_decode_routes_by_the_dtype_pair_as_prefill_does():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert pa.route(bf16, bf16) == pa.TENSOR_CORES
+    for pair in ((f32, f32), (bf16, torch.int8), (bf16, torch.float8_e4m3fn),
+                 (f32, torch.int8), (f32, torch.float8_e4m3fn)):
+        assert pa.route(*pair) == pa.CUDA_CORES
+    assert pp.route is pa.route
+
+
+@pytest.mark.parametrize("d,blocks_per_sm", [(128, 3), (160, 2), (256, 1)])
+def test_tensor_core_decode_split_rule_and_shared_memory(d, blocks_per_sm):
+    # 128 kv tokens of whole pages per split, at least one page
+    assert pa.SPLIT_TOKENS == 128
+    assert [pa.split_pages(p) for p in (4, 16, 48, 128, 256)] == [32, 8, 2,
+                                                                  1, 1]
+    # the main path (b 8, hkv 8, 64 columns of 16 tokens): 8 splits, a
+    # grid of 512 blocks, of which those of chip_smoke's positions that
+    # walk pages are 248
+    assert pa.num_splits(64, 16) == 8
+    positions = np.array([1023, 0, 511, 17, 700, 64, 255, 999])
+    pages = positions // 16 + 1
+    assert 8 * int((-(-pages // pa.split_pages(16))).sum()) == 248
+    # blocks resident per SM by shared memory at the served head dims
+    assert (pp.SM_SMEM // (pa.tc_smem_bytes(d, 8) + pp.BLOCK_RESERVED_SMEM)
+            == blocks_per_sm)
+    for dd in range(16, pa.MAX_HEAD_DIM + 1, 16):
+        assert pa.tc_smem_bytes(dd, 256) <= pa.MAX_SMEM
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():

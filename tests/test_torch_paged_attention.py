@@ -15,7 +15,8 @@ import jax.numpy as jnp
 
 from repro.core.unimem import dequantize_kv as jax_dequantize
 from repro.core.unimem import quantize_kv as jax_quantize
-from repro.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro.kernels.paged_attention.ref import (
+    paged_decode_attention_ref, paged_decode_attention_split_ref)
 from repro.kernels.paged_prefill.ref import paged_prefill_attention_ref
 from repro_torch.core.unimem import dequantize_kv, quantize_kv
 from repro_torch.kernels.paged_attention import ops as pa
@@ -179,6 +180,85 @@ def test_plain_quantized_pages_match_reference(quant, kind, partials):
         start, clen = _chunk(case, 7)
         got, want = _prefill(case, q, start, clen, **kw)
     _cmp(got, want)
+
+
+# ---------------------------------------- the bf16 decode kernel's splits
+#
+# The tensor-core decode kernel cuts the table into splits of whole pages,
+# reduces each to an f32 carry and merges them by log-sum-exp.  Its plain
+# form is held against both reference oracles: the gather formulation,
+# and the reference's own two-pass split-and-merge (per-page partials
+# merged by `kernel.combine_pages`).  With pages of 4 or 8 and 6 columns,
+# row 1 (position 0) leaves every split but the first empty, and the
+# holes table leaves splits of one page that hold only POS_PAD.
+
+# pages per split: one, two, four, and the kernel's rule (128 tokens)
+SPLIT_PAGES = [1, 2, 4, None]
+
+
+@pytest.mark.parametrize("pages_per_split", SPLIT_PAGES)
+@pytest.mark.parametrize("mode", ["plain", "partials", "holes+partials"])
+def test_split_decode_plain_matches_reference(pages_per_split, mode):
+    case = Case(15, 2, 32, 8)
+    q = case.rng.standard_normal((4, case.hq, 32)).astype(np.float32)
+    kw = {}
+    if mode != "plain":
+        kw["partials"] = True
+    if mode == "holes+partials":
+        kw["page_positions"] = case.holes()
+    want = paged_decode_attention_ref(
+        jnp.asarray(q), case.jk, case.jv, jnp.asarray(case.bt),
+        jnp.asarray(case.positions),
+        **{k: jnp.asarray(v) if k == "page_positions" else v
+           for k, v in kw.items()})
+    got = pa.paged_decode_attention_splits_plain(
+        torch.from_numpy(q), case.tk, case.tv, torch.from_numpy(case.bt),
+        torch.from_numpy(case.positions), pages_per_split=pages_per_split,
+        **{k: torch.from_numpy(v) if k == "page_positions" else v
+           for k, v in kw.items()})
+    _cmp(got, want)
+    if mode != "plain":
+        m, l, acc = got
+        assert (l > 0).all()
+
+
+@pytest.mark.parametrize("pages_per_split", SPLIT_PAGES)
+@pytest.mark.parametrize("group,d,page", [(1, 16, 4), (2, 128, 4),
+                                          (4, 32, 4)])
+def test_split_decode_plain_matches_the_reference_two_pass_merge(
+        pages_per_split, group, d, page):
+    case = Case(16, group, d, page)
+    q = case.rng.standard_normal((4, case.hq, d)).astype(np.float32)
+    want = paged_decode_attention_split_ref(
+        jnp.asarray(q), case.jk, case.jv, jnp.asarray(case.bt),
+        jnp.asarray(case.positions))
+    got = pa.paged_decode_attention_splits_plain(
+        torch.from_numpy(q), case.tk, case.tv, torch.from_numpy(case.bt),
+        torch.from_numpy(case.positions), pages_per_split=pages_per_split)
+    _cmp(got, want)
+
+
+@pytest.mark.parametrize("pages_per_split", SPLIT_PAGES)
+def test_split_decode_plain_keeps_an_all_hole_row_empty(pages_per_split):
+    # every column of rows 1 and 2 a POS_PAD hole: each split is empty,
+    # and the merged carry is the reference's empty one (m = -1e30, l = 0,
+    # acc = 0)
+    case = Case(17, 2, 16, 4)
+    q = case.rng.standard_normal((4, case.hq, 16)).astype(np.float32)
+    ppos = case.holes()
+    ppos[1:3] = pa.POS_PAD
+    want = paged_decode_attention_ref(
+        jnp.asarray(q), case.jk, case.jv, jnp.asarray(case.bt),
+        jnp.asarray(case.positions), page_positions=jnp.asarray(ppos),
+        partials=True)
+    got = pa.paged_decode_attention_splits_plain(
+        torch.from_numpy(q), case.tk, case.tv, torch.from_numpy(case.bt),
+        torch.from_numpy(case.positions), page_positions=torch.from_numpy(ppos),
+        partials=True, pages_per_split=pages_per_split)
+    _cmp(got, want)
+    m, l, acc = got
+    assert (m[1:3] == pa.NEG_INF).all()
+    assert not l[1:3].any() and not acc[1:3].any()
 
 
 # the served bf16 widths beside the matrix: zamba2-2.7b (group 1, d 160)
