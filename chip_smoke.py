@@ -30,8 +30,15 @@ exit at the first failure):
    decode also with its split rule, its grid's blocks and the blocks
    that walk pages.
 3. moe/ssd kernels: the grouped matmul at qwen3-moe-30b-a3b's shapes
-   (128 experts, K x F 2048 x 768 and 768 x 2048, C 64 and 4096, with
-   the live rows of a random top-8 routing and without) and the SSD
+   (128 experts, K x F 2048 x 768 and 768 x 2048 at C 64, 2048 x 768 at
+   C 4096, with the live rows of a random top-8 routing and without;
+   bf16 with the routing's rows timed at all three, the bound counting
+   the zero rows the function writes, beside a memset of the output;
+   one MoE layer's dropless dispatch of a 512-token prompt timed beside
+   the bytes its dense (E, T k, .) buffers move; the bf16 kernel's
+   blocks per SM
+   from the occupancy API, which must equal ops.py's mirror, and its
+   ptxas registers and spills) and the SSD
    intra-chunk kernel at zamba2-2.7b's (640 batch*heads, p = n = 64,
    chunks of 64 and 256) and mamba2-130m's (24 heads, p 64, n 128, two
    chunks of 256, one ragged chunk of 200 and one of 5), in bf16 and
@@ -499,22 +506,60 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                         f"{'rows' if r is not None else 'all rows'}")
                 err = hold(name, got, want, gm.TOLERANCE[dt])
                 del got, want
-                if dt is not bf16 or r is None or K != D:
+                if dt is not bf16 or r is None:
                     continue
-                # timed: bf16 with the routing's live rows, gate shape
+                # timed: bf16 with the routing's live rows.  The bound
+                # counts the live experts' weights, the live x rows and
+                # the whole f32 output, whose rows past each expert's
+                # count the function must write as zeros
                 n_live = int(rows.sum())
                 experts = int((rows > 0).sum())
-                nbytes = 2 * experts * K * F + 2 * n_live * K + 4 * n_live * F
+                nbytes = 2 * experts * K * F + 2 * n_live * K + 4 * E * C * F
                 ms, by = bound(nbytes, 2 * n_live * K * F)
                 rr = r
-                times[f"grouped_matmul C{C}"] = dict(
+                key = f"grouped_matmul C{C}" + (" down" if K != D else "")
+                zeros = torch.empty(E, C, F, device=dev)
+                times[key] = dict(
                     ms=time_ms(lambda: gm.grouped_matmul(x, w, rr), flush),
                     plain_ms=time_ms(lambda: gm.grouped_matmul_plain(x, w, rr),
                                      flush, iters=10),
                     library_ms=time_ms(lambda: torch.bmm(x, w), flush),
                     bound_ms=ms, bound_by=by, max_abs_err=err,
-                    live_rows=n_live, live_experts=experts)
+                    live_rows=n_live, live_experts=experts,
+                    zero_row_bytes=4 * (E * C - n_live) * F,
+                    # a memset of the whole (E, C, F) f32 output: what
+                    # writing it costs on this card without any product
+                    zero_fill_ms=time_ms(zeros.zero_, flush))
+                del zeros
             del x, w
+    # ---------------------------------- one MoE layer's dead rows, prefill
+    # qwen3's dropless dispatch of one 512-token prompt (C = T * k =
+    # 4096, ~99 % of the (E, C, .) rows dead), timed on the card beside
+    # the bytes its dense buffers move: the zeroed bf16 buffer; the gate
+    # and up products' f32 outputs; silu_ and mul_ over them; h cast to
+    # bf16; the down product's f32 output and its cast; the weights
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as PM
+    cfg = get_arch("qwen3-moe-30b-a3b").model.replace(moe_dispatch="grouped")
+    T = 512
+    params = PM.moe_block_init(torch.Generator(device=dev).manual_seed(7),
+                               cfg, dev)
+    xf = torch.randn(T, D, generator=gdev, device=dev).to(cfg.compute_dtype)
+    Cn = T * k
+    h32, y32 = 4 * E * Cn * FF, 4 * E * Cn * D
+    layer_bytes = {"zeroed buffer": 2 * E * Cn * D,
+                   "gate and up outputs": 2 * h32, "silu_": 2 * h32,
+                   "mul_": 3 * h32, "h to bf16": h32 + h32 // 2,
+                   "down output": y32, "down output to bf16": y32 + y32 // 2,
+                   "weights": 3 * 2 * E * D * FF}
+    total = sum(layer_bytes.values())
+    times["moe_layer prefill T512"] = dict(
+        ms=time_ms(lambda: PM._moe_scatter(
+            params, cfg, xf, experts_fn=PM.experts_apply_grouped), flush,
+            iters=10),
+        bytes=layer_bytes, total_bytes=total,
+        byte_ms=1e3 * total / HBM_BYTES_PER_S)
+    del params, xf
     # ------------------------------------------------------------- SSD
     # zamba2-2.7b (batch 8 x 80 heads, p = n = 64) and mamba2-130m (one
     # prompt x 24 heads, p 64, n 128), at the chunk lengths their served
@@ -559,11 +604,20 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                                  flush),
                 library_ms=None, bound_ms=ms, bound_by=by,
                 max_abs_err=max(errs), bh=bh, nc=nc, p=p, n=n)
+    blocks = gm.launched_blocks_per_sm(True, dev)
+    if blocks != gm.blocks_per_sm():
+        fail(f"grouped bf16 kernel: {blocks} blocks per SM on the card, "
+             f"ops.py's mirror says {gm.blocks_per_sm()}")
+    from repro_torch.kernels import build as kbuild
     emit({"phase": "moe_ssd_kernels", "cases": rows_out})
     emit({"phase": "moe_ssd_kernel_times", "card": card, "dtype": "bfloat16",
           "shapes": {"grouped": {"E": E, "top_k": k, "d_model": D,
                                  "moe_d_ff": FF},
                      "ssd": "bh, nc, p and n in each case"},
+          "grouped_bf16": {"blocks_per_sm": blocks,
+                           "grid_c64": gm.grid(E, 64, FF),
+                           "ptxas": grouped_ptxas(
+                               kbuild.library().compiler_log)},
           "library": {"grouped": "one torch.bmm over the same (E, C, K) and "
                                  "(E, K, F), every row",
                       "ssd": "none: no single PyTorch call computes it"},
@@ -1404,6 +1458,28 @@ def tc_ptxas(log: str) -> dict:
     return {k: "; ".join(v) for k, v in sorted(
         out.items(), key=lambda kv: (kv[0].split()[0],
                                      int(kv[0].split()[1][1:])))}
+
+
+def grouped_ptxas(log: str) -> dict:
+    """ptxas's registers and spills of the bf16 grouped-matmul kernel
+    (`gm_bf16_kernel`; where it is a template, its instances with
+    16-byte copies, "vec", and element copies), from the build's
+    compiler log."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(r"gm_bf16_kernel(?:ILb([01])E)?", ln)
+            cur = None
+            if m:
+                cur = {None: "gm_bf16", "1": "gm_bf16 vec",
+                       "0": "gm_bf16 element copies"}[m[1]]
+                out.setdefault(cur, [])
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            item = ln.split("ptxas info    : ")[-1].strip()
+            if item not in out[cur]:
+                out[cur].append(item)
+    return {k: "; ".join(v) for k, v in sorted(out.items())}
 
 
 def main() -> int:

@@ -1,7 +1,8 @@
 """Time checkouts of this repository in turns on one card: the paged
 attention kernels (decode and prefill), the kernels of contiguous
-serving (flash attention, split-KV decode and its combine), and both
-serving paths of internlm2-1.8b.
+serving (flash attention, split-KV decode and its combine), the MoE and
+SSD kernels (grouped matmul, SSD intra-chunk), both serving paths of
+internlm2-1.8b and qwen3-moe-30b-a3b's grouped serve.
 
     python3 src/repro_torch/benchmarks/checkout_ab.py ROOT [ROOT ...]
 
@@ -11,15 +12,18 @@ with `git archive` into a directory that `.gitignore` lists, say, and
 give them in turns (parent, change, change, parent).  Each process
 imports its ROOT's `chip_smoke.py` and `src/`, builds that checkout's
 kernels, and runs chip_smoke's phases `kernels` (paged decode and
-prefill), `contig_kernels` (split-KV decode, flash), `serve` and
-`serve_contiguous` (internlm2-1.8b at full depth, paged and contiguous),
-which print their JSON lines as in chip_smoke, and times ROOT's paged
+prefill), `moe_ssd_kernels` (grouped matmul, SSD), `contig_kernels`
+(split-KV decode, flash), `serve` and `serve_contiguous` (internlm2-1.8b
+at full depth, paged and contiguous) and `serve_moe` (qwen3-moe-30b-a3b,
+`moe_dispatch="grouped"`), which print their JSON lines as in
+chip_smoke, and times ROOT's paged
 decode kernel at the main path in every dtype pair it takes (chip_smoke
 times only bf16 with bf16), on the card and on the host.  Then it prints
 one line {"ab": ROOT, ...}: the card, ptxas's report of the bf16
-tensor-core attention kernels (parsed by this checkout's
-`chip_smoke.tc_ptxas`; empty where ROOT's library was already built),
-the kernel times and each serve's step times.  Needs one CUDA card;
+tensor-core attention kernels and of the bf16 grouped-matmul kernel
+(parsed by this checkout's `chip_smoke.tc_ptxas` and `grouped_ptxas`;
+empty where ROOT's library was already built), the kernel times and
+each serve's step times.  Needs one CUDA card;
 exits nonzero when a root's phases fail.
 """
 from __future__ import annotations
@@ -77,7 +81,7 @@ def decode_routes(torch, cs, dev, calls: int = 500) -> dict:
 
 def run_one(root: Path) -> dict:
     """ROOT's phases on the card; returns the summary line."""
-    parse = _this_chip_smoke().tc_ptxas
+    here = _this_chip_smoke()
     sys.path[:0] = [str(root / "src"), str(root)]
     import torch
     import chip_smoke as cs
@@ -98,6 +102,7 @@ def run_one(root: Path) -> dict:
     build_s = time.perf_counter() - t0
     timings = cs.phase_kernels(torch, dev, card)
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    moe = cs.phase_moe_ssd_kernels(torch, dev, card, flush_buf.zero_)
     contig = cs.phase_contig_kernels(torch, dev, card, flush_buf.zero_)
     del flush_buf
     routes = decode_routes(torch, cs, dev)
@@ -105,7 +110,7 @@ def run_one(root: Path) -> dict:
     real_emit = cs.emit
 
     def keep(obj):
-        if obj.get("phase") in ("serve", "serve_contiguous"):
+        if obj.get("phase") in ("serve", "serve_contiguous", "serve_moe"):
             steps[obj["phase"]] = dict(
                 wall_s=obj["wall_s"], step_s=obj["step_s"],
                 prefill_calls=obj["prefill_calls"],
@@ -117,15 +122,22 @@ def run_one(root: Path) -> dict:
     cs.phase_serve(torch, dev, card, "serve", dense)
     cs.phase_serve(torch, dev, card, "serve_contiguous", dense,
                    layout="contiguous")
+    cs.phase_serve(torch, dev, card, "serve_moe",
+                   get_arch("qwen3-moe-30b-a3b").model.replace(
+                       moe_dispatch="grouped"))
     cs.emit = real_emit
     pick = ("ms", "kernel_only_ms", "combine_ms", "plain_ms", "library_ms",
-            "bound_ms", "blocks", "live_blocks", "floor_ms", "enqueue_us")
+            "bound_ms", "blocks", "live_blocks", "floor_ms", "enqueue_us",
+            "zero_fill_ms", "byte_ms")
     times = {k: {kk: v[kk] for kk in pick if kk in v}
-             for k, v in {**timings, **contig, **routes}.items()
+             for k, v in {**timings, **moe, **contig, **routes}.items()
              if k.startswith(("flash", "decode_attention", "combine",
-                              "paged_prefill", "paged_decode"))}
+                              "paged_prefill", "paged_decode", "grouped",
+                              "moe_layer", "ssd"))}
     return {"ab": str(root), "card": card, "build_s": build_s,
-            "tc_ptxas": parse(lib.compiler_log), "times": times, **steps}
+            "tc_ptxas": here.tc_ptxas(lib.compiler_log),
+            "grouped_ptxas": here.grouped_ptxas(lib.compiler_log),
+            "times": times, **steps}
 
 
 def main(argv: list[str]) -> int:

@@ -36,6 +36,8 @@ DECODE_ARGTYPES = [_VOIDP] * 13 + [_INT] * 10 + [_VOIDP]
 PREFILL_ARGTYPES = [_VOIDP] * 12 + [_INT] * 11 + [_VOIDP]
 # repro_grouped_matmul(x, w, out, rows, E, C, K, F, dtype, vec, stream)
 GROUPED_ARGTYPES = [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP]
+# repro_grouped_blocks_per_sm(vec, int* blocks)
+GROUPED_BLOCKS_ARGTYPES = [_INT, ctypes.POINTER(_INT)]
 # repro_ssd_intra_chunk(x, dt, A, B, C, y, s, cd, bh, nc, l, p, n, dtype,
 #   stream)
 SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
@@ -135,6 +137,8 @@ class KernelLibrary:
         lib.repro_paged_prefill.restype = ctypes.c_int
         lib.repro_grouped_matmul.argtypes = GROUPED_ARGTYPES
         lib.repro_grouped_matmul.restype = ctypes.c_int
+        lib.repro_grouped_blocks_per_sm.argtypes = GROUPED_BLOCKS_ARGTYPES
+        lib.repro_grouped_blocks_per_sm.restype = ctypes.c_int
         lib.repro_ssd_intra_chunk.argtypes = SSD_ARGTYPES
         lib.repro_ssd_intra_chunk.restype = ctypes.c_int
         lib.repro_decode_attention.argtypes = SPLIT_DECODE_ARGTYPES

@@ -1,6 +1,7 @@
 // Warp-level building blocks of the port's bf16 tensor-core kernels
 // (paged_prefill.cu and flash_attention.cu, namespace tc; the WS/OS
-// mainloop of ws_matmul.cu), for Hopper (sm_90a): 16-byte cp.async
+// mainloop of ws_matmul.cu; grouped_matmul.cu), for Hopper (sm_90a):
+// 16-byte cp.async
 // copies with zero fill, ldmatrix loads of mma.sync m16n8k16 fragments
 // from shared memory, the bf16 product with f32 accumulators, and the
 // reductions over the quad of lanes that holds one row of an accumulator

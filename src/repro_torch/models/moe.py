@@ -142,13 +142,13 @@ def moe_apply(p, cfg: ModelConfig, x, dropless: bool = False):
     """x: (b, s, d) -> y (b, s, d), the SERVING dispatch (dropless).
     The reference also returns the router loss and has a
     capacity-limited training dispatch; both wait for the training
-    slice (ROADMAP.md queue A item 10)."""
+    slice (ROADMAP.md queue A item 13)."""
     if cfg.moe_dispatch not in DISPATCHES:
         raise ValueError(cfg.moe_dispatch)
     if not dropless:
         raise NotImplementedError(
             "the capacity-limited (training) MoE dispatch is not ported "
-            "yet: ROADMAP.md queue A item 10 (training)")
+            "yet: ROADMAP.md queue A item 13 (training)")
     b, s, d = x.shape
     fn = (experts_apply_grouped if cfg.moe_dispatch == "grouped"
           else experts_apply)

@@ -371,31 +371,48 @@ def test_tensor_core_decode_refuses_what_its_tiles_do_not_take(cuda_device):
                                   torch.clamp(case["positions"], max=127))
 
 
-def _grouped_case(dev, dtype, E, C, K, F, live):
+def _grouped_case(dev, dtype, E, C, K, F, live, dead=0.0):
     """x with only its first rows[e] rows nonzero (the dropless buffer),
-    w, and rows; `live` False leaves rows None."""
+    w, and rows; `live` False leaves rows None, True draws rows, a tuple
+    gives them.  `dead` fills x's rows past rows[e] (0 in the buffer)."""
     rng = np.random.default_rng(E + C + K)
     x = torch.from_numpy(rng.standard_normal((E, C, K), dtype=np.float32))
     w = torch.from_numpy(rng.standard_normal((E, K, F), dtype=np.float32)
                          * 0.05)
     rows = None
-    if live:
-        r = rng.integers(0, max(2, C // 16), E).astype(np.int32)
-        r[::3] = 0
-        r[1] = C                                  # one expert full
-        x = x * torch.from_numpy(np.arange(C)[None, :, None]
-                                 < r[:, None, None])
+    if live is not False:
+        if live is True:
+            r = rng.integers(0, max(2, C // 16), E).astype(np.int32)
+            r[::3] = 0
+            r[1] = C                              # one expert full
+        else:
+            r = np.array(live, np.int32)
+        x = torch.where(torch.from_numpy(np.arange(C)[None, :, None]
+                                         < r[:, None, None]), x,
+                        torch.tensor(dead))
         rows = torch.from_numpy(r).to(dev)
     return x.to(dtype).to(dev), w.to(dtype).to(dev), rows
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E, C, K, F, live", [
+# (E, C, K, F, live): qwen3's decode shapes; every row; ragged C, K, F
+# (unaligned: element copies); one expert at each live count around the
+# m16 tiles, a dead expert first; 130 live rows across three row ranges
+# of C 300; K 136 (the ring's last slice partial) with 17 live rows of
+# C 80 and F 72 (a partial n tile); K 36 and F 72 (element copies)
+GROUPED_CASES = [
     (128, 64, 2048, 768, True),         # qwen3 decode, gate/up
     (128, 64, 768, 2048, True),         # qwen3 decode, down
     (16, 300, 256, 192, False),
-    (3, 37, 19, 45, True)])             # ragged C, K, F: masked edges
+    (3, 37, 19, 45, True),              # ragged C, K, F: masked edges
+    (7, 64, 256, 192, (0, 1, 15, 16, 17, 63, 64)),
+    (2, 300, 128, 128, (0, 130)),
+    (3, 80, 136, 72, (0, 17, 80)),
+    (3, 80, 36, 72, (0, 17, 80))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E, C, K, F, live", GROUPED_CASES)
 def test_grouped_kernel_matches_plain_on_card(cuda_device, dtype, E, C, K, F,
                                               live):
     x, w, rows = _grouped_case(cuda_device, dtype, E, C, K, F, live)
@@ -407,6 +424,53 @@ def test_grouped_kernel_matches_plain_on_card(cuda_device, dtype, E, C, K, F,
     assert ratio <= 1.0, (err, ratio)
     if rows is not None:
         assert not got[0].any()                   # a dead expert: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E, C, K, F, live", GROUPED_CASES[4:7])
+def test_grouped_kernel_never_reads_the_rows_past_the_live_count(
+        cuda_device, dtype, E, C, K, F, live):
+    """NaN in x's dead rows: the live rows stay finite and hold the plain
+    version on the zeroed buffer, the dead rows are exact zeros."""
+    x, w, rows = _grouped_case(cuda_device, dtype, E, C, K, F, live,
+                               dead=float("nan"))
+    got = gm.grouped_matmul(x, w, rows)
+    want = gm.grouped_matmul_plain(torch.nan_to_num(x, nan=0.0), w, rows)
+    keep = (torch.arange(C, device=cuda_device)[None, :]
+            < rows[:, None].long())[..., None].expand_as(got)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[~keep], torch.zeros_like(got[~keep]))
+    err, ratio = worst_ratio(got, want, *gm.TOLERANCE[dtype])
+    assert ratio <= 1.0, (err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_reruns_are_bit_identical(cuda_device, dtype):
+    x, w, rows = _grouped_case(cuda_device, dtype, 128, 64, 2048, 768, True)
+    first = gm.grouped_matmul(x, w, rows)
+    for _ in range(3):
+        assert torch.equal(gm.grouped_matmul(x, w, rows), first)
+
+
+@pytest.mark.cuda
+def test_grouped_occupancy_matches_the_mirror(cuda_device):
+    assert gm.launched_blocks_per_sm(True) == gm.blocks_per_sm()
+    assert gm.launched_blocks_per_sm(False) == gm.blocks_per_sm()
+
+
+def test_grouped_geometry_keeps_the_decode_blocks_in_one_wave():
+    """The bf16 block's shared memory (its stated terms) lets five share
+    an SM, so qwen3's decode (about 52 live experts x 12 n tiles of the
+    gate/up shape) fits one wave of 132 SMs; C 4096 has 64 row ranges."""
+    assert gm.smem_bytes() == 38_912
+    assert gm.blocks_per_sm() == 5
+    assert gm.grid(128, 64, 768) == (12, 128, 1)
+    assert gm.grid(128, 64, 2048) == (32, 128, 1)
+    assert gm.grid(128, 4096, 768) == (12, 128, 64)
+    assert gm.grid(3, 37, 45) == (1, 3, 1)
+    assert 52 * gm.grid(128, 64, 768)[0] <= 132 * gm.blocks_per_sm()
 
 
 @pytest.mark.cuda

@@ -45,17 +45,38 @@ def _t(a):
 
 # ------------------------------------------------------ grouped matmul
 
-@pytest.mark.parametrize("E, C, K, F", [(4, 8, 16, 32), (3, 128, 64, 128),
-                                        (2, 37, 19, 45), (5, 200, 72, 130)])
+# (E, C, K, F, live rows per expert or None); the last two are the
+# kernel's edges: 17 live rows of C 80, F 72 (a partial n tile), K 136
+# (a partial last slice; past the Pallas kernel's tiling) and K 128
+GROUPED_PLAIN_CASES = [(4, 8, 16, 32, None), (3, 128, 64, 128, None),
+                       (2, 37, 19, 45, None), (5, 200, 72, 130, None),
+                       (3, 80, 136, 72, (17, 0, 80)),
+                       (3, 80, 128, 72, (17, 0, 80))]
+
+
+@pytest.mark.parametrize(
+    "E, C, K, F, live", GROUPED_PLAIN_CASES,
+    ids=["-".join(map(str, c[:4])) + ("" if c[4] is None else "-rows"
+                                      + "-".join(map(str, c[4])))
+         for c in GROUPED_PLAIN_CASES])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_grouped_plain_matches_reference_oracle_and_pallas_kernel(E, C, K, F,
+                                                                  live,
                                                                   dtype):
+    """With live rows, x's rows past each expert's count are zeros (the
+    dropless buffer), so the reference computes the same function."""
     rng = np.random.default_rng(E * C + K)
-    x = jnp.asarray(rng.standard_normal((E, C, K)), dtype)
+    xs = rng.standard_normal((E, C, K))
+    rows = None
+    if live is not None:
+        xs = xs * (np.arange(C)[None, :, None]
+                   < np.array(live)[:, None, None])
+        rows = torch.tensor(live, dtype=torch.int32)
+    x = jnp.asarray(xs, dtype)
     w = jnp.asarray(rng.standard_normal((E, K, F)) * 0.1, dtype)
     got = gm.grouped_matmul_plain(_t(x.astype(jnp.float32)).to(
         getattr(torch, dtype)), _t(w.astype(jnp.float32)).to(
-        getattr(torch, dtype))).numpy()
+        getattr(torch, dtype)), rows).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(grouped_matmul_ref(x, w)),
                                **F32)
