@@ -44,7 +44,11 @@ exit at the first failure):
    chunks of 256, one ragged chunk of 200 and one of 5), in bf16 and
    f32, against their plain versions by the same rule; timed beside
    one `torch.bmm` (grouped; SSD has no single PyTorch call) and the
-   bound.
+   bound.  bf16 SSD runs the tensor-core design: each case's blocks
+   (`ssd_scan/ops.py` `num_blocks`) and the kernel's ptxas registers
+   and spills are printed, and one whole `ssd_chunked(impl="pallas")`
+   call at zamba2's l 256 is timed beside the kernel, the layout
+   copies around it and the "xla" impl.
 4. contiguous kernels: the split-KV decode kernel and its combine
    kernel at the contiguous decode shape (batch 8, S 1024, hq 16, hkv 8,
    d 128, positions spread up to 1023 and one idle row past S) and the
@@ -570,6 +574,7 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                  ("mamba2", 1, 24, 2, 256, 64, 128),
                  ("mamba2", 1, 24, 1, 200, 64, 128),
                  ("mamba2", 1, 24, 1, 5, 64, 128))
+    ssd_blocks = {}
     for arch, batch, heads, nc, l, p, n in ssd_cases:
         bh = batch * heads
         x32 = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
@@ -585,6 +590,9 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
             errs = [hold(f"ssd {arch} bh{bh} nc{nc} l{l} p{p} n{n} {dt} "
                          f"{part}", g, w_, ssd.TOLERANCE[dt])
                     for part, g, w_ in zip(("y", "s", "cd"), got, want)]
+            if dt is bf16:
+                ssd_blocks[f"{arch} bh{bh} nc{nc} l{l}"] = ssd.num_blocks(
+                    dt, bh, nc, l, n)
             if dt is not bf16 or (arch, l) not in (("zamba2", 64),
                                                    ("zamba2", 256),
                                                    ("mamba2", 256)):
@@ -603,7 +611,10 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                 plain_ms=time_ms(lambda: ssd.ssd_intra_chunk_plain(*args),
                                  flush),
                 library_ms=None, bound_ms=ms, bound_by=by,
-                max_abs_err=max(errs), bh=bh, nc=nc, p=p, n=n)
+                max_abs_err=max(errs), bh=bh, nc=nc, p=p, n=n,
+                blocks=ssd.num_blocks(dt, bh, nc, l, n))
+    times["ssd_chunked zamba2 l256"] = ssd_chunked_times(
+        torch, dev, flush, gdev, times["ssd_intra_chunk l256"]["ms"])
     blocks = gm.launched_blocks_per_sm(True, dev)
     if blocks != gm.blocks_per_sm():
         fail(f"grouped bf16 kernel: {blocks} blocks per SM on the card, "
@@ -618,12 +629,51 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                            "grid_c64": gm.grid(E, 64, FF),
                            "ptxas": grouped_ptxas(
                                kbuild.library().compiler_log)},
+          "ssd_bf16": {"blocks": ssd_blocks,
+                       "smem_bytes": {"p64 n64": ssd.tc_smem_bytes(64, 64),
+                                      "p64 n128": ssd.tc_smem_bytes(64, 128)},
+                       "ptxas": ssd_ptxas(kbuild.library().compiler_log)},
           "library": {"grouped": "one torch.bmm over the same (E, C, K) and "
                                  "(E, K, F), every row",
                       "ssd": "none: no single PyTorch call computes it"},
           "timing": "CUDA events, median of 30 (plain grouped: 10) after 5 "
                     "warm-up, L2 flushed", **times})
     return times
+
+
+def ssd_chunked_times(torch, dev, flush, gdev, kernel_ms: float) -> dict:
+    """One whole `ssd_chunked(impl="pallas")` call at zamba2-2.7b's
+    prefill of 8 prompts of one 256-token chunk (80 heads, p = n = 64,
+    bf16), beside the kernel's time and the layout copies around it
+    (models/mamba2.py: x, B, C and dt into (b*h, nc, l, .) order, y and
+    s back, to x's dtype), timed alone as the model makes them."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    b, s_, h, p, n = 8, 256, 80, 64, 64
+    bf16 = torch.bfloat16
+    x = torch.randn(b, s_, h, p, generator=gdev, device=dev).to(bf16)
+    B = (torch.randn(b, s_, h, n, generator=gdev, device=dev) * 0.3).to(bf16)
+    C = (torch.randn(b, s_, h, n, generator=gdev, device=dev) * 0.3).to(bf16)
+    dt = torch.rand(b, s_, h, generator=gdev, device=dev) * 0.1
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    yk = torch.empty(b * h, 1, s_, p, device=dev)
+    sk = torch.empty(b * h, 1, n, p, device=dev)
+
+    def to_bh(a):
+        return a.reshape((b, 1, s_) + tuple(a.shape[2:])).movedim(3, 1) \
+            .reshape((b * h, 1, s_) + tuple(a.shape[3:])).contiguous()
+
+    def copies():
+        to_bh(x), to_bh(B), to_bh(C), to_bh(dt)
+        yk.reshape(b, h, 1, s_, p).movedim(1, 3).to(bf16)
+        sk.reshape(b, h, 1, n, p).transpose(-1, -2).movedim(1, 2).to(bf16)
+
+    return dict(
+        ms=time_ms(lambda: ssd_chunked(x, dt, A, B, C, s_, impl="pallas"),
+                   flush),
+        kernel_ms=kernel_ms, layout_copies_ms=time_ms(copies, flush),
+        xla_ms=time_ms(lambda: ssd_chunked(x, dt, A, B, C, s_, impl="xla"),
+                       flush),
+        shape={"b": b, "s": s_, "h": h, "p": p, "n": n, "chunk": s_})
 
 
 # ------------------------------------------ phase 4: contiguous kernels
@@ -1435,51 +1485,52 @@ def phase_resnet50(torch, dev, card: str):
 
 # --------------------------------------------------------------- main
 
-def tc_ptxas(log: str) -> dict:
-    """ptxas's registers and spills of each head-dim instance of the
-    three bf16 tensor-core attention kernels (flash_attention.cu,
-    paged_prefill.cu and paged_attention.cu), from the build's compiler
-    log:
-    {"flash d128": "Used ... registers ...; ... spill loads", ...}."""
+def ptxas_report(log: str, pattern: str, label) -> dict:
+    """ptxas's registers and spills of the kernels whose mangled names
+    match `pattern` in the build's compiler log, keyed by `label(match)`:
+    {label: "Used ... registers ...; ... spill loads"}."""
     import re
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"(flash|prefill|decode)_tc_kernelILi(\d+)E", ln)
-            cur = None
-            if m:
-                cur = (f"{'flash' if m[1] == 'flash' else 'paged_' + m[1]}"
-                       f" d{m[2]}")
+            m = re.search(pattern, ln)
+            cur = label(m) if m else None
+            if cur is not None:
                 out.setdefault(cur, [])
         elif cur is not None and ("registers" in ln or "spill" in ln):
             item = ln.split("ptxas info    : ")[-1].strip()
             if item not in out[cur]:
                 out[cur].append(item)
-    return {k: "; ".join(v) for k, v in sorted(
-        out.items(), key=lambda kv: (kv[0].split()[0],
-                                     int(kv[0].split()[1][1:])))}
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def tc_ptxas(log: str) -> dict:
+    """ptxas's report of each head-dim instance of the three bf16
+    tensor-core attention kernels (flash_attention.cu, paged_prefill.cu
+    and paged_attention.cu): {"flash d128": ..., "paged_decode d160":
+    ...}."""
+    out = ptxas_report(
+        log, r"(flash|prefill|decode)_tc_kernelILi(\d+)E",
+        lambda m: f"{'flash' if m[1] == 'flash' else 'paged_' + m[1]} d{m[2]}")
+    return dict(sorted(out.items(), key=lambda kv: (
+        kv[0].split()[0], int(kv[0].split()[1][1:]))))
 
 
 def grouped_ptxas(log: str) -> dict:
-    """ptxas's registers and spills of the bf16 grouped-matmul kernel
-    (`gm_bf16_kernel`; where it is a template, its instances with
-    16-byte copies, "vec", and element copies), from the build's
-    compiler log."""
-    import re
-    out, cur = {}, None
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"gm_bf16_kernel(?:ILb([01])E)?", ln)
-            cur = None
-            if m:
-                cur = {None: "gm_bf16", "1": "gm_bf16 vec",
-                       "0": "gm_bf16 element copies"}[m[1]]
-                out.setdefault(cur, [])
-        elif cur is not None and ("registers" in ln or "spill" in ln):
-            item = ln.split("ptxas info    : ")[-1].strip()
-            if item not in out[cur]:
-                out[cur].append(item)
-    return {k: "; ".join(v) for k, v in sorted(out.items())}
+    """ptxas's report of the bf16 grouped-matmul kernel (`gm_bf16_kernel`;
+    where it is a template, its instances with 16-byte copies, "vec",
+    and element copies)."""
+    names = {None: "gm_bf16", "1": "gm_bf16 vec", "0": "gm_bf16 element copies"}
+    return dict(sorted(ptxas_report(
+        log, r"gm_bf16_kernel(?:ILb([01])E)?", lambda m: names[m[1]]).items()))
+
+
+def ssd_ptxas(log: str) -> dict:
+    """ptxas's report of each head-dim instance (p rounded up to 16) of
+    the bf16 SSD kernel (`ssd_tc_kernel`): {"ssd_tc p64": ...}."""
+    out = ptxas_report(log, r"ssd_tc_kernelILi(\d+)E",
+                       lambda m: f"ssd_tc p{m[1]}")
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0].split("p")[-1])))
 
 
 def main() -> int:

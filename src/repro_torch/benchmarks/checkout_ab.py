@@ -2,7 +2,8 @@
 attention kernels (decode and prefill), the kernels of contiguous
 serving (flash attention, split-KV decode and its combine), the MoE and
 SSD kernels (grouped matmul, SSD intra-chunk), both serving paths of
-internlm2-1.8b and qwen3-moe-30b-a3b's grouped serve.
+internlm2-1.8b, qwen3-moe-30b-a3b's grouped serve, and the SSD kernel's
+serves (zamba2-2.7b and mamba2-130m, `ssd_impl="pallas"`).
 
     python3 src/repro_torch/benchmarks/checkout_ab.py ROOT [ROOT ...]
 
@@ -14,14 +15,16 @@ imports its ROOT's `chip_smoke.py` and `src/`, builds that checkout's
 kernels, and runs chip_smoke's phases `kernels` (paged decode and
 prefill), `moe_ssd_kernels` (grouped matmul, SSD), `contig_kernels`
 (split-KV decode, flash), `serve` and `serve_contiguous` (internlm2-1.8b
-at full depth, paged and contiguous) and `serve_moe` (qwen3-moe-30b-a3b,
-`moe_dispatch="grouped"`), which print their JSON lines as in
-chip_smoke, and times ROOT's paged
+at full depth, paged and contiguous), `serve_moe` (qwen3-moe-30b-a3b,
+`moe_dispatch="grouped"`), `serve_hybrid` (zamba2-2.7b) and `serve_ssm`
+(mamba2-130m), which print their JSON lines as in chip_smoke, and
+times ROOT's paged
 decode kernel at the main path in every dtype pair it takes (chip_smoke
 times only bf16 with bf16), on the card and on the host.  Then it prints
 one line {"ab": ROOT, ...}: the card, ptxas's report of the bf16
-tensor-core attention kernels and of the bf16 grouped-matmul kernel
-(parsed by this checkout's `chip_smoke.tc_ptxas` and `grouped_ptxas`;
+tensor-core attention kernels, of the bf16 grouped-matmul kernel and of
+the bf16 SSD kernel (parsed by this checkout's `chip_smoke.tc_ptxas`,
+`grouped_ptxas` and `ssd_ptxas`;
 empty where ROOT's library was already built), the kernel times and
 each serve's step times.  Needs one CUDA card;
 exits nonzero when a root's phases fail.
@@ -110,7 +113,8 @@ def run_one(root: Path) -> dict:
     real_emit = cs.emit
 
     def keep(obj):
-        if obj.get("phase") in ("serve", "serve_contiguous", "serve_moe"):
+        if obj.get("phase") in ("serve", "serve_contiguous", "serve_moe",
+                                "serve_hybrid", "serve_ssm"):
             steps[obj["phase"]] = dict(
                 wall_s=obj["wall_s"], step_s=obj["step_s"],
                 prefill_calls=obj["prefill_calls"],
@@ -125,10 +129,16 @@ def run_one(root: Path) -> dict:
     cs.phase_serve(torch, dev, card, "serve_moe",
                    get_arch("qwen3-moe-30b-a3b").model.replace(
                        moe_dispatch="grouped"))
+    cs.phase_serve(torch, dev, card, "serve_hybrid",
+                   get_arch("zamba2-2.7b").model.replace(ssd_impl="pallas"),
+                   twins=True)
+    cs.phase_serve(torch, dev, card, "serve_ssm",
+                   get_arch("mamba2-130m").model.replace(ssd_impl="pallas"))
     cs.emit = real_emit
     pick = ("ms", "kernel_only_ms", "combine_ms", "plain_ms", "library_ms",
             "bound_ms", "blocks", "live_blocks", "floor_ms", "enqueue_us",
-            "zero_fill_ms", "byte_ms")
+            "zero_fill_ms", "byte_ms", "kernel_ms", "layout_copies_ms",
+            "xla_ms")
     times = {k: {kk: v[kk] for kk in pick if kk in v}
              for k, v in {**timings, **moe, **contig, **routes}.items()
              if k.startswith(("flash", "decode_attention", "combine",
@@ -137,6 +147,7 @@ def run_one(root: Path) -> dict:
     return {"ab": str(root), "card": card, "build_s": build_s,
             "tc_ptxas": here.tc_ptxas(lib.compiler_log),
             "grouped_ptxas": here.grouped_ptxas(lib.compiler_log),
+            "ssd_ptxas": here.ssd_ptxas(lib.compiler_log),
             "times": times, **steps}
 
 

@@ -10,12 +10,14 @@ slots, only the query and the (b, hq, d) output travel.
 * `paged_decode_attention` — the entry point.  A CUDA tensor launches
   the hand-written kernel (`kernels/csrc/paged_attention.cu`) or raises
   on a device, dtype, shape or layout it does not take; a CPU tensor
-  takes the plain version.  There is no fallback between the two.
+  takes the plain version with the reference's score rounding
+  (`round_scores`).  There is no fallback between the two.
   `launches` counts kernel launches.
 * `paged_decode_attention_plain` — gather plus masked f32 softmax,
   written from the reference oracle `ref.paged_decode_attention_ref`.
-  Scores are computed in f32 from f32 casts of q and K (the oracle
-  rounds them through q's dtype first); the output is in q's dtype.
+  Scores are computed in f32 from f32 casts of q and K; the oracle
+  rounds them through q's dtype first, which `round_scores` copies (the
+  CPU model's route); the output is in q's dtype.
 * `paged_decode_attention_splits_plain` — the bf16 kernel's arithmetic
   in plain PyTorch: per-split (m, l, acc) over whole-page splits of the
   table, merged by log-sum-exp (or, with `partials`, left as the merged
@@ -125,17 +127,25 @@ def _kv_positions(block_table, page_positions, page: int):
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_table, positions,
                                  page_positions=None, partials=False,
-                                 k_scale=None, v_scale=None):
+                                 k_scale=None, v_scale=None,
+                                 round_scores=False):
     """q: (b, hq, d); k_pages/v_pages: (P, page, hkv, d) one layer's
     arena; block_table: (b, max_pages) int; positions: (b,) inclusive
     newest index.  Returns (b, hq, d) in q's dtype, or with `partials`
-    the unnormalized summary (m (b, hq), l (b, hq), acc (b, hq, d)) f32."""
+    the unnormalized summary (m (b, hq), l (b, hq), acc (b, hq, d)) f32.
+    `round_scores` rounds q.k to the product's dtype (q's against
+    unquantized pages) before the f32 scale, as the reference's oracle
+    does (paged_attention/ref.py); off, the scores stay f32 (the CUDA
+    kernels' oracle)."""
     b, hq, d = q.shape
     page, hkv = k_pages.shape[1], k_pages.shape[2]
     g = hq // hkv
     k, v = _gather_kv(k_pages, v_pages, block_table, k_scale, v_scale)
     qg = q.reshape(b, hkv, g, d).float()
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float())
+    if round_scores:
+        s = s.to(torch.promote_types(q.dtype, k.dtype)).float()
+    s = s / math.sqrt(d)
     kv_pos = _kv_positions(block_table, page_positions, page)
     mask = (kv_pos <= positions[:, None])[:, None, None, :]      # (b,1,1,S)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -412,7 +422,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, positions, *,
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_table, positions,
             page_positions=page_positions, partials=partials,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, round_scores=True)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not "
                          f"{q.device}")

@@ -9,7 +9,8 @@ as decode; rows past `chunk_len` are exact zeros.
 
 * `paged_prefill_attention` — a CUDA tensor launches the hand-written
   kernel (`kernels/csrc/paged_prefill.cu`) or raises; a CPU tensor takes
-  the plain version.  `launches` counts kernel launches.
+  the plain version with the reference's score rounding
+  (`round_scores`).  `launches` counts kernel launches.
 * `paged_prefill_attention_plain` — gather plus masked f32 softmax,
   written from `ref.paged_prefill_attention_ref` (scores in f32, output
   in q's dtype; see `kernels/paged_attention/ops.py`).
@@ -61,12 +62,17 @@ BLOCK_RESERVED_SMEM = 1_024
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
                                   chunk_len, page_positions=None,
-                                  partials=False, k_scale=None, v_scale=None):
+                                  partials=False, k_scale=None, v_scale=None,
+                                  round_scores=False):
     """q: (b, c, hq, d) chunk queries at absolute positions
     start[i]..start[i]+c-1; k_pages/v_pages: (P, page, hkv, d) one
     layer's arena; block_table: (b, max_pages); chunk_len: (b,) valid
     rows.  Returns (b, c, hq, d) in q's dtype, or with `partials`
-    (m (b, c, hq), l (b, c, hq), acc (b, c, hq, d)) f32."""
+    (m (b, c, hq), l (b, c, hq), acc (b, c, hq, d)) f32.
+    `round_scores` rounds q.k to the product's dtype (q's against
+    unquantized pages) before the f32 scale, as the reference's oracle
+    does (paged_prefill/ref.py); off, the scores stay f32 (the CUDA
+    kernels' oracle)."""
     b, c, hq, d = q.shape
     page, hkv = k_pages.shape[1], k_pages.shape[2]
     g = hq // hkv
@@ -74,7 +80,10 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
     rows = torch.arange(c, dtype=torch.int32, device=q.device)
     positions = start[:, None] + rows[None, :]                    # (b, c)
     qg = q.reshape(b, c, hkv, g, d).float()
-    s = torch.einsum("bchgd,bshd->bhgcs", qg, k.float()) / math.sqrt(d)
+    s = torch.einsum("bchgd,bshd->bhgcs", qg, k.float())
+    if round_scores:
+        s = s.to(torch.promote_types(q.dtype, k.dtype)).float()
+    s = s / math.sqrt(d)
     kv_pos = _kv_positions(block_table, page_positions, page)
     mask = kv_pos[:, None, :] <= positions[:, :, None]            # (b, c, S)
     q_valid = rows[None, :] < chunk_len[:, None]                  # (b, c)
@@ -194,7 +203,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, start,
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, block_table, start, chunk_len,
             page_positions=page_positions, partials=partials,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, round_scores=True)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not "
                          f"{q.device}")

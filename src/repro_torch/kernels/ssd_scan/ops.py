@@ -11,7 +11,12 @@ of dt * A over the chunk:
 
 * `ssd_intra_chunk` — a CUDA tensor launches the hand-written kernel
   (`kernels/csrc/ssd_scan.cu`) or raises; a CPU tensor takes the plain
-  version.  `launches` counts kernel launches.
+  version.  `launches` counts kernel launches.  The kernel has two
+  designs, fixed by x's dtype (`route`); neither falls back to the
+  other: bf16, what every served configuration runs, on tensor cores
+  (mma.sync; one block per 64-row slab of a chunk's y rows or of its
+  state rows, `num_blocks`; B and x through a cp.async ring), f32 on
+  CUDA cores (one block per chunk; tensor cores would run it in TF32).
 * `ssd_intra_chunk_plain` — the TPU kernel's arithmetic (`_ssd_kernel`,
   kernel.py:27-52) in batched torch: the C.B products in f32, the
   scores rounded to x's dtype before their product with x, the decay
@@ -43,8 +48,15 @@ TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # kernel geometry limits (csrc/ssd_scan.cu)
 MAX_CHUNK = 256
 MAX_DIM = 128
-TILE_ROWS = 16
+TILE_ROWS = 16         # the f32 design's output rows per tile
 MAX_SMEM = 232_448
+
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+# the tensor-core design's geometry (ssd_scan.cu namespace tc)
+TC_SLAB = 64           # y rows or state rows per block, 16 per warp
+TC_TILE_TOKENS = 64    # tokens per B / x tile
+TC_STAGES = 2          # B / x tiles in flight (cp.async ring)
+TC_PAD = 8             # bf16 elements of shared-memory row padding
 
 
 def ssd_intra_chunk_plain(x, dt, A, B, C):
@@ -66,12 +78,42 @@ def ssd_intra_chunk_plain(x, dt, A, B, C):
     return y, s, torch.exp(seg[..., -1])
 
 
+def route(dtype) -> str:
+    """The kernel design x's dtype takes: bf16 the tensor-core one, f32
+    the CUDA-core one (ssd_scan.cu `repro_ssd_intra_chunk`)."""
+    return TENSOR_CORES if dtype == torch.bfloat16 else CUDA_CORES
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def tc_smem_bytes(p: int, n: int) -> int:
+    """Dynamic shared memory of one tensor-core block (ssd_scan.cu
+    `tc::smem_bytes`): seg and dt [256] and 8 warp totals in f32, then C
+    [64][n16 + 8], the B ring [2][64][n16 + 8] and the x ring
+    [2][64][p16 + 8] in bf16 (n16, p16: rounded up to 16)."""
+    return (4 * (2 * MAX_CHUNK + 8)
+            + 2 * ((1 + TC_STAGES) * TC_SLAB * (_pad16(n) + TC_PAD)
+                   + TC_STAGES * TC_TILE_TOKENS * (_pad16(p) + TC_PAD)))
+
+
 def smem_bytes(dtype, l: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one block (ssd_scan.cu smem_bytes)."""
-    size = torch.empty((), dtype=dtype).element_size()
-    pad = 1 if size == 4 else 2
-    return (4 * (3 * l + TILE_ROWS * (l + 1))
-            + size * ((l + TILE_ROWS) * (n + pad) + l * (p + pad)))
+    """Dynamic shared memory of one block of the design `dtype` takes
+    (ssd_scan.cu `tc::smem_bytes`, `smem_bytes_f32`)."""
+    if route(dtype) == TENSOR_CORES:
+        return tc_smem_bytes(p, n)
+    return 4 * (3 * l + TILE_ROWS * (l + 1) + (l + TILE_ROWS) * (n + 1)
+                + l * (p + 1))
+
+
+def num_blocks(dtype, bh: int, nc: int, l: int, n: int) -> int:
+    """Blocks of one launch: per chunk, ceil(l / 64) y slabs and
+    ceil(n / 64) state slabs in bf16 (ssd_scan.cu `tc::slabs`), one
+    block in f32."""
+    if route(dtype) == TENSOR_CORES:
+        return bh * nc * (-(-l // TC_SLAB) + -(-n // TC_SLAB))
+    return bh * nc
 
 
 def _launch(x, dt, A, B_, C):
@@ -102,8 +144,11 @@ def _launch(x, dt, A, B_, C):
     if smem_bytes(x.dtype, l, p, n) > MAX_SMEM:
         raise ValueError(f"chunk {l} x ({p}, {n}) in {x.dtype} needs more "
                          f"shared memory than a block has")
-    if bh * nc > 2 ** 31 - 1:
+    if num_blocks(x.dtype, bh, nc, l, n) > 2 ** 31 - 1:
         raise ValueError("too many (batch*head, chunk) blocks")
+    if route(x.dtype) == TENSOR_CORES and any(
+            t.data_ptr() % 16 for t in (x, B_, C)):
+        raise ValueError("x, B and C must start on 16-byte boundaries")
     dev = x.device
     y = torch.empty((bh, nc, l, p), dtype=torch.float32, device=dev)
     s = torch.empty((bh, nc, n, p), dtype=torch.float32, device=dev)

@@ -259,9 +259,21 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: int | None = None):
     return p
 
 
+def silu(x):
+    """The reference's `jax.nn.silu`: in bf16 its logistic and product
+    as XLA computes them, each of neg, exp, add, reciprocal and mul
+    rounded to bf16 (bit-exact with the reference on the CPU, where
+    `F.silu`, rounding once, differs in about a third of bf16 values; a
+    divide in place of the reciprocal is bit-exact too).  Other dtypes
+    take `F.silu`."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * torch.reciprocal(torch.exp(-x) + 1)
+
+
 def mlp_apply(p, cfg: ModelConfig, x):
     if cfg.activation == "silu_glu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        h = silu(x @ p["wg"]) * (x @ p["wi"])
     elif cfg.activation == "relu2":
         h = torch.relu(x @ p["wi"]).square()
     elif cfg.activation == "gelu":

@@ -206,7 +206,7 @@ def block_apply(p, cfg: ModelConfig, u, initial_state=None,
     b, s, _ = u.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
-    xBC = F.silu(causal_conv_apply(p["conv_w"], p["conv_b"], xBC))
+    xBC = L.silu(causal_conv_apply(p["conv_w"], p["conv_b"], xBC))
     x, B, C = _split_xbc(cfg, xBC)
     x = x.reshape(b, s, h, pdim)
     B = _expand_groups(cfg, B)
@@ -216,7 +216,7 @@ def block_apply(p, cfg: ModelConfig, u, initial_state=None,
                        impl=cfg.ssd_impl)
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(b, s, cfg.ssm_inner)
-    y = L.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
     out = y @ p["out_proj"]
     if return_state:
         return out, (S, _conv_tail(cfg, u, p))
@@ -246,7 +246,7 @@ def block_prefill_chunk(p, cfg: ModelConfig, u, conv_cache, ssm_state,
     w = cfg.conv_width
     z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
     window = torch.cat([conv_cache, xBC], dim=1)        # (b, w-1+c, ch)
-    xBC = F.silu(_depthwise(window, p["conv_w"], p["conv_b"], c))
+    xBC = L.silu(_depthwise(window, p["conv_w"], p["conv_b"], c))
     x, B, C = _split_xbc(cfg, xBC)
     x = x.reshape(b, c, h, pdim)
     B = _expand_groups(cfg, B)
@@ -257,7 +257,7 @@ def block_prefill_chunk(p, cfg: ModelConfig, u, conv_cache, ssm_state,
                        impl=cfg.ssd_impl)
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(b, c, cfg.ssm_inner)
-    y = L.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
     # conv tail = the last (w-1) VALID window rows: window[clen : clen+w-1]
     clen = valid.sum(dim=1)
     idx = clen[:, None] + torch.arange(w - 1, device=u.device)[None, :]
@@ -274,7 +274,7 @@ def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
     z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
     conv_cache, xBC = causal_conv_step(p["conv_w"], p["conv_b"], conv_cache,
                                        xBC)
-    x, B, C = _split_xbc(cfg, F.silu(xBC))
+    x, B, C = _split_xbc(cfg, L.silu(xBC))
     x = x.reshape(b, h, pdim)
     B = _expand_groups(cfg, B)
     C = _expand_groups(cfg, C)
@@ -282,7 +282,7 @@ def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
     ssm_state, y = ssd_step(ssm_state, x, dt, A, B, C)
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(b, cfg.ssm_inner)
-    y = L.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
     return y @ p["out_proj"], conv_cache, ssm_state
 
 

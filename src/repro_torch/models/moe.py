@@ -56,7 +56,7 @@ def experts_apply(p, buf, rows=None):
     einsums in buf's dtype (the reference leaves them to XLA).  `rows`
     is ignored: every row is computed."""
     del rows
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"]))
+    h = L.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["wi"])
     return torch.einsum("ecf,efd->ecd", h, p["wo"])
 

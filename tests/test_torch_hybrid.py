@@ -25,6 +25,7 @@ from repro.models import mamba2 as JM2
 from repro.serve import ServingEngine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.kernels.ssd_scan import ops as ssd
+from repro_torch.kernels.tolerance import worst_ratio
 from repro_torch.models import hybrid as PH
 from repro_torch.models import mamba2 as PM2
 from repro_torch.serve.engine import Request, ServingEngine
@@ -90,6 +91,26 @@ def test_ssd_plain_rounds_where_the_tpu_kernel_casts_in_bf16():
         k = np.asarray(k)
         bound = 1e-2 * np.abs(k) + 1e-2 * np.abs(k).max(-1, keepdims=True)
         assert (np.abs(g.numpy() - k) <= bound).all()
+
+
+@pytest.mark.parametrize("l", [5, 13, 200])
+def test_ssd_plain_matches_the_pallas_kernel_in_bf16_at_a_ragged_chunk(l):
+    """The bf16 plain version (the CUDA kernel's oracle) against the
+    Pallas kernel in interpret mode, compiled without excess precision
+    (which would keep `w.astype(bf16) * x` in f32, kernel.py:50), at
+    chunk lengths off the 64-token tile: within the plain version's own
+    tolerance (ops.py TOLERANCE, by kernels/tolerance.py's rule)."""
+    x, dt, A, B, C = _ssd_inputs(np.random.default_rng(l), 3, 2, l, 24, 40)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, B, C)]
+    jargs = (jb[0], jnp.asarray(dt), jnp.asarray(A), jb[1], jb[2])
+    pal = jax.jit(lambda *a: ssd_intra_chunk_pallas(*a, interpret=True)) \
+        .lower(*jargs).compile(
+            compiler_options={"xla_allow_excess_precision": False})(*jargs)
+    tb = [_t(a.astype(jnp.float32)).bfloat16() for a in jb]
+    got = ssd.ssd_intra_chunk_plain(tb[0], torch.from_numpy(dt),
+                                    torch.from_numpy(A), tb[1], tb[2])
+    for g, k in zip(got, pal):
+        assert worst_ratio(g, _t(k), *ssd.TOLERANCE[torch.bfloat16])[1] <= 1.0
 
 
 # ----------------------------------------------------------------- SSD

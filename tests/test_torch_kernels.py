@@ -479,7 +479,13 @@ def test_grouped_geometry_keeps_the_decode_blocks_in_one_wave():
                                              (160, 1, 256, 64, 64),
                                              (6, 3, 13, 16, 24),
                                              (4, 2, 128, 128, 128),
-                                             (24, 2, 256, 64, 128)])
+                                             (24, 2, 256, 64, 128),
+                                             # ragged chunks at n 128
+                                             (24, 1, 200, 64, 128),
+                                             (24, 1, 5, 64, 128),
+                                             # 63 bf16 blocks, p and n
+                                             # off the 16 grid
+                                             (7, 3, 100, 24, 40)])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, dtype, bh, nc, l, p,
                                           n):
     if ssd.smem_bytes(dtype, l, p, n) > ssd.MAX_SMEM:
@@ -741,6 +747,57 @@ def test_flash_tensor_core_geometry_fits_two_blocks_per_sm(arch, hq, hkv, d,
     for dd in range(16, fk.MAX_HEAD_DIM + 1, 16):
         assert fk.tc_smem_bytes(dd) <= fk.MAX_SMEM
 
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reruns_are_bit_identical(cuda_device):
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    bh, nc, l, p, n = 24, 2, 256, 64, 128
+    x, B, C = (torch.randn(bh, nc, l, d, generator=gen).bfloat16().to(
+        cuda_device) for d in (p, n, n))
+    dt = (torch.rand(bh, nc, l, generator=gen) * 0.1).to(cuda_device)
+    A = -torch.linspace(1.0, 16.0, bh).to(cuda_device)
+    first = ssd.ssd_intra_chunk(x, dt, A, B, C)
+    for again in ssd.ssd_intra_chunk(x, dt, A, B, C), \
+            ssd.ssd_intra_chunk(x, dt, A, B, C):
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_ssd_ablation_substitutions_match_the_kernel_source():
+    from repro_torch.benchmarks import ssd_ablation
+    src = (ssd_ablation.CSRC / "ssd_scan.cu").read_text()
+    for subs in ssd_ablation.ABLATIONS.values():
+        for old, _ in subs:
+            assert src.count(old) == 1, old
+
+
+def test_ssd_routes_by_dtype():
+    assert ssd.route(torch.bfloat16) == ssd.TENSOR_CORES
+    assert ssd.route(torch.float32) == ssd.CUDA_CORES
+
+
+def test_ssd_shared_memory_mirror_and_block_count():
+    # the tensor-core design's layout (ssd_scan.cu tc::smem_bytes): seg,
+    # dt and warp totals in f32, C, the B ring and the x ring in bf16 at
+    # widths rounded up to 16, plus 8 elements of row padding
+    assert ssd.tc_smem_bytes(64, 64) == 2080 + 2 * (3 * 64 * 72
+                                                    + 2 * 64 * 72) == 48_160
+    assert ssd.tc_smem_bytes(64, 128) == 72_736          # mamba2-130m
+    assert ssd.tc_smem_bytes(24, 40) == ssd.tc_smem_bytes(32, 48)
+    assert ssd.smem_bytes(torch.bfloat16, 5, 64, 128) == 72_736
+    # the f32 design's (ssd_scan.cu smem_bytes_f32) is unchanged
+    assert ssd.smem_bytes(torch.float32, 256, 64, 128) == 4 * (
+        3 * 256 + 16 * 257 + 272 * 129 + 256 * 65)
+    for d in range(8, ssd.MAX_DIM + 1, 8):
+        assert ssd.tc_smem_bytes(ssd.MAX_DIM, d) <= ssd.MAX_SMEM
+    # per chunk ceil(l / 64) y slabs and ceil(n / 64) state slabs
+    assert ssd.num_blocks(torch.bfloat16, 24, 2, 256, 128) == 288
+    assert ssd.num_blocks(torch.bfloat16, 640, 1, 256, 64) == 640 * 5
+    assert ssd.num_blocks(torch.bfloat16, 640, 1, 64, 64) == 640 * 2
+    assert ssd.num_blocks(torch.bfloat16, 24, 1, 5, 128) == 24 * 3
+    assert ssd.num_blocks(torch.bfloat16, 7, 3, 100, 40) == 63
+    assert ssd.num_blocks(torch.float32, 24, 2, 256, 128) == 48
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
