@@ -9,9 +9,9 @@ exit at the first failure):
 1. device + build: the card's name and power limit (nvidia-smi), then
    the CUDA kernels built from `src/repro_torch/kernels/csrc` with nvcc
    for sm_90a (the eight ports of the TPU kernels and split-KV decode's
-   combine), with ptxas's registers and spills of every head-dim
-   instance of the bf16 flash, paged-prefill and paged-decode kernels
-   (`tc_ptxas`).
+   f32 combine), with ptxas's registers and spills of every head-dim
+   instance of the bf16 flash, paged-prefill, paged-decode and split-KV
+   decode kernels (`tc_ptxas`).
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
@@ -49,15 +49,21 @@ exit at the first failure):
    and spills are printed, and one whole `ssd_chunked(impl="pallas")`
    call at zamba2's l 256 is timed beside the kernel, the layout
    copies around it and the "xla" impl.
-4. contiguous kernels: the split-KV decode kernel and its combine
-   kernel at the contiguous decode shape (batch 8, S 1024, hq 16, hkv 8,
-   d 128, positions spread up to 1023 and one idle row past S) and the
-   flash kernel at prompt lengths 5, 200 and 511 (causal), one
-   non-causal case and one with a q_offset, and at 511 tokens at
-   qwen3-moe-30b-a3b's (hq 32, hkv 4) and zamba2-2.7b's (hq 32, hkv 32,
-   d 160) widths, in bf16 (tensor cores) and f32 (CUDA cores), against
-   their plain versions by the same rule; each bf16 case timed beside
-   one `scaled_dot_product_attention` call and the bound, and the
+4. contiguous kernels: split-KV decode at the contiguous decode shape
+   (batch 8, S 1024, hq 16, hkv 8, d 128, positions spread up to 1023
+   and one idle row past S), in bf16 (the tensor-core kernel, one
+   launch) and f32 (the split kernel, then the combine kernel, also
+   held alone), and in bf16 at qwen3-moe-30b-a3b's (hq 32, hkv 4) and
+   zamba2-2.7b's (hq 32, hkv 32, d 160) widths, output and partials,
+   bf16 also with NaN in every cache row past the positions (never
+   read: the clean result); and the flash kernel at prompt lengths 5,
+   200 and 511 (causal), one non-causal case and one with a q_offset,
+   and at 511 tokens at those two widths, in bf16 (tensor cores) and
+   f32 (CUDA cores); all against their plain versions by the same
+   rule.  Each bf16 case is timed beside one
+   `scaled_dot_product_attention` call and the bound; bf16 split-KV
+   decode also as partials (no merge) and at every position 0 (its
+   floor), with its split rule, blocks and shared memory; the f32
    combine alone beside `combine_splits`.
 5. ws/os matmul kernels: the weight-stationary and output-stationary
    matmuls against their plain version at `tests/test_kernels.py`'s
@@ -89,8 +95,8 @@ exit at the first failure):
    paged kernel 9 times per step call.
 9. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
    (no fork: the layout refuses it): the flash kernel launched 24 times
-   per (batch=1) prefill call, the split-KV decode kernel and its
-   combine kernel 24 times each per decode call.
+   per (batch=1) prefill call, the bf16 split-KV decode kernel 24 times
+   per decode call and the combine kernel never.
 10. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
    the ssm family's contiguous layout): the SSD kernel launched 24
    times per prefill call.
@@ -99,9 +105,11 @@ exit at the first failure):
    prefill and one paged decode step on the card (kernels) and on the
    CPU (plain versions), logits, pages and state compared; and the
    contiguous prefill and decode steps of the 2-layer internlm2-width
-   model (an idle row written past max_seq included) and of a 2-layer
-   mamba2-width f32 model (prompts of 300 and 200 tokens: SSD chunks of
-   256 and a ragged 200), logits and cache compared.
+   model (an idle row written past max_seq included; its launches
+   counted from 0: flash 2 per prefill call, the f32 split-KV decode
+   kernel and its combine kernel 2 each per decode call) and of a
+   2-layer mamba2-width f32 model (prompts of 300 and 200 tokens: SSD
+   chunks of 256 and a ragged 200), logits and cache compared.
 12. paper: every module of the port's paper harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
@@ -691,63 +699,94 @@ def phase_contig_kernels(torch, dev, card: str, flush):
         return torch.randn(*shape, generator=g, device=dev)
 
     # ------------------------------------------------ split-KV decode
-    b, S, hq, hkv, d = 8, 1024, 16, 8, 128
+    # bf16 takes the tensor-core kernel (one launch, the splits merged
+    # inside it), f32 the split kernel and the combine kernel
+    b, S = 8, 1024
     positions = torch.tensor([1023, 0, 511, 17, 700, 64, 255, 1500],
                              dtype=torch.int32, device=dev)
-    q32, k32, v32 = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
-    for dt in (bf16, f32):
-        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-        got = dk.decode_attention(q, k, v, positions)
-        want = dk.decode_attention_plain(q, k, v, positions)
-        gp = dk.decode_partials(q, k, v, positions)
-        wp = dk.decode_partials_plain(q, k, v, positions)
-        torch.cuda.synchronize()
-        name = f"split-KV decode b{b} S{S} hq{hq} hkv{hkv} d{d} {dt}"
-        err = check(name, got, want, dt, rows)
-        check(name + " partials (acc)", gp[2], wp[2], dt, rows)
-        # the combine kernel alone, against its plain version on the
-        # kernel's own summaries
-        cargs = (*gp, b, hq, d, dt)
-        cerr = check(name + " combine", dk.combine_splits_kernel(*cargs),
-                     dk.combine_splits(*cargs), dt, rows)
-        if dt is not bf16:
-            continue
-        live = torch.clamp(positions.long(), max=S - 1) + 1
-        n_live = int(live.sum())
-        nbytes = 2 * 2 * n_live * hkv * d + 2 * 2 * b * hq * d + 4 * b
-        ms, by = bound(nbytes, 4 * hq * d * n_live)
-        # SDPA over the whole cache, kv heads repeated beforehand
-        qs = q.reshape(b, 1, hq, d).transpose(1, 2).contiguous()
-        ks = k.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
-        vs = v.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device=dev)[None, :]
-                <= positions[:, None].long())[:, None, None, :]
-        times["decode_attention"] = dict(
-            ms=time_ms(lambda: dk.decode_attention(q, k, v, positions), flush),
-            # the split kernel alone, and the combine kernel alone
-            kernel_only_ms=time_ms(lambda: dk.decode_partials(
-                q, k, v, positions), flush),
-            combine_ms=time_ms(lambda: dk.combine_splits_kernel(*cargs),
+    live = torch.clamp(positions.long(), max=S - 1) + 1
+    n_live = int(live.sum())
+    unread = (torch.arange(S, device=dev)[None, :]
+              >= live[:, None])[:, :, None, None]            # (b, S, 1, 1)
+    for width, hq, hkv, d in (("", 16, 8, 128),
+                              *((f" {a}", x, y, z)
+                                for a, x, y, z in PREFILL_WIDTHS)):
+        q32, k32, v32 = (randn(b, hq, d), randn(b, S, hkv, d),
+                         randn(b, S, hkv, d))
+        for dt in (bf16, f32) if not width else (bf16,):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            got = dk.decode_attention(q, k, v, positions)
+            want = dk.decode_attention_plain(q, k, v, positions)
+            gp = dk.decode_partials(q, k, v, positions)
+            wp = dk.decode_partials_plain(q, k, v, positions)
+            torch.cuda.synchronize()
+            name = (f"split-KV decode b{b} S{S}{width} (hq {hq}, hkv {hkv}, "
+                    f"d {d}) {dt} ({dk.route(dt)})")
+            err = check(name, got, want, dt, rows)
+            check(name + " partials", gp, wp, dt, rows)
+            if dt is f32:
+                # the combine kernel alone, against its plain version on
+                # the split kernel's own summaries
+                cargs = (*gp, b, hq, d, dt)
+                cerr = check(name + " combine",
+                             dk.combine_splits_kernel(*cargs),
+                             dk.combine_splits(*cargs), dt, rows)
+                # summaries (m, l, acc) read once, out written once; 2
+                # f32 flops per acc element
+                n_acc = gp[2].numel()
+                t_b = (4 * (2 * gp[0].numel() + n_acc) + 4 * b * hq * d
+                       ) / HBM_BYTES_PER_S
+                t_o = 2 * n_acc / PEAK_OPS["float32"]
+                c_ms = 1e3 * max(t_b, t_o)
+                c_by = "bytes" if t_b >= t_o else "operations"
+                times["combine_splits"] = dict(
+                    ms=time_ms(lambda: dk.combine_splits_kernel(*cargs),
                                flush),
-            plain_ms=time_ms(lambda: dk.decode_attention_plain(
-                q, k, v, positions), flush),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask), flush),
-            bound_ms=ms, bound_by=by, max_abs_err=err, live_rows=n_live)
-        # the combine: summaries (m, l, acc) read once, out written once;
-        # 2 f32 flops per acc element
-        n_acc = gp[2].numel()
-        c_bytes = 4 * (2 * gp[0].numel() + n_acc) + 2 * b * hq * d
-        c_ops = 2 * n_acc
-        c_ms = 1e3 * max(c_bytes / HBM_BYTES_PER_S, c_ops / PEAK_OPS["float32"])
-        times["combine_splits"] = dict(
-            ms=times["decode_attention"]["combine_ms"],
-            plain_ms=time_ms(lambda: dk.combine_splits(*cargs), flush),
-            library_ms=None, bound_ms=c_ms,
-            bound_by=("bytes" if c_bytes / HBM_BYTES_PER_S
-                      >= c_ops / PEAK_OPS["float32"] else "operations"),
-            max_abs_err=cerr)
-        del qs, ks, vs
+                    plain_ms=time_ms(lambda: dk.combine_splits(*cargs),
+                                     flush),
+                    library_ms=None, bound_ms=c_ms, bound_by=c_by,
+                    max_abs_err=cerr, dtype="float32",
+                    split_and_combine_ms=time_ms(
+                        lambda: dk.decode_attention(q, k, v, positions),
+                        flush))
+                continue
+            # NaN in every cache row past each position: never read, so
+            # the result is the clean one
+            kn, vn = (t.masked_fill(unread, float("nan")) for t in (k, v))
+            check(name + ", NaN past the positions",
+                  dk.decode_attention(q, kn, vn, positions), want, dt, rows)
+            del kn, vn
+            nbytes = 2 * 2 * n_live * hkv * d + 2 * 2 * b * hq * d + 4 * b
+            ms, by = bound(nbytes, 4 * hq * d * n_live)
+            # SDPA over the whole cache, kv heads repeated beforehand
+            qs = q.reshape(b, 1, hq, d).transpose(1, 2).contiguous()
+            ks = k.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+            vs = v.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+            mask = (torch.arange(S, device=dev)[None, :]
+                    <= positions[:, None].long())[:, None, None, :]
+            first = torch.zeros_like(positions)
+            L = dk.split_len(S, 8)
+            times[f"decode_attention{width}"] = dict(
+                ms=time_ms(lambda: dk.decode_attention(q, k, v, positions),
+                           flush),
+                # the same kernel writing every split's summary, no merge
+                kernel_only_ms=time_ms(lambda: dk.decode_partials(
+                    q, k, v, positions), flush),
+                plain_ms=time_ms(lambda: dk.decode_attention_plain(
+                    q, k, v, positions), flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask), flush),
+                # every row at position 0: one row, one split, no merge
+                floor_ms=time_ms(lambda: dk.decode_attention(
+                    q, k, v, first), flush),
+                bound_ms=ms, bound_by=by, max_abs_err=err, live_rows=n_live,
+                design=dk.route(dt),
+                split_rule=f"kv_splits 8, split_len ceil(S / 8) = {L}; "
+                           f"grid (b * hkv, 8)",
+                blocks=b * hkv * 8,
+                live_blocks=hkv * int(((live + L - 1) // L).sum()),
+                smem_bytes=dk.tc_smem_bytes(d, 8))
+            del qs, ks, vs
     # ---------------------------------------------------------- flash
     # internlm2-1.8b's heads (hq 16, hkv 8, d 128), then a 511-token
     # prompt at the other served widths (PREFILL_WIDTHS)
@@ -1062,8 +1101,9 @@ def expected_launches(cfg, st) -> dict:
     its layout's attention kernel once per attention layer (dense and
     MoE: every layer; hybrid: every shared-block application; ssm:
     none) — paged decode/prefill on the arena, split-KV decode/flash on
-    the contiguous cache, where split-KV decode's combine kernel follows
-    each split launch — the grouped matmul 3 times per MoE layer, the
+    the contiguous cache, where in f32 split-KV decode's combine kernel
+    follows each split launch (bf16 merges inside the one launch) — the
+    grouped matmul 3 times per MoE layer, the
     SSD kernel once per Mamba layer of a prefill call, and no ws or os
     matmul (no serving path runs them)."""
     pre, dec = st["prefill_calls"], st["decode_calls"]
@@ -1073,7 +1113,8 @@ def expected_launches(cfg, st) -> dict:
     return {"paged_decode_attention": dec * attn if paged else 0,
             "paged_prefill_attention": pre * attn if paged else 0,
             "decode_attention": 0 if paged else dec * attn,
-            "combine_splits": 0 if paged else dec * attn,
+            "combine_splits": (dec * attn if not paged
+                               and cfg.dtype == "float32" else 0),
             "flash_attention": 0 if paged else pre * attn,
             "grouped_matmul": (3 * cfg.num_layers * (pre + dec)
                                if cfg.family == "moe" else 0),
@@ -1311,7 +1352,9 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
     tokens written into rows 0 and 1 of a 3-row cache of `S` rows, row
     2 idle two short of S, then three decode steps, so an attention
     cache's row 2 writes clamp at S - 1; logits and every cache leaf
-    held by the per-element rule, `pos` exactly."""
+    held by the per-element rule, `pos` exactly.  Returns the kernel
+    launches of the run (counted from 0), after checking them against
+    `expected_launches`."""
     from repro_torch.kernels.tolerance import worst_ratio
     from repro_torch.models import registry
     from repro_torch.serve.kv_cache import clear_slot, slot_view
@@ -1330,6 +1373,9 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
                                dtype=torch.int32)
     ax = fam.cache_axes()
     out = []
+    mods = kernel_modules()
+    for m in mods.values():                          # count the card's run
+        m.launches = 0
     for where, prm in ((dev, params), (cpu, params_cpu)):
         cache = fam.init_cache(cfg, b, S, device=where)
         logits = []
@@ -1345,7 +1391,14 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
                                             dec_tokens[t].to(where))
                 logits.append(ld.cpu())
         out.append((logits, {k: v.cpu() for k, v in cache.items()}))
+        if where == dev:
+            launches = {name: m.launches for name, m in mods.items()}
     del params, params_cpu
+    want = expected_launches(cfg, {"prefill_calls": len(lens),
+                                   "decode_calls": 3,
+                                   "layout": "contiguous"})
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != expected {want}")
     (lg_g, c_g), (lg_c, c_c) = out
     if not torch.equal(c_g.pop("pos"), c_c.pop("pos")):
         fail(f"{label}: card vs CPU pos differ")
@@ -1357,13 +1410,14 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
               for i, (a, b_) in enumerate(zip(lg_g, lg_c))},
            **{f"cache_{k}": worst_ratio(c_g[k], c_c[k], rtol, atol)
               for k in c_c}}
-    emit({"phase": "parity", "config": label,
+    emit({"phase": "parity", "config": label, "launches": launches,
           "rtol": rtol, "atol_x_row_max": atol,
           "max_abs_err": {k: v[0] for k, v in res.items()},
           "worst_err_over_bound": {k: v[1] for k, v in res.items()}})
     for k, (e, r) in res.items():
         if not r <= 1.0:
             fail(f"{label}: card vs CPU {k}: err {e}, err / bound {r}")
+    return launches
 
 
 # ------------------------------------------------------ phase 12: paper
@@ -1505,13 +1559,17 @@ def ptxas_report(log: str, pattern: str, label) -> dict:
 
 
 def tc_ptxas(log: str) -> dict:
-    """ptxas's report of each head-dim instance of the three bf16
-    tensor-core attention kernels (flash_attention.cu, paged_prefill.cu
-    and paged_attention.cu): {"flash d128": ..., "paged_decode d160":
-    ...}."""
+    """ptxas's report of each head-dim instance of the four bf16
+    tensor-core attention kernels (flash_attention.cu, paged_prefill.cu,
+    paged_attention.cu and decode_attention.cu): {"flash d128": ...,
+    "paged_decode d160": ..., "split_decode d128": ...}."""
+    names = {"flash": "flash", "prefill": "paged_prefill",
+             "5repro6dec_tc16decode": "paged_decode",
+             "9repro_dec6dec_tc16decode": "split_decode"}
     out = ptxas_report(
-        log, r"(flash|prefill|decode)_tc_kernelILi(\d+)E",
-        lambda m: f"{'flash' if m[1] == 'flash' else 'paged_' + m[1]} d{m[2]}")
+        log, r"(flash|prefill|5repro6dec_tc16decode|9repro_dec6dec_tc16decode)"
+             r"_tc_kernelILi(\d+)E",
+        lambda m: f"{names[m[1]]} d{m[2]}")
     return dict(sorted(out.items(), key=lambda kv: (
         kv[0].split()[0], int(kv[0].split()[1][1:]))))
 
@@ -1581,7 +1639,7 @@ def main() -> int:
     ssm_launches = phase_serve(torch, dev, card, "serve_ssm", ssm)
     phase_parity(torch, dev)
     f32 = dict(dtype="float32", param_dtype="float32")
-    phase_parity_contiguous(
+    f32_contig_launches = phase_parity_contiguous(
         torch, dev, dense.replace(num_layers=2, attention_impl="flash_pallas",
                                   **f32),
         "internlm2-1.8b width, 2 layers, f32, contiguous", (20, 13), 64)
@@ -1603,7 +1661,9 @@ def main() -> int:
     launches["ssd_intra_chunk"] = (hybrid_launches["ssd_intra_chunk"]
                                    + ssm_launches["ssd_intra_chunk"])
     launches["decode_attention"] = contig_launches["decode_attention"]
-    launches["combine_splits"] = contig_launches["combine_splits"]
+    # bf16 decode merges its splits in one launch: the combine kernel
+    # runs on the f32 contiguous path
+    launches["combine_splits"] = f32_contig_launches["combine_splits"]
     launches["flash_attention"] = contig_launches["flash_attention"]
     for name in ("ws_matmul", "os_matmul"):   # the dataflow sweep, run twice
         launches[name] = ws_launches[name] + paper_launches[name]

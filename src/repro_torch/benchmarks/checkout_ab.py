@@ -137,6 +137,7 @@ def run_one(root: Path) -> dict:
     cs.emit = real_emit
     pick = ("ms", "kernel_only_ms", "combine_ms", "plain_ms", "library_ms",
             "bound_ms", "blocks", "live_blocks", "floor_ms", "enqueue_us",
+            "split_and_combine_ms",
             "zero_fill_ms", "byte_ms", "kernel_ms", "layout_copies_ms",
             "xla_ms")
     times = {k: {kk: v[kk] for kk in pick if kk in v}

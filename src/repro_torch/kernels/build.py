@@ -41,9 +41,9 @@ GROUPED_BLOCKS_ARGTYPES = [_INT, ctypes.POINTER(_INT)]
 # repro_ssd_intra_chunk(x, dt, A, B, C, y, s, cd, bh, nc, l, p, n, dtype,
 #   stream)
 SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
-# repro_decode_attention(q, k, v, positions, m, l, acc, b, hq, hkv, S, d,
-#   splits, split_len, dtype, stream)
-SPLIT_DECODE_ARGTYPES = [_VOIDP] * 7 + [_INT] * 8 + [_VOIDP]
+# repro_decode_attention(q, k, v, positions, out, m, l, acc, part, tickets,
+#   b, hq, hkv, S, d, splits, split_len, partials, dtype, stream)
+SPLIT_DECODE_ARGTYPES = [_VOIDP] * 10 + [_INT] * 9 + [_VOIDP]
 # repro_combine_splits(m, l, acc, out, bh, group, d, splits, dtype, stream)
 COMBINE_ARGTYPES = [_VOIDP] * 4 + [_INT] * 5 + [_VOIDP]
 # repro_flash_attention(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset,

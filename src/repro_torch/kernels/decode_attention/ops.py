@@ -12,29 +12,44 @@ summaries by log-sum-exp (the reference computes that merge outside
 Pallas, in XLA).
 
 * `decode_attention` — the entry point.  A CUDA tensor launches the
-  hand-written split kernel and then the combine kernel
-  (`kernels/csrc/decode_attention.cu`) on the current stream, with no
-  PyTorch arithmetic between or after them, or raises on a device,
-  dtype, shape or layout they do not take; a CPU tensor takes the plain
-  version.  There is no fallback between the two.  `launches` counts the
-  split kernel's launches, `COMBINE.launches` the combine kernel's
-  (`combine_splits_kernel`).
+  hand-written kernels (`kernels/csrc/decode_attention.cu`) on the
+  current stream, with no PyTorch arithmetic between or after them, or
+  raises on a device, dtype, shape or layout they do not take; a CPU
+  tensor takes the plain version.  There is no fallback between the
+  two.  The design is fixed by the dtype (`route`), with no fallback
+  either way:
+    - bf16: one launch of a tensor-core kernel (head dims that are
+      multiples of 16 up to 256, query groups of at most
+      TC_GROUP_ROWS).  Block (batch row x kv head, split) walks its
+      split through a 2-stage cp.async ring of 64-row bf16 tiles; the
+      query group is one m16 tile of mma.sync products; p is rounded to
+      bf16 before the PV product.  The splits merge in the same launch:
+      each live split writes its f32 summary to the device's scratch
+      and the last to arrive (an atomic ticket per batch row and kv
+      head) merges them.  A split past the row's position exits at
+      once; the host never reads `positions`.
+    - f32: the CUDA-core split kernel, then the combine kernel.
+  `launches` counts the split kernel's launches (either design),
+  `COMBINE.launches` the combine kernel's (`combine_splits_kernel`,
+  f32 only on this path).
 * `decode_attention_plain` — the same function in batched torch.
 * `combine_splits` — the merge in plain PyTorch: the combine kernel's
   plain version.
 * `decode_partials` / `decode_partials_plain` — the split summaries
-  (m, l, acc) before the combine, from the kernel or in batched torch.
+  (m, l, acc) before the merge, from the kernel (bf16: the same
+  tensor-core kernel with its merge skipped) or in batched torch.
 
 Where the port differs from the TPU kernel, with the same result:
   * any S: a split is `ceil(S / kv_splits)` rows and the last one is
     shorter (the TPU kernel asserts `S % kv_splits == 0`); splits past
     S are empty;
-  * rows past `positions[b]` are skipped, not masked.  A split with no
-    visible row has m = -1e30, l = 0 and acc = 0 (the TPU kernel's has
-    m = -1e30 and p = exp(0) per masked row); `combine_splits` weights
-    it by exp(-1e30 - m_max) = 0 either way.  A position at or past S
-    (an idle engine row whose write was clamped to S - 1) sees every
-    row, as `kv_pos <= pos` says.
+  * rows past `positions[b]` are skipped, not masked (the bf16 kernel
+    zero-fills them without a read, so a NaN there stays out of the
+    output).  A split with no visible row has m = -1e30, l = 0 and acc
+    = 0 (the TPU kernel's has m = -1e30 and p = exp(0) per masked row);
+    `combine_splits` weights it by exp(-1e30 - m_max) = 0 either way.
+    A position at or past S (an idle engine row whose write was clamped
+    to S - 1) sees every row, as `kv_pos <= pos` says.
 Both versions compute scores in f32, keep l as the sum of the f32
 probabilities, and round p to V's dtype before the PV product, as the
 TPU kernel does (kernel.py:45): bf16 rounds p there, f32 is exact.
@@ -47,6 +62,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.kernels.paged_attention.ops import _ptr, _scratch
 
 NEG_INF = -1e30
 
@@ -58,12 +74,20 @@ COMBINE = SimpleNamespace(launches=0)
 # element-type codes of the C interface (csrc/decode_attention.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+
 # kernel geometry limits (csrc/decode_attention.cu)
 THREADS = 128
 MAX_ROW_ELEMS = THREADS * 32
 TILE_TOKENS = 32
 MAX_SMEM = 232_448
 MAX_HEAD_DIM = 256
+# the bf16 tensor-core design (csrc/decode_attention.cu namespace dec_tc)
+TC_GROUP_ROWS = 16     # query group rows per block: one m16 tile
+TC_WARPS = 4           # each takes 16 cache rows of a tile
+TC_TILE_TOKENS = 64    # cache rows per tile
+TC_STAGES = 2          # K/V tiles in flight (cp.async ring)
+TC_PAD = 8             # bf16 elements of shared-memory row padding
 
 
 def split_len(S: int, kv_splits: int) -> int:
@@ -123,14 +147,34 @@ def decode_attention_plain(q, k_cache, v_cache, positions, *, kv_splits=8):
 
 # ----------------------------------------------------------- the kernel
 
+def route(dtype) -> str:
+    """Which design takes q's dtype: bf16 the tensor-core kernel (one
+    launch), f32 the CUDA-core split kernel and the combine kernel."""
+    return TENSOR_CORES if dtype == torch.bfloat16 else CUDA_CORES
+
+
 def smem_bytes(group: int, d: int) -> int:
-    """Dynamic shared memory of one block (decode_attention.cu)."""
+    """Dynamic shared memory of one CUDA-core split block
+    (decode_attention.cu `smem_bytes`)."""
     t = TILE_TOKENS
     return 4 * (group * (d + 1) + t * (d + 1) + t * d + group * t + 3 * group)
 
 
-def _launch(q, k_cache, v_cache, positions, kv_splits: int):
-    global launches
+def tc_smem_bytes(d: int, splits: int) -> int:
+    """Dynamic shared memory of one tensor-core block
+    (decode_attention.cu `dec_tc::smem_bytes`): Q in bf16 at row stride
+    d + 8, then the K/V ring, whose space the merges take after the walk
+    (the warps' f32 O, m, l and weights and the block's m and l; then
+    the splits' m and l and the merged l)."""
+    rows, warps = TC_GROUP_ROWS, TC_WARPS
+    ring = 2 * 2 * TC_STAGES * TC_TILE_TOKENS * (d + TC_PAD)
+    merge = 4 * max(warps * rows * (d + 3) + 2 * rows, (2 * splits + 2) * rows)
+    return 2 * rows * (d + TC_PAD) + max(ring, merge)
+
+
+def check_inputs(q, k_cache, v_cache, positions, kv_splits: int) -> None:
+    """Raise ValueError on anything the kernel of q's dtype (`route`)
+    does not take."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"q dtype {q.dtype}: the kernel takes float32 or "
                          f"bfloat16")
@@ -156,35 +200,67 @@ def _launch(q, k_cache, v_cache, positions, kv_splits: int):
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if kv_splits < 1 or b * hkv > 2 ** 31 - 1 or kv_splits > 65535:
+        raise ValueError(f"grid of {b * hkv} x {kv_splits} out of range")
     g = hq // hkv
+    if route(q.dtype) == TENSOR_CORES:
+        if d % 16 or d > MAX_HEAD_DIM:
+            raise ValueError(f"head_dim {d}: the bf16 decode kernel takes "
+                             f"multiples of 16 up to {MAX_HEAD_DIM}")
+        if g > TC_GROUP_ROWS:
+            raise ValueError(f"query group {g}: the bf16 decode kernel "
+                             f"takes at most {TC_GROUP_ROWS} rows per kv head")
+        if tc_smem_bytes(d, kv_splits) > MAX_SMEM:
+            raise ValueError(f"{kv_splits} splits need more shared memory "
+                             f"to merge than a block has")
+        return
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernel takes multiples of 8 up "
                          f"to {MAX_HEAD_DIM}")
     if g * d > MAX_ROW_ELEMS:
         raise ValueError(f"{g} query rows x head_dim {d} exceed one block's "
                          f"{MAX_ROW_ELEMS} accumulators")
-    if kv_splits < 1 or b * hkv > 2 ** 31 - 1 or kv_splits > 65535:
-        raise ValueError(f"grid of {b * hkv} x {kv_splits} out of range")
-    smem = smem_bytes(g, d)
-    if smem > MAX_SMEM:
+    if smem_bytes(g, d) > MAX_SMEM:
         raise ValueError(f"head_dim {d} needs more shared memory than a "
                          f"block has")
+
+
+def _launch(q, k_cache, v_cache, positions, kv_splits: int, partials: bool):
+    """One launch of the split kernel.  Returns the summaries (m, l, acc)
+    with `partials` or in f32 (the combine makes the output), else the
+    bf16 output (the tensor-core kernel merges its splits itself, through
+    the device's scratch and tickets, `paged_attention.ops._scratch`,
+    which reallocates when a call needs more: a captured CUDA graph would
+    have to hold the largest first)."""
+    global launches
+    check_inputs(q, k_cache, v_cache, positions, kv_splits)
+    b, hq, d = q.shape
+    _, S, hkv, _ = k_cache.shape
+    g = hq // hkv
     dev = q.device
-    m = torch.empty((b * hkv, kv_splits, g), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b * hkv, kv_splits, g, d), dtype=torch.float32,
-                      device=dev)
+    merged = route(q.dtype) == TENSOR_CORES and not partials
+    out = m = l = acc = part = tickets = None
+    if merged:
+        out = torch.empty_like(q)
+        part, tickets = _scratch(dev, (2 + d) * b * hq * kv_splits, b * hkv)
+    else:
+        m = torch.empty((b * hkv, kv_splits, g), dtype=torch.float32,
+                        device=dev)
+        l = torch.empty_like(m)
+        acc = torch.empty((b * hkv, kv_splits, g, d), dtype=torch.float32,
+                          device=dev)
     lib = B.library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            positions.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-            b, hq, hkv, S, d, kv_splits, split_len(S, kv_splits),
-            DTYPE_CODES[q.dtype], stream)
+            positions.data_ptr(), _ptr(out), _ptr(m), _ptr(l), _ptr(acc),
+            _ptr(part), _ptr(tickets), b, hq, hkv, S, d, kv_splits,
+            split_len(S, kv_splits), int(partials), DTYPE_CODES[q.dtype],
+            stream)
     B.check(err, "decode_attention")
     launches += 1
-    return m, l, acc
+    return out if merged else (m, l, acc)
 
 
 def decode_partials(q, k_cache, v_cache, positions, *, kv_splits=8):
@@ -198,7 +274,7 @@ def decode_partials(q, k_cache, v_cache, positions, *, kv_splits=8):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k_cache, v_cache, positions, kv_splits)
+    return _launch(q, k_cache, v_cache, positions, kv_splits, partials=True)
 
 
 def combine_splits_kernel(m, l, acc, b: int, hq: int, d: int, out_dtype):
@@ -238,9 +314,13 @@ def combine_splits_kernel(m, l, acc, b: int, hq: int, d: int, out_dtype):
 
 
 def decode_attention(q, k_cache, v_cache, positions, *, kv_splits=8):
-    """`decode_partials` merged by `combine_splits` (on a CUDA tensor,
-    the combine kernel): (b, hq, d) in q's dtype."""
+    """`decode_partials` merged by `combine_splits`: (b, hq, d) in q's
+    dtype.  On a CUDA tensor bf16 is one launch of the tensor-core
+    kernel, f32 the split kernel then the combine kernel (`route`)."""
     b, hq, d = q.shape
+    if q.device.type == "cuda" and route(q.dtype) == TENSOR_CORES:
+        return _launch(q, k_cache, v_cache, positions, kv_splits,
+                       partials=False)
     m, l, acc = decode_partials(q, k_cache, v_cache, positions,
                                 kv_splits=kv_splits)
     if q.device.type == "cpu":

@@ -92,10 +92,10 @@ def _select_shared(params, cfg: ModelConfig, g: int):
 
 def _shared_tail(sp, scfg, cat, o, proj_g, h):
     """Attention output -> MLP -> projection back onto the hidden state."""
-    cat = cat + o @ sp["attn"]["wo"]
+    cat = cat + L.matmul(o, sp["attn"]["wo"])
     h2 = L.rmsnorm_apply(sp["ln2"], cat, scfg.norm_eps)
     cat = cat + L.mlp_apply(sp["mlp"], scfg, h2)
-    return h + cat @ proj_g
+    return h + L.matmul(cat, proj_g)
 
 
 # ---------------------------------------------------------------- serving

@@ -3,9 +3,9 @@ embeddings, and the attention dispatch (contiguous and paged).
 
 Port of the serving subset of `repro.models.layers`.  Plain functions
 on tensors with the reference's names and parameter layouts: weights are
-(d_in, d_out), so `x @ w` is the reference's product.  The reference's
-sharding constraints and vocab-parallel lookup have no counterpart on
-one card and are dropped.
+(d_in, d_out), so `x @ w` is the reference's product (`matmul`).  The
+reference's sharding constraints and vocab-parallel lookup have no
+counterpart on one card and are dropped.
 
 Attention over contiguous K/V (`run_attention`, `run_decode_attention`)
 launches the flash and split-KV decode kernels for CUDA tensors,
@@ -32,6 +32,17 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device):
     """N(0, 1) drawn in f32, cast, then scaled — the reference's order."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return x.to(dtype) * std
+
+
+def matmul(x, w):
+    """A weight projection `x @ w` as the reference's XLA dot computes
+    it.  On a CPU tensor in bf16 that is an f32 product rounded once to
+    bf16: torch's CPU bf16 GEMM sums in another order and lands one ulp
+    off in a few elements (ROADMAP C.4).  Otherwise `x @ w`: the card
+    keeps its bf16 GEMM, and f32 is unchanged."""
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
 
 
 # ----------------------------------------------------------------- RMSNorm
@@ -89,9 +100,9 @@ def attention_init(gen, cfg: ModelConfig, device):
 def attention_qkv(p, cfg: ModelConfig, x, positions):
     """x: (b, s, d) -> q (b,s,hq,hd), k/v (b,s,hkv,hd) with rope applied."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = matmul(x, p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = matmul(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = matmul(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -273,15 +284,15 @@ def silu(x):
 
 def mlp_apply(p, cfg: ModelConfig, x):
     if cfg.activation == "silu_glu":
-        h = silu(x @ p["wg"]) * (x @ p["wi"])
+        h = silu(matmul(x, p["wg"])) * matmul(x, p["wi"])
     elif cfg.activation == "relu2":
-        h = torch.relu(x @ p["wi"]).square()
+        h = torch.relu(matmul(x, p["wi"])).square()
     elif cfg.activation == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["wi"], approximate="tanh")
+        h = F.gelu(matmul(x, p["wi"]), approximate="tanh")
     else:
         raise ValueError(cfg.activation)
-    return h @ p["wo"]
+    return matmul(h, p["wo"])
 
 
 # -------------------------------------------------------------- embeddings
@@ -302,5 +313,5 @@ def logits_from_hidden(emb_or_head, cfg: ModelConfig, x):
     tied is detected by `w.shape[0] == vocab_size`, as in the reference."""
     w = emb_or_head
     if w.shape[0] == cfg.vocab_size:          # tied: (vocab, d)
-        return x @ w.to(x.dtype).t()
-    return x @ w.to(x.dtype)
+        return matmul(x, w.to(x.dtype).t())
+    return matmul(x, w.to(x.dtype))

@@ -205,7 +205,7 @@ def block_apply(p, cfg: ModelConfig, u, initial_state=None,
     width-1, channels))."""
     b, s, _ = u.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, xBC, dt = _split_proj(cfg, L.matmul(u, p["in_proj"]))
     xBC = L.silu(causal_conv_apply(p["conv_w"], p["conv_b"], xBC))
     x, B, C = _split_xbc(cfg, xBC)
     x = x.reshape(b, s, h, pdim)
@@ -217,7 +217,7 @@ def block_apply(p, cfg: ModelConfig, u, initial_state=None,
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(b, s, cfg.ssm_inner)
     y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = L.matmul(y, p["out_proj"])
     if return_state:
         return out, (S, _conv_tail(cfg, u, p))
     return out
@@ -227,7 +227,7 @@ def _conv_tail(cfg: ModelConfig, u, p):
     """The last (width-1) pre-conv xBC rows — the decode conv cache —
     with zero rows before position 0 when the sequence is shorter."""
     w1 = cfg.conv_width - 1
-    _, xBC, _ = _split_proj(cfg, u[:, -w1:] @ p["in_proj"])
+    _, xBC, _ = _split_proj(cfg, L.matmul(u[:, -w1:], p["in_proj"]))
     return F.pad(xBC, (0, 0, w1 - xBC.shape[1], 0))
 
 
@@ -244,7 +244,7 @@ def block_prefill_chunk(p, cfg: ModelConfig, u, conv_cache, ssm_state,
     b, c, _ = u.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     w = cfg.conv_width
-    z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, xBC, dt = _split_proj(cfg, L.matmul(u, p["in_proj"]))
     window = torch.cat([conv_cache, xBC], dim=1)        # (b, w-1+c, ch)
     xBC = L.silu(_depthwise(window, p["conv_w"], p["conv_b"], c))
     x, B, C = _split_xbc(cfg, xBC)
@@ -263,7 +263,7 @@ def block_prefill_chunk(p, cfg: ModelConfig, u, conv_cache, ssm_state,
     idx = clen[:, None] + torch.arange(w - 1, device=u.device)[None, :]
     new_conv = torch.gather(window, 1, idx[:, :, None].expand(
         b, w - 1, window.shape[-1]))
-    return y @ p["out_proj"], new_conv, S
+    return L.matmul(y, p["out_proj"]), new_conv, S
 
 
 def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
@@ -271,7 +271,7 @@ def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
     ssm_state)."""
     b = u.shape[0]
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, xBC, dt = _split_proj(cfg, L.matmul(u, p["in_proj"]))
     conv_cache, xBC = causal_conv_step(p["conv_w"], p["conv_b"], conv_cache,
                                        xBC)
     x, B, C = _split_xbc(cfg, L.silu(xBC))
@@ -283,7 +283,7 @@ def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(b, cfg.ssm_inner)
     y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"], conv_cache, ssm_state
+    return L.matmul(y, p["out_proj"]), conv_cache, ssm_state
 
 
 def layer_init(gen, cfg: ModelConfig, device):

@@ -87,7 +87,7 @@ def _route(router_w, cfg: ModelConfig, xf):
     softmax over the router logits, top-k (ties to the lower expert id,
     as `lax.top_k`), renormalised.  The reference's load-balance and z
     losses are training terms and are not computed."""
-    logits = (xf @ router_w).float()                              # (T, E)
+    logits = L.matmul(xf, router_w).float()                     # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token

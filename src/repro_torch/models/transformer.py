@@ -102,7 +102,7 @@ def prefill(params, cfg: ModelConfig, batch, cache, ffn_fn=_mlp_ffn):
         hn = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, hn, positions)
         o = L.run_attention(cfg, q, k, v).reshape(b, s, cfg.q_dim)
-        x = x + o @ p["attn"]["wo"]
+        x = x + L.matmul(o, p["attn"]["wo"])
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, None)
         cache["k"][layer, :, :s].copy_(k)
@@ -126,7 +126,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, ffn_fn=_mlp_ffn):
         _scatter_kv(k_l, k, pos)
         _scatter_kv(v_l, v, pos)
         o = L.run_decode_attention(cfg, q[:, 0], k_l, v_l, pos)
-        x = x + (o @ p["attn"]["wo"])[:, None, :]
+        x = x + L.matmul(o, p["attn"]["wo"])[:, None, :]
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, None)
     cache["pos"].add_(1)
@@ -235,7 +235,7 @@ def paged_prefill_embeds(params, cfg: ModelConfig, x, arena, block_table,
                                           block_table, start, chunk_len,
                                           k_scale=pg.get("k_scale"),
                                           v_scale=pg.get("v_scale"))
-        x = x + o @ p["attn"]["wo"]
+        x = x + L.matmul(o, p["attn"]["wo"])
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, valid)
     h = L.rmsnorm_apply(params["ln_f"], _last_valid(x, chunk_len),
@@ -278,7 +278,7 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
                                          block_table, positions,
                                          k_scale=pg.get("k_scale"),
                                          v_scale=pg.get("v_scale"))
-        x = x + (o @ p["attn"]["wo"])[:, None, :]
+        x = x + L.matmul(o, p["attn"]["wo"])[:, None, :]
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, valid)
     h = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)

@@ -12,14 +12,7 @@ import functools
 import numpy as np
 import pytest
 
-from test_torch_bf16_parity import (ENGINE_CASES, MATMUL_ORDER, port_run,
-                                    reference_runs)
-
-# cases whose cache differs from the reference's in one bf16 ulp through
-# the CPU bf16 GEMM's summation order (ROADMAP C.4); their streams, stats
-# and positions are identical all the same
-CACHE_ULP_CASES = {("hybrid", "idle_past_max_seq")}
-
+from test_torch_bf16_parity import ENGINE_CASES, port_run, reference_runs
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
@@ -51,9 +44,7 @@ def test_contiguous_engine_matches_the_reference_in_bf16(reference, port_runs,
         assert got[3] > 16                 # an idle row wrote past max_seq
 
 
-@pytest.mark.parametrize("family, scenario", [
-    pytest.param(*c, marks=MATMUL_ORDER) if c in CACHE_ULP_CASES else c
-    for c in ENGINE_CASES["contiguous"]])
+@pytest.mark.parametrize("family, scenario", ENGINE_CASES["contiguous"])
 def test_contiguous_engine_cache_bits_match_the_reference_in_bf16(
         reference, port_runs, family, scenario):
     want = reference["runs"][(family, scenario)][2]

@@ -16,8 +16,10 @@ an `.npz`.  The subprocess also ships its params, so both sides start
 from the same bits.
 
 What makes the port equal: `models.layers.silu` (the reference's
-`jax.nn.silu` rounding in bf16) and the paged plain versions'
-`round_scores` (the reference oracles' q.k in q's dtype)."""
+`jax.nn.silu` rounding in bf16), `models.layers.matmul` (a weight
+projection as XLA's bf16 dot: an f32 product rounded once) and the
+paged plain versions' `round_scores` (the reference oracles' q.k in
+q's dtype)."""
 from __future__ import annotations
 
 import functools
@@ -113,6 +115,49 @@ def test_silu_is_f_silu_in_f32():
     np.testing.assert_allclose(L.silu(x).numpy(),
                                np.asarray(jax.nn.silu(jnp.asarray(x.numpy()))),
                                rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------- weight projections
+
+PROJECTIONS = ("wq", "wk", "wv", "wo", "wg", "wi", "router", "in_proj",
+               "out_proj", "group_proj", "head")
+
+
+@functools.cache
+def projection_shapes() -> list[tuple[int, int]]:
+    """(d_in, d_out) of every weight projection of the TINY dense, moe,
+    ssm and hybrid families (their stacked leaves' last two axes), and
+    the tied logits' (d_model, vocab)."""
+    shapes = set()
+    for name in ("dense", "moe", "ssm", "hybrid"):
+        cfg = TINY[name]
+        jp = jax_registry.get_family(cfg).init(jax.random.key(0), cfg)
+        for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+            if path[-1].key in PROJECTIONS:
+                shapes.add(tuple(leaf.shape[-2:]))
+        shapes.add((cfg.d_model, cfg.vocab_size))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("rows", [(4, 8), (3,)], ids=["chunk", "decode"])
+def test_matmul_is_bit_exact_with_jax_at_the_tiny_projections(rows):
+    """`layers.matmul` in bf16 on the CPU gives the bits of XLA's bf16
+    dot (`jax.jit(a @ b)`) at every TINY projection shape, for a
+    prefill chunk's rows and a decode step's; in f32 it is `x @ w`."""
+    dot = jax.jit(lambda a, b: a @ b)
+    rng = np.random.default_rng(5)
+    assert len(projection_shapes()) >= 7
+    for d_in, d_out in projection_shapes():
+        for _ in range(3):
+            x = rng.standard_normal((*rows, d_in)).astype(np.float32)
+            w = (rng.standard_normal((d_in, d_out)) * 0.05).astype(np.float32)
+            xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+            got = L.matmul(xt.bfloat16(), wt.bfloat16())
+            assert got.dtype == torch.bfloat16
+            want = dot(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+            np.testing.assert_array_equal(bits(got), bits(want),
+                                          err_msg=f"{(d_in, d_out)}")
+            assert torch.equal(L.matmul(xt, wt), xt @ wt)
 
 
 # --------------------------------------------------------- score rounding
@@ -229,15 +274,6 @@ STEP_CASES = {"dense": (JT, PT, TINY["dense"]),
               "hybrid-pallas": (JH, PH, TINY["hybrid"].replace(
                   ssd_impl="pallas"))}
 
-# One shared-attention K element of row 2's last first-chunk token
-# (block 1, page 14 slot 7, kv head 2, dim 7) is one bf16 ulp apart:
-# the port's CPU bf16 GEMM (`x @ wk`, x (4, 8, 128), wk (128, 128))
-# sums in another order than XLA's dot (ROADMAP C.4).  Logits and the
-# conv/SSM state rows are bit-identical all the same.
-MATMUL_ORDER = pytest.mark.xfail(
-    strict=True, reason="ROADMAP C.4: CPU bf16 GEMM summation order")
-
-
 @functools.cache
 def paged_steps(case):
     """`run_paged_steps` (two ragged prefill chunks and a decode step)
@@ -262,9 +298,7 @@ def test_paged_step_logits_match_reference_in_bf16(case):
         np.testing.assert_array_equal(tl[live], jl[live].astype(np.float32))
 
 
-@pytest.mark.parametrize("case", [
-    c if not c.startswith("hybrid") else pytest.param(c, marks=MATMUL_ORDER)
-    for c in STEP_CASES])
+@pytest.mark.parametrize("case", list(STEP_CASES))
 def test_paged_step_arena_matches_reference_in_bf16(case):
     """Every non-null page and the hybrid's conv/SSM state rows are
     bit-identical after the steps."""

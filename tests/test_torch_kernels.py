@@ -655,15 +655,122 @@ def test_combine_kernel_matches_plain_on_card(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_launches_the_split_and_the_combine_once(
-        cuda_device):
-    args = _split_inputs(cuda_device, torch.bfloat16, *SPLIT_CASES[0])
+        cuda_device, dtype):
+    # bf16: one launch of the tensor-core kernel, which merges its own
+    # splits; f32: the split kernel, then the combine kernel
+    args = _split_inputs(cuda_device, dtype, *SPLIT_CASES[0])
     before = (dk.launches, dk.COMBINE.launches)
     got = dk.decode_attention(*args)
+    combines = 1 if dtype == torch.float32 else 0
     assert (dk.launches, dk.COMBINE.launches) == (before[0] + 1,
-                                                  before[1] + 1)
+                                                  before[1] + combines)
     torch.cuda.synchronize()
-    _assert_close(got, dk.decode_attention_plain(*args), torch.bfloat16)
+    _assert_close(got, dk.decode_attention_plain(*args), dtype)
+
+
+def _contig_tc_case(dev, group, d, S, hkv=2, seed=23):
+    """bf16 q and caches for the tensor-core split-KV decode: rows at
+    position 0, mid-way through split 0, on the first row of split 1,
+    at S - 1, past S (an idle row: every row visible) and mid-cache
+    (kv_splits 8).  Returns the inputs with every cache row past its
+    batch row's position set to NaN, and the clean caches."""
+    L = dk.split_len(S, 8)
+    positions = [0, L // 2, L, S - 1, S + 7, S // 2]
+    rng = np.random.default_rng(seed)
+    b = len(positions)
+    q, k, v = (rng.standard_normal(shape, dtype=np.float32)
+               for shape in ((b, group * hkv, d), (b, S, hkv, d),
+                             (b, S, hkv, d)))
+    as_dev = lambda x: torch.from_numpy(x).bfloat16().to(dev)
+    clean = as_dev(k), as_dev(v)
+    unread = np.arange(S)[None, :] > np.array(positions)[:, None]
+    k[unread], v[unread] = np.nan, np.nan
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return (as_dev(q), as_dev(k), as_dev(v), pos), clean
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [61, 1000])
+@pytest.mark.parametrize("d", [16, 64, 128, 160, 256])
+@pytest.mark.parametrize("group", [1, 2, 8, 16])
+def test_tensor_core_split_decode_matches_plain_on_card(cuda_device, group,
+                                                        d, S):
+    # NaN in every row past each position: the kernel never reads them,
+    # so it gives the plain version's result on the clean caches
+    (q, k, v, pos), (kc, vc) = _contig_tc_case(cuda_device, group, d, S)
+    assert dk.route(q.dtype) == dk.TENSOR_CORES
+    before = (dk.launches, dk.COMBINE.launches)
+    got = dk.decode_attention(q, k, v, pos)
+    parts = dk.decode_partials(q, k, v, pos)
+    assert (dk.launches, dk.COMBINE.launches) == (before[0] + 2, before[1])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    _assert_close(got, dk.decode_attention_plain(q, kc, vc, pos),
+                  torch.bfloat16)
+    want = dk.decode_partials_plain(q, kc, vc, pos)
+    for g_, w_ in zip(parts, want):
+        assert g_.shape == w_.shape and g_.dtype == torch.float32
+        _assert_close(g_, w_, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tensor_core_split_decode_partials_keep_the_empty_carry(cuda_device):
+    # every split that starts past a row's position: m = -1e30, l = 0,
+    # acc = 0, as the plain version writes them; the others hold their
+    # own split's summary
+    (q, k, v, pos), (kc, vc) = _contig_tc_case(cuda_device, 8, 128, 1000)
+    m, l, acc = dk.decode_partials(q, k, v, pos)
+    torch.cuda.synchronize()
+    L, hkv = dk.split_len(1000, 8), k.shape[2]
+    live = torch.clamp(pos.long(), max=999) // L + 1          # (b,)
+    empty = (torch.arange(8, device=cuda_device)[None, :]
+             >= live[:, None]).repeat_interleave(hkv, 0)      # (b * hkv, 8)
+    assert empty.any() and (~empty).any()
+    assert (m[empty] == dk.NEG_INF).all()
+    assert not l[empty].any() and not acc[empty].any()
+    assert (l[~empty] > 0).all()
+    wm, wl, wacc = dk.decode_partials_plain(q, kc, vc, pos)
+    assert torch.equal(wm[empty], m[empty])
+    for got, want in ((m, wm), (l, wl), (acc, wacc)):
+        _assert_close(got[~empty], want[~empty], torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tensor_core_split_decode_resets_its_merge_counters(cuda_device):
+    # the last live split of each (batch row, kv head) resets its ticket,
+    # so back-to-back calls give the same bits and leave them all at 0
+    (q, k, v, pos), _ = _contig_tc_case(cuda_device, 8, 128, 1000, hkv=4)
+    first = dk.decode_attention(q, k, v, pos)
+    second = dk.decode_attention(q, k, v, pos)
+    third = dk.decode_attention(q[:2], k[:2], v[:2], pos[:2])
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(third, first[:2])
+    assert not pa._SCRATCH[q.device][1].any()
+
+
+@pytest.mark.cuda
+def test_tensor_core_split_decode_refuses_what_its_tiles_do_not_take(
+        cuda_device):
+    for d in (24, 40):
+        q, k, v, pos = _split_inputs(cuda_device, torch.bfloat16, 2, 4, 2,
+                                     d, 61, (0, 60))
+        before = (dk.launches, dk.COMBINE.launches)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            dk.decode_attention(q, k, v, pos)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            dk.decode_partials(q, k, v, pos)
+        assert (dk.launches, dk.COMBINE.launches) == before
+        # the CUDA-core design still takes the same width in f32
+        f32 = (q.float(), k.float(), v.float(), pos)
+        _assert_close(dk.decode_attention(*f32),
+                      dk.decode_attention_plain(*f32), torch.float32)
+    q, k, v, pos = _split_inputs(cuda_device, torch.bfloat16, 2, 34, 2, 16,
+                                 61, (0, 60))
+    with pytest.raises(ValueError, match="at most 16"):
+        dk.decode_attention(q, k, v, pos)
 
 
 @pytest.mark.cuda
@@ -725,6 +832,62 @@ def test_split_and_flash_shared_memory_fits_the_main_path_widths(dtype):
     if dtype == torch.bfloat16:
         assert fk.smem_bytes(dtype, 128) == fk.tc_smem_bytes(128) == 87_040
         assert fk.tc_smem_bytes(160) == 107_520
+
+
+def test_split_decode_routes_by_dtype():
+    assert dk.route(torch.bfloat16) == dk.TENSOR_CORES
+    assert dk.route(torch.float32) == dk.CUDA_CORES
+
+
+def test_split_decode_tensor_core_shared_memory_mirror():
+    # Q [16][d + 8] bf16, then the larger of the 2-stage K/V ring [2][2]
+    # [64][d + 8] bf16 and the merges' floats (decode_attention.cu
+    # dec_tc::smem_bytes)
+    assert dk.tc_smem_bytes(128, 8) == 2 * 16 * 136 + 2 * 2 * 2 * 64 * 136 \
+        == 73_984
+    assert dk.tc_smem_bytes(16, 8) == 768 + 12_288
+    assert dk.tc_smem_bytes(160, 8) == 2 * 16 * 168 + 2 * 2 * 2 * 64 * 168
+    assert dk.tc_smem_bytes(256, 8) == 143_616
+    # many splits: the merge's m and l per split outgrow the ring
+    assert dk.tc_smem_bytes(16, 1000) == 768 + 4 * 2002 * 16
+    # every head dim the kernel takes fits at the default 8 splits, three
+    # blocks per SM at internlm2's d 128
+    for d in range(16, dk.MAX_HEAD_DIM + 1, 16):
+        assert dk.tc_smem_bytes(d, 8) <= dk.MAX_SMEM
+    assert 3 * dk.tc_smem_bytes(128, 8) <= dk.MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_input_checks(dtype):
+    # the checks run before any launch, so CPU tensors show them
+    def inputs(b=2, hq=4, hkv=2, d=16, S=61):
+        return _split_inputs(torch.device("cpu"), dtype, b, hq, hkv, d, S,
+                             (0, S - 1)[:b])
+    dk.check_inputs(*inputs(), 8)
+    dk.check_inputs(*inputs(hq=32, hkv=2, d=256), 8)
+    bf16 = dtype == torch.bfloat16
+    for kw, what in ((dict(d=24), "multiples of 16"),
+                     (dict(hq=34, hkv=2), "at most 16")):
+        if bf16:
+            with pytest.raises(ValueError, match=what):
+                dk.check_inputs(*inputs(**kw), 8)
+        else:
+            dk.check_inputs(*inputs(**kw), 8)
+    if bf16:
+        with pytest.raises(ValueError, match="shared memory to merge"):
+            dk.check_inputs(*inputs(), 4000)
+    else:
+        with pytest.raises(ValueError, match="accumulators"):
+            dk.check_inputs(*inputs(hq=66, hkv=2, d=128), 8)
+    q, k, v, pos = inputs()
+    with pytest.raises(ValueError, match="int32"):
+        dk.check_inputs(q, k, v, pos.long(), 8)
+    with pytest.raises(ValueError, match="dtype"):
+        dk.check_inputs(q, k.half(), v.half(), pos, 8)
+    with pytest.raises(ValueError, match="out of range"):
+        dk.check_inputs(q, k, v, pos, 0)
+    with pytest.raises(ValueError, match="multiple of hkv"):
+        dk.check_inputs(*inputs(hq=3, hkv=2), 8)
 
 
 def test_flash_routes_by_dtype():
