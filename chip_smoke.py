@@ -16,15 +16,16 @@ exit at the first failure):
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
    columns; prefill chunks of 1, 7, 8 and 64 with ragged chunk lengths
-   including 0), in bf16 and f32, with page_positions + POS_PAD holes +
+   including 0, and of 5, the speculative verify window at k 4, with
+   lengths 5 and 0), in bf16 and f32, with page_positions + POS_PAD holes +
    partials, and with int8 and fp8 pages, each output element within
    rtol |plain| + atol * max |plain row| (`repro_torch/kernels/
    tolerance.py`).  bf16 q with bf16 pages takes the tensor-core
    designs (decode: split over the KV length; each case names its
    design); bf16 decode (plain, and holes + partials) and prefill at c
    64 are also held at qwen3-moe-30b-a3b's width (hq 32, hkv 4) and
-   zamba2-2.7b's (hq 32, hkv 32, d 160).  The main-path cases are
-   timed, and bf16 decode and prefill also at those two widths: kernel,
+   zamba2-2.7b's (hq 32, hkv 32, d 160).  The main-path cases (prefill
+   at c 64 and at the verify window's c 5) are timed, and bf16 decode and prefill also at those two widths: kernel,
    plain version, one `scaled_dot_product_attention` call over the
    gathered K/V (a yardstick the port never calls) and the bound;
    decode also with its split rule, its grid's blocks and the blocks
@@ -86,21 +87,39 @@ exit at the first failure):
    after its first token; every stream finishes, no page leaks, each
    kernel launched 24 times per step call, and a second identical run
    gives byte-identical streams.
-7. serve_moe: the same on qwen3-moe-30b-a3b (48 layers, 128 experts,
+7. serve_spec: the same 8 prompts, the sampled row and the fork served
+   speculatively (k 4) at full width and depth, once with the
+   registry's paired draft (mamba2-130m at full width, vocab coerced to
+   internlm2's) and once with the `self:1` draft (the target's first
+   layer), the 5-token prompt pinned to plain decode beside the
+   windows: every stream finishes, no page leaks, a byte-identical
+   rerun, and the launches: paged prefill 24 per prefill call plus 24
+   per verify call, paged decode 24 per plain decode call, split-KV
+   decode once per draft decode step with `self:1` (one layer) and
+   never with the mamba2 draft.  tokens/s, TTFT, the accept rate,
+   windows, verify calls and the share of tokens equal to the serve
+   phase's streams are printed (in bf16 the verify walk's logits round
+   differently from decode's, so that share is not held).  Then
+   serve_int8: internlm2-1.8b on an int8 page arena, 4 prompts of 16
+   new tokens, held as the plain serve.
+8. spec_parity: a 2-layer internlm2-width f32 model: speculative
+   streams (greedy and sampled rows, k 1 and 4, drafts `self:1` and
+   `mamba2-130m@reduced`) equal the plain engine's on the card.
+9. serve_moe: the same on qwen3-moe-30b-a3b (48 layers, 128 experts,
    `moe_dispatch="grouped"`): the grouped-matmul kernel launched 3 x 48
    times and each paged kernel 48 times per step call.
-8. serve_hybrid: the same on zamba2-2.7b (54 Mamba-2 layers, 9 shared
+10. serve_hybrid: the same on zamba2-2.7b (54 Mamba-2 layers, 9 shared
    attention applications, `ssd_impl="pallas"`), with two identical
    prompts: the SSD kernel launched 54 times per prefill call, each
    paged kernel 9 times per step call.
-9. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
+11. serve_contiguous: internlm2-1.8b again with `layout="contiguous"`
    (no fork: the layout refuses it): the flash kernel launched 24 times
    per (batch=1) prefill call, the bf16 split-KV decode kernel 24 times
    per decode call and the combine kernel never.
-10. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
+12. serve_ssm: mamba2-130m at full width and depth (`ssd_impl="pallas"`,
    the ssm family's contiguous layout): the SSD kernel launched 24
    times per prefill call.
-11. card vs CPU: a 2-layer internlm2-width, a 2-layer qwen3-width and a
+13. card vs CPU: a 2-layer internlm2-width, a 2-layer qwen3-width and a
    12-layer (two shared applications) zamba2-width f32 model, one paged
    prefill and one paged decode step on the card (kernels) and on the
    CPU (plain versions), logits, pages and state compared; and the
@@ -110,11 +129,11 @@ exit at the first failure):
    kernel and its combine kernel 2 each per decode call) and of a
    2-layer mamba2-width f32 model (prompts of 300 and 200 tokens: SSD
    chunks of 256 and a ragged 200), logits and cache compared.
-12. paper: every module of the port's paper harness
+14. paper: every module of the port's paper harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
    launched once (by the sweep's check) and no other kernel.
-13. resnet50: ResNet-50 at full width and depth (224 x 224, bf16,
+15. resnet50: ResNet-50 at full width and depth (224 x 224, bf16,
    seeded weights) at batch 1 and 8: images per second from CUDA
    events (three rounds), the device's busy time and kernels per
    forward from torch.profiler, and peak memory; and the card against
@@ -304,13 +323,18 @@ def phase_kernels(torch, dev, card: str):
     # ---------------------------------------------------------- prefill
     # bf16 q with bf16 pages takes the tensor-core design, every other
     # pair the CUDA-core one (paged_prefill/ops.py `route`)
+    # c 5 is the speculative verify window (k 4): live rows carry the
+    # whole window, rows that do not speculate carry 0
     clen_for = {1: [1, 0, 1, 1, 1, 0, 1, 1],
+                5: [5, 5, 0, 5, 5, 0, 5, 5],
                 7: [7, 3, 0, 7, 1, 7, 5, 2],
                 8: [8, 2, 0, 8, 5, 1, 8, 3],
                 64: [64, 17, 0, 64, 33, 1, 64, 40]}
     start = torch.tensor([959, 0, 448, 0, 600, 63, 191, 900],
                          dtype=torch.int32, device=dev)
     for c, qdt, kvdt, mode in ((1, bf16, bf16, "plain"),
+                               (5, bf16, bf16, "plain"),
+                               (5, bf16, bf16, "holes+partials"),
                                (7, bf16, bf16, "plain"),
                                (8, bf16, bf16, "plain"),
                                (64, bf16, bf16, "plain"),
@@ -339,6 +363,9 @@ def phase_kernels(torch, dev, card: str):
         if (c, qdt, kvdt, mode) == (64, bf16, bf16, "plain"):
             results["prefill"] = dict(kb=kb, q=q, kp=kp, vp=vp, clen=clen,
                                       err=err)
+        if (c, qdt, kvdt, mode) == (5, bf16, bf16, "plain"):
+            results["prefill verify"] = dict(kb=kb, q=q, kp=kp, vp=vp,
+                                             clen=clen, err=err)
     # the other served widths, c 64, bf16: qwen3-moe-30b-a3b and zamba2-2.7b
     clen = torch.tensor(clen_for[64], dtype=torch.int32, device=dev)
     for arch, hq_a, hkv_a, d_a in PREFILL_WIDTHS:
@@ -445,6 +472,8 @@ def phase_kernels(torch, dev, card: str):
             max_abs_err=pre["err"])
 
     timings["paged_prefill_attention"] = prefill_timing(results["prefill"])
+    timings["paged_prefill_attention verify c=5"] = prefill_timing(
+        results["prefill verify"], c=5)
     for arch, *_ in PREFILL_WIDTHS:
         timings[f"paged_prefill_attention {arch}"] = prefill_timing(
             results[f"prefill {arch}"])
@@ -1024,17 +1053,26 @@ def phase_ws_kernels(torch, dev, card: str, flush):
 PROMPT_LENS = (5, 17, 64, 100, 128, 200, 333, 511)
 SAMPLED = 3                 # the 100-token prompt samples
 FORKED = 7                  # the 511-token prompt's stream is forked
+OPT_OUT = 0                 # the 5-token prompt decodes plainly beside
+                            # the windows of a speculating engine
 
 
-def serve_once(torch, dev, cfg, params, prompts, layout=None):
+def serve_once(torch, dev, cfg, params, prompts, layout=None, max_new=32,
+               **engine_kw):
+    """Serve `prompts` (the SAMPLED one sampling, the FORKED one forked
+    after its first token when the layout allows it, the
+    OPT_OUT one pinned to plain decode) through `LLMServer`;
+    `engine_kw` passes to the engine (`speculate_k`, `draft`)."""
     from repro_torch.serve.api import LLMServer
     from repro_torch.serve.engine import TokenEvent
     from repro_torch.serve.sampling import SamplingParams
 
     server = LLMServer(cfg, params, device=dev, max_batch=8,
-                       max_seq=1024, page_size=16, layout=layout)
+                       max_seq=1024, page_size=16, layout=layout,
+                       **engine_kw)
     eng = server.engine
-    fork = eng.layout == "paged"          # the contiguous layout refuses it
+    # the contiguous layout refuses a fork
+    fork = eng.layout == "paged" and FORKED < len(prompts)
     steps = {"prefill": [0.0, 0.0], "decode": [0.0, 0.0]}
 
     def timed(fn, acc):
@@ -1052,11 +1090,23 @@ def serve_once(torch, dev, cfg, params, prompts, layout=None):
 
     eng.prefill_fn = timed(eng.prefill_fn, steps["prefill"])
     eng.decode_fn = timed(eng.decode_fn, steps["decode"])
+    if eng.draft is not None:         # the speculative window's calls
+        d = eng.draft
+        for name, obj, attr in (("draft_sync", d, "sync"),
+                                ("propose", d, "propose"),
+                                ("rollback", d, "rollback"),
+                                ("verify", eng, "verify_fn"),
+                                ("verify", eng, "fused_fn")):
+            if getattr(obj, attr) is not None and not (
+                    attr in ("propose", "rollback") and d.rewindable):
+                steps.setdefault(name, [0.0, 0.0])
+                setattr(obj, attr, timed(getattr(obj, attr), steps[name]))
     streams = []
     for i, p in enumerate(prompts):
         sp = (SamplingParams(temperature=0.8, top_p=0.9, seed=7,
-                             max_new_tokens=32) if i == SAMPLED
-              else SamplingParams(max_new_tokens=32))
+                             max_new_tokens=max_new) if i == SAMPLED
+              else SamplingParams(max_new_tokens=max_new,
+                                  speculative=i != OPT_OUT))
         streams.append(server.generate(p, sp))
     t0 = time.perf_counter()
     ttft = {}
@@ -1096,7 +1146,7 @@ def kernel_modules():
             "flash_attention": fk, "ws_matmul": wm.WS, "os_matmul": wm.OS}
 
 
-def expected_launches(cfg, st) -> dict:
+def expected_launches(cfg, st, draft=None) -> dict:
     """Kernel launches one served run must make: each step call launches
     its layout's attention kernel once per attention layer (dense and
     MoE: every layer; hybrid: every shared-block application; ssm:
@@ -1105,18 +1155,25 @@ def expected_launches(cfg, st) -> dict:
     follows each split launch (bf16 merges inside the one launch) — the
     grouped matmul 3 times per MoE layer, the
     SSD kernel once per Mamba layer of a prefill call, and no ws or os
-    matmul (no serving path runs them)."""
+    matmul (no serving path runs them).  Speculating (`draft`), each
+    verify call walks the arena with the paged-prefill kernel once per
+    layer, and each decode step of a dense draft's contiguous cache
+    launches split-KV decode once per draft layer; an ssm draft decodes
+    by the SSD recurrence and launches no kernel."""
     pre, dec = st["prefill_calls"], st["decode_calls"]
+    verify = st.get("speculative", {}).get("verify_calls", 0)
     attn = {"hybrid": cfg.num_layers // max(1, cfg.shared_attn_period),
             "ssm": 0}.get(cfg.family, cfg.num_layers)
     paged = st["layout"] == "paged"
+    drafted = (draft.steps * draft.cfg.num_layers
+               if draft is not None and draft.cfg.family == "dense" else 0)
     return {"paged_decode_attention": dec * attn if paged else 0,
-            "paged_prefill_attention": pre * attn if paged else 0,
-            "decode_attention": 0 if paged else dec * attn,
-            "combine_splits": (dec * attn if not paged
-                               and cfg.dtype == "float32" else 0),
+            "paged_prefill_attention": (pre + verify) * attn if paged else 0,
+            "decode_attention": (0 if paged else dec * attn) + drafted,
+            "combine_splits": ((dec * attn if not paged else 0) + drafted
+                               if cfg.dtype == "float32" else 0),
             "flash_attention": 0 if paged else pre * attn,
-            "grouped_matmul": (3 * cfg.num_layers * (pre + dec)
+            "grouped_matmul": (3 * cfg.num_layers * (pre + dec + verify)
                                if cfg.family == "moe" else 0),
             "ssd_intra_chunk": (cfg.num_layers * pre
                                 if cfg.family in ("hybrid", "ssm") else 0),
@@ -1138,22 +1195,28 @@ def free_card(torch) -> None:
 
 
 def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
-                layout=None):
-    """Serve the 8 prompts (+ one fork on the paged layout) twice on
-    `cfg` at full width and depth; with `twins` the 333-token prompt is
+                layout=None, params=None, n_prompts=8, max_new=32,
+                plain=None, **engine_kw):
+    """Serve the first `n_prompts` of the 8 prompts (+ one fork on the
+    paged layout when the forked prompt is among them) twice on `cfg`
+    at full width and depth; with `twins` the 333-token prompt is
     replaced by a copy of the 200-token one, so identical prompts
-    co-prefill.  Returns the launches of the first run."""
+    co-prefill.  `engine_kw` passes to the engine (speculation);
+    `plain` (uid -> tokens of a plain run) is compared token by token
+    and the share printed.  Returns the launches and the streams (uid ->
+    tokens) of the first run."""
     import numpy as np
     from repro_torch.models import registry
 
     free_card(torch)
     t0 = time.perf_counter()
-    params = registry.get_family(cfg).init(0, cfg, dev)
+    if params is None:
+        params = registry.get_family(cfg).init(0, cfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in PROMPT_LENS]
+               for n in PROMPT_LENS][:n_prompts]
     if twins:
         prompts[6] = prompts[5].copy()
     mods = kernel_modules()
@@ -1162,21 +1225,24 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
     for m in mods.values():                          # count the main path
         m.launches = 0
     server, streams, forked, ttft, wall, steps = serve_once(
-        torch, dev, cfg, params, prompts, layout)
+        torch, dev, cfg, params, prompts, layout, max_new, **engine_kw)
     launches = {name: m.launches for name, m in mods.items()}
     peak = torch.cuda.max_memory_allocated()
     st = server.stats
-    if forked is None and st["layout"] == "paged":
+    draft = server.engine.draft
+    if (forked is None and st["layout"] == "paged"
+            and FORKED < len(prompts)):
         fail("the fork never happened (no free slot while its parent decoded)")
     for s in streams:
         if s.result is None or not s.finished:
             fail(f"stream {s.uid} did not finish")
         toks = s.result.tokens
-        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
+        if (len(toks) != max_new
+                or not all(0 <= t < cfg.vocab_size for t in toks)):
             fail(f"stream {s.uid}: bad tokens {toks}")
     if st["pool"]["allocated_pages"] != 0:
         fail(f"{st['pool']['allocated_pages']} pages leaked")
-    want = expected_launches(cfg, st)
+    want = expected_launches(cfg, st, draft)
     if launches != want:
         fail(f"{phase}: kernel launches {launches} != expected {want}")
     if twins:
@@ -1188,17 +1254,30 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
             fail("identical greedy prompts gave different streams")
     first = {s.uid: s.result.tokens for s in streams}
     n_streams = len(streams)
-    del server, streams, forked                      # free the first arena
+    extra = {}
+    if draft is not None:
+        extra = {"speculative": st["speculative"], "draft_steps": draft.steps,
+                 "draft_layers": draft.cfg.num_layers}
+    if plain is not None:
+        pairs = [(a, b) for uid, toks in first.items()
+                 for a, b in zip(toks, plain.get(uid, ()))]
+        extra["tokens_compared_with_plain"] = len(pairs)
+        extra["share_equal_plain"] = (sum(a == b for a, b in pairs)
+                                      / max(1, len(pairs)))
+    del server, streams, forked, draft               # free the first arena
     free_card(torch)
 
     _, streams2, _, _, wall2, _ = serve_once(torch, dev, cfg, params,
-                                             prompts, layout)
+                                             prompts, layout, max_new,
+                                             **engine_kw)
     if first != {s.uid: s.result.tokens for s in streams2}:
-        fail("rerun streams differ")
+        fail(f"{phase}: rerun streams differ")
     tokens = st["tokens_out"]
     emit({"phase": phase, "card": card, "arch": cfg.name,
           "layout": st["layout"], "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "kv_dtype": cfg.kv_dtype,
           "moe_dispatch": cfg.moe_dispatch, "ssd_impl": cfg.ssd_impl,
+          **engine_kw, **extra,
           "params_init_s": init_s,
           "streams": n_streams, "tokens_out": tokens,
           "prefill_tokens": st["prefill_tokens"],
@@ -1218,10 +1297,80 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
                      for k, v in steps.items()},
           "between_calls_s": wall - sum(v[1] for v in steps.values()),
           "rerun_identical": True, "leaked_pages": 0})
-    return launches
+    return launches, first
 
 
-# ----------------------------------------------------- phase 11: parity
+SPEC_K = 4                  # the served speculative window
+SPEC_DRAFTS = ("mamba2-130m", "self:1")
+
+
+def phase_serve_spec(torch, dev, card: str, cfg, plain) -> None:
+    """internlm2-1.8b served speculatively at full width and depth (k =
+    SPEC_K) with the registry's paired draft (mamba2-130m at full
+    width, vocab coerced) and with the `self:1` truncated draft, then
+    with an int8 page arena (4 prompts, 16 new tokens).  Each run is
+    held as the plain serve is (every stream finishes, no page leaks,
+    the launches, a byte-identical rerun); in bf16 the verify walk's
+    logits round differently from decode's, so the share of tokens
+    equal to `plain` (the `serve` phase's streams) is printed, not held."""
+    from repro_torch.models import registry
+
+    free_card(torch)
+    params = registry.get_family(cfg).init(0, cfg, dev)
+    for draft in SPEC_DRAFTS:
+        phase_serve(torch, dev, card, "serve_spec", cfg, params=params,
+                    plain=plain, speculate_k=SPEC_K, draft=draft)
+    del params
+    phase_serve(torch, dev, card, "serve_int8", cfg.replace(kv_dtype="int8"),
+                n_prompts=4, max_new=16)
+
+
+def phase_spec_parity(torch, dev, cfg) -> None:
+    """Speculative streams equal plain decode's on the card in f32 (the
+    reference's contract): a 2-layer internlm2-width f32 target, four
+    prompts (two sampled), k 1 and 4, drafts `self:1` and
+    `mamba2-130m@reduced`."""
+    import numpy as np
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    free_card(torch)
+    params = registry.get_family(cfg).init(2, cfg, dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 40, 64)]
+
+    def run(**kw):
+        eng = ServingEngine(cfg, params, device=dev, max_batch=4,
+                            max_seq=256, page_size=16, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, sampling=SamplingParams(
+                temperature=0.8 if i % 2 else 0.0, top_k=50 if i == 3 else 0,
+                seed=i, max_new_tokens=16)))
+        res = {r.uid: r.tokens for r in eng.run()}
+        if eng.pool.stats().allocated_pages:
+            fail("spec_parity: pages leaked")
+        return res, eng.stats()
+
+    want, _ = run()
+    cases = []
+    for draft in ("self:1", "mamba2-130m@reduced"):
+        for k in (1, 4):
+            got, st = run(speculate_k=k, draft=draft)
+            if got != want:
+                fail(f"spec_parity: k {k} draft {draft}: speculative "
+                     f"streams {got} != plain {want}")
+            cases.append({"k": k, "draft": draft,
+                          "windows": st["speculative"]["windows"],
+                          "verify_calls": st["speculative"]["verify_calls"],
+                          "accept_rate": st["speculative"]["accept_rate"]})
+    emit({"phase": "spec_parity", "config": "internlm2-1.8b width, 2 layers, "
+          "f32", "streams": len(want), "tokens": sum(map(len, want.values())),
+          "cases": cases, "equal_to_plain": True})
+
+
+# ----------------------------------------------------- phase 13: parity
 
 def phase_parity(torch, dev):
     from repro_torch.configs import get_arch
@@ -1420,7 +1569,7 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
     return launches
 
 
-# ------------------------------------------------------ phase 12: paper
+# ------------------------------------------------------ phase 14: paper
 
 def phase_paper(torch, dev):
     """Every module of the port's paper harness on the card; returns the
@@ -1436,7 +1585,7 @@ def phase_paper(torch, dev):
     return launches
 
 
-# ---------------------------------------------------- phase 13: resnet50
+# ---------------------------------------------------- phase 15: resnet50
 
 RESNET_ITERS = 20           # back-to-back forwards per timed round
 RESNET_ROUNDS = 3
@@ -1629,14 +1778,17 @@ def main() -> int:
     dense = get_arch("internlm2-1.8b").model
     moe = get_arch("qwen3-moe-30b-a3b").model.replace(moe_dispatch="grouped")
     hybrid = get_arch("zamba2-2.7b").model.replace(ssd_impl="pallas")
-    launches = phase_serve(torch, dev, card, "serve", dense)
-    moe_launches = phase_serve(torch, dev, card, "serve_moe", moe)
-    hybrid_launches = phase_serve(torch, dev, card, "serve_hybrid", hybrid,
-                                  twins=True)
-    contig_launches = phase_serve(torch, dev, card, "serve_contiguous", dense,
-                                  layout="contiguous")
+    launches, plain = phase_serve(torch, dev, card, "serve", dense)
+    phase_serve_spec(torch, dev, card, dense, plain)
+    phase_spec_parity(torch, dev, dense.replace(
+        num_layers=2, dtype="float32", param_dtype="float32"))
+    moe_launches, _ = phase_serve(torch, dev, card, "serve_moe", moe)
+    hybrid_launches, _ = phase_serve(torch, dev, card, "serve_hybrid", hybrid,
+                                     twins=True)
+    contig_launches, _ = phase_serve(torch, dev, card, "serve_contiguous",
+                                     dense, layout="contiguous")
     ssm = get_arch("mamba2-130m").model.replace(ssd_impl="pallas")
-    ssm_launches = phase_serve(torch, dev, card, "serve_ssm", ssm)
+    ssm_launches, _ = phase_serve(torch, dev, card, "serve_ssm", ssm)
     phase_parity(torch, dev)
     f32 = dict(dtype="float32", param_dtype="float32")
     f32_contig_launches = phase_parity_contiguous(

@@ -6,7 +6,8 @@ or on per-slot contiguous caches.
         --requests 8 --max-new 32 [--layout paged|contiguous] \
         [--reduced] [--max-batch 4 --max-seq 128 --page-size 16] \
         [--prefill-chunk N] [--temperature T --top-k K --top-p P \
-         --sample-seed S] [--kv-dtype int8|fp8|bf16] [--device cpu]
+         --sample-seed S] [--kv-dtype int8|fp8|bf16] \
+        [--speculate K [--draft self:N|mamba2-130m]] [--device cpu]
 
 Builds the model with seeded random weights on the device (CUDA unless
 `--device` names another), submits a synthetic request stream with mixed
@@ -19,7 +20,10 @@ The MoE and hybrid archs serve with their shipped `moe_dispatch="ep"` /
 `ssd_impl="xla"` (the einsum dispatch and the plain SSD); the
 grouped-matmul and SSD kernels are reached by serving
 `cfg.replace(moe_dispatch="grouped")` / `cfg.replace(ssd_impl="pallas")`
-through `LLMServer`.
+through `LLMServer`.  `--speculate K` decodes speculatively: the draft
+(`--draft`, default "self:1") proposes K tokens per window and one
+paged-prefill verify call judges them (paged layout, dense and MoE
+targets; the tokens are plain decode's).
 """
 from __future__ import annotations
 
@@ -64,6 +68,14 @@ def main(argv=None):
                     choices=["bf16", "int8", "fp8"],
                     help="page-arena storage dtype: int8/fp8 quantize K/V "
                          "on write and dequantize inside the kernels")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decode: draft K tokens per window, "
+                         "verify them in one batched paged-prefill call "
+                         "(tokens stay plain decode's; paged layout only)")
+    ap.add_argument("--draft", default="self:1",
+                    help="draft model for --speculate: 'self:N' (first N "
+                         "target layers, shared embeddings) or a registry "
+                         "arch name, e.g. 'mamba2-130m'")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
@@ -83,7 +95,9 @@ def main(argv=None):
     server = LLMServer(cfg, device=args.device, seed=args.seed,
                        max_batch=args.max_batch, max_seq=args.max_seq,
                        page_size=args.page_size, layout=args.layout,
-                       prefill_chunk=args.prefill_chunk)
+                       prefill_chunk=args.prefill_chunk,
+                       speculate_k=args.speculate,
+                       draft=args.draft if args.speculate else None)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         plen = int(rng.integers(4, budget))

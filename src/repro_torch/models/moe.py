@@ -19,8 +19,9 @@ perturb real tokens, and identical prompts write identical K/V).
 
 Parameters keep the reference's names and layouts (weights (d_in,
 d_out), experts (E, d, f) / (E, f, d)); `params["layers"]` is a list of
-per-layer dicts.  The capacity-limited training dispatch, the router
-losses and `paged_verify` wait for later slices.
+per-layer dicts.  `paged_verify` is the dense walk with expert
+dispatch.  The capacity-limited training dispatch and the router
+losses wait for the training slice.
 """
 from __future__ import annotations
 
@@ -240,3 +241,13 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
     `transformer.paged_decode_step`'s contract."""
     return T.paged_decode_step(params, cfg, arena, block_table, positions,
                                tokens, ffn_fn=_moe_ffn)
+
+
+def paged_verify(params, cfg: ModelConfig, chunk, arena, block_table,
+                 start, chunk_len):
+    """Speculative-verify walk with expert dispatch:
+    `transformer.paged_verify`'s contract (all-position logits).  Rows
+    with chunk_len 0 stay inert: the dropless dispatch is a pure
+    per-token function."""
+    return T.paged_verify(params, cfg, chunk, arena, block_table, start,
+                          chunk_len, ffn_fn=_moe_ffn)

@@ -19,8 +19,8 @@ whose LAST slot is the null page.
 
 Both hooks update their cache IN PLACE and return it: that replaces the
 reference's functional updates, which its serving steps donate so XLA
-can reuse the buffer.  `paged_verify` (speculative decode) waits for a
-later slice.
+can reuse the buffer.  `paged_verify` (speculative decode) is the paged
+prefill walk with logits at every chunk position.
 """
 from __future__ import annotations
 
@@ -217,9 +217,13 @@ def _layer_leaves(arena, layer: int):
 
 
 def paged_prefill_embeds(params, cfg: ModelConfig, x, arena, block_table,
-                         start, chunk_len, ffn_fn=_mlp_ffn):
+                         start, chunk_len, ffn_fn=_mlp_ffn,
+                         all_logits=False):
     """Shared prefill body over already-embedded chunk inputs x: (b,c,d).
-    See `paged_prefill` for the contract."""
+    See `paged_prefill` for the contract.  With `all_logits` the head
+    runs over EVERY chunk position and (b, c, vocab) comes back: the
+    speculative-verify mode, where each position's next-token
+    distribution judges one draft token."""
     b, c, _ = x.shape
     rows = torch.arange(c, dtype=start.dtype, device=start.device)
     positions = start[:, None] + rows[None, :]
@@ -238,6 +242,9 @@ def paged_prefill_embeds(params, cfg: ModelConfig, x, arena, block_table,
         x = x + L.matmul(o, p["attn"]["wo"])
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, valid)
+    if all_logits:
+        h = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+        return arena, L.logits_from_hidden(head_weights(params, cfg), cfg, h)
     h = L.rmsnorm_apply(params["ln_f"], _last_valid(x, chunk_len),
                         cfg.norm_eps)
     logits = L.logits_from_hidden(head_weights(params, cfg), cfg, h)
@@ -258,6 +265,24 @@ def paged_prefill(params, cfg: ModelConfig, chunk, arena, block_table,
     x = L.embed_tokens(params["embed"], cfg, chunk["tokens"])
     return paged_prefill_embeds(params, cfg, x, arena, block_table,
                                 start, chunk_len)
+
+
+def paged_verify(params, cfg: ModelConfig, chunk, arena, block_table,
+                 start, chunk_len, ffn_fn=_mlp_ffn):
+    """Speculative-verify step: ONE ragged paged-prefill walk over the
+    k+1 candidates [last_emitted, draft_0..draft_{k-1}] of every
+    speculating row, with logits at EVERY chunk position.
+
+    chunk/arena/block_table/start/chunk_len as in `paged_prefill` (inert
+    rows: chunk_len 0, null-page tables).  The candidates' K/V land in
+    the row's pages at start..start+k, so an accepted prefix's entries
+    are already in place and the engine truncates the page tail past the
+    accept point.  Returns (arena, logits (b, c, vocab)): logits[:, j]
+    judges draft j (and, at j == k, draws the bonus token)."""
+    x = L.embed_tokens(params["embed"], cfg, chunk["tokens"])
+    return paged_prefill_embeds(params, cfg, x, arena, block_table,
+                                start, chunk_len, ffn_fn=ffn_fn,
+                                all_logits=True)
 
 
 def paged_decode_step(params, cfg: ModelConfig, arena, block_table,

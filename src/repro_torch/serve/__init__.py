@@ -8,12 +8,19 @@
     models/transformer.py    dense paged hooks: init_paged_cache /
                              paged_prefill / paged_decode_step
     serve/serve_step.py      step closures: one host->device transfer in,
-                             int32 tokens out
+                             int32 tokens out (prefill, decode, verify)
     serve/sampling.py        SamplingParams -> per-slot SamplingState;
                              greedy/temperature/top-k/top-p in the step
     serve/prefix_store.py    refcounted prompt-page sharing (donor lifetime)
     serve/engine.py          continuous batching: lazy allocation,
                              chunked prefill, prefix sharing, preemption,
                              the TokenEvent/FinishEvent stream
+    serve/speculative.py     DraftModel: draft proposals for speculative
+                             decode, judged by the paged verify step
     serve/api.py             LLMServer.generate -> GenerationStream
 """
+from repro_torch.serve.sampling import SamplingParams
+from repro_torch.serve.speculative import DraftModel
+from repro_torch.serve.engine import (FinishEvent, Request, Result,
+                                      ServingEngine, TokenEvent)
+from repro_torch.serve.api import GenerationStream, LLMServer

@@ -101,7 +101,10 @@ class LLMServer:
     `params=None` draws seeded random parameters (`seed`) on the
     server's device.  `device=None` means CUDA and raises without a GPU.
     Engine keyword arguments (`max_batch`, `max_seq`, `page_size`,
-    `prefill_chunk`, `prefill_decode_ratio`, ...) pass through.
+    `prefill_chunk`, `prefill_decode_ratio`, `speculate_k`/`draft` for
+    speculative decode (the tokens stay plain decode's, streams fill
+    faster; `SamplingParams(speculative=False)` pins a request to plain
+    decode), ...) pass through.
     `max_steps` bounds the engine ticks over the server's lifetime."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, device=None,

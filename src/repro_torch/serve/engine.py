@@ -24,6 +24,19 @@ chunking, preemption and fork decisions and emits the same tokens:
 Sampling runs inside the step (`serve/serve_step.py`): the step returns
 int32 tokens and reading them is the tick's one synchronisation.
 
+With `speculate_k > 0` the paged engine decodes SPECULATIVELY
+(`serve/speculative.py`): a draft model (`draft`: "self:N" or a
+registered arch, default the registry's pairing) proposes a k-token
+window per slot, the window is appended onto the slot's own page chain
+(the shared boundary page copied on write first, tail pages fresh), ONE
+batched paged-prefill verify call judges every window, and the matched
+prefix plus a bonus token is emitted; the rejected page tail truncates
+back off the table.  Acceptance is an exact match against the target's
+own counter-keyed draw, so the stream is plain decode's; speculation
+only changes how many tokens one tick yields.  Rows that opt out
+(`SamplingParams.speculative=False`), replay, or lack room for k+1
+positions decode plainly in the same tick.
+
 `layout="contiguous"` keeps one (max_batch, max_seq) cache instead of
 the arena: admission reserves a request's whole footprint in the pool
 and prefills its prompt in one batch=1 call written straight into its
@@ -33,9 +46,9 @@ speculative decode need the paged layout.
 
 Options the reference has and the port does not yet raise
 `NotImplementedError` naming the ROADMAP.md item that will port them:
-`mesh` (item 12), `host_tier_pages` and `prefix_cache=True` (item 7),
-`speculate_k > 0` (item 9), `tenant_weights` (item 11), and the encoder
-and vlm families (item 10).  Families with per-slot recurrent state
+`mesh` (item 12, and with it the sharded verify), `host_tier_pages`
+and `prefix_cache=True` (item 7), `tenant_weights` (item 11), and the
+encoder and vlm families (item 10).  Families with per-slot recurrent state
 (hybrid) share prompt pages but never skip their compute, as in the
 reference.
 """
@@ -55,7 +68,9 @@ from repro_torch.serve.prefix_store import PrefixStore
 from repro_torch.serve.sampling import (SamplingParams, sample_tokens,
                                         state_for_slots)
 from repro_torch.serve.serve_step import (init_cache, make_paged_serve_fns,
+                                          make_paged_verify_fn,
                                           make_serve_fns)
+from repro_torch.serve.speculative import DraftModel
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 
@@ -129,6 +144,10 @@ class _Slot:
     page_hashes: list[int] = field(default_factory=list)
     # prefix-store hashes this slot holds a reference on
     store_refs: set[int] = field(default_factory=set)
+    # speculative decode: context tokens the DRAFT cache row has consumed
+    # for this slot (-1: never synced for this occupant, so the first
+    # sync resets the row)
+    draft_pos: int = -1
 
     @property
     def prefilling(self) -> bool:
@@ -170,7 +189,7 @@ class ServingEngine:
                  tick_token_budget: int | None = None,
                  host_tier_pages: int | None = None,
                  prefix_cache: bool = False,
-                 speculate_k: int = 0,
+                 speculate_k: int = 0, draft: str | None = None,
                  tenant_weights: dict[str, float] | None = None):
         if mesh is not None:
             _refuse("sharded serving (mesh)", "item 12")
@@ -179,8 +198,6 @@ class ServingEngine:
         if prefix_cache:
             _refuse("the persistent prefix cache (prefix_cache=True)",
                     "item 7")
-        if speculate_k:
-            _refuse("speculative decode (speculate_k > 0)", "item 9")
         if tenant_weights is not None:
             _refuse("tenant budget shares (tenant_weights)", "item 11")
         registry.get_family(cfg)           # raises for unported families
@@ -242,6 +259,30 @@ class ServingEngine:
             self.pool = UniMemPool(pool_pages, page_size)
             self.prefill_fn, self.decode_fn = make_serve_fns(cfg,
                                                              self.device)
+
+        # speculative decode: a draft proposes `speculate_k`-token windows
+        # and ONE batched paged-prefill verify call judges them.
+        # Rewindable drafts run propose, verify and the rewind as one
+        # call (`fused_fn`); state drafts propose, verify, then roll back
+        self.speculate_k = int(speculate_k or 0)
+        self.draft = None
+        self.verify_fn = None
+        self.fused_fn = None
+        self.spec_stats = dict(windows=0, draft_tokens=0, verify_calls=0,
+                               accepted_tokens=0, emitted_tokens=0)
+        if self.speculate_k > 0:
+            if layout != "paged":
+                raise ValueError("speculative decode requires the paged "
+                                 "layout")
+            if not registry.has_verify(cfg):
+                raise ValueError(f"family {cfg.family!r} cannot be a "
+                                 f"speculative-decode target")
+            self.draft = DraftModel(cfg, self.params, draft,
+                                    max_batch=max_batch, max_seq=max_seq,
+                                    device=self.device)
+            self.fused_fn = self.draft.fused_fn(self.speculate_k)
+            if self.fused_fn is None:
+                self.verify_fn = make_paged_verify_fn(cfg, self.device)
 
         self.pending: list[Request] = []
         self.slots: dict[int, _Slot] = {}        # slot index -> state
@@ -663,6 +704,160 @@ class ServingEngine:
             self._sampling_state(active))
         self._emit_decoded(active, nxt)
 
+    def _decode_paged(self):
+        if self.draft is None:
+            self._decode_plain(self._decode_rows())
+            return
+        spec, plain = self._partition_decode()
+        self._decode_plain(plain)
+        self._speculate(spec)
+
+    # ------------------------------------------------- speculative decode
+
+    def _partition_decode(self) -> tuple[dict[int, _Slot], dict[int, _Slot]]:
+        """Split this tick's decode rows between the speculative window
+        and plain one-token decode.  A row speculates when its request
+        opted in (`SamplingParams.speculative`), it is not replaying
+        pinned history, and its table has room for the k+1 candidate
+        writes.  Under a token budget a speculating row charges k+1
+        tokens against the decode share (its verify writes k+1
+        positions), oldest first; the oldest row always runs."""
+        k = self.speculate_k
+        active = {i: s for i, s in self.slots.items()
+                  if not s.prefilling and s.generated}
+        budget = self._decode_slot_budget()
+        spec: dict[int, _Slot] = {}
+        plain: dict[int, _Slot] = {}
+        for i, s in sorted(active.items(), key=lambda kv: kv[1].order):
+            wants = (s.request.sampling.speculative
+                     and s.request.replay is None
+                     and s.pages.num_tokens + k + 1 <= self.max_seq)
+            if budget is not None:
+                if budget <= 0 and (spec or plain):
+                    continue
+                budget -= (k + 1) if wants else 1
+            (spec if wants else plain)[i] = s
+        return spec, plain
+
+    def _speculate(self, spec: dict[int, _Slot]):
+        """One draft/verify window over the speculating rows:
+
+          1. SYNC the draft rows with their slots' context (rows that
+             decoded plainly, fresh occupants and readmitted slots lag);
+          2. PROPOSE a k-token window per row with the slots' own
+             counter-derived keys;
+          3. grow each table for the k+1 candidate writes: copy the
+             possibly shared partial boundary page on write FIRST, then
+             append (the appended pages are fresh, so the truncate
+             below never strands a prefix partner);
+          4. VERIFY: one batched paged-prefill walk writes every
+             candidate's K/V and returns the tokens plain decode would
+             emit and the matched-prefix length.  For a rewindable
+             draft 2 and 4 (and the draft's rewind) are one call,
+             `DraftModel.fused_fn`, and the window never visits the
+             host;
+          5. emit the accepted prefix and the bonus token through
+             `_emit`, TRUNCATE the rejected page tail, and land the
+             outcome in the draft cache (`rollback`)."""
+        # plain decode ran first this tick and may have preempted
+        # younger speculating slots under pool pressure
+        spec = {i: s for i, s in spec.items() if self.slots.get(i) is s}
+        if not spec:
+            return
+        k = self.speculate_k
+        draft = self.draft
+        entries = []
+        for i, s in spec.items():
+            # the draft's context: every token but the newest
+            # (s.last_token is the propose scan's first input)
+            needed = s.request.virtual_len + len(s.generated) - 1
+            reset = not 0 <= s.draft_pos <= needed
+            pos = 0 if reset else s.draft_pos
+            if reset or pos < needed:
+                ctx = np.concatenate(
+                    [np.asarray(s.request.prompt, np.int32),
+                     np.asarray(s.generated[:-1], np.int32)])
+                entries.append((i, ctx[pos:needed], reset))
+            s.draft_pos = needed
+        draft.sync(entries)
+
+        last = np.zeros((self.max_batch,), np.int32)
+        for i, s in spec.items():
+            last[i] = s.last_token
+        st = self._sampling_state(spec)
+        proposed = (None if self.fused_fn is not None
+                    else draft.propose(last, st, k))
+        self.spec_stats["windows"] += len(spec)
+        self.spec_stats["draft_tokens"] += len(spec) * k
+
+        for i, s in list(spec.items()):
+            if self.slots.get(i) is not s:
+                continue                 # preempted growing an older slot
+            if s.pages.num_tokens % self.page_size:
+                # the window's first write lands in the partial last page:
+                # copy it on write BEFORE appending (append-then-cow would
+                # check the fresh tail page instead)
+                if not self._with_preemption(
+                        s, lambda s=s: self.arena.cow_for_write(s.pages)):
+                    continue             # slot yielded its pages
+            self._with_preemption(
+                s, lambda s=s: s.pages.append_tokens(k + 1))
+        live = {i: s for i, s in spec.items() if self.slots.get(i) is s}
+
+        # rows preempted mid-window (and rows outside the window) grow
+        # their draft context by 0 tokens
+        n = np.zeros((self.max_batch,), np.int32)
+        target = np.zeros((self.max_batch, k + 1), np.int32)
+        if live:
+            b = self.max_batch
+            start = np.zeros((b,), np.int32)
+            bt = np.full((b, self.max_pages), self.arena.null_page, np.int32)
+            for i, s in live.items():
+                start[i] = s.pages.num_tokens - (k + 1)
+                bt[i, :len(s.pages.pages)] = s.pages.pages
+            if self.fused_fn is not None:
+                mask = np.zeros((b,), bool)
+                mask[list(live)] = True
+                self.arena.kv, target, accept = self.fused_fn(
+                    self.params, last, st, self.arena.kv, bt, start, mask)
+            else:
+                tokens = np.zeros((b, k + 1), np.int32)
+                clen = np.zeros((b,), np.int32)
+                for i, s in live.items():
+                    tokens[i, 0] = s.last_token
+                    tokens[i, 1:] = proposed[i]
+                    clen[i] = k + 1
+                self.arena.kv, target, accept = self.verify_fn(
+                    self.params, {"tokens": tokens}, self.arena.kv, bt,
+                    start, clen, proposed, self._sampling_state(live))
+            target = target.cpu().numpy()        # the window's one sync
+            accept = accept.cpu().numpy()
+            self.spec_stats["verify_calls"] += 1
+            for i, s in live.items():
+                sp = s.request.sampling
+                emitted = 0
+                for j in range(int(accept[i]) + 1):
+                    tok = int(target[i, j])
+                    self._emit(s, tok)
+                    emitted += 1
+                    if tok in sp.stop \
+                            or len(s.generated) >= sp.max_new_tokens:
+                        break            # the slot retires this tick
+                # positions start..start+emitted-1 hold the K/V of [last,
+                # t_0..t_{emitted-2}]; the newest token's K/V is pending.
+                # The freed tail pages were appended above: never shared,
+                # never registered
+                s.pages.truncate(int(start[i]) + emitted)
+                s.draft_pos += emitted
+                n[i] = emitted
+                self.spec_stats["accepted_tokens"] += int(accept[i])
+                self.spec_stats["emitted_tokens"] += emitted
+        if proposed is not None:
+            draft.rollback(target, n)
+        # the fused call already rewound live rows to pos0 + accept + 1;
+        # a row that emitted fewer hit a stop or its budget and retires
+        # this tick, so its stale draft row never serves again
+
     def _emit_decoded(self, active: dict[int, _Slot], nxt) -> None:
         """Shared tail of both decode layouts: count the call, read the
         step's tokens (the tick's one sync) and emit them."""
@@ -768,7 +963,7 @@ class ServingEngine:
         self._prefill_tick()
         self._enforce_high_watermark()
         if self.layout == "paged":
-            self._decode_plain(self._decode_rows())
+            self._decode_paged()
         else:
             self._decode_contiguous(self._decode_rows())
         self.steps += 1
@@ -833,6 +1028,11 @@ class ServingEngine:
         self.slots[free[0]] = child
         # state that cannot share pages (hybrid conv/SSM rows) is copied
         self.arena.copy_slot_state(src_i, free[0])
+        # the child's page_hashes stay EMPTY: its pages are the parent's
+        # (plus copied-on-write speculative tails), so it never publishes
+        if self.draft is not None:
+            self.draft.copy_row(src_i, free[0])
+            child.draft_pos = src.draft_pos
 
     # ------------------------------------------------------------- stats
 
@@ -868,4 +1068,11 @@ class ServingEngine:
         }
         if self.prefix_store is not None:       # prompt-page reuse traffic
             out["prefix_store"] = self.prefix_store.stats()
+        if self.draft is not None:              # speculative decode traffic
+            sp = dict(self.spec_stats)
+            sp["k"] = self.speculate_k
+            sp["accept_rate"] = (sp["accepted_tokens"] / sp["draft_tokens"]
+                                 if sp["draft_tokens"] else 0.0)
+            sp["draft"] = self.draft.stats()
+            out["speculative"] = sp
         return out

@@ -43,8 +43,9 @@ class SamplingParams:
                  fold_in(key(seed), t), so a (prompt, params) pair
                  replays identically.
     max_new_tokens / stop: generation budget and stop-token set.
-    speculative: opt-in flag for speculative decode (carried for wire
-                 compatibility; this port has no speculative decode yet).
+    speculative: opt-in flag for speculative decode (engines built with
+                 `speculate_k > 0`; False pins the request to plain
+                 decode, which emits the same tokens).
     """
     temperature: float = 0.0
     top_k: int = 0
@@ -222,3 +223,50 @@ def sample_tokens(logits, state: SamplingState, knobs=None):
     out = greedy.clone()
     out[rows] = prng.categorical(k0, k1, scaled[rows]).to(torch.int32)
     return out
+
+
+# ------------------------------------------------ speculative verification
+#
+# Token t of a slot is a pure function of (target logits at t,
+# fold_in(key(seed), t)), so the verify step can COMPUTE the exact token
+# plain decode would emit at every window position: greedy rows by
+# argmax, sampled rows by the same counter-keyed draw.  Draft j is
+# accepted iff it EQUALS that token, so the emitted stream is plain
+# decode's by construction; acceptance only sets how many tokens one
+# tick emits.
+
+
+def expand_state(state: SamplingState, r: int) -> SamplingState:
+    """Tile a (b,) SamplingState to (b*r,) window rows: row i*r+j keeps
+    slot i's knobs with emission counter step[i]+j, so `sample_tokens`
+    over a flattened (b*r, V) verify-logit block draws every window
+    position with the key plain decode would have used.  Host numpy, so
+    its knobs ride the step's one host->device copy (`host_knobs`)."""
+    step = state.step[:, None] + np.arange(r, dtype=np.int32)[None, :]
+    return SamplingState(
+        temperature=np.repeat(state.temperature, r),
+        top_k=np.repeat(state.top_k, r),
+        top_p=np.repeat(state.top_p, r),
+        seed=np.repeat(state.seed, r),
+        step=step.reshape(-1).astype(np.int32))
+
+
+def verify_tokens(logits, draft, state: SamplingState, knobs=None):
+    """Accept/reject a draft window against the target's own draws.
+
+    logits: (b, k+1, V), position j the target's next-token distribution
+    after candidate j of the chunk [last_emitted, draft_0..draft_{k-1}];
+    draft: (b, k) int32 on the logits' device; state: the slots' (b,)
+    SamplingState whose `step` is each slot's NEXT emission index;
+    knobs: `DeviceKnobs` of `expand_state(state, k+1)` already on the
+    device (None copies them).  Returns (target (b, k+1), accept (b,)),
+    int32 on the device: `target` holds the tokens plain decode would
+    emit at emission indices step..step+k, `accept` the length of the
+    matching draft prefix; the engine emits target[:accept+1]."""
+    b, r, V = logits.shape
+    flat = sample_tokens(logits.reshape(b * r, V), expand_state(state, r),
+                         knobs)
+    target = flat.reshape(b, r)
+    matches = (draft == target[:, :r - 1]).to(torch.int32)
+    accept = torch.cumprod(matches, dim=1).sum(dim=1).to(torch.int32)
+    return target, accept

@@ -1,6 +1,7 @@
 """Serving steps: prefill and decode with in-step sampling, over the
 contiguous cache (`make_serve_fns`) or the paged arena
-(`make_paged_serve_fns`).
+(`make_paged_serve_fns`), and the speculative verify step over the
+arena (`make_paged_verify_fn`).
 
 Port of `repro.serve.serve_step`.  The reference jits the closures and
 donates the cache so XLA updates it in place; here the closures run
@@ -23,7 +24,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
 from repro_torch.serve.sampling import (SamplingState, device_knobs,
-                                        host_knobs, sample_tokens)
+                                        expand_state, host_knobs,
+                                        sample_tokens, verify_tokens)
 
 
 def to_device(device, *arrays: np.ndarray) -> list[torch.Tensor]:
@@ -112,3 +114,39 @@ def make_paged_serve_fns(cfg: ModelConfig, device):
         return arena, sample_tokens(logits, sampling, device_knobs(knobs))
 
     return prefill_chunk, decode
+
+
+def make_paged_verify_fn(cfg: ModelConfig, device):
+    """The speculative verify step over the family's `paged_verify`
+    hook: ONE ragged paged-prefill walk judges a k-token draft window
+    per slot.
+
+    verify(params, chunk, arena, block_table, start (b,), chunk_len (b,),
+           draft (b, k), sampling) -> (arena, target (b, k+1), accept (b,))
+
+    `chunk` is {"tokens": (b, k+1)}: row i's candidates [last_emitted,
+    draft_0..draft_{k-1}] written at positions start[i]..start[i]+k
+    (chunk_len k+1 active, 0 inert).  The tables, the draft and the
+    window's sampling knobs (`expand_state`) cross in one transfer;
+    `target` and `accept` come back as int32 device tensors
+    (`sampling.verify_tokens`) and the logits never leave the step."""
+    fam = registry.get_family(cfg)
+    if not registry.has_verify(cfg):
+        raise ValueError(f"family {cfg.family!r} has no speculative-verify "
+                         f"path")
+    device = torch.device(device)
+
+    @torch.inference_mode()
+    def verify(params, chunk, arena, block_table, start, chunk_len, draft,
+               sampling: SamplingState):
+        r = np.shape(chunk["tokens"])[1]
+        tokens, bt, st, cl, dr, *knobs = to_device(
+            device, chunk["tokens"], block_table, start, chunk_len, draft,
+            *host_knobs(expand_state(sampling, r)))
+        arena, logits = fam.paged_verify(params, cfg, {"tokens": tokens},
+                                         arena, bt, st, cl)
+        target, accept = verify_tokens(logits, dr, sampling,
+                                       device_knobs(knobs))
+        return arena, target, accept
+
+    return verify

@@ -139,11 +139,15 @@ def projection_shapes() -> list[tuple[int, int]]:
     return sorted(shapes)
 
 
-@pytest.mark.parametrize("rows", [(4, 8), (3,)], ids=["chunk", "decode"])
+@pytest.mark.parametrize("rows", [(4, 8), (3,), (4, 2), (4, 3), (4, 5)],
+                         ids=["chunk", "decode", "verify_k1", "verify_k2",
+                              "verify_k4"])
 def test_matmul_is_bit_exact_with_jax_at_the_tiny_projections(rows):
     """`layers.matmul` in bf16 on the CPU gives the bits of XLA's bf16
     dot (`jax.jit(a @ b)`) at every TINY projection shape, for a
-    prefill chunk's rows and a decode step's; in f32 it is `x @ w`."""
+    prefill chunk's rows, a decode step's, and a speculative verify
+    chunk's (4 rows of k + 1 at k = 1, 2, 4: the projections and the
+    all-position logits); in f32 it is `x @ w`."""
     dot = jax.jit(lambda a, b: a @ b)
     rng = np.random.default_rng(5)
     assert len(projection_shapes()) >= 7
@@ -321,16 +325,21 @@ def test_paged_step_arena_matches_reference_in_bf16(case):
 PAGED_ENGINE_CFG = {"dense": TINY["dense"],
                     "moe": TINY["moe"].replace(moe_dispatch="grouped"),
                     "hybrid": TINY["hybrid"].replace(ssd_impl="pallas")}
+# the speculating engine's cases: (family, scenario) -> (k, draft)
+SPEC_CASES = {("dense", "chunked"): (2, "self:1"),
+              ("dense", "preempt"): (4, "self:1"),
+              ("moe", "chunked"): (2, "self:1")}
 ENGINE_CASES = {
     "paged": [(f, s) for f in PAGED_ENGINE_CFG
               for s in ("chunked", "preempt")],
     "contiguous": [(f, s) for f in ("dense", "moe", "hybrid", "ssm")
-                   for s in ("mixed", "idle_past_max_seq")]}
+                   for s in ("mixed", "idle_past_max_seq")],
+    "speculative": list(SPEC_CASES)}
 
 
 def engine_cfg(layout, family):
-    return bf16(PAGED_ENGINE_CFG[family] if layout == "paged"
-                else TINY[family])
+    return bf16(TINY[family] if layout == "contiguous"
+                else PAGED_ENGINE_CFG[family])
 
 
 def params_key(cfg) -> str:
@@ -354,12 +363,15 @@ class _BitsCache:
 
 def drive(side, layout, family, scenario, params):
     """One engine run of `side` ("reference" or "port") through the f32
-    twins' `_drive` and `_scenario`: (events, stats) for the paged layout,
-    plus (cache bits, top position) for the contiguous one."""
+    twins' `_drive` and `_scenario`: (events, stats) for the paged layout
+    (also speculating: `SPEC_CASES`), plus (cache bits, top position)
+    for the contiguous one."""
     cfg = engine_cfg(layout, family)
-    if layout == "paged":
+    if layout != "contiguous":
         from test_torch_serve import _drive, _scenario
         kw, script = _scenario(scenario, cfg.vocab_size)
+        if layout == "speculative":
+            kw["speculate_k"], kw["draft"] = SPEC_CASES[(family, scenario)]
     else:
         from test_torch_contiguous_engine import _drive, _scenario
         kw, script = _scenario(scenario, cfg.vocab_size)
@@ -373,7 +385,7 @@ def drive(side, layout, family, scenario, params):
     else:
         engine = ServingEngine(port_cfg(cfg), params, device="cpu", **kw)
         request_cls, sp_cls = Request, SamplingParams
-    if layout == "paged":
+    if layout != "contiguous":
         return _drive(engine, request_cls, script)
     if side == "port":
         engine = _BitsCache(engine)

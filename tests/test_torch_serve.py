@@ -229,6 +229,8 @@ def _drive(engine, request_cls, script):
     stats["prefix_store"] = {k: st["prefix_store"][k] for k in
                              ("entries", "registered_pages", "reused_pages",
                               "cross_request_hits")}
+    if "speculative" in st:                        # speculate_k > 0
+        stats["speculative"] = st["speculative"]
     return log, stats
 
 
@@ -520,6 +522,21 @@ def test_launch_serve_runs_on_cpu():
     assert "served 3 requests" in proc.stdout
 
 
+@pytest.mark.parametrize("draft", ["self:1", "mamba2-130m@reduced"])
+def test_launch_serve_speculates_on_cpu(draft):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu", "--requests", "3", "--max-new", "6",
+         "--max-seq", "64", "--page-size", "8", "--temperature", "0.8",
+         "--speculate", "2", "--draft", draft],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert "served 3 requests" in proc.stdout
+    assert f"'spec': '{draft}'" in proc.stdout
+    assert "'verify_calls': 0" not in proc.stdout
+
+
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b"])
 def test_launch_serve_runs_the_moe_and_hybrid_archs_on_cpu(arch):
     proc = subprocess.run(
@@ -544,7 +561,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(dense):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(host_tier_pages=8),
-                                dict(prefix_cache=True), dict(speculate_k=2),
+                                dict(prefix_cache=True),
                                 dict(tenant_weights={})])
 def test_unported_engine_options_refuse(dense, kw):
     cfg, _, pp = dense
