@@ -8,8 +8,9 @@ exit at the first failure):
 
 1. device + build: the card's name and power limit (nvidia-smi), then
    the CUDA kernels built from `src/repro_torch/kernels/csrc` with nvcc
-   for sm_90a (the eight ports of the TPU kernels and split-KV decode's
-   f32 combine), with ptxas's registers and spills of every head-dim
+   for sm_90a (the eight ports of the TPU kernels, split-KV decode's
+   f32 combine and the flash-attention backward), with ptxas's
+   registers and spills of every head-dim
    instance of the bf16 flash, paged-prefill, paged-decode and split-KV
    decode kernels (`tc_ptxas`).
 2. kernels: each paged-attention kernel against its plain PyTorch
@@ -66,6 +67,18 @@ exit at the first failure):
    decode also as partials (no merge) and at every position 0 (its
    floor), with its split rule, blocks and shared memory; the f32
    combine alone beside `combine_splits`.
+4b. train kernels: the flash-attention backward (`flash_attention_bwd.cu`:
+   dQ, dK, dV) against its plain version, each per element with atol
+   scaled by the largest |plain| of its row, as the forward, plus a
+   floor 1e-5 of its head's largest (`tolerance.grad_floor`), in bf16 (tensor cores) and f32 (CUDA cores), at internlm2-1.8b's
+   heads for the training microbatch (4 x 2048, causal), a ragged 511
+   (causal; with q_offset 511 over 1022 keys; non-causal at batch 2)
+   and qwen3-moe-30b-a3b's group (hq 32, hkv 4) at 2048; the training
+   forward's output bit-equal to the serving forward's and its lse
+   against the plain one; a rerun of the backward bit-equal.  bf16
+   cases are timed beside the plain backward, SDPA's backward (its
+   forward + backward less its forward, K/V repeated) and the bound
+   (2.5 x the forward's FLOPs over the pairs seen, or the bytes).
 5. ws/os matmul kernels: the weight-stationary and output-stationary
    matmuls against their plain version at `tests/test_kernels.py`'s
    shapes in f32 and bf16 and at the four regimes of the dataflow sweep
@@ -129,6 +142,22 @@ exit at the first failure):
    kernel and its combine kernel 2 each per decode call) and of a
    2-layer mamba2-width f32 model (prompts of 300 and 200 tokens: SSD
    chunks of 256 and a ragged 200), logits and cache compared.
+13b. train_parity: a 2-layer internlm2-width model (remat "dots",
+   logits_chunk 128), the loss and gradients of one training step
+   (`make_grad_fn`) with grad_accum 2 over 4 x 256 MarkovLM tokens
+   through the flash kernels, against the same with attention through
+   `flash_attention_plain` (an oracle patched in for the comparison),
+   f32 and bf16: the loss and every gradient leaf (relative L2) within
+   `TRAIN_PARITY_TOL`.
+   train: internlm2-1.8b at full width and depth (bf16, AdamW at 3e-4,
+   remat "dots", logits_chunk 512, 8 x 2048 MarkovLM tokens in 2
+   microbatches): one warm-up and three timed steps (loss per step, its
+   first near ln V + 0.02^2 d / 2, falling; grad norm, step seconds,
+   tokens/s, peak memory), a checkpoint of the state (host snapshot and
+   write timed), one step under torch.profiler (the device's busy
+   share and its top kernels), the state restored from the checkpoint and that step again
+   with the same loss; the flash forward launched 2 x 24 x 2 per step
+   (the "dots" remat recomputes attention) and the backward 24 x 2.
 14. paper: every module of the port's paper harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
@@ -146,6 +175,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -247,14 +277,18 @@ class KernelBench:
         return self.torch.randn(shape, generator=self.gen).to(self.dev).to(dtype)
 
 
-def check(name, got, want, qdt, rows):
+def check(name, got, want, qdt, rows, floor=None):
     """Hold a kernel's output against its plain version's, element by
-    element (repro_torch.kernels.tolerance); returns the max abs error."""
-    from repro_torch.kernels.tolerance import TOLERANCE, worst_ratio
+    element (repro_torch.kernels.tolerance, with the flash backward's
+    `grad_floor` as `floor`); returns the max abs error."""
+    from repro_torch.kernels.tolerance import (GRAD_FLOOR, TOLERANCE,
+                                               worst_ratio)
     rtol, atol = TOLERANCE[qdt]
-    err, ratio = worst_ratio(got, want, rtol, atol)
+    err, ratio = worst_ratio(got, want, rtol, atol, floor=floor)
     rows.append({"case": name, "max_abs_err": err, "rtol": rtol,
                  "atol_x_row_max": atol, "worst_err_over_bound": ratio})
+    if floor is not None:
+        rows[-1]["floor_x_head_max"] = GRAD_FLOOR
     if not ratio <= 1.0:
         emit({"phase": "kernels", "failed": rows[-1]})
         fail(f"kernel {name} disagrees with its plain version: "
@@ -873,6 +907,122 @@ def phase_contig_kernels(torch, dev, card: str, flush):
     return times
 
 
+# ------------------------------------- phase 4b: the flash backward kernel
+
+# (b, sq, skv, hq, hkv, d, causal, q_offset, label): internlm2-1.8b's
+# heads at the training microbatch (4 x 2048) and at a ragged 511, once
+# with a q_offset and once non-causal, and qwen3-moe-30b-a3b's group
+TRAIN_FLASH_CASES = (
+    (4, 2048, 2048, 16, 8, 128, True, 0, "train"),
+    (1, 511, 511, 16, 8, 128, True, 0, "511"),
+    (1, 511, 1022, 16, 8, 128, True, 511, "511 off511"),
+    (2, 511, 511, 16, 8, 128, False, 0, "511 full"),
+    (1, 2048, 2048, 32, 4, 128, True, 0, "qwen3-moe-30b-a3b group"),
+)
+
+
+def bwd_bound(b, sq, skv, hq, hkv, d, causal, off, itemsize):
+    """(ms, what bounds it) of the backward: 2.5 x the forward's FLOPs
+    (4 hq d per (query, key) pair seen; causal counts the pairs under
+    the diagonal, so it is halved) over the bf16 peak, or q, k, v, o,
+    dO and lse read and dq, dk, dv written over the memory rate."""
+    import torch
+    qi = torch.arange(sq)[:, None] + off
+    pairs = b * int(((torch.arange(skv)[None, :] <= qi) if causal
+                     else torch.ones(sq, skv, dtype=torch.bool)).sum())
+    q_el, kv_el = b * sq * hq * d, b * skv * hkv * d
+    nbytes = itemsize * (3 * q_el + 2 * kv_el) + 4 * b * hq * sq \
+        + itemsize * (q_el + 2 * kv_el)
+    return bound(nbytes, 2.5 * 4 * hq * d * pairs)
+
+
+def phase_train_kernels(torch, dev, card: str, flush):
+    """The flash backward against its plain version (dQ, dK, dV, held per
+    row with the floor `tolerance.grad_floor`) in bf16 and f32, and the
+    training forward (with lse) against the serving forward's bits and
+    the plain lse; bf16 timed beside the plain backward and SDPA's
+    backward (its forward + backward less its forward)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fk
+    from repro_torch.kernels.tolerance import grad_floor
+
+    free_card(torch)
+    g = torch.Generator(device=dev).manual_seed(24)
+    rows, times = [], {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for b, sq, skv, hq, hkv, d, causal, off, label in TRAIN_FLASH_CASES:
+        shapes = ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                  (b, sq, hq, d))
+        base = [torch.randn(*s, generator=g, device=dev) for s in shapes]
+        kw = dict(causal=causal, q_offset=off)
+        for dt in (bf16, f32):
+            q, k, v, do = (x.to(dt) for x in base)
+            o, lse = fk.flash_attention_lse(q, k, v, **kw)
+            if not torch.equal(o, fk.flash_attention(q, k, v, **kw)):
+                fail(f"flash forward with lse ({label}, {dt}) differs from "
+                     f"the serving forward")
+            po, plse = fk.flash_attention_lse_plain(q, k, v, **kw)
+            got = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+            want = fk.flash_attention_backward_plain(q, k, v, po, do, plse,
+                                                     **kw)
+            torch.cuda.synchronize()
+            name = (f"flash backward b{b} sq{sq} skv{skv} "
+                    f"{'causal' if causal else 'full'} q_offset {off} "
+                    f"(hq {hq}, hkv {hkv}, d {d}) {dt} ({fk.route(dt)})")
+            check(name + " lse", lse, plse, f32, rows)
+            err = check(name, got, want, dt, rows, floor=grad_floor)
+            again = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"{name}: a rerun gives other bits")
+            del got, want, again, po, plse
+            if dt is not bf16:
+                continue
+            ms, by = bwd_bound(b, sq, skv, hq, hkv, d, causal, off, 2)
+            # SDPA over K/V repeated over the group, (b, h, s, d)
+            qs = q.transpose(1, 2).contiguous().requires_grad_()
+            ks = k.repeat_interleave(hq // hkv, 2).transpose(1, 2) \
+                .contiguous().requires_grad_()
+            vs = v.repeat_interleave(hq // hkv, 2).transpose(1, 2) \
+                .contiguous().requires_grad_()
+            dos = do.transpose(1, 2).contiguous()
+            qi = torch.arange(sq, device=dev)[:, None] + off
+            mask = (torch.arange(skv, device=dev)[None, :] <= qi) \
+                if causal and off else None
+            sd = dict(attn_mask=mask, is_causal=causal and not off)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qs, ks, vs, **sd)
+
+            def sdpa_fwd_bwd():
+                return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dos)
+            full_ms = time_ms(sdpa_fwd_bwd, flush, iters=10, warmup=2)
+            fwd_ms = time_ms(sdpa_fwd, flush, iters=10, warmup=2)
+            times[f"flash_attention_backward {label}"] = dict(
+                ms=time_ms(lambda: fk.flash_attention_backward(
+                    q, k, v, o, do, lse, **kw), flush, iters=10, warmup=2),
+                forward_ms=time_ms(lambda: fk.flash_attention_lse(
+                    q, k, v, **kw), flush, iters=10, warmup=2),
+                plain_ms=time_ms(lambda: fk.flash_attention_backward_plain(
+                    q, k, v, o, do, lse, **kw), flush, iters=3, warmup=1),
+                library_ms=full_ms - fwd_ms, library_fwd_bwd_ms=full_ms,
+                library_fwd_ms=fwd_ms, bound_ms=ms, bound_by=by,
+                max_abs_err=err, design=fk.route(dt),
+                blocks={"dkdv": b * hkv * -(-skv // fk.BWD_TC_KEYS),
+                        "dq": b * hkv * fk.tc_tiles(sq, hq // hkv)},
+                smem_bytes=fk.bwd_smem_bytes(dt, d))
+            del qs, ks, vs, dos
+        del base
+    free_card(torch)
+    emit({"phase": "train_kernels", "cases": rows})
+    emit({"phase": "train_kernel_times", "card": card, "dtype": "bfloat16",
+          "library": "SDPA forward + backward less SDPA forward, K/V "
+                     "repeated over the group beforehand",
+          "timing": "CUDA events, median of 10 after 2 warm-up (plain: "
+                    "3 after 1), L2 flushed",
+          **times})
+    return times
+
+
 # ---------------------------------------- phase 5: ws/os matmul kernels
 
 # (m, k, n) of tests/test_kernels.py's ws_matmul cases
@@ -1143,7 +1293,8 @@ def kernel_modules():
     return {"paged_decode_attention": pa, "paged_prefill_attention": pp,
             "grouped_matmul": gm, "ssd_intra_chunk": ssd,
             "decode_attention": dk, "combine_splits": dk.COMBINE,
-            "flash_attention": fk, "ws_matmul": wm.WS, "os_matmul": wm.OS}
+            "flash_attention": fk, "flash_attention_backward": fk.BACKWARD,
+            "ws_matmul": wm.WS, "os_matmul": wm.OS}
 
 
 def expected_launches(cfg, st, draft=None) -> dict:
@@ -1155,7 +1306,7 @@ def expected_launches(cfg, st, draft=None) -> dict:
     follows each split launch (bf16 merges inside the one launch) — the
     grouped matmul 3 times per MoE layer, the
     SSD kernel once per Mamba layer of a prefill call, and no ws or os
-    matmul (no serving path runs them).  Speculating (`draft`), each
+    matmul and no flash backward (no serving path runs them).  Speculating (`draft`), each
     verify call walks the arena with the paged-prefill kernel once per
     layer, and each decode step of a dense draft's contiguous cache
     launches split-KV decode once per draft layer; an ssm draft decodes
@@ -1177,7 +1328,7 @@ def expected_launches(cfg, st, draft=None) -> dict:
                                if cfg.family == "moe" else 0),
             "ssd_intra_chunk": (cfg.num_layers * pre
                                 if cfg.family in ("hybrid", "ssm") else 0),
-            "ws_matmul": 0, "os_matmul": 0}
+            "flash_attention_backward": 0, "ws_matmul": 0, "os_matmul": 0}
 
 
 def tree_to(tree, d):
@@ -1569,6 +1720,231 @@ def phase_parity_contiguous(torch, dev, cfg, label: str, lens, S: int):
     return launches
 
 
+# ------------------------------------------------- phase 13b: training
+
+TRAIN_SEED = 24
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 2048, 2
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 1, 3
+# kernel path vs the plain attention oracle, per gradient leaf: relative
+# L2 error.  f32: the same sums in other orders (the flash kernels' tiles
+# against one masked softmax), ~1e-6 and below; bf16: the kernel rounds P
+# and dS to bf16 for its products where autograd over the plain version
+# keeps the backward in f32, and the difference passes through two layers
+# of bf16 activations.
+TRAIN_PARITY_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 5e-2)}
+
+
+class plain_attention:
+    """Within the block, `layers.run_attention` on the card computes
+    `flash_attention_plain` (autograd through plain torch): the explicit
+    oracle the kernel path is held against, never a path of the port."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fk
+        from repro_torch.models import layers
+        self.layers, self.saved = layers, layers.run_attention
+        layers.run_attention = lambda cfg, q, k, v, *, q_offset=0: \
+            fk.flash_attention_plain(q, k, v, causal=cfg.causal,
+                                     q_offset=q_offset)
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.run_attention = self.saved
+        return False
+
+
+def _train_opt(total_steps: int):
+    """AdamW at the reference's default peak lr (3e-4), one warm-up step
+    (lr 0 at step 0, as the reference's schedule gives)."""
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    return make_optimizer(OptimizerConfig(
+        name="adamw", peak_lr=3e-4, warmup_steps=1, total_steps=total_steps))
+
+
+def phase_train_parity(torch, dev, dense):
+    """internlm2-1.8b width, 2 layers: the loss and gradients of one
+    training step (`make_grad_fn`, what `make_train_step` clips and
+    applies) with grad_accum 2 through the flash kernels, held against
+    the same with attention through the plain version; loss and every
+    gradient leaf (relative L2), in f32 and bf16."""
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.train import train_step as TS
+    from repro_torch.utils.tree import tree_flatten_with_names
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        free_card(torch)
+        cfg = dense.replace(num_layers=2, dtype=dtype, param_dtype=dtype,
+                            remat="dots", logits_chunk=128)
+        batch = TS.batch_to(make_source(DataConfig(
+            source="markov", seq_len=256, global_batch=4, seed=TRAIN_SEED),
+            cfg).batch_at(0), dev)
+        runs = []
+        grad_fn = TS.make_grad_fn(cfg, grad_accum=2)
+        for oracle in (False, True):
+            state = TS.init_train_state(cfg, _train_opt(10),
+                                        seed=TRAIN_SEED, device=dev)
+            with plain_attention() if oracle else contextlib.nullcontext():
+                loss, grads = grad_fn(state.params, batch)
+            runs.append((float(loss), {
+                n: g.float() for n, g in tree_flatten_with_names(grads)}))
+            del state, loss, grads
+        (lk, gk), (lp, gp) = runs
+        rtol_loss, rel_l2 = TRAIN_PARITY_TOL[dtype]
+        errs = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(
+            1e-30)) for n in gp}
+        worst = max(errs, key=errs.get)
+        out[dtype] = {"loss_kernel": lk, "loss_plain": lp,
+                      "loss_rel_err": abs(lk - lp) / abs(lp),
+                      "grad_rel_l2": errs, "worst_leaf": worst,
+                      "loss_rtol": rtol_loss, "grad_rel_l2_bound": rel_l2}
+        if not abs(lk - lp) <= rtol_loss * abs(lp):
+            fail(f"train_parity {dtype}: loss {lk} vs plain {lp}")
+        if not errs[worst] <= rel_l2:
+            fail(f"train_parity {dtype}: gradient {worst} relative L2 "
+                 f"error {errs[worst]} > {rel_l2}")
+        del runs, gk, gp
+    emit({"phase": "train_parity",
+          "config": "internlm2-1.8b width, 2 layers, remat dots, "
+                    "logits_chunk 128, 4 x 256 tokens, grad_accum 2",
+          **out})
+
+
+def expected_train_launches(cfg, steps: int, grad_accum: int) -> dict:
+    """Kernel launches of `steps` training steps of a dense config: per
+    microbatch, the flash forward once per layer, again per layer in the
+    backward where the remat policy recomputes the layer ("full" and
+    "dots": attention is no projection, so "dots" recomputes it too),
+    and the backward kernel once per layer; no other kernel."""
+    mbs = steps * grad_accum * cfg.num_layers
+    want = {name: 0 for name in kernel_modules()}
+    want["flash_attention"] = mbs * (1 if cfg.remat == "none" else 2)
+    want["flash_attention_backward"] = mbs
+    return want
+
+
+def phase_train(torch, dev, card: str, dense):
+    """internlm2-1.8b at full width and depth: bf16 params, AdamW, remat
+    "dots", logits_chunk 512, global batch 8 x 2048 in 2 microbatches of
+    MarkovLM data from the seed.  One warm-up step, three timed steps,
+    a checkpoint of the state, one more step (profiled: the device's
+    busy share), then the state restored from the checkpoint and that
+    step again: the same loss.  Returns the kernel launches of the run
+    (counted from 0), held against `expected_train_launches`."""
+    import math
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.utils.tree import tree_num_params
+
+    free_card(torch)
+    cfg = dense
+    steps_total = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS + 2
+    opt = _train_opt(100)
+    source = make_source(DataConfig(
+        source="markov", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=TRAIN_SEED), cfg)
+    batches = [TS.batch_to(source.batch_at(i), dev)
+               for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS + 1)]
+    step = TS.make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    state = TS.init_train_state(cfg, opt, seed=TRAIN_SEED, device=dev)
+    n_params = tree_num_params(state.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(state, state.step)           # host snapshot now, files async
+    snapshot_s = time.perf_counter() - t0
+    mgr.wait()               # the writer thread would share the host below
+    write_s = time.perf_counter() - t0 - snapshot_s
+    last = batches[-1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, last)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    loss_direct = float(m["loss"])
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    # where the step's device time goes: the kernels that take the most
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
+    top_kernels = [{"name": e.key[:100], "ms": e.self_device_time_total / 1e3,
+                    "calls": e.count} for e in top]
+    like = TS.state_like(state)
+    del state, m
+    free_card(torch)
+    t0 = time.perf_counter()
+    state, manifest = TS.restore_train_state(mgr, like, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state, m = step(state, last)
+    loss_restored = float(m["loss"])
+    launches = {name: mm.launches for name, mm in mods.items()}
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                     if f.is_file())
+    del state, m, batches
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_card(torch)
+    timed = secs[TRAIN_WARMUP_STEPS:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # random init: logits h . w with |h|^2 = d (the final norm) and w ~
+    # N(0, 0.02^2), so the CE starts at ln V plus half their variance
+    first_loss = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    emit({"phase": "train", "card": card,
+          "config": f"{cfg.name}, {cfg.num_layers} layers, bf16, AdamW, "
+                    f"remat {cfg.remat}, logits_chunk {cfg.logits_chunk}, "
+                    f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} "
+                    f"microbatches, MarkovLM seed {TRAIN_SEED}",
+          "params": n_params, "losses": losses, "grad_norms": norms,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "expected_first_loss": first_loss, "step_s": secs,
+          "tokens_per_s": tokens * len(timed) / sum(timed),
+          "max_memory_allocated": peak,
+          "profiled_step_s": prof_s, "device_busy_s": busy_us / 1e6,
+          "device_busy_share": busy_us / 1e6 / prof_s,
+          "top_device_kernels": top_kernels,
+          "checkpoint": {"step": manifest["step"], "bytes": ckpt_bytes,
+                         "host_snapshot_s": snapshot_s,
+                         "write_s": write_s,
+                         "restore_s": restore_s,
+                         "loss_direct": loss_direct,
+                         "loss_restored": loss_restored},
+          "launches": launches})
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"train: non-finite loss or grad norm {losses} {norms}")
+    if abs(losses[0] - first_loss) > 0.1:
+        fail(f"train: first loss {losses[0]} not near ln V + 0.02^2 d / 2 "
+             f"= {first_loss}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    if loss_restored != loss_direct:
+        fail(f"train: the step after the checkpoint round trip gives loss "
+             f"{loss_restored}, without it {loss_direct}")
+    want = expected_train_launches(cfg, steps_total, TRAIN_ACCUM)
+    if launches != want:
+        fail(f"train: kernel launches {launches} != expected {want}")
+    return launches
+
+
 # ------------------------------------------------------ phase 14: paper
 
 def phase_paper(torch, dev):
@@ -1771,6 +2147,7 @@ def main() -> int:
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     timings.update(phase_moe_ssd_kernels(torch, dev, card, flush_buf.zero_))
     timings.update(phase_contig_kernels(torch, dev, card, flush_buf.zero_))
+    timings.update(phase_train_kernels(torch, dev, card, flush_buf.zero_))
     ws_timings, ws_launches = phase_ws_kernels(torch, dev, card,
                                                flush_buf.zero_)
     timings.update(ws_timings)
@@ -1805,6 +2182,8 @@ def main() -> int:
         torch, dev,
         hybrid.replace(num_layers=2 * hybrid.shared_attn_period, **f32),
         "zamba2-2.7b width, 12 layers (2 shared applications), f32")
+    phase_train_parity(torch, dev, dense)
+    train_launches = phase_train(torch, dev, card, dense)
     paper_launches = phase_paper(torch, dev)
     phase_resnet50(torch, dev, card)
 
@@ -1817,11 +2196,14 @@ def main() -> int:
     # runs on the f32 contiguous path
     launches["combine_splits"] = f32_contig_launches["combine_splits"]
     launches["flash_attention"] = contig_launches["flash_attention"]
+    launches["flash_attention_backward"] = \
+        train_launches["flash_attention_backward"]
     for name in ("ws_matmul", "os_matmul"):   # the dataflow sweep, run twice
         launches[name] = ws_launches[name] + paper_launches[name]
     main_case = {"grouped_matmul": "grouped_matmul C64",
                  "ssd_intra_chunk": "ssd_intra_chunk l64",
-                 "flash_attention": "flash_attention sq511 skv511"}
+                 "flash_attention": "flash_attention sq511 skv511",
+                 "flash_attention_backward": "flash_attention_backward train"}
     sources = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1844,6 +2226,11 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:94"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:64"),
+        # the gradient of the same TPU kernel's function: the reference
+        # differentiates its XLA twin and has no backward kernel
+        "flash_attention_backward": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:64"),
         "ws_matmul": (
             "src/repro_torch/kernels/csrc/ws_matmul.cu",

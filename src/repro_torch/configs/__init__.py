@@ -8,18 +8,8 @@ of `repro.configs` arrive with the slices that port their families
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass
 
-from repro_torch.models.config import ModelConfig
-
-
-@dataclass(frozen=True)
-class ArchSpec:
-    """A registered architecture: its model config and provenance (the
-    reference's training fields arrive with the training slice)."""
-    model: ModelConfig
-    notes: str = ""
-    source: str = ""
+from repro_torch.configs.base import ArchSpec  # noqa: F401 (re-exported)
 
 
 _MODULES = {

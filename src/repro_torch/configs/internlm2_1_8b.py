@@ -27,6 +27,8 @@ ARCH = ArchSpec(
         attn_chunk=1024,
         max_seq=32_768,
     ),
+    optimizer="adamw",
+    train_grad_accum=4,   # the reference's microbatching for train_4k
     source="arXiv:2403.17297; hf internlm/internlm2-1_8b",
     notes="long_500k skipped: full attention (DESIGN.md §4).",
 )

@@ -29,6 +29,8 @@ ARCH = ArchSpec(
         tie_embeddings=True,
         max_seq=524_288,
     ),
+    optimizer="adamw",
+    train_grad_accum=2,
     source="arXiv:2405.21060 (unverified tier); state-spaces/mamba2-130m",
     notes="attention-free: no KV cache; the conv/SSM state is O(1) per "
           "sequence.",

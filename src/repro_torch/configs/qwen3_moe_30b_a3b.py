@@ -35,6 +35,9 @@ ARCH = ArchSpec(
         attn_chunk=1024,
         max_seq=32_768,
     ),
+    optimizer="adamw",
+    train_grad_accum=4,
+    rules="seq_parallel",
     source="hf Qwen/Qwen3-30B-A3B",
     notes="long_500k skipped: full attention (DESIGN.md §4).",
 )

@@ -39,6 +39,9 @@ ARCH = ArchSpec(
         attn_chunk=1024,
         max_seq=524_288,
     ),
+    optimizer="adamw",
+    train_grad_accum=4,
+    rules="seq_parallel",
     source="arXiv:2411.15242; hf Zyphra/Zamba2-2.7B",
     notes="hybrid: runs long_500k; one shared block's weights serve 9 "
           "layer positions.",

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
            "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu",
-           "ws_matmul.cu")
+           "flash_attention_bwd.cu", "ws_matmul.cu")
 HEADERS = ("paged_common.cuh", "mma_common.cuh", "paged_tc.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +49,12 @@ COMBINE_ARGTYPES = [_VOIDP] * 4 + [_INT] * 5 + [_VOIDP]
 # repro_flash_attention(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset,
 #   causal, dtype, stream)
 FLASH_ARGTYPES = [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP]
+# repro_flash_attention_lse(q, k, v, out, lse, b, sq, skv, hq, hkv, d,
+#   q_offset, causal, dtype, stream)
+FLASH_LSE_ARGTYPES = [_VOIDP] * 5 + [_INT] * 9 + [_VOIDP]
+# repro_flash_attention_bwd(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq,
+#   skv, hq, hkv, d, q_offset, causal, dtype, stream)
+FLASH_BWD_ARGTYPES = [_VOIDP] * 10 + [_INT] * 9 + [_VOIDP]
 # repro_ws_matmul(x, w, out, M, N, K, bm, bn, bk, splits, dtype, vec,
 #   stream)
 WS_ARGTYPES = [_VOIDP] * 3 + [_INT] * 9 + [_VOIDP]
@@ -147,6 +153,10 @@ class KernelLibrary:
         lib.repro_combine_splits.restype = ctypes.c_int
         lib.repro_flash_attention.argtypes = FLASH_ARGTYPES
         lib.repro_flash_attention.restype = ctypes.c_int
+        lib.repro_flash_attention_lse.argtypes = FLASH_LSE_ARGTYPES
+        lib.repro_flash_attention_lse.restype = ctypes.c_int
+        lib.repro_flash_attention_bwd.argtypes = FLASH_BWD_ARGTYPES
+        lib.repro_flash_attention_bwd.restype = ctypes.c_int
         lib.repro_ws_matmul.argtypes = WS_ARGTYPES
         lib.repro_ws_matmul.restype = ctypes.c_int
         lib.repro_os_matmul.argtypes = OS_ARGTYPES

@@ -51,6 +51,11 @@
 //   TF32, which the port never uses): `flash_f32_kernel`, 32 x 32 tiles
 //   on CUDA cores, one block per (query tile, batch row x query head).
 //
+// Training: `repro_flash_attention_lse` runs the same kernels and also
+// writes each row's log-sum-exp m + log(l) (f32, (b, hq, sq); -inf for a
+// row that sees no key), which flash_attention_bwd.cu reads to recompute
+// P; the serving entry point passes no lse and writes none.
+//
 // Known limits, left for later work: no wgmma or TMA, and mma.sync's
 // m16n8k16 tiles leave the tensor cores below their wgmma rate.
 #include <cuda_bf16.h>
@@ -88,8 +93,9 @@ __host__ __device__ constexpr size_t smem_bytes(int d) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int sq, int skv,
-                int hq, int hkv, int q_offset, int causal) {
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                float* __restrict__ lse, int sq, int skv, int hq, int hkv, int q_offset,
+                int causal) {
   constexpr int LD = ld(D);
   constexpr int CPR = D / 8;           // 16-byte copies per row
   constexpr int NT = kTok / 8;         // score n-tiles per warp
@@ -263,6 +269,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qi = rr / group, gi = rr - qi * group;
     bf16* orow = out + (((long long)b * sq + qi) * hq + hk * group + gi) * D + 2 * qd;
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    // training's log-sum-exp m + log(l): -inf for a row that saw no key
+    if (lse != nullptr && qd == 0)
+      lse[((long long)b * hq + hk * group + gi) * sq + qi] = m[hh] + logf(lsum);
 #pragma unroll
     for (int n = 0; n < OT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
@@ -271,8 +280,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                   int skv, int hq, int hkv, int q_offset, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                   int sq, int skv, int hq, int hkv, int q_offset, int causal,
+                   cudaStream_t stream) {
   const int tiles = (sq * (hq / hkv) + kRows - 1) / kRows;
   const size_t smem = smem_bytes(D);
   auto kern = flash_tc_kernel<D>;
@@ -285,18 +295,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   if (err != cudaSuccess) return err;
   kern<<<dim3(b * hkv, tiles), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), sq, skv, hq, hkv, q_offset, causal);
+      static_cast<bf16*>(out), lse, sq, skv, hq, hkv, q_offset, causal);
   return cudaGetLastError();
 }
 
 // head dims 16, 32, ..., 256, each its own register layout
 template <int D = 16>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                     int skv, int hq, int hkv, int d, int q_offset, int causal,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                     int sq, int skv, int hq, int hkv, int d, int q_offset, int causal,
                      cudaStream_t stream) {
-  if (d == D) return launch<D>(q, k, v, out, b, sq, skv, hq, hkv, q_offset, causal, stream);
+  if (d == D)
+    return launch<D>(q, k, v, out, lse, b, sq, skv, hq, hkv, q_offset, causal, stream);
   if constexpr (D < 256)
-    return dispatch<D + 16>(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset, causal, stream);
+    return dispatch<D + 16>(q, k, v, out, lse, b, sq, skv, hq, hkv, d, q_offset, causal,
+                            stream);
   return cudaErrorInvalidValue;
 }
 
@@ -357,8 +369,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int sq, int skv,
-                 int hq, int hkv, int d, int q_offset, int causal) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int sq, int skv, int hq, int hkv, int d,
+                 int q_offset, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(d);
   float* qs = reinterpret_cast<float*>(smem + L.q);
@@ -441,11 +454,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     out[(((long long)b * sq + q0 + r) * hq + h) * d + c] =
         os[r * L.ldo + c] / fmaxf(ls[r], 1e-30f);
   }
+  if (lse != nullptr && tid < rows)
+    lse[((long long)b * hq + h) * sq + q0 + tid] = ms[tid] + logf(ls[tid]);
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                       int skv, int hq, int hkv, int d, int q_offset, int causal,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int b, int sq, int skv, int hq, int hkv, int d, int q_offset,
+                       int causal, cudaStream_t stream) {
   const Layout L(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -454,8 +469,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   flash_f32_kernel<<<grid, kThreads, L.total, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, hq, hkv, d, q_offset,
-      causal);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, sq, skv, hq, hkv, d,
+      q_offset, causal);
   return cudaGetLastError();
 }
 
@@ -463,17 +478,29 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
 
 // q (b, sq, hq, d), k and v (b, skv, hkv, d), out (b, sq, hq, d), all f32
 // or all bf16 (dtype code 0 / 1), contiguous and 16-byte aligned, d a
-// multiple of 16 (bf16: up to 256).  Returns the CUDA error of the launch.
+// multiple of 16 (bf16: up to 256); lse, when not null, (b, hq, sq) f32
+// gets each row's m + log(l) (the training forward: flash_attention_bwd.cu
+// reads it).  Returns the CUDA error of the launch.
+extern "C" int repro_flash_attention_lse(const void* q, const void* k, const void* v,
+                                         void* out, void* lse, int b, int sq, int skv, int hq,
+                                         int hkv, int d, int q_offset, int causal, int dtype,
+                                         void* stream) {
+  using namespace repro_fa;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == kBF16)
+    return static_cast<int>(
+        tc::dispatch(q, k, v, out, l, b, sq, skv, hq, hkv, d, q_offset, causal, s));
+  if (dtype == kF32)
+    return static_cast<int>(
+        launch_f32(q, k, v, out, l, b, sq, skv, hq, hkv, d, q_offset, causal, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the serving launch: the same kernels, no lse
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int b, int sq, int skv, int hq, int hkv, int d,
                                      int q_offset, int causal, int dtype, void* stream) {
-  using namespace repro_fa;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return static_cast<int>(
-        tc::dispatch(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset, causal, s));
-  if (dtype == kF32)
-    return static_cast<int>(
-        launch_f32(q, k, v, out, b, sq, skv, hq, hkv, d, q_offset, causal, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return repro_flash_attention_lse(q, k, v, out, nullptr, b, sq, skv, hq, hkv, d, q_offset,
+                                   causal, dtype, stream);
 }

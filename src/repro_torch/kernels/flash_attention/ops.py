@@ -9,12 +9,21 @@ positions q_offset .. q_offset + sq - 1 (the chunked-prefill geometry);
 keys at or past skv are masked, and with `causal` a query sees the keys
 at or before its own position.
 
-* `flash_attention` — the entry point.  A CUDA tensor launches the
-  hand-written kernel (`kernels/csrc/flash_attention.cu`) or raises on a
-  device, dtype, shape or layout it does not take; a CPU tensor takes
-  the plain version.  There is no fallback between the two.  `launches`
-  counts kernel launches.
+* `flash_attention` — the serving entry point, forward only.  A CUDA
+  tensor launches the hand-written kernel (`kernels/csrc/
+  flash_attention.cu`) or raises on a device, dtype, shape or layout it
+  does not take; a CPU tensor takes the plain version.  There is no
+  fallback between the two.  `launches` counts kernel launches.  It
+  raises when grad is enabled and an input requires grad: its result
+  would carry no gradient, so training goes through `FlashAttentionFn`.
 * `flash_attention_plain` — one masked f32 softmax in batched torch.
+* Training: `FlashAttentionFn` (a `torch.autograd.Function`) runs the
+  forward with the log-sum-exp (`flash_attention_lse`) and saves q, k,
+  v, o and lse; its backward is `flash_attention_backward`, the kernel
+  of `kernels/csrc/flash_attention_bwd.cu` (three launches: D =
+  rowsum(dO o), then dK/dV, then dQ; `BACKWARD.launches` counts calls)
+  on a CUDA tensor and `flash_attention_backward_plain` on a CPU one.
+  The backward takes head dims that are multiples of 16 up to 128.
 
 The kernel has two designs, fixed by the dtype (`route`); neither falls
 back to the other:
@@ -33,10 +42,21 @@ probabilities, and round p to V's dtype before the PV product, as the
 TPU kernel does (kernel.py:57): bf16 rounds p there, f32 is exact.  The
 kernel takes any sq and skv (the TPU kernel asserts sq % block_q == 0
 and pads K/V to its block).
+
+The reference has no backward kernel (it differentiates its XLA path,
+`flash_xla_attention`), so the backward is the port's own: with P =
+exp(S - lse), D = rowsum(dO o), dV = P^T dO, dS = P (dO v^T - D), dQ =
+dS k / sqrt(d) and dK = dS^T q / sqrt(d), summed over each kv head's
+query group.  The bf16 kernel rounds P and dS to bf16 before its
+tensor-core products, as the forward rounds p; the plain version rounds
+at the same places, so `tolerance.py` holds the two as it holds the
+forwards.  In f32 and f64 nothing is rounded, and the plain version
+equals autograd over `flash_attention_plain`.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -46,8 +66,10 @@ from repro_torch.kernels.paged_prefill.ops import (BLOCK_RESERVED_SMEM,
 
 NEG_INF = -1e30
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import (reset by callers that count a run): the
+# forward's, and the backward's (one per call of its three kernels)
 launches = 0
+BACKWARD = SimpleNamespace(launches=0)
 
 # element-type codes of the C interface (csrc/flash_attention.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,31 +84,91 @@ TC_STAGES = 2          # K/V tiles in flight (cp.async ring)
 TC_PAD = 8             # bf16 elements of shared-memory row padding
 MAX_SMEM = 232_448
 MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 128  # the backward keeps dK and dV in registers
 MAX_GRID_Y = 65535
+# the backward's geometry (flash_attention_bwd.cu): bf16 dK/dV blocks of
+# 64 keys walking 32 packed query rows a step, dQ blocks of 64 packed rows
+# over 64-key tiles (TC_ROWS, TC_TILE_TOKENS); f32 tiles of 32
+BWD_TC_KEYS, BWD_TC_QROWS = 64, 32
+BWD_F32_TILE = 32
 
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 
-def flash_attention_plain(q, k, v, *, causal=True, q_offset=0):
-    """q: (b, sq, hq, d); k, v: (b, skv, hkv, d) -> (b, sq, hq, d) in
-    q's dtype."""
+def _compute_dtype(dtype):
+    """The plain versions' arithmetic: f32, or f64 for f64 inputs (the
+    gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _mask(sq: int, skv: int, q_offset: int, device):
+    """(sq, skv) bool: query i (at q_offset + i) sees the keys at or
+    before its position."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    return qpos >= torch.arange(skv, device=device)[None, :]
+
+
+def flash_attention_lse_plain(q, k, v, *, causal=True, q_offset=0):
+    """q: (b, sq, hq, d); k, v: (b, skv, hkv, d) -> (o (b, sq, hq, d) in
+    q's dtype, lse (b, hq, sq): m + log(l) in f32 (f64 for f64 inputs),
+    -inf where a row sees no key)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, d).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(d))
+    ct = _compute_dtype(q.dtype)
+    qg = q.reshape(b, sq, hkv, g, d).to(ct)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(ct)) * (1.0 / math.sqrt(d))
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-        mask = qpos >= torch.arange(skv, device=q.device)[None, :]
+        mask = _mask(sq, skv, q_offset, q.device)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     if causal:
         p = torch.where(mask, p, torch.zeros_like(p))
     l = p.sum(dim=-1)                                         # (b,h,g,q)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(ct), v.to(ct))
     o = o / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
-    return o.reshape(b, sq, hq, d).to(q.dtype)
+    lse = (m[..., 0] + torch.log(l)).reshape(b, hq, sq)
+    return o.reshape(b, sq, hq, d).to(q.dtype), lse
+
+
+def flash_attention_plain(q, k, v, *, causal=True, q_offset=0):
+    """q: (b, sq, hq, d); k, v: (b, skv, hkv, d) -> (b, sq, hq, d) in
+    q's dtype."""
+    return flash_attention_lse_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)[0]
+
+
+def flash_attention_backward_plain(q, k, v, o, do, lse, *, causal=True,
+                                   q_offset=0):
+    """The gradient of `flash_attention_plain` at (q, k, v) for the
+    output gradient `do`, from the forward's `o` and `lse` (the kernel's
+    inputs): (dq, dk, dv) in the inputs' dtypes.  P and dS are rounded to
+    v's and q's dtype before the products, as the kernel rounds them; a
+    row whose lse is -inf (it sees no key) gets zero gradient."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ct = _compute_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, g, d).to(ct)
+    dog = do.reshape(b, sq, hkv, g, d).to(ct)
+    kf, vf = k.to(ct), v.to(ct)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    lse = lse.reshape(b, hkv, g, sq, 1).to(ct)
+    finite = torch.isfinite(lse)
+    live = finite & _mask(sq, skv, q_offset, q.device) if causal else finite
+    p = torch.where(live, torch.exp(s - torch.where(finite, lse, 0.0)), 0.0)
+    dsum = (do.to(ct) * o.to(ct)).sum(-1)                     # (b, sq, hq)
+    dsum = dsum.reshape(b, sq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, vf) - dsum)
+    p = p.to(v.dtype).to(ct)
+    ds = ds.to(q.dtype).to(ct)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ----------------------------------------------------------- the kernel
@@ -131,8 +213,9 @@ def smem_bytes(dtype, d: int) -> int:
             + 2 * _round128(4 * bq))
 
 
-def _launch(q, k, v, causal: bool, q_offset: int):
-    global launches
+def _check_inputs(q, k, v, q_offset: int, max_d: int, tensors=()):
+    """The checks every launch makes; `tensors` are further (name,
+    tensor) pairs of q's dtype and shape (the backward's o and dO)."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"q dtype {q.dtype}: the kernel takes float32 or "
                          f"bfloat16")
@@ -147,18 +230,29 @@ def _launch(q, k, v, causal: bool, q_offset: int):
                          f"{tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors:
+        if t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must have q's dtype and shape")
+    for name, t in (("q", q), ("k", k), ("v", v), *tensors):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if d % 16 or d > MAX_HEAD_DIM:
+    if d % 16 or d > max_d:
         raise ValueError(f"head_dim {d}: the kernel takes multiples of 16 "
-                         f"up to {MAX_HEAD_DIM}")
+                         f"up to {max_d}")
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} must be >= 0")
+    return b, sq, skv, hq, hkv, d
+
+
+def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
+    """The forward kernel: out, or (out, lse (b, hq, sq) f32) with
+    `with_lse` (the training entry point)."""
+    global launches
+    b, sq, skv, hq, hkv, d = _check_inputs(q, k, v, q_offset, MAX_HEAD_DIM)
     if route(q.dtype) == TENSOR_CORES:
         if tc_tiles(sq, hq // hkv) > MAX_GRID_Y or b * hkv >= 2 ** 31:
             raise ValueError(f"sq {sq} x group {hq // hkv} or b * hkv "
@@ -170,27 +264,140 @@ def _launch(q, k, v, causal: bool, q_offset: int):
         raise ValueError(f"head_dim {d} needs more shared memory than a "
                          f"block has")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if sq == 0:
-        return out
+        return (out, lse) if with_lse else out
     lib = B.library().lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, skv, hq, hkv, d, int(q_offset), int(causal),
-            DTYPE_CODES[q.dtype], stream)
+        args = (b, sq, skv, hq, hkv, d, int(q_offset), int(causal),
+                DTYPE_CODES[q.dtype], stream)
+        if with_lse:
+            err = lib.repro_flash_attention_lse(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *args)
+        else:
+            err = lib.repro_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args)
     B.check(err, "flash_attention")
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def bwd_smem_bytes(dtype, d: int) -> tuple[int, int]:
+    """Dynamic shared memory of one dK/dV block and one dQ block of the
+    backward (flash_attention_bwd.cu `dkdv_smem_bytes`, `dq_smem_bytes`
+    and `f32::smem_bytes`)."""
+    if route(dtype) == TENSOR_CORES:
+        row = 2 * (d + TC_PAD)
+        return ((2 * BWD_TC_KEYS + 2 * TC_STAGES * BWD_TC_QROWS) * row
+                + 4 * 2 * TC_STAGES * BWD_TC_QROWS,
+                (2 * TC_ROWS + 2 * TC_STAGES * TC_TILE_TOKENS) * row)
+    t = BWD_F32_TILE
+    tile = _round128(4 * t * (d + 4))
+    score = _round128(4 * t * (t + 1))
+    small = 2 * _round128(4 * t)
+    return 6 * tile + 2 * score + small, 5 * tile + score + small
+
+
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
+    b, sq, skv, hq, hkv, d = _check_inputs(
+        q, k, v, q_offset, MAX_BWD_HEAD_DIM, (("o", o), ("do", do)))
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous float32 ({b}, {hq}, {sq}) "
+                         f"on {q.device}")
+    # the grids' y extents: (dK/dV key tiles, dQ row tiles or heads)
+    if route(q.dtype) == TENSOR_CORES:
+        grid_y = (-(-skv // BWD_TC_KEYS), tc_tiles(sq, hq // hkv))
+    else:
+        grid_y = (-(-skv // BWD_F32_TILE), b * hq)
+    if max(grid_y) > MAX_GRID_Y:
+        raise ValueError(f"sq {sq}, skv {skv} or b * hq {b * hq} exceeds "
+                         f"the grid")
+    if max(bwd_smem_bytes(q.dtype, d)) > MAX_SMEM:
+        raise ValueError(f"head_dim {d} needs more shared memory than a "
+                         f"block has")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if sq == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = B.library().lib
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d,
+            int(q_offset), int(causal), DTYPE_CODES[q.dtype], stream)
+    B.check(err, "flash_attention_backward")
+    BACKWARD.launches += 1
+    return dq, dk, dv
+
+
+def _device(q, what: str) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
+    return q.device.type
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0):
     """q: (b, sq, hq, d); k, v: (b, skv, hkv, d) in q's dtype ->
-    (b, sq, hq, d) in q's dtype."""
-    if q.device.type == "cpu":
+    (b, sq, hq, d) in q's dtype.  Forward only: raises when grad is
+    enabled and an input requires grad (use `FlashAttentionFn`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention is the forward-only launcher and its result "
+            "carries no gradient; differentiate through "
+            "FlashAttentionFn.apply(q, k, v, causal, q_offset)")
+    if _device(q, "flash_attention") == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     return _launch(q, k, v, causal, q_offset)
+
+
+def flash_attention_lse(q, k, v, *, causal=True, q_offset=0):
+    """The training forward: (o (b, sq, hq, d), lse (b, hq, sq)), the
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    if _device(q, "flash_attention_lse") == "cpu":
+        return flash_attention_lse_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset)
+    return _launch(q, k, v, causal, q_offset, with_lse=True)
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, causal=True,
+                             q_offset=0):
+    """(dq, dk, dv) of the attention at (q, k, v) for the output
+    gradient `do`, from the forward's o and lse: the backward kernel on a
+    CUDA tensor, `flash_attention_backward_plain` on a CPU one."""
+    if _device(q, "flash_attention_backward") == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, do, lse,
+                                              causal=causal,
+                                              q_offset=q_offset)
+    return _launch_bwd(q, k, v, o, do, lse, causal, q_offset)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel with the
+    log-sum-exp, and the backward kernel, on the card (their plain
+    versions on the CPU).  `FlashAttentionFn.apply(q, k, v, causal,
+    q_offset)` -> (b, sq, hq, d)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        o, lse = flash_attention_lse(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
+            q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None

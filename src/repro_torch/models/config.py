@@ -6,9 +6,9 @@ the tests can compare the two.  Dtypes map to torch dtypes.
 
 `attn_pages_per_block` stays as a field for that parity: it sizes the
 TPU kernel's sequential grid cell, and the CUDA kernels do not read it
-(each block walks its pages in tiles of its own size).  `mem_axis` and
-the training knobs (`remat`, `scan_layers`, ...) are likewise carried
-but unused by this slice.
+(each block walks its pages in tiles of its own size).  `mem_axis` is likewise
+carried but unused (sharding is ROADMAP.md queue A item 12), and so is
+`scan_layers`: the port's layer loop is a Python loop either way.
 """
 from __future__ import annotations
 

@@ -306,3 +306,10 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
     h = L.rmsnorm_apply(params["ln_f"], x[:, None], cfg.norm_eps)
     logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
     return arena, logits[:, 0]
+
+
+# ---------------------------------------------------------------- training
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Not ported yet (ROADMAP.md queue A.2, second half)."""
+    L.training_not_ported("hybrid")

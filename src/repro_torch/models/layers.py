@@ -1,9 +1,11 @@
 """Shared building blocks: norms, rotary, GQA projections, MLPs,
-embeddings, and the attention dispatch (contiguous and paged).
+embeddings, the attention dispatch (contiguous and paged) and the LM
+losses.
 
-Port of the serving subset of `repro.models.layers`.  Plain functions
-on tensors with the reference's names and parameter layouts: weights are
-(d_in, d_out), so `x @ w` is the reference's product (`matmul`).  The
+Port of the serving and training subset of `repro.models.layers`.
+Plain functions on tensors with the reference's names and parameter
+layouts: weights are (d_in, d_out), so `x @ w` is the reference's
+product (`matmul`).  The
 reference's sharding constraints and vocab-parallel lookup have no
 counterpart on one card and are dropped.
 
@@ -204,7 +206,10 @@ def run_decode_attention(cfg: ModelConfig, q, k_cache, v_cache, position):
 def run_attention(cfg: ModelConfig, q, k, v, *, q_offset=0):
     """Attention of contiguous q (b, sq, hq, d) over k, v (b, skv, hkv,
     d): the flash kernel on the card; on the CPU the path
-    `cfg.attention_impl` names.  Returns (b, sq, hq, d)."""
+    `cfg.attention_impl` names.  Returns (b, sq, hq, d).  When grad is
+    enabled and an input requires grad, the kernel route goes through
+    `FlashAttentionFn` (the forward kernel with its log-sum-exp, and the
+    backward kernel), so the result carries its gradient."""
     if q.device.type == "cpu":
         if cfg.attention_impl == "dense":
             return dense_attention(q, k, v, causal=cfg.causal,
@@ -216,6 +221,10 @@ def run_attention(cfg: ModelConfig, q, k, v, *, q_offset=0):
         if cfg.attention_impl != "flash_pallas":
             raise ValueError(
                 f"unknown attention_impl {cfg.attention_impl!r}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_ops.FlashAttentionFn.apply(q, k, v, cfg.causal,
+                                                q_offset)
     return flash_ops.flash_attention(q, k, v, causal=cfg.causal,
                                      q_offset=q_offset)
 
@@ -315,3 +324,71 @@ def logits_from_hidden(emb_or_head, cfg: ModelConfig, x):
     if w.shape[0] == cfg.vocab_size:          # tied: (vocab, d)
         return matmul(x, w.to(x.dtype).t())
     return matmul(x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------- training
+
+def attention_apply(p, cfg: ModelConfig, x, positions):
+    """Full self-attention over x: (b, s, d) (the training forward)."""
+    b, s, _ = x.shape
+    q, k, v = attention_qkv(p, cfg, x, positions)
+    o = run_attention(cfg, q, k, v).reshape(b, s, cfg.q_dim)
+    return matmul(o, p["wo"])
+
+
+def _ce_sum(logits, labels):
+    """(summed CE, count) over positions with label >= 0, in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels):
+    """Mean CE over positions with label >= 0.  logits: (..., V)."""
+    tot, n = _ce_sum(logits, labels)
+    return tot / torch.clamp(n, min=1.0)
+
+
+def _ce_chunk(head, cfg: ModelConfig, h, lab):
+    """(summed CE, count) of one chunk of positions."""
+    return _ce_sum(logits_from_hidden(head, cfg, h), lab)
+
+
+def chunked_ce_loss(hidden, head, cfg: ModelConfig, labels, chunk: int):
+    """Mean CE, computing the logits one chunk of `chunk` positions at a
+    time.  Each chunk runs under `torch.utils.checkpoint`: its (b, chunk,
+    vocab) f32 logits are freed once its loss is summed and recomputed in
+    the backward, so one chunk's logits are alive at a time (the
+    reference's scan over chunks keeps O(chunk * vocab) live memory the
+    same way)."""
+    from torch.utils.checkpoint import checkpoint
+    b, s, d = hidden.shape
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            t, n = checkpoint(_ce_chunk, head, cfg, h, lab,
+                              use_reentrant=False)
+        else:
+            t, n = _ce_chunk(head, cfg, h, lab)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(hidden, head, cfg: ModelConfig, labels):
+    if cfg.logits_chunk and hidden.shape[1] % cfg.logits_chunk == 0:
+        return chunked_ce_loss(hidden, head, cfg, labels, cfg.logits_chunk)
+    return cross_entropy(logits_from_hidden(head, cfg, hidden), labels)
+
+
+def training_not_ported(family: str):
+    """The refusal of a family whose training is not ported yet."""
+    raise NotImplementedError(
+        f"training of the {family} family is not ported yet: ROADMAP.md "
+        f"queue A.2, second half (MoE, hybrid and SSM training)")

@@ -378,3 +378,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     h = L.rmsnorm_apply(params["ln_f"], x[:, None], cfg.norm_eps)
     logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
     return cache, logits[:, 0]
+
+
+# ---------------------------------------------------------------- training
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Not ported yet (ROADMAP.md queue A.2, second half)."""
+    L.training_not_ported("ssm")

@@ -251,3 +251,10 @@ def paged_verify(params, cfg: ModelConfig, chunk, arena, block_table,
     per-token function."""
     return T.paged_verify(params, cfg, chunk, arena, block_table, start,
                           chunk_len, ffn_fn=_moe_ffn)
+
+
+# ---------------------------------------------------------------- training
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Not ported yet (ROADMAP.md queue A.2, second half)."""
+    L.training_not_ported("moe")

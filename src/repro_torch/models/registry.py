@@ -15,7 +15,11 @@ and, where it can be a speculative-decode target (dense, moe),
     paged_verify(params, cfg, chunk, arena, block_table, start, chunk_len)
         the prefill walk with logits at every chunk position.
 Every serving hook returns (cache or arena, logits); sampling belongs to
-the serving step (serve/serve_step.py).  The draft pairing of
+the serving step (serve/serve_step.py).  Training: every family exposes
+    loss_fn(params, cfg, batch) -> mean CE (f32 scalar)
+and the dense family also `forward(params, cfg, batch)` -> logits; the
+MoE, hybrid and ssm families' `loss_fn` raises NotImplementedError
+(ROADMAP.md queue A.2, second half).  The draft pairing of
 speculative decode (`DRAFT_PAIRS`, `draft_config`, `self_draft_params`)
 lives here too.  The encoder and vlm families are not ported yet
 (ROADMAP.md queue A item 10).

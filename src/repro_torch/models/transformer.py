@@ -1,7 +1,8 @@
 """Decoder-only transformer LM (llama-style, GQA, silu-GLU or relu^2):
-the serving hooks of the dense family, contiguous and paged.
+the training forward and loss, and the serving hooks of the dense family,
+contiguous and paged.
 
-Port of the serving half of `repro.models.transformer`.  Parameters are a
+Port of `repro.models.transformer`.  Parameters are a
 plain dict with the reference's names and layouts, except that
 `params["layers"]` is a LIST of per-layer dicts instead of one pytree
 stacked over a leading layer axis (`models/convert.py` maps between the
@@ -63,6 +64,74 @@ def init(seed: int, cfg: ModelConfig, device):
 
 def head_weights(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+# --------------------------------------------------------------- training
+
+def layer_apply(p, cfg: ModelConfig, x, positions):
+    h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    x = x + L.attention_apply(p["attn"], cfg, h, positions)
+    h = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], cfg, h)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of products without a batch
+    dimension (the weight projections: `x @ w` of a (b, s, d) x becomes
+    one `aten.mm`, with a bias `aten.addmm`) and recompute the rest.
+    Batched products (`aten.bmm`: the CPU attention paths' score and PV
+    einsums) are recomputed, as the reference's
+    `dots_with_no_batch_dims_saveable` recomputes them."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """`cfg.remat` over one layer: "none" keeps every activation the
+    backward needs, "full" keeps the layer's input only and recomputes the
+    rest in the backward, "dots" keeps the projections' outputs as well
+    (`_save_dots`).  It changes memory and time, never a value."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(cfg.remat)
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def forward_hidden(params, cfg: ModelConfig, x, positions):
+    """x: (b, s, d) embedded input -> final hidden states (after the
+    final norm)."""
+    body = _maybe_remat(layer_apply, cfg)
+    for p in params["layers"]:
+        x = body(p, cfg, x, positions)
+    return L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (b, s)} -> logits (b, s, vocab)."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = L.embed_tokens(params["embed"], cfg, tokens)
+    h = forward_hidden(params, cfg, x, positions)
+    return L.logits_from_hidden(head_weights(params, cfg), cfg, h)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: {"tokens", "labels": (b, s)} -> mean next-token CE (f32
+    scalar; labels < 0 are ignored)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = L.embed_tokens(params["embed"], cfg, tokens)
+    h = forward_hidden(params, cfg, x, positions)
+    return L.lm_loss(h, head_weights(params, cfg), cfg, labels)
 
 
 # ---------------------------------------------------------------- serving
