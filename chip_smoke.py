@@ -9,7 +9,8 @@ exit at the first failure):
 1. device + build: the card's name and power limit (nvidia-smi), then
    the CUDA kernels built from `src/repro_torch/kernels/csrc` with nvcc
    for sm_90a (the eight ports of the TPU kernels, split-KV decode's
-   f32 combine and the flash-attention backward), with ptxas's
+   f32 combine, and the backwards of flash attention, the grouped
+   matmul and the SSD intra-chunk scan), with ptxas's
    registers and spills of every head-dim
    instance of the bf16 flash, paged-prefill, paged-decode and split-KV
    decode kernels (`tc_ptxas`).
@@ -78,7 +79,16 @@ exit at the first failure):
    against the plain one; a rerun of the backward bit-equal.  bf16
    cases are timed beside the plain backward, SDPA's backward (its
    forward + backward less its forward, K/V repeated) and the bound
-   (2.5 x the forward's FLOPs over the pairs seen, or the bytes).
+   (2.5 x the forward's FLOPs over the pairs seen, or the bytes).  Then
+   the grouped-matmul backward (`grouped_matmul_bwd.cu`: dX, dW) at
+   qwen3-moe-30b-a3b's training microbatch (4,096 tokens, top-8 of 128
+   experts, capacity 320; K x F 2048 x 768 and 768 x 2048, the live
+   rows of a routing draw) and the SSD intra-chunk backward
+   (`ssd_scan_bwd.cu`: dx, ddt, dA, dB, dC) at mamba2-130m's (96
+   batch*heads, 8 chunks of 256, p 64, n 128) and zamba2-2.7b's (160,
+   p = n = 64), bf16 and f32, each per element against its plain
+   version with a byte-identical rerun; bf16 timed beside the plain
+   version, two `torch.bmm` (grouped) and the bound.
 5. ws/os matmul kernels: the weight-stationary and output-stationary
    matmuls against their plain version at `tests/test_kernels.py`'s
    shapes in f32 and bf16 and at the four regimes of the dataflow sweep
@@ -148,7 +158,10 @@ exit at the first failure):
    through the flash kernels, against the same with attention through
    `flash_attention_plain` (an oracle patched in for the comparison),
    f32 and bf16: the loss and every gradient leaf (relative L2) within
-   `TRAIN_PARITY_TOL`.
+   `TRAIN_PARITY_TOL`.  train_parity_families: the same in f32 at 2
+   layers of qwen3-moe-30b-a3b's width ("grouped" against the einsum
+   experts of "scatter") and of mamba2-130m's ("pallas" against the
+   torch SSD of "xla").
    train: internlm2-1.8b at full width and depth (bf16, AdamW at 3e-4,
    remat "dots", logits_chunk 512, 8 x 2048 MarkovLM tokens in 2
    microbatches): one warm-up and three timed steps (loss per step, its
@@ -158,6 +171,16 @@ exit at the first failure):
    share and its top kernels), the state restored from the checkpoint and that step again
    with the same loss; the flash forward launched 2 x 24 x 2 per step
    (the "dots" remat recomputes attention) and the backward 24 x 2.
+   train mamba2-130m (24 layers, `ssd_impl="pallas"`, 8 x 2048 tokens
+   in 2 microbatches) and train qwen3-moe-30b-a3b (full width, 4 of 48
+   layers, `moe_dispatch="grouped"`, 4 x 2048 tokens in 2
+   microbatches), bf16, AdamW, remat "full": eight steps (the first
+   loss near ln V + 0.02^2 d / 2, plus the router losses for MoE; step
+   seconds, tokens/s, peak memory), one profiled step (busy share), a
+   held-out batch's loss lower after the steps than before them, and
+   the launches of the nine steps: per microbatch and layer the SSD
+   kernel twice and its backward once, or the grouped matmul 3 x 2 and
+   its backward 3, flash 2 and its backward 1.
 14. paper: every module of the port's paper harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
@@ -1013,13 +1036,165 @@ def phase_train_kernels(torch, dev, card: str, flush):
             del qs, ks, vs, dos
         del base
     free_card(torch)
+    times.update(family_backward_kernels(torch, dev, flush, rows))
     emit({"phase": "train_kernels", "cases": rows})
     emit({"phase": "train_kernel_times", "card": card, "dtype": "bfloat16",
-          "library": "SDPA forward + backward less SDPA forward, K/V "
-                     "repeated over the group beforehand",
+          "library": {"flash": "SDPA forward + backward less SDPA forward, "
+                               "K/V repeated over the group beforehand",
+                      "grouped": "two torch.bmm calls (dX = dY W^T, dW = "
+                                 "X^T dY) over every row, dY in bf16",
+                      "ssd": "none: no single PyTorch call computes it"},
           "timing": "CUDA events, median of 10 after 2 warm-up (plain: "
                     "3 after 1), L2 flushed",
           **times})
+    return times
+
+
+# qwen3-moe-30b-a3b's training microbatch (2 x 2048 tokens, top-8 of 128
+# experts, capacity ceil(4096 x 8 / 128 x 1.25) = 320): (K, F) of the
+# gate/up and the down products
+TRAIN_MOE_TOKENS, TRAIN_MOE_CAPACITY = 4096, 320
+GROUPED_BWD_CASES = ((2048, 768, "gate/up"), (768, 2048, "down"))
+# (label, bh, nc, l, p, n): mamba2-130m's training microbatch (4 x 2048
+# tokens, 24 heads, chunks of 256, p 64, n 128) and zamba2-2.7b's heads
+# (80, p = n = 64) for 2 x 2048 tokens
+SSD_BWD_CASES = (("mamba2-130m", 96, 8, 256, 64, 128),
+                 ("zamba2-2.7b", 160, 8, 256, 64, 64))
+
+
+def family_backward_kernels(torch, dev, flush, rows) -> dict:
+    """The grouped-matmul backward (dX, dW) at qwen3's training shapes,
+    with each expert's live rows from a routing draw capped at the
+    capacity, and the SSD intra-chunk backward (dx, ddt, dA, dB, dC) at
+    mamba2-130m's and zamba2's, each against its plain version per
+    element (`check`; grouped bf16 with `bf16_rounding` added, SSD by
+    `ssd_scan/ops.py` BWD_TOLERANCE in both dtypes) with a
+    byte-identical rerun; bf16 timed beside the plain
+    version, the library call (grouped: two torch.bmm) and the bound."""
+    from repro_torch.kernels.grouped_matmul import ops as gm
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.tolerance import worst_ratio
+
+    def hold(name, got, want, tol, floor=None):
+        err, ratio = worst_ratio(got, want, *tol, floor=floor)
+        rows.append({"case": name, "max_abs_err": err, "rtol": tol[0],
+                     "atol_x_row_max": tol[1], "worst_err_over_bound": ratio})
+        if not ratio <= 1.0:
+            emit({"phase": "train_kernels", "failed": rows[-1]})
+            fail(f"kernel {name} disagrees with its plain version: "
+                 f"err / bound {ratio}")
+        return err
+
+    times = {}
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    gdev = torch.Generator(device=dev).manual_seed(25)
+    bf16, f32 = torch.bfloat16, torch.float32
+    E, k, C = 128, 8, TRAIN_MOE_CAPACITY
+    live = torch.clamp(routed_rows(torch, E, TRAIN_MOE_TOKENS, k, gen),
+                       max=C).to(dev)
+    n_live = int(live.sum())
+    for K, F, label in GROUPED_BWD_CASES:
+        mask = (torch.arange(C, device=dev)[None, :]
+                < live[:, None].long())[..., None]
+        x32 = torch.randn(E, C, K, generator=gdev, device=dev) * mask
+        w32 = torch.randn(E, K, F, generator=gdev, device=dev) * 0.02
+        dy = torch.randn(E, C, F, generator=gdev, device=dev) * mask
+        for dt in (bf16, f32):
+            x, w = x32.to(dt), w32.to(dt)
+            got = gm.grouped_matmul_backward(x, w, dy, live)
+            want = gm.grouped_matmul_backward_plain(x, w, dy, live)
+            torch.cuda.synchronize()
+            name = f"grouped backward E{E} C{C} K{K} F{F} ({label}) {dt}"
+            # bf16 stores the f32 sums rounded once: TOLERANCE plus
+            # that rounding (`bf16_rounding`)
+            floor = gm.bf16_rounding if dt is bf16 else None
+            err = max(hold(f"{name} {part}", g, w_, gm.TOLERANCE[dt], floor)
+                      for part, g, w_ in zip(("dX", "dW"), got, want))
+            again = gm.grouped_matmul_backward(x, w, dy, live)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{name}: a rerun gives other bits")
+            del got, want, again
+            if dt is not bf16:
+                continue
+            experts = int((live > 0).sum())
+            # x, w (bf16) and dy (f32) read (live rows, live experts'
+            # weights), dX (every row: the zeros too) and dW written in
+            # bf16, the gradients' dtype
+            nbytes = (2 * n_live * K + 2 * experts * K * F + 4 * n_live * F
+                      + 2 * E * C * K + 2 * E * K * F)
+            ms, by = bound(nbytes, 4 * n_live * K * F)
+            dyb = dy.to(bf16)
+            times[f"grouped_matmul_backward {label}"] = dict(
+                ms=time_ms(lambda: gm.grouped_matmul_backward(
+                    x, w, dy, live), flush, iters=10, warmup=2),
+                plain_ms=time_ms(lambda: gm.grouped_matmul_backward_plain(
+                    x, w, dy, live), flush, iters=3, warmup=1),
+                library_ms=time_ms(lambda: (
+                    torch.bmm(dyb, w.transpose(1, 2)),
+                    torch.bmm(x.transpose(1, 2), dyb)), flush, iters=10,
+                    warmup=2),
+                bound_ms=ms, bound_by=by, max_abs_err=err,
+                live_rows=n_live, live_experts=experts,
+                blocks={"dx": E * -(-K // 64) * -(-C // 64),
+                        "dw": E * -(-K // 64) * -(-F // 64)})
+            del dyb
+        del x32, w32, dy, x, w
+    free_card(torch)
+    for label, bh, nc, l, p, n in SSD_BWD_CASES:
+        heads = bh // (4 if label == "mamba2-130m" else 2)
+        x32 = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
+        B32 = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
+        C32 = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
+        dt_ = torch.rand(bh, nc, l, generator=gdev, device=dev) * 0.1
+        A = (-torch.linspace(1.0, 16.0, heads, device=dev)).repeat(
+            bh // heads)
+        dy = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
+        ds = torch.randn(bh, nc, n, p, generator=gdev, device=dev)
+        for dt in (bf16, f32):
+            args = (x32.to(dt), dt_, A, B32.to(dt), C32.to(dt), dy, ds)
+            got = ssd.ssd_intra_chunk_backward(*args)
+            want = ssd.ssd_intra_chunk_backward_plain(*args)
+            torch.cuda.synchronize()
+            name = f"ssd backward {label} bh{bh} nc{nc} l{l} p{p} n{n} {dt}"
+            parts = ("dx", "ddt", "dA", "dB", "dC")
+            errs = [hold(f"{name} {part}", g, w_, ssd.BWD_TOLERANCE)
+                    for part, g, w_ in zip(parts, got, want)]
+            if dt is f32:
+                # and against the f64 plain version: the kernel's f32
+                # sums are as close to the exact gradient as the bound
+                truth = ssd.ssd_intra_chunk_backward_plain(
+                    *(a.double() for a in args))
+                for part, g, t_ in zip(parts, got, truth):
+                    hold(f"{name} {part} against f64", g, t_,
+                         ssd.BWD_TOLERANCE)
+                del truth
+            again = ssd.ssd_intra_chunk_backward(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{name}: a rerun gives other bits")
+            del got, want, again
+            if dt is not bf16:
+                continue
+            # the function's work: per pair C.B, dy.x, and the dx, dC and
+            # dB sums; per token the state terms B.ds and ds x
+            chunks = bh * nc
+            pairs = l * (l + 1) // 2
+            ops = chunks * (pairs * (6 * n + 4 * p) + 4 * l * n * p)
+            # x, B, C (bf16), dy, ds, dt, A in; dx, dB, dC, ddt, dA out
+            nbytes = (chunks * (2 * l * (p + 2 * n) + 4 * l * p + 4 * n * p
+                                + 4 * l)
+                      + chunks * 4 * (l * p + 2 * l * n + l) + 8 * bh)
+            ms, by = bound(nbytes, ops)
+            times[f"ssd_intra_chunk_backward {label}"] = dict(
+                ms=time_ms(lambda: ssd.ssd_intra_chunk_backward(*args),
+                           flush, iters=10, warmup=2),
+                plain_ms=time_ms(lambda: ssd.ssd_intra_chunk_backward_plain(
+                    *args), flush, iters=3, warmup=1),
+                library_ms=None, bound_ms=ms, bound_by=by,
+                max_abs_err=max(errs), bh=bh, nc=nc, l=l, p=p, n=n,
+                blocks=2 * chunks * -(-l // 64),
+                smem_bytes=ssd.bwd_smem_bytes(p, n))
+        del x32, B32, C32, dt_, dy, ds, args
+        free_card(torch)
     return times
 
 
@@ -1294,6 +1469,8 @@ def kernel_modules():
             "grouped_matmul": gm, "ssd_intra_chunk": ssd,
             "decode_attention": dk, "combine_splits": dk.COMBINE,
             "flash_attention": fk, "flash_attention_backward": fk.BACKWARD,
+            "grouped_matmul_backward": gm.BACKWARD,
+            "ssd_intra_chunk_backward": ssd.BACKWARD,
             "ws_matmul": wm.WS, "os_matmul": wm.OS}
 
 
@@ -1306,7 +1483,7 @@ def expected_launches(cfg, st, draft=None) -> dict:
     follows each split launch (bf16 merges inside the one launch) — the
     grouped matmul 3 times per MoE layer, the
     SSD kernel once per Mamba layer of a prefill call, and no ws or os
-    matmul and no flash backward (no serving path runs them).  Speculating (`draft`), each
+    matmul and no backward kernel (no serving path runs them).  Speculating (`draft`), each
     verify call walks the arena with the paged-prefill kernel once per
     layer, and each decode step of a dense draft's contiguous cache
     launches split-KV decode once per draft layer; an ssm draft decodes
@@ -1328,7 +1505,8 @@ def expected_launches(cfg, st, draft=None) -> dict:
                                if cfg.family == "moe" else 0),
             "ssd_intra_chunk": (cfg.num_layers * pre
                                 if cfg.family in ("hybrid", "ssm") else 0),
-            "flash_attention_backward": 0, "ws_matmul": 0, "os_matmul": 0}
+            "flash_attention_backward": 0, "grouped_matmul_backward": 0,
+            "ssd_intra_chunk_backward": 0, "ws_matmul": 0, "os_matmul": 0}
 
 
 def tree_to(tree, d):
@@ -1811,16 +1989,76 @@ def phase_train_parity(torch, dev, dense):
 
 
 def expected_train_launches(cfg, steps: int, grad_accum: int) -> dict:
-    """Kernel launches of `steps` training steps of a dense config: per
-    microbatch, the flash forward once per layer, again per layer in the
-    backward where the remat policy recomputes the layer ("full" and
-    "dots": attention is no projection, so "dots" recomputes it too),
-    and the backward kernel once per layer; no other kernel."""
+    """Kernel launches of `steps` training steps: per microbatch and
+    layer, each forward kernel of the layer once, again in the backward
+    where the remat policy recomputes the layer ("full" and "dots": no
+    kernel's output is a projection `_save_dots` keeps), and each
+    backward kernel once.  Attention (dense, MoE): the flash forward and
+    its backward; MoE under "grouped": three grouped products and their
+    backwards; ssm under "pallas": the SSD kernel and its backward; no
+    other kernel."""
     mbs = steps * grad_accum * cfg.num_layers
+    fwd = mbs * (1 if cfg.remat == "none" else 2)
     want = {name: 0 for name in kernel_modules()}
-    want["flash_attention"] = mbs * (1 if cfg.remat == "none" else 2)
-    want["flash_attention_backward"] = mbs
+    if cfg.family in ("dense", "moe"):
+        want["flash_attention"] = fwd
+        want["flash_attention_backward"] = mbs
+    if cfg.family == "moe" and cfg.moe_dispatch == "grouped":
+        want["grouped_matmul"] = 3 * fwd
+        want["grouped_matmul_backward"] = 3 * mbs
+    if cfg.family == "ssm" and cfg.ssd_impl == "pallas":
+        want["ssd_intra_chunk"] = fwd
+        want["ssd_intra_chunk_backward"] = mbs
     return want
+
+
+def run_steps(torch, step, state, batches):
+    """(state, losses, grad norms, seconds) of one step per batch, each
+    timed on the host clock to a synchronise."""
+    losses, norms, secs = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms, secs
+
+
+def profiled_step(torch, step, state, batch):
+    """One step under torch.profiler: (state, its metrics, seconds, the
+    device's busy seconds, the kernels that take the most device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
+    return state, m, prof_s, busy_us / 1e6, [
+        {"name": e.key[:100], "ms": e.self_device_time_total / 1e3,
+         "calls": e.count} for e in top]
+
+
+def first_loss(cfg) -> float:
+    """The loss a random init starts at: logits h . w with |h|^2 = d (the
+    final norm) and w ~ N(0, 0.02^2), so the CE is ln V plus half their
+    variance; MoE adds per layer its router loss, the load balance near
+    router_aux_coef and the z-loss of router logits of that variance."""
+    import math
+    var = 0.02 ** 2 * cfg.d_model
+    loss = math.log(cfg.vocab_size) + var / 2
+    if cfg.family == "moe":
+        lse = math.log(cfg.num_experts) + var / 2
+        loss += cfg.num_layers * (cfg.router_aux_coef
+                                  + cfg.router_z_coef * lse ** 2)
+    return loss
 
 
 def phase_train(torch, dev, card: str, dense):
@@ -1833,7 +2071,6 @@ def phase_train(torch, dev, card: str, dense):
     (counted from 0), held against `expected_train_launches`."""
     import math
     import shutil
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import DataConfig, make_source
     from repro_torch.train import train_step as TS
     from repro_torch.train.checkpoint import CheckpointManager
@@ -1856,14 +2093,7 @@ def phase_train(torch, dev, card: str, dense):
     n_params = tree_num_params(state.params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, secs = [], [], []
-    for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batches[i])
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+    state, losses, norms, secs = run_steps(torch, step, state, batches[:-1])
     peak = torch.cuda.max_memory_allocated()
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1874,21 +2104,9 @@ def phase_train(torch, dev, card: str, dense):
     mgr.wait()               # the writer thread would share the host below
     write_s = time.perf_counter() - t0 - snapshot_s
     last = batches[-1]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, last)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
+    state, m, prof_s, busy_s, top_kernels = profiled_step(torch, step, state,
+                                                          last)
     loss_direct = float(m["loss"])
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(e.self_device_time_total for e in dev_events)
-    # where the step's device time goes: the kernels that take the most
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
-    top_kernels = [{"name": e.key[:100], "ms": e.self_device_time_total / 1e3,
-                    "calls": e.count} for e in top]
     like = TS.state_like(state)
     del state, m
     free_card(torch)
@@ -1906,9 +2124,7 @@ def phase_train(torch, dev, card: str, dense):
     free_card(torch)
     timed = secs[TRAIN_WARMUP_STEPS:]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    # random init: logits h . w with |h|^2 = d (the final norm) and w ~
-    # N(0, 0.02^2), so the CE starts at ln V plus half their variance
-    first_loss = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    want_first = first_loss(cfg)
     emit({"phase": "train", "card": card,
           "config": f"{cfg.name}, {cfg.num_layers} layers, bf16, AdamW, "
                     f"remat {cfg.remat}, logits_chunk {cfg.logits_chunk}, "
@@ -1916,11 +2132,11 @@ def phase_train(torch, dev, card: str, dense):
                     f"microbatches, MarkovLM seed {TRAIN_SEED}",
           "params": n_params, "losses": losses, "grad_norms": norms,
           "ln_vocab": math.log(cfg.vocab_size),
-          "expected_first_loss": first_loss, "step_s": secs,
+          "expected_first_loss": want_first, "step_s": secs,
           "tokens_per_s": tokens * len(timed) / sum(timed),
           "max_memory_allocated": peak,
-          "profiled_step_s": prof_s, "device_busy_s": busy_us / 1e6,
-          "device_busy_share": busy_us / 1e6 / prof_s,
+          "profiled_step_s": prof_s, "device_busy_s": busy_s,
+          "device_busy_share": busy_s / prof_s,
           "top_device_kernels": top_kernels,
           "checkpoint": {"step": manifest["step"], "bytes": ckpt_bytes,
                          "host_snapshot_s": snapshot_s,
@@ -1931,9 +2147,9 @@ def phase_train(torch, dev, card: str, dense):
           "launches": launches})
     if not all(math.isfinite(x) for x in losses + norms):
         fail(f"train: non-finite loss or grad norm {losses} {norms}")
-    if abs(losses[0] - first_loss) > 0.1:
+    if abs(losses[0] - want_first) > 0.1:
         fail(f"train: first loss {losses[0]} not near ln V + 0.02^2 d / 2 "
-             f"= {first_loss}")
+             f"= {want_first}")
     if not losses[-1] < losses[0]:
         fail(f"train: the loss did not fall: {losses}")
     if loss_restored != loss_direct:
@@ -1942,6 +2158,207 @@ def phase_train(torch, dev, card: str, dense):
     want = expected_train_launches(cfg, steps_total, TRAIN_ACCUM)
     if launches != want:
         fail(f"train: kernel launches {launches} != expected {want}")
+    return launches
+
+
+# (arch, layers kept (None: all), global batch, sequence, microbatches)
+# of each family's training run: mamba2-130m at full depth; qwen3 at its
+# full width but 4 of its 48 layers (about 16 bytes a parameter for the
+# bf16 weights, the f32 accumulated gradients and AdamW's two f32
+# moments: ~10 GB a layer, ~10 GB the embedding and head)
+TRAIN_FAMILIES = (("mamba2-130m", None, 8, 2048, 2),
+                  ("qwen3-moe-30b-a3b", 4, 4, 2048, 2))
+TRAIN_FAMILY_STEPS = 8      # a held-out batch's loss must fall across these
+HELD_OUT_BATCH = 1000       # the MarkovLM batch index of that held-out batch
+# (arch, sequence) of the kernel route vs its plain versions, f32, 2
+# layers, 4 sequences: qwen3 ("grouped") and mamba2-130m ("pallas")
+TRAIN_PARITY_FAMILIES = (("qwen3-moe-30b-a3b", 256), ("mamba2-130m", 512))
+
+
+class plain_family_kernels:
+    """Within the block, `GroupedMatmulFn` and `SsdIntraChunkFn` compute
+    their plain versions on the card, forward and backward: the explicit
+    oracle the kernels are held against, never a path of the port."""
+
+    def __enter__(self):
+        from repro_torch.kernels.grouped_matmul import ops as gm
+        from repro_torch.kernels.ssd_scan import ops as ssd
+        self.saved = [(gm, "_forward", gm.grouped_matmul_plain),
+                      (gm, "grouped_matmul_backward",
+                       gm.grouped_matmul_backward_plain),
+                      (ssd, "_forward", ssd.ssd_intra_chunk_plain),
+                      (ssd, "ssd_intra_chunk_backward",
+                       ssd.ssd_intra_chunk_backward_plain)]
+        self.saved = [(m, name, getattr(m, name), fn)
+                      for m, name, fn in self.saved]
+        for m, name, _, fn in self.saved:
+            setattr(m, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, orig, _ in self.saved:
+            setattr(m, name, orig)
+        return False
+
+
+def family_cfg(arch: str, layers=None, **kw):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).model
+    if cfg.family == "moe":
+        kw.setdefault("moe_dispatch", "grouped")
+    if cfg.family == "ssm":
+        kw.setdefault("ssd_impl", "pallas")
+    return cfg.replace(num_layers=layers or cfg.num_layers, **kw)
+
+
+def phase_train_parity_families(torch, dev):
+    """The MoE and ssm families at 2 layers of their full width, f32: one
+    training step's loss and gradients (`make_grad_fn`, grad_accum 2)
+    through the kernel route ("grouped": the grouped matmul and its
+    backward; "pallas": the SSD kernel and its backward) against the
+    same step with the kernels' plain versions patched in
+    (`plain_family_kernels`), per gradient leaf in relative L2
+    (`TRAIN_PARITY_TOL`)."""
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.train import train_step as TS
+    from repro_torch.utils.tree import tree_flatten_with_names
+
+    out = {}
+    rtol_loss, rel_l2 = TRAIN_PARITY_TOL["float32"]
+    for arch, seq in TRAIN_PARITY_FAMILIES:
+        free_card(torch)
+        cfg = family_cfg(arch, 2, dtype="float32", param_dtype="float32",
+                         remat="full", logits_chunk=128)
+        batch = TS.batch_to(make_source(DataConfig(
+            source="markov", seq_len=seq, global_batch=4, seed=TRAIN_SEED),
+            cfg).batch_at(0), dev)
+        runs = []
+        mods = kernel_modules()
+        for oracle in (False, True):
+            state = TS.init_train_state(cfg, _train_opt(10),
+                                        seed=TRAIN_SEED, device=dev)
+            for m in mods.values():
+                m.launches = 0
+            with plain_family_kernels() if oracle else \
+                    contextlib.nullcontext():
+                loss, grads = TS.make_grad_fn(cfg, grad_accum=2)(
+                    state.params, batch)
+            runs.append((float(loss), {
+                n: g.float() for n, g in tree_flatten_with_names(grads)}))
+            del state, loss, grads
+            if not oracle:
+                launched = {n: m.launches for n, m in mods.items()
+                            if m.launches}
+        # the kernel route went through its kernels, forward and backward
+        want = {n: v for n, v in expected_train_launches(cfg, 1, 2).items()
+                if v}
+        if launched != want:
+            fail(f"train_parity {arch}: kernel launches {launched} != "
+                 f"expected {want}")
+        (lk, gk), (lp, gp) = runs
+        errs = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(
+            1e-30)) for n in gp}
+        worst = max(errs, key=errs.get)
+        out[arch] = {"route": cfg.moe_dispatch if cfg.family == "moe"
+                     else cfg.ssd_impl, "launches": launched,
+                     "loss_kernel": lk,
+                     "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
+                     "worst_leaf": worst, "worst_grad_rel_l2": errs[worst],
+                     "grad_rel_l2": errs}
+        del batch
+        if not (abs(lk - lp) <= rtol_loss * abs(lp)
+                and errs[worst] <= rel_l2):
+            emit({"phase": "train_parity_families", "failed": out[arch]})
+        if not abs(lk - lp) <= rtol_loss * abs(lp):
+            fail(f"train_parity {arch}: loss {lk} vs plain {lp}")
+        if not errs[worst] <= rel_l2:
+            fail(f"train_parity {arch}: gradient {worst} relative L2 "
+                 f"error {errs[worst]} > {rel_l2}")
+        del runs, gk, gp
+    free_card(torch)
+    emit({"phase": "train_parity_families",
+          "config": "2 layers at full width, f32, remat full, logits_chunk "
+                    "128, 4 sequences, grad_accum 2",
+          "loss_rtol": rtol_loss, "grad_rel_l2_bound": rel_l2, **out})
+
+
+def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
+                       seq: int, accum: int) -> dict:
+    """One family at full width (bf16 params, AdamW at 3e-4, remat
+    "full", logits_chunk 512, MarkovLM data from the seed): the loss of
+    a held-out batch (`HELD_OUT_BATCH`), then `TRAIN_FAMILY_STEPS` steps
+    (the first loss near `first_loss`; step seconds, tokens/s over all
+    but the first, peak memory), one step under torch.profiler (the
+    device's busy share and its top kernels), and the held-out loss
+    again, which must have fallen; every kernel's launches counted from
+    0 over the training steps and held against
+    `expected_train_launches`.  Returns them."""
+    import math
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.train import train_step as TS
+    from repro_torch.utils.tree import tree_num_params
+
+    free_card(torch)
+    opt = _train_opt(100)
+    source = make_source(DataConfig(source="markov", seq_len=seq,
+                                    global_batch=global_batch,
+                                    seed=TRAIN_SEED), cfg)
+    batches = [TS.batch_to(source.batch_at(i), dev)
+               for i in range(TRAIN_FAMILY_STEPS + 1)]
+    held_out = TS.batch_to(source.batch_at(HELD_OUT_BATCH), dev)
+    step = TS.make_train_step(cfg, opt, grad_accum=accum)
+    evaluate = TS.make_eval_step(cfg)
+    state = TS.init_train_state(cfg, opt, seed=TRAIN_SEED, device=dev)
+    n_params = tree_num_params(state.params)
+    held_before = float(evaluate(state.params, held_out))
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, norms, secs = run_steps(torch, step, state, batches[:-1])
+    peak = torch.cuda.max_memory_allocated()
+    state, m, prof_s, busy_s, top = profiled_step(torch, step, state,
+                                                  batches[-1])
+    launches = {name: mm.launches for name, mm in mods.items()}
+    held_after = float(evaluate(state.params, held_out))
+    del state, m, batches, held_out
+    free_card(torch)
+    timed = secs[1:]
+    want_first = first_loss(cfg)
+    route = {"moe": f"moe_dispatch {cfg.moe_dispatch}",
+             "ssm": f"ssd_impl {cfg.ssd_impl}"}.get(cfg.family, "")
+    emit({"phase": f"train {cfg.name}", "card": card,
+          "config": f"{cfg.name}, {cfg.num_layers} layers, {route}, bf16, "
+                    f"AdamW, remat {cfg.remat}, logits_chunk "
+                    f"{cfg.logits_chunk}, {global_batch} x {seq} tokens in "
+                    f"{accum} microbatches, MarkovLM seed {TRAIN_SEED}",
+          "params": n_params, "losses": losses, "grad_norms": norms,
+          # the training loss over the first four steps (reported; lr is
+          # 0 at step 0, so it shows two updates) beside the held-out
+          # loss before and after every step, which is checked
+          "four_step_loss": [losses[0], losses[3]],
+          "four_step_loss_fell": losses[3] < losses[0],
+          "held_out_loss": [held_before, held_after],
+          "ln_vocab": math.log(cfg.vocab_size),
+          "expected_first_loss": want_first, "step_s": secs,
+          "tokens_per_s": global_batch * seq * len(timed) / sum(timed),
+          "max_memory_allocated": peak, "profiled_step_s": prof_s,
+          "device_busy_s": busy_s, "device_busy_share": busy_s / prof_s,
+          "top_device_kernels": top, "launches": launches})
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"train {cfg.name}: non-finite loss or grad norm {losses} "
+             f"{norms}")
+    if abs(losses[0] - want_first) > 0.1:
+        fail(f"train {cfg.name}: first loss {losses[0]} not near "
+             f"{want_first}")
+    if not held_after < held_before:
+        fail(f"train {cfg.name}: the held-out loss did not fall: "
+             f"{held_before} -> {held_after}")
+    want = expected_train_launches(cfg, TRAIN_FAMILY_STEPS + 1, accum)
+    if launches != want:
+        fail(f"train {cfg.name}: kernel launches {launches} != expected "
+             f"{want}")
     return launches
 
 
@@ -2183,7 +2600,15 @@ def main() -> int:
         hybrid.replace(num_layers=2 * hybrid.shared_attn_period, **f32),
         "zamba2-2.7b width, 12 layers (2 shared applications), f32")
     phase_train_parity(torch, dev, dense)
+    phase_train_parity_families(torch, dev)
     train_launches = phase_train(torch, dev, card, dense)
+    for arch, layers, gb, seq, accum in TRAIN_FAMILIES:
+        fam_launches = phase_train_family(
+            torch, dev, card, family_cfg(arch, layers, remat="full",
+                                         logits_chunk=512), gb, seq, accum)
+        for name in ("grouped_matmul_backward", "ssd_intra_chunk_backward"):
+            if fam_launches[name]:
+                train_launches[name] = fam_launches[name]
     paper_launches = phase_paper(torch, dev)
     phase_resnet50(torch, dev, card)
 
@@ -2196,14 +2621,19 @@ def main() -> int:
     # runs on the f32 contiguous path
     launches["combine_splits"] = f32_contig_launches["combine_splits"]
     launches["flash_attention"] = contig_launches["flash_attention"]
-    launches["flash_attention_backward"] = \
-        train_launches["flash_attention_backward"]
+    for name in ("flash_attention_backward", "grouped_matmul_backward",
+                 "ssd_intra_chunk_backward"):
+        launches[name] = train_launches[name]
     for name in ("ws_matmul", "os_matmul"):   # the dataflow sweep, run twice
         launches[name] = ws_launches[name] + paper_launches[name]
     main_case = {"grouped_matmul": "grouped_matmul C64",
                  "ssd_intra_chunk": "ssd_intra_chunk l64",
                  "flash_attention": "flash_attention sq511 skv511",
-                 "flash_attention_backward": "flash_attention_backward train"}
+                 "flash_attention_backward": "flash_attention_backward train",
+                 "grouped_matmul_backward":
+                     "grouped_matmul_backward gate/up",
+                 "ssd_intra_chunk_backward":
+                     "ssd_intra_chunk_backward mamba2-130m"}
     sources = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2232,6 +2662,15 @@ def main() -> int:
         "flash_attention_backward": (
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:64"),
+        # the gradients of the TPU kernels' functions: the reference
+        # differentiates its einsum and XLA twins and has no backward
+        # kernel
+        "grouped_matmul_backward": (
+            "src/repro_torch/kernels/csrc/grouped_matmul_bwd.cu",
+            "src/repro/kernels/grouped_matmul/kernel.py:36"),
+        "ssd_intra_chunk_backward": (
+            "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "src/repro/kernels/ssd_scan/kernel.py:55"),
         "ws_matmul": (
             "src/repro_torch/kernels/csrc/ws_matmul.cu",
             "src/repro/kernels/ws_matmul/kernel.py:49"),

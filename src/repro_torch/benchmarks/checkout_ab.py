@@ -6,6 +6,8 @@ internlm2-1.8b, qwen3-moe-30b-a3b's grouped serve, and the SSD kernel's
 serves (zamba2-2.7b and mamba2-130m, `ssd_impl="pallas"`).
 
     python3 src/repro_torch/benchmarks/checkout_ab.py ROOT [ROOT ...]
+    python3 src/repro_torch/benchmarks/checkout_ab.py --serve serve_moe \
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository: the parent commit unpacked
 with `git archive` into a directory that `.gitignore` lists, say, and
@@ -26,8 +28,9 @@ tensor-core attention kernels, of the bf16 grouped-matmul kernel and of
 the bf16 SSD kernel (parsed by this checkout's `chip_smoke.tc_ptxas`,
 `grouped_ptxas` and `ssd_ptxas`;
 empty where ROOT's library was already built), the kernel times and
-each serve's step times.  Needs one CUDA card;
-exits nonzero when a root's phases fail.
+each serve's step times and peak memory.  `--serve P[,P...]` runs only
+the serve phases named (no kernel phase, no decode routes) in each
+root.  Needs one CUDA card; exits nonzero when a root's phases fail.
 """
 from __future__ import annotations
 
@@ -82,8 +85,14 @@ def decode_routes(torch, cs, dev, calls: int = 500) -> dict:
     return out
 
 
-def run_one(root: Path) -> dict:
-    """ROOT's phases on the card; returns the summary line."""
+SERVES = ("serve", "serve_contiguous", "serve_moe", "serve_hybrid",
+          "serve_ssm")
+
+
+def run_one(root: Path, serves=SERVES) -> dict:
+    """ROOT's phases on the card (every kernel phase when `serves` is all
+    of SERVES, else only the serve phases named); returns the summary
+    line."""
     here = _this_chip_smoke()
     sys.path[:0] = [str(root / "src"), str(root)]
     import torch
@@ -103,37 +112,47 @@ def run_one(root: Path) -> dict:
     t0 = time.perf_counter()
     lib = kbuild.library()
     build_s = time.perf_counter() - t0
-    timings = cs.phase_kernels(torch, dev, card)
-    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
-    moe = cs.phase_moe_ssd_kernels(torch, dev, card, flush_buf.zero_)
-    contig = cs.phase_contig_kernels(torch, dev, card, flush_buf.zero_)
-    del flush_buf
-    routes = decode_routes(torch, cs, dev)
+    timings, moe, contig, routes = {}, {}, {}, {}
+    if tuple(serves) == SERVES:
+        timings = cs.phase_kernels(torch, dev, card)
+        flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+        moe = cs.phase_moe_ssd_kernels(torch, dev, card, flush_buf.zero_)
+        contig = cs.phase_contig_kernels(torch, dev, card, flush_buf.zero_)
+        del flush_buf
+        routes = decode_routes(torch, cs, dev)
     steps = {}
     real_emit = cs.emit
 
     def keep(obj):
-        if obj.get("phase") in ("serve", "serve_contiguous", "serve_moe",
-                                "serve_hybrid", "serve_ssm"):
+        if obj.get("phase") in SERVES:
             steps[obj["phase"]] = dict(
-                wall_s=obj["wall_s"], step_s=obj["step_s"],
-                prefill_calls=obj["prefill_calls"],
-                decode_calls=obj["decode_calls"], launches=obj["launches"])
+                wall_s=obj["wall_s"], rerun_wall_s=obj["rerun_wall_s"],
+                step_s=obj["step_s"], prefill_calls=obj["prefill_calls"],
+                decode_calls=obj["decode_calls"], launches=obj["launches"],
+                max_memory_allocated=obj["max_memory_allocated"])
         real_emit(obj)
 
     cs.emit = keep
     dense = get_arch("internlm2-1.8b").model
-    cs.phase_serve(torch, dev, card, "serve", dense)
-    cs.phase_serve(torch, dev, card, "serve_contiguous", dense,
-                   layout="contiguous")
-    cs.phase_serve(torch, dev, card, "serve_moe",
-                   get_arch("qwen3-moe-30b-a3b").model.replace(
-                       moe_dispatch="grouped"))
-    cs.phase_serve(torch, dev, card, "serve_hybrid",
-                   get_arch("zamba2-2.7b").model.replace(ssd_impl="pallas"),
-                   twins=True)
-    cs.phase_serve(torch, dev, card, "serve_ssm",
-                   get_arch("mamba2-130m").model.replace(ssd_impl="pallas"))
+    phases = {
+        "serve": lambda: cs.phase_serve(torch, dev, card, "serve", dense),
+        "serve_contiguous": lambda: cs.phase_serve(
+            torch, dev, card, "serve_contiguous", dense,
+            layout="contiguous"),
+        "serve_moe": lambda: cs.phase_serve(
+            torch, dev, card, "serve_moe",
+            get_arch("qwen3-moe-30b-a3b").model.replace(
+                moe_dispatch="grouped")),
+        "serve_hybrid": lambda: cs.phase_serve(
+            torch, dev, card, "serve_hybrid",
+            get_arch("zamba2-2.7b").model.replace(ssd_impl="pallas"),
+            twins=True),
+        "serve_ssm": lambda: cs.phase_serve(
+            torch, dev, card, "serve_ssm",
+            get_arch("mamba2-130m").model.replace(ssd_impl="pallas")),
+    }
+    for name in serves:
+        phases[name]()
     cs.emit = real_emit
     pick = ("ms", "kernel_only_ms", "combine_ms", "plain_ms", "library_ms",
             "bound_ms", "blocks", "live_blocks", "floor_ms", "enqueue_us",
@@ -153,14 +172,24 @@ def run_one(root: Path) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    serves = SERVES
+    if argv[:1] == ["--serve"] and len(argv) > 1:
+        serves = tuple(argv[1].split(","))
+        argv = argv[2:]
+        if not set(serves) <= set(SERVES):
+            print(f"checkout_ab: --serve takes {','.join(SERVES)}",
+                  file=sys.stderr)
+            return 2
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(run_one(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(run_one(Path(argv[1]).resolve(), serves)),
+              flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", root])
+        proc = subprocess.run([sys.executable, __file__, "--serve",
+                               ",".join(serves), "--one", root])
         if proc.returncode != 0:
             print(f"checkout_ab: {root} failed (exit {proc.returncode})",
                   file=sys.stderr)

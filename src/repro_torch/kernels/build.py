@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
-           "ssd_scan.cu", "decode_attention.cu", "flash_attention.cu",
+           "grouped_matmul_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+           "decode_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "ws_matmul.cu")
 HEADERS = ("paged_common.cuh", "mma_common.cuh", "paged_tc.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,9 +39,15 @@ PREFILL_ARGTYPES = [_VOIDP] * 12 + [_INT] * 11 + [_VOIDP]
 GROUPED_ARGTYPES = [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP]
 # repro_grouped_blocks_per_sm(vec, int* blocks)
 GROUPED_BLOCKS_ARGTYPES = [_INT, ctypes.POINTER(_INT)]
+# repro_grouped_matmul_bwd(x, w, dy, dx, dw, rows, E, C, K, F, dtype,
+#   stream)
+GROUPED_BWD_ARGTYPES = [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP]
 # repro_ssd_intra_chunk(x, dt, A, B, C, y, s, cd, bh, nc, l, p, n, dtype,
 #   stream)
 SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
+# repro_ssd_intra_chunk_bwd(x, dt, A, B, C, dy, ds, dx, dB, dC, ddt,
+#   dseg_q, dseg_k, dww, dA, bh, nc, l, p, n, dtype, stream)
+SSD_BWD_ARGTYPES = [_VOIDP] * 15 + [_INT] * 6 + [_VOIDP]
 # repro_decode_attention(q, k, v, positions, out, m, l, acc, part, tickets,
 #   b, hq, hkv, S, d, splits, split_len, partials, dtype, stream)
 SPLIT_DECODE_ARGTYPES = [_VOIDP] * 10 + [_INT] * 9 + [_VOIDP]
@@ -145,8 +152,12 @@ class KernelLibrary:
         lib.repro_grouped_matmul.restype = ctypes.c_int
         lib.repro_grouped_blocks_per_sm.argtypes = GROUPED_BLOCKS_ARGTYPES
         lib.repro_grouped_blocks_per_sm.restype = ctypes.c_int
+        lib.repro_grouped_matmul_bwd.argtypes = GROUPED_BWD_ARGTYPES
+        lib.repro_grouped_matmul_bwd.restype = ctypes.c_int
         lib.repro_ssd_intra_chunk.argtypes = SSD_ARGTYPES
         lib.repro_ssd_intra_chunk.restype = ctypes.c_int
+        lib.repro_ssd_intra_chunk_bwd.argtypes = SSD_BWD_ARGTYPES
+        lib.repro_ssd_intra_chunk_bwd.restype = ctypes.c_int
         lib.repro_decode_attention.argtypes = SPLIT_DECODE_ARGTYPES
         lib.repro_decode_attention.restype = ctypes.c_int
         lib.repro_combine_splits.argtypes = COMBINE_ARGTYPES

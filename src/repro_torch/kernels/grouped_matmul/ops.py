@@ -18,6 +18,23 @@ Port of `repro.kernels.grouped_matmul` (TPU kernel
   kernel's shared memory and the blocks that share an SM, as the kernel
   computes them; `launched_blocks_per_sm` asks the card for the bf16
   kernel's.
+* Training: `grouped_matmul` is forward only and raises when grad is
+  enabled and x or w requires grad (its result would carry no
+  gradient).  `GroupedMatmulFn` (a `torch.autograd.Function`) runs the
+  same forward and saves x, w and rows; its backward is
+  `grouped_matmul_backward`: dx = dy w^T and dw = x^T dy over each
+  expert's live rows (dx zero past them, no gradient for rows), the
+  kernels of `kernels/csrc/grouped_matmul_bwd.cu` on a CUDA tensor
+  (`BACKWARD.launches` counts calls, each launching dx then dw) and
+  `grouped_matmul_backward_plain` on a CPU one.  The reference has no
+  backward kernel (it differentiates its einsum twin).  dy arrives in
+  f32; the bf16 kernels round it to bf16 once, where they load it, and
+  the plain version rounds it at the same place: the gradient the
+  einsum twin's autograd sees, whose dy is bf16.  They store dx and dw
+  in bf16, the f32 sums rounded once (the gradients' own dtype, so
+  autograd casts nothing); the plain version returns the f32 sums, and
+  a kernel's bf16 result is held to them by TOLERANCE plus that one
+  rounding (`bf16_rounding`).  f32 operands give f32 gradients.
 
 `rows` ((E,) int32, optional) is the number of live rows of each expert
 (the dropless dispatch's per-expert counts).  Rows at or past `rows[e]`
@@ -29,13 +46,16 @@ row is computed.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
 from repro_torch.kernels import build as B
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import (reset by callers that count a run): the
+# forward's, and the backward's (one per call of its two kernels)
 launches = 0
+BACKWARD = SimpleNamespace(launches=0)
 
 # element-type codes of the C interface (csrc/grouped_matmul.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +91,31 @@ def grouped_matmul_plain(x, w, rows=None):
     return out
 
 
+def grouped_matmul_backward_plain(x, w, dy, rows=None):
+    """(dx (E, C, K), dw (E, K, F)), f32, of `grouped_matmul_plain` at
+    x, w for the output gradient dy (E, C, F): dx = dy w^T on the live
+    rows (zeros past `rows[e]`), dw = x^T dy over them.  dy is rounded
+    to x's dtype first (the bf16 kernels' tensor cores take bf16)."""
+    dy = dy.to(x.dtype).float()
+    if rows is not None:
+        E, C = x.shape[:2]
+        dy = torch.where(_live_mask(rows, E, C, x.device), dy,
+                         torch.zeros((), dtype=dy.dtype, device=dy.device))
+    dx = torch.einsum("ecf,ekf->eck", dy, w.float())
+    dw = torch.einsum("eck,ecf->ekf", x.float(), dy)
+    return dx, dw
+
+
+def bf16_rounding(w):
+    """The one rounding of the bf16 backward's stores, as a floor for
+    `tolerance.worst_ratio`: half a bf16 ulp (at most 2**-8 of the
+    value) of the kernel's f32 sum, which lies within TOLERANCE's bound
+    of the plain version's f32 sum w."""
+    rtol, atol = TOLERANCE[torch.bfloat16]
+    a = w.abs()
+    return 2.0 ** -8 * ((1 + rtol) * a + atol * a.amax(-1, keepdim=True))
+
+
 def grid(E: int, C: int, F: int) -> tuple[int, int, int]:
     """The launch's blocks: (n tiles, experts, row ranges)."""
     return -(-F // BN), E, -(-C // ROWS)
@@ -100,8 +145,9 @@ def launched_blocks_per_sm(vec: bool = True, device=None) -> int:
     return blocks.value
 
 
-def _launch(x, w, rows):
-    global launches
+def _check(x, w, rows):
+    """(E, C, K, F) of x (E, C, K) @ w (E, K, F); raises on what the
+    kernels do not take."""
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(f"grouped_matmul takes float32 or bfloat16 x and w "
                          f"of one dtype, got {x.dtype} and {w.dtype}")
@@ -123,6 +169,12 @@ def _launch(x, w, rows):
             raise ValueError(f"{name} must be contiguous")
     if min(E, C, K, F) < 1 or max(grid(E, C, F)[1:]) > 65535:
         raise ValueError(f"grid of E {E} x C {C} out of range")
+    return E, C, K, F
+
+
+def _launch(x, w, rows):
+    global launches
+    E, C, K, F = _check(x, w, rows)
     vec = int(K % 8 == 0 and F % 8 == 0 and x.data_ptr() % 16 == 0
               and w.data_ptr() % 16 == 0)
     out = torch.empty((E, C, F), dtype=torch.float32, device=x.device)
@@ -138,12 +190,82 @@ def _launch(x, w, rows):
     return out
 
 
+def _launch_bwd(x, w, dy, rows):
+    E, C, K, F = _check(x, w, rows)
+    if (dy.dtype != torch.float32 or tuple(dy.shape) != (E, C, F)
+            or dy.device != x.device or not dy.is_contiguous()):
+        raise ValueError(f"dy must be contiguous float32 ({E}, {C}, {F}) "
+                         f"on {x.device}")
+    if x.dtype == torch.bfloat16 and (
+            K % 8 or F % 8 or any(t.data_ptr() % 16 for t in (x, w, dy))):
+        raise ValueError(f"the bf16 backward takes K ({K}) and F ({F}) "
+                         f"multiples of 8 and 16-byte aligned x, w, dy")
+    if max(-(-K // 64), -(-C // 64)) > 65535:
+        raise ValueError(f"K {K} or C {C} exceeds the grid")
+    dx = torch.empty((E, C, K), dtype=x.dtype, device=x.device)
+    dw = torch.empty((E, K, F), dtype=x.dtype, device=x.device)
+    lib = B.library().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_grouped_matmul_bwd(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), None if rows is None else rows.data_ptr(),
+            E, C, K, F, DTYPE_CODES[x.dtype], stream)
+    B.check(err, "grouped_matmul_backward")
+    BACKWARD.launches += 1
+    return dx, dw
+
+
+def _device(x, what: str) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
 def grouped_matmul(x, w, rows=None):
     """x: (E, C, K) @ w: (E, K, F), float32 or bfloat16 (one dtype) ->
     (E, C, F) float32; `rows` (E,) int32 live rows per expert (rows past
-    it are zeros)."""
+    it are zeros).  Forward only: raises when grad is enabled and x or w
+    requires grad (use `GroupedMatmulFn`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "grouped_matmul is the forward-only launcher and its result "
+            "carries no gradient; differentiate through "
+            "GroupedMatmulFn.apply(x, w, rows)")
+    return _forward(x, w, rows)
+
+
+def _forward(x, w, rows):
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, rows)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul runs on cuda or cpu, not {x.device}")
     return _launch(x, w, rows)
+
+
+def grouped_matmul_backward(x, w, dy, rows=None):
+    """(dx, dw) of the grouped matmul at x, w for the output gradient dy
+    (E, C, F) f32: the backward kernels on a CUDA tensor (in x's dtype:
+    bf16 stores the f32 sums rounded once), `grouped_matmul_backward_plain`
+    on a CPU one (f32)."""
+    if _device(x, "grouped_matmul_backward") == "cpu":
+        return grouped_matmul_backward_plain(x, w, dy, rows)
+    return _launch_bwd(x, w, dy, rows)
+
+
+class GroupedMatmulFn(torch.autograd.Function):
+    """Differentiable grouped matmul: the forward kernel and the backward
+    kernels on the card (their plain versions on the CPU).
+    `GroupedMatmulFn.apply(x, w, rows)` -> (E, C, F) f32; x and w get
+    gradients in their own dtypes, `rows` none."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows):
+        ctx.save_for_backward(x, w, rows)
+        return _forward(x, w, rows)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rows = ctx.saved_tensors
+        dx, dw = grouped_matmul_backward(x, w, dy.float().contiguous(), rows)
+        return dx.to(x.dtype), dw.to(w.dtype), None

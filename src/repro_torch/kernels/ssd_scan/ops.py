@@ -17,6 +17,22 @@ of dt * A over the chunk:
   (mma.sync; one block per 64-row slab of a chunk's y rows or of its
   state rows, `num_blocks`; B and x through a cp.async ring), f32 on
   CUDA cores (one block per chunk; tensor cores would run it in TF32).
+* Training: `ssd_intra_chunk` is forward only and raises when grad is
+  enabled and an input requires grad.  `SsdIntraChunkFn` (a
+  `torch.autograd.Function`) runs the same forward, saves only the
+  inputs and returns (y_intra, s_chunk) (`ssd_chunked` discards the
+  chunk decay, which it recomputes from seg); its backward is
+  `ssd_intra_chunk_backward`: dx, ddt, dA (bh,), dB and dC, from the
+  kernels of `kernels/csrc/ssd_scan_bwd.cu` on a CUDA tensor
+  (`BACKWARD.launches` counts calls, each launching two kernels) and
+  from `ssd_intra_chunk_backward_plain` on a CPU one, then d(seg) turned
+  into d(dt) by a reverse cumsum in torch.  dA is summed pair by pair
+  with d seg_i / dA = cs_i (the cumsum of dt), whose differences are
+  positive, and not as sum_k dt_k revcumsum(dseg)_k, where row and
+  column sums of the same terms cancel.  The backward is the
+  gradient of the unrounded function in f32 at the inputs as given (for
+  bf16 inputs too); the reference has no backward kernel (it
+  differentiates its XLA branch).
 * `ssd_intra_chunk_plain` — the TPU kernel's arithmetic (`_ssd_kernel`,
   kernel.py:27-52) in batched torch: the C.B products in f32, the
   scores rounded to x's dtype before their product with x, the decay
@@ -26,14 +42,18 @@ of dt * A over the chunk:
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import (reset by callers that count a run): the
+# forward's, and the backward's (one per call of its two kernels)
 launches = 0
+BACKWARD = SimpleNamespace(launches=0)
 
 # element-type codes of the C interface (csrc/ssd_scan.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +64,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # can round to the neighbouring bf16 value (2**-8 relative), which moves
 # an output by that much of one term.
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# the backward's (rtol, atol relative to the row's largest |plain|), for
+# every input dtype: kernel and plain version compute the same f32
+# function of the inputs, summed in other orders (tiles, the warp scan
+# of seg, the reverse cumsum); worst element measured on an H100 at
+# mamba2-130m's training chunks: 0.07 of this bound
+BWD_TOLERANCE = (1e-4, 1e-4)
 
 # kernel geometry limits (csrc/ssd_scan.cu)
 MAX_CHUNK = 256
@@ -76,6 +102,62 @@ def ssd_intra_chunk_plain(x, dt, A, B, C):
     wx = w.to(x.dtype)[..., None] * x
     s = torch.einsum("bcln,bclp->bcnp", B.float(), wx.float())
     return y, s, torch.exp(seg[..., -1])
+
+
+def _bwd_terms_plain(x, dt, A, B, C, dy, ds):
+    """The backward kernels' results (dx, dB, dC, ddt, dseg, dA (bh,)) in
+    f32 (f64 for f64 inputs), with ddt the direct part and dseg the
+    gradient through seg before the reverse cumsum (the kernels' dseg_q +
+    dseg_k, plus sum_j dww_j at the last position).  dA is summed pair by
+    pair with d seg_i / dA = cs_i, the cumsum of dt, as the kernel sums
+    it."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x, B, C, dy, ds = (t.to(ct) for t in (x, B, C, dy, ds))
+    dtf = dt.to(ct)
+    seg = torch.cumsum(dtf * A.to(ct)[:, None, None], dim=2)      # (bh,nc,l)
+    l = x.shape[2]
+    mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(mask, torch.exp(torch.where(
+        mask, seg[..., :, None] - seg[..., None, :],
+        torch.zeros((), dtype=ct, device=x.device))),
+        torch.zeros((), dtype=ct, device=x.device))
+    cb = torch.einsum("bcin,bcjn->bcij", C, B)
+    scores = cb * L * dtf[..., None, :]
+    dsc = torch.einsum("bcip,bcjp->bcij", dy, x) * mask
+    dcb = dsc * L * dtf[..., None, :]
+    e = torch.exp(seg[..., -1:] - seg)                             # (bh,nc,l)
+    w = e * dtf
+    bds = torch.einsum("bcjn,bcnp->bcjp", B, ds)                   # B_j . ds
+    dsx = torch.einsum("bcnp,bcjp->bcjn", ds, x)                   # ds x_j
+    dw = (B * dsx).sum(-1)                                         # (bh,nc,l)
+    dx = torch.einsum("bcij,bcip->bcjp", scores, dy) + w[..., None] * bds
+    dC = torch.einsum("bcij,bcjn->bcin", dcb, B)
+    dB = torch.einsum("bcij,bcin->bcjn", dcb, C) + w[..., None] * dsx
+    ddt = (dsc * cb * L).sum(-2) + dw * e
+    p_ = dsc * scores
+    dww = dw * w
+    dseg = p_.sum(-1) - p_.sum(-2) - dww
+    dseg[..., -1] += dww.sum(-1)
+    cs = torch.cumsum(dtf, dim=2)
+    dA = ((p_ * (cs[..., :, None] - cs[..., None, :])).sum((-1, -2))
+          + (dww * (cs[..., -1:] - cs)).sum(-1)).sum(-1)
+    return dx, dB, dC, ddt, dseg, dA
+
+
+def _seg_to_dt(dt, A, ddt, dseg):
+    """ddt from its direct part and d(seg), seg = cumsum of dt * A over
+    each chunk: a reverse cumsum of d(seg)."""
+    g = torch.flip(torch.cumsum(torch.flip(dseg, (-1,)), -1), (-1,))
+    return ddt + A.to(ddt.dtype)[:, None, None] * g
+
+
+def ssd_intra_chunk_backward_plain(x, dt, A, B, C, dy, ds):
+    """(dx, ddt, dA, dB, dC), f32 (f64 for f64 x), of (y_intra, s_chunk)
+    = `ssd_intra_chunk_plain`'s first two outputs (unrounded: the f32
+    function) at the inputs, for the output gradients dy (bh, nc, l, p)
+    and ds (bh, nc, n, p)."""
+    dx, dB, dC, ddt, dseg, dA = _bwd_terms_plain(x, dt, A, B, C, dy, ds)
+    return dx, _seg_to_dt(dt, A, ddt, dseg), dA, dB, dC
 
 
 def route(dtype) -> str:
@@ -116,8 +198,9 @@ def num_blocks(dtype, bh: int, nc: int, l: int, n: int) -> int:
     return bh * nc
 
 
-def _launch(x, dt, A, B_, C):
-    global launches
+def _check(x, dt, A, B_, C):
+    """(bh, nc, l, p, n) of the inputs; raises on what the kernels do
+    not take."""
     if x.dtype not in DTYPE_CODES or B_.dtype != x.dtype \
             or C.dtype != x.dtype:
         raise ValueError(f"x, B and C must share float32 or bfloat16, got "
@@ -141,6 +224,12 @@ def _launch(x, dt, A, B_, C):
         raise ValueError(f"chunk {l}, head dim {p}, state {n}: the kernel "
                          f"takes l <= {MAX_CHUNK} and p, n multiples of 8 "
                          f"up to {MAX_DIM}")
+    return bh, nc, l, p, n
+
+
+def _launch(x, dt, A, B_, C):
+    global launches
+    bh, nc, l, p, n = _check(x, dt, A, B_, C)
     if smem_bytes(x.dtype, l, p, n) > MAX_SMEM:
         raise ValueError(f"chunk {l} x ({p}, {n}) in {x.dtype} needs more "
                          f"shared memory than a block has")
@@ -165,13 +254,112 @@ def _launch(x, dt, A, B_, C):
     return y, s, cd
 
 
+def bwd_smem_bytes(p: int, n: int) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's column and
+    row kernels (ssd_scan_bwd.cu `k_smem_floats`, `q_smem_floats`)."""
+    rows = 96 * (n + 1)
+    return (4 * (rows + 128 * (p + 1) + 3 * MAX_CHUNK + 2 * 32 * 65
+                 + 3 * 256 + 2 * 64),
+            4 * (rows + 96 * (p + 1) + 2 * MAX_CHUNK + 64 * 33 + 256))
+
+
+def _launch_bwd(x, dt, A, B_, C, dy, ds):
+    bh, nc, l, p, n = _check(x, dt, A, B_, C)
+    for name, t, shape in (("dy", dy, (bh, nc, l, p)),
+                           ("ds", ds, (bh, nc, n, p))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {shape} "
+                             f"on {x.device}")
+    if bh * nc * -(-l // 64) > 2 ** 31 - 1:
+        raise ValueError("too many (batch*head, chunk, slab) blocks")
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((bh, nc, l, p), **f32)
+    dB = torch.empty((bh, nc, l, n), **f32)
+    dC = torch.empty((bh, nc, l, n), **f32)
+    ddt, dseg_q, dseg_k, dww, dA = (torch.empty((bh, nc, l), **f32)
+                                    for _ in range(5))
+    lib = build.library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_ssd_intra_chunk_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), ds.data_ptr(), dx.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dseg_q.data_ptr(),
+            dseg_k.data_ptr(), dww.data_ptr(), dA.data_ptr(), bh, nc, l, p, n,
+            DTYPE_CODES[x.dtype], stream)
+    build.check(err, "ssd_intra_chunk_backward")
+    BACKWARD.launches += 1
+    dseg = dseg_q + dseg_k
+    dseg[..., -1] += dww.sum(-1)
+    return dx, dB, dC, ddt, dseg, dA.sum((1, 2))
+
+
+def _device(x, what: str) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
+def ssd_intra_chunk_backward(x, dt, A, B, C, dy, ds):
+    """(dx, ddt, dA (bh,), dB, dC), f32, of (y_intra, s_chunk) at the
+    inputs for the output gradients dy (bh, nc, l, p) and ds (bh, nc, n,
+    p), f32: the backward kernels on a CUDA tensor, the plain version's
+    terms on a CPU one; then the reverse cumsum of d(seg) in torch and
+    dA summed over each batch*head's chunks."""
+    if _device(x, "ssd_intra_chunk_backward") == "cpu":
+        return ssd_intra_chunk_backward_plain(x, dt, A, B, C, dy, ds)
+    dx, dB, dC, ddt, dseg, dA = _launch_bwd(x, dt, A, B, C, dy, ds)
+    return dx, _seg_to_dt(dt, A, ddt, dseg), dA, dB, dC
+
+
 def ssd_intra_chunk(x, dt, A, B, C):
     """x: (bh, nc, l, p); dt: (bh, nc, l) f32; A: (bh,) f32; B, C:
     (bh, nc, l, n), x's dtype (float32 or bfloat16).  Returns (y_intra
-    (bh, nc, l, p), s_chunk (bh, nc, n, p), chunk_decay (bh, nc)) f32."""
+    (bh, nc, l, p), s_chunk (bh, nc, n, p), chunk_decay (bh, nc)) f32.
+    Forward only: raises when grad is enabled and an input requires grad
+    (use `SsdIntraChunkFn`)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "ssd_intra_chunk is the forward-only launcher and its result "
+            "carries no gradient; differentiate through "
+            "SsdIntraChunkFn.apply(x, dt, A, B, C)")
+    return _forward(x, dt, A, B, C)
+
+
+def _forward(x, dt, A, B, C):
     if x.device.type == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not "
                          f"{x.device}")
     return _launch(x, dt, A, B, C)
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """Differentiable SSD intra-chunk: the forward kernel and the
+    backward kernels on the card (their plain versions on the CPU).
+    `SsdIntraChunkFn.apply(x, dt, A, B, C)` -> (y_intra (bh, nc, l, p),
+    s_chunk (bh, nc, n, p)), f32; every input gets its gradient in its
+    own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        y, s, _ = _forward(x, dt, A, B, C)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        if ds is None:
+            ds = torch.zeros((*x.shape[:2], B.shape[-1], x.shape[-1]),
+                             dtype=torch.float32, device=x.device)
+        dx, ddt, dA, dB, dC = ssd_intra_chunk_backward(
+            x, dt, A, B, C, dy.float().contiguous(), ds.float().contiguous())
+        return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+                dB.to(B.dtype), dC.to(C.dtype))

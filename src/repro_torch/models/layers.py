@@ -391,4 +391,6 @@ def training_not_ported(family: str):
     """The refusal of a family whose training is not ported yet."""
     raise NotImplementedError(
         f"training of the {family} family is not ported yet: ROADMAP.md "
-        f"queue A.2, second half (MoE, hybrid and SSM training)")
+        f"queue A.2, second half, part two (hybrid training, which needs "
+        f"the flash-attention backward at head dim 160 for zamba2's "
+        f"shared attention)")

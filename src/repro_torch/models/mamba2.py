@@ -3,13 +3,17 @@ and the blocks the hybrid family runs.
 
 Port of `repro.models.mamba2`: the chunked SSD scan, the single-token
 recurrence, the depthwise causal conv, the block bodies (`block_apply`
-for whole prompts, `block_prefill_chunk`, `block_step`) and the ssm
-family's serving hooks.  Within a chunk the SSD is its
+for whole sequences: training and prefill, `block_prefill_chunk`,
+`block_step`), the ssm family's training forward and loss, and its
+serving hooks.  Within a chunk the SSD is its
 dual (masked decay-weighted "attention") form; across chunks a short
 Python loop over the chunk states carries the recurrence, where the
 reference scans.  `ssd_impl="pallas"` takes the intra-chunk part
-through the SSD kernel (`kernels/ssd_scan`), `"xla"` through the plain
-torch form of the reference's XLA branch.
+through the SSD kernel (`kernels/ssd_scan` `SsdIntraChunkFn`, whose
+backward is the SSD backward kernel on the card), `"xla"` through the
+plain torch form of the reference's XLA branch.  Both are
+differentiable; the inter-chunk recurrence and its output stay torch
+ops, as the reference keeps them in XLA.
 
 The ssm family's state is O(1) per sequence, so it has nothing to page:
 it serves from the contiguous layout (`init_cache`: per-layer conv
@@ -26,7 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+from repro_torch.kernels.ssd_scan.ops import SsdIntraChunkFn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -70,7 +74,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None, impl="xla"):
         def to_bh(a):                 # (b, nc, l, h, ...) -> (b*h, nc, l, ...)
             return a.movedim(3, 1).reshape(
                 (b * h, nc, l) + tuple(a.shape[4:])).contiguous()
-        yk, sk, _ = ssd_intra_chunk(
+        yk, sk = SsdIntraChunkFn.apply(
             to_bh(xc), dtc.movedim(3, 1).reshape(b * h, nc, l).contiguous(),
             A.float().expand(b, h).reshape(b * h).contiguous(),
             to_bh(Bc), to_bh(Cc))
@@ -382,6 +386,31 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
 
 # ---------------------------------------------------------------- training
 
+def _layer_apply(p, cfg: ModelConfig, x):
+    return x + block_apply(p["mixer"], cfg,
+                           L.rmsnorm_apply(p["ln"], x, cfg.norm_eps))
+
+
+def forward_hidden(params, cfg: ModelConfig, x):
+    """x: (b, s, d) embedded input -> final hidden states (after the final
+    norm); each layer runs under `cfg.remat` (`transformer._maybe_remat`)
+    and writes no cache."""
+    body = T._maybe_remat(_layer_apply, cfg)
+    for p in params["layers"]:
+        x = body(p, cfg, x)
+    return L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (b, s)} -> logits (b, s, vocab)."""
+    x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+    h = forward_hidden(params, cfg, x)
+    return L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Not ported yet (ROADMAP.md queue A.2, second half)."""
-    L.training_not_ported("ssm")
+    """batch: {"tokens", "labels": (b, s)} -> mean next-token CE (f32
+    scalar; labels < 0 are ignored)."""
+    x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+    h = forward_hidden(params, cfg, x)
+    return L.lm_loss(h, T.head_weights(params, cfg), cfg, batch["labels"])

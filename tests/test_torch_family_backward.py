@@ -1,0 +1,351 @@
+"""The grouped-matmul and SSD intra-chunk backwards of the port: each
+plain version against autograd over its plain forward (partly live rows,
+the SSD's dA and ddt), the autograd Functions on the CPU, the
+forward-only launchers' refusal of grad-enabled inputs, and (marked
+`cuda`, skipped without a card) the backward kernels against their plain
+versions.
+
+This file imports neither JAX nor the reference, so it also runs where
+only PyTorch and the CUDA toolkit are installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_family_backward.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.grouped_matmul import ops as gm
+from repro_torch.kernels.ssd_scan import ops as ssd
+from repro_torch.kernels.tolerance import worst_ratio
+
+# (E, C, K, F, rows): partly live experts, an empty one, one past C
+GM_CASES = {
+    "partly_live": (4, 24, 16, 40, (0, 5, 24, 17)),
+    "over_capacity": (3, 16, 24, 8, (16, 40, 1)),
+    "all_rows": (2, 9, 8, 16, None),
+}
+# (bh, nc, l, p, n)
+SSD_CASES = {
+    "two_chunks": (3, 2, 16, 8, 8),
+    "short_chunk": (2, 1, 5, 8, 16),
+    "wide_state": (2, 2, 12, 16, 24),
+}
+# the backwards' arithmetic is f32 (sums in other orders than autograd's)
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(rng, *shape, scale=1.0, dtype=torch.float64):
+    return torch.from_numpy(rng.standard_normal(shape) * scale).to(dtype)
+
+
+def _gm_inputs(case, dtype=torch.float64, seed=0):
+    E, C, K, F, rows = case
+    rng = _rng(seed)
+    x, w = _t(rng, E, C, K, dtype=dtype), _t(rng, E, K, F, scale=0.2,
+                                             dtype=dtype)
+    dy = _t(rng, E, C, F, dtype=torch.float32)
+    r = None if rows is None else torch.tensor(rows, dtype=torch.int32)
+    return x, w, dy, r
+
+
+def _ssd_inputs(case, dtype=torch.float64, seed=0):
+    bh, nc, l, p, n = case
+    rng = _rng(seed)
+    x = _t(rng, bh, nc, l, p, dtype=dtype)
+    B = _t(rng, bh, nc, l, n, scale=0.3, dtype=dtype)
+    C = _t(rng, bh, nc, l, n, scale=0.3, dtype=dtype)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (bh, nc, l))).to(dtype)
+    A = torch.from_numpy(-rng.uniform(0.5, 4.0, (bh,))).to(dtype)
+    dy = _t(rng, bh, nc, l, p, dtype=torch.float32)
+    ds = _t(rng, bh, nc, n, p, dtype=torch.float32)
+    return (x, dt, A, B, C), dy, ds
+
+
+# ------------------------------------------------------------ grouped
+
+@pytest.mark.parametrize("name", list(GM_CASES))
+def test_grouped_backward_plain_equals_autograd(name):
+    x, w, dy, rows = _gm_inputs(GM_CASES[name])
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gm.grouped_matmul_plain(xa, wa, rows), (xa, wa),
+                               dy.double())
+    got = gm.grouped_matmul_backward_plain(x.float(), w.float(), dy, rows)
+    for g, wt in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.double(), wt, **F32_TOL)
+    if rows is not None:     # no gradient reaches a row past the live count
+        live = torch.arange(x.shape[1])[None, :] < rows[:, None]
+        assert not got[0][~live].any()
+
+
+def test_grouped_backward_rounds_dy_to_bf16_once():
+    """bf16: dy (f32, the forward's output type) is rounded to bf16 once
+    and the products are exact f32 sums, the gradient the einsum twin's
+    autograd sees (its output, hence its dy, is bf16)."""
+    x, w, dy, rows = _gm_inputs(GM_CASES["partly_live"], torch.bfloat16)
+    got = gm.grouped_matmul_backward_plain(x, w, dy, rows)
+    rounded = dy.to(torch.bfloat16).float()
+    want = gm.grouped_matmul_backward_plain(x.float(), w.float(), rounded, rows)
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g, wt, rtol=0, atol=0)
+    unrounded = gm.grouped_matmul_backward_plain(x.float(), w.float(), dy, rows)
+    assert not torch.equal(got[1], unrounded[1])
+
+
+def test_grouped_bf16_rounding_floor_admits_only_the_one_rounding():
+    """The bf16 kernels store their f32 sums rounded to bf16 once: the
+    plain version's sums so rounded pass TOLERANCE plus `bf16_rounding`
+    (and not TOLERANCE alone), sums 1 % off fail it."""
+    x, w, dy, rows = _gm_inputs(GM_CASES["partly_live"], torch.bfloat16)
+    want = gm.grouped_matmul_backward_plain(x, w, dy, rows)
+    tol = gm.TOLERANCE[torch.bfloat16]
+    rounded = tuple(t.to(torch.bfloat16) for t in want)
+    assert worst_ratio(rounded, want, *tol, floor=gm.bf16_rounding)[1] <= 1
+    assert worst_ratio(rounded, want, *tol)[1] > 1
+    off = tuple((t * 1.01).to(torch.bfloat16) for t in want)
+    assert worst_ratio(off, want, *tol, floor=gm.bf16_rounding)[1] > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grouped_fn_carries_the_gradient_on_the_cpu(dtype):
+    x, w, dy, rows = _gm_inputs(GM_CASES["partly_live"], dtype)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = gm.GroupedMatmulFn.apply(xa, wa, rows)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, (xa, wa), dy)
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gm.grouped_matmul_plain(xb, wb, rows),
+                               (xb, wb), dy)
+    for g, wt in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.double(), wt.double(), **F32_TOL)
+
+
+# ---------------------------------------------------------------- SSD
+
+def _ssd_forward_f64(x, dt, A, B, C):
+    """(y_intra, s_chunk) of the SSD intra-chunk function in f64 (the
+    plain forward computes in f32)."""
+    seg = torch.cumsum(dt * A[:, None, None], dim=2)
+    l = x.shape[2]
+    mask = torch.ones((l, l), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(mask, seg[..., :, None] - seg[..., None, :],
+                              torch.tensor(-torch.inf, dtype=x.dtype)))
+    scores = torch.einsum("bcin,bcjn->bcij", C, B) * L * dt[..., None, :]
+    w = torch.exp(seg[..., -1:] - seg) * dt
+    return (torch.einsum("bcij,bcjp->bcip", scores, x),
+            torch.einsum("bcjn,bcj,bcjp->bcnp", B, w, x))
+
+
+def _ssd_autograd(inputs, dy, ds):
+    leaves = [t.double().clone().requires_grad_() for t in inputs]
+    y, s = _ssd_forward_f64(*leaves)
+    return torch.autograd.grad((y * dy.double()).sum() + (s * ds.double()).sum(),
+                               leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(SSD_CASES))
+def test_ssd_backward_plain_equals_autograd(name, dtype):
+    """dx, ddt, dA (summed over each batch*head's chunks), dB and dC; in
+    f64 the plain version computes in f64 (the truth the kernel's f32
+    sums are measured against)."""
+    inputs, dy, ds = _ssd_inputs(SSD_CASES[name])
+    want = _ssd_autograd(inputs, dy, ds)
+    got = ssd.ssd_intra_chunk_backward_plain(*(t.to(dtype) for t in inputs),
+                                             dy.to(dtype), ds.to(dtype))
+    tol = F32_TOL if dtype == torch.float32 else dict(rtol=1e-10, atol=1e-12)
+    for part, g, wt in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == dtype and g.shape == wt.shape, part
+        torch.testing.assert_close(g.double(), wt, **tol, msg=part)
+
+
+def test_ssd_dA_summed_pair_by_pair_is_closer_to_the_f64_gradient():
+    """dA through the reverse cumsum of d(seg) subtracts the row and
+    column sums of the same terms; summed pair by pair with the cumsum of
+    dt (as the kernel and the plain version sum it), the f32 dA is more
+    than twice as close to the f64 gradient (3.7x at these inputs)."""
+    bh, nc, l, p, n = 4, 2, 128, 16, 32
+    rng = _rng(0)
+    x = _t(rng, bh, nc, l, p)
+    B, C = _t(rng, bh, nc, l, n, scale=0.3), _t(rng, bh, nc, l, n, scale=0.3)
+    dt = torch.from_numpy(rng.uniform(0.0, 1.4, (bh, nc, l)))
+    A = torch.from_numpy(-rng.uniform(1.0, 16.0, (bh,)))
+    dy, ds = _t(rng, bh, nc, l, p), _t(rng, bh, nc, n, p)
+    truth = ssd.ssd_intra_chunk_backward_plain(x, dt, A, B, C, dy, ds)[2]
+    f32 = [t.float() for t in (x, dt, A, B, C, dy, ds)]
+    pairwise = ssd.ssd_intra_chunk_backward_plain(*f32)[2]
+    dseg = ssd._bwd_terms_plain(*f32)[4]
+    g = torch.flip(torch.cumsum(torch.flip(dseg, (-1,)), -1), (-1,))
+    through_seg = (f32[1] * g).sum((1, 2))
+
+    def rel(a):
+        return float((a.double() - truth).norm() / truth.norm())
+    assert rel(pairwise) < rel(through_seg) / 2, (rel(pairwise),
+                                                  rel(through_seg))
+
+
+def test_ssd_fn_carries_the_gradient_on_the_cpu():
+    inputs, dy, ds = _ssd_inputs(SSD_CASES["two_chunks"], torch.float32)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    y, s = ssd.SsdIntraChunkFn.apply(*leaves)
+    got = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+    want = _ssd_autograd(inputs, dy, ds)
+    for g, wt in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.double(), wt, **F32_TOL)
+
+
+def test_ssd_fn_takes_a_gradient_of_y_alone():
+    """Only y_intra used: the state's gradient arrives as None."""
+    inputs, dy, _ = _ssd_inputs(SSD_CASES["short_chunk"], torch.float32)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    y, _ = ssd.SsdIntraChunkFn.apply(*leaves)
+    got = torch.autograd.grad((y * dy).sum(), leaves)
+    zero_ds = torch.zeros(inputs[0].shape[:2] + (inputs[3].shape[-1],
+                                                 inputs[0].shape[-1]))
+    want = _ssd_autograd(inputs, dy, zero_ds)
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g.double(), wt, **F32_TOL)
+
+
+def test_ssd_backward_of_bf16_inputs_is_the_f32_function_at_them():
+    """bf16 x, B, C: the backward widens them exactly and computes the
+    f32 gradient; each gradient comes back in its input's dtype."""
+    inputs, dy, ds = _ssd_inputs(SSD_CASES["two_chunks"], torch.float32)
+    x, dt, A, B, C = inputs
+    lo = (x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16())
+    got = ssd.ssd_intra_chunk_backward_plain(*lo, dy, ds)
+    want = ssd.ssd_intra_chunk_backward_plain(
+        *(t.float() for t in lo), dy, ds)
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g, wt, rtol=0, atol=0)
+    leaves = [t.clone().requires_grad_() for t in lo]
+    grads = torch.autograd.grad(
+        sum((o * g_).sum() for o, g_ in zip(ssd.SsdIntraChunkFn.apply(*leaves),
+                                            (dy, ds))), leaves)
+    assert [g.dtype for g in grads] == [t.dtype for t in lo]
+
+
+# ----------------------------------------------------------- refusals
+
+@pytest.mark.parametrize("which", ["grouped_matmul", "ssd_intra_chunk"])
+def test_forward_only_launchers_refuse_grad_enabled_inputs(which):
+    if which == "grouped_matmul":
+        x, w, _, rows = _gm_inputs(GM_CASES["partly_live"], torch.float32)
+        args, call, fn = (x, w, rows), gm.grouped_matmul, "GroupedMatmulFn"
+    else:
+        inputs, _, _ = _ssd_inputs(SSD_CASES["two_chunks"], torch.float32)
+        args, call, fn = inputs, ssd.ssd_intra_chunk, "SsdIntraChunkFn"
+    want = call(*args)                                   # nothing needs grad
+    grad_args = [a.clone().requires_grad_() if torch.is_tensor(a)
+                 and a.is_floating_point() else a for a in args]
+    with pytest.raises(RuntimeError, match=fn):
+        call(*grad_args)
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            got = call(*grad_args)
+        for g, wt in zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+            torch.testing.assert_close(g, wt, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _hold(got, want, rtol, atol, floor=None):
+    for g, w in zip(got, want):
+        err, ratio = worst_ratio(g, w, rtol, atol, floor=floor)
+        assert ratio <= 1.0, (err, ratio)
+
+
+# (E, C, K, F): qwen3-moe-30b-a3b's gate/up and down products at its
+# training capacity, and ragged small shapes
+GM_CARD_CASES = [(128, 320, 2048, 768), (128, 320, 768, 2048),
+                 (4, 40, 64, 32), (3, 100, 72, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", GM_CARD_CASES)
+def test_grouped_backward_kernel_matches_plain_on_card(cuda_device, case,
+                                                       dtype):
+    E, C, K, F = case
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    rows = torch.randint(0, C + 30, (E,), generator=g,
+                         device=cuda_device).to(torch.int32)
+    rows[0] = 0
+    x = torch.randn(E, C, K, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(E, K, F, generator=g, device=cuda_device) * 0.05).to(dtype)
+    dy = torch.randn(E, C, F, generator=g, device=cuda_device)
+    got = gm.grouped_matmul_backward(x, w, dy, rows)
+    want = gm.grouped_matmul_backward_plain(x, w, dy, rows)
+    torch.cuda.synchronize()
+    assert all(t.dtype == dtype for t in got)
+    # bf16 stores the f32 sums rounded once: TOLERANCE plus that rounding
+    _hold(got, want, *gm.TOLERANCE[dtype],
+          floor=gm.bf16_rounding if dtype == torch.bfloat16 else None)
+    again = gm.grouped_matmul_backward(x, w, dy, rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (bh, nc, l, p, n): mamba2-130m's training chunks (p 64, n 128), a
+# ragged chunk, zamba2's (p = n = 64) and a tiny one
+SSD_CARD_CASES = [(24, 2, 256, 64, 128), (3, 2, 200, 64, 128),
+                  (40, 2, 256, 64, 64), (2, 1, 5, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+def test_ssd_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    bh, nc, l, p, n = case
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    dev = cuda_device
+    x = torch.randn(bh, nc, l, p, generator=g, device=dev).to(dtype)
+    B = (torch.randn(bh, nc, l, n, generator=g, device=dev) * 0.3).to(dtype)
+    C = (torch.randn(bh, nc, l, n, generator=g, device=dev) * 0.3).to(dtype)
+    dt = torch.rand(bh, nc, l, generator=g, device=dev) * 0.1
+    A = -torch.rand(bh, generator=g, device=dev) * 4 - 0.5
+    dy = torch.randn(bh, nc, l, p, generator=g, device=dev)
+    ds = torch.randn(bh, nc, n, p, generator=g, device=dev)
+    args = (x, dt, A, B, C, dy, ds)
+    got = ssd.ssd_intra_chunk_backward(*args)
+    want = ssd.ssd_intra_chunk_backward_plain(*args)
+    torch.cuda.synchronize()
+    _hold(got, want, *ssd.BWD_TOLERANCE)
+    again = ssd.ssd_intra_chunk_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_fns_carry_the_gradient_through_the_kernels_on_card(cuda_device):
+    x, w, dy, rows = _gm_inputs(GM_CASES["partly_live"], torch.float32)
+    xa, wa = (t.to(cuda_device).requires_grad_() for t in (x, w))
+    before = gm.BACKWARD.launches
+    out = gm.GroupedMatmulFn.apply(xa, wa, rows.to(cuda_device))
+    got = torch.autograd.grad(out, (xa, wa), dy.to(cuda_device))
+    assert gm.BACKWARD.launches == before + 1
+    want = gm.grouped_matmul_backward_plain(x, w, dy, rows)
+    _hold([t.cpu() for t in got], want, *gm.TOLERANCE[torch.float32])
+    inputs, sdy, sds = _ssd_inputs(SSD_CASES["two_chunks"], torch.float32)
+    leaves = [t.to(cuda_device).requires_grad_() for t in inputs]
+    before = ssd.BACKWARD.launches
+    y, s = ssd.SsdIntraChunkFn.apply(*leaves)
+    got = torch.autograd.grad((y * sdy.to(cuda_device)).sum()
+                              + (s * sds.to(cuda_device)).sum(), leaves)
+    assert ssd.BACKWARD.launches == before + 1
+    want = ssd.ssd_intra_chunk_backward_plain(*inputs, sdy, sds)
+    _hold([t.cpu() for t in got], want, *ssd.BWD_TOLERANCE)

@@ -143,9 +143,14 @@ def test_moe_apply_dropless_matches_reference(moe, dispatch):
     got = PM.moe_apply(pp["layers"][0]["moe"], port_cfg(cfg),
                        torch.from_numpy(x), dropless=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.moe_apply(pp["layers"][0]["moe"], port_cfg(cfg),
-                     torch.from_numpy(x))
+    # the training (capacity-limited) dispatch, with its router loss
+    want, want_aux = JM.moe_apply(jax.tree.map(lambda a: a[0],
+                                               jp["layers"]["moe"]),
+                                  cfg, jnp.asarray(x))
+    got, aux = PM.moe_apply(pp["layers"][0]["moe"], port_cfg(cfg),
+                            torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
 
 
 # ---------------------------------------------------------- paged steps
