@@ -934,13 +934,18 @@ def phase_contig_kernels(torch, dev, card: str, flush):
 
 # (b, sq, skv, hq, hkv, d, causal, q_offset, label): internlm2-1.8b's
 # heads at the training microbatch (4 x 2048) and at a ragged 511, once
-# with a q_offset and once non-causal, and qwen3-moe-30b-a3b's group
+# with a q_offset and once non-causal, qwen3-moe-30b-a3b's group, and
+# past head dim 128 (two column halves a block row): zamba2-2.7b's shared
+# attention at its training microbatch (2 x 2048, 32 heads of 160) and
+# nemotron-4-340b's group (96 query heads over 8, d 192)
 TRAIN_FLASH_CASES = (
     (4, 2048, 2048, 16, 8, 128, True, 0, "train"),
     (1, 511, 511, 16, 8, 128, True, 0, "511"),
     (1, 511, 1022, 16, 8, 128, True, 511, "511 off511"),
     (2, 511, 511, 16, 8, 128, False, 0, "511 full"),
     (1, 2048, 2048, 32, 4, 128, True, 0, "qwen3-moe-30b-a3b group"),
+    (2, 2048, 2048, 32, 32, 160, True, 0, "zamba2-2.7b train"),
+    (1, 2048, 2048, 96, 8, 192, True, 0, "nemotron-4-340b group"),
 )
 
 
@@ -1030,8 +1035,10 @@ def phase_train_kernels(torch, dev, card: str, flush):
                 library_ms=full_ms - fwd_ms, library_fwd_bwd_ms=full_ms,
                 library_fwd_ms=fwd_ms, bound_ms=ms, bound_by=by,
                 max_abs_err=err, design=fk.route(dt),
-                blocks={"dkdv": b * hkv * -(-skv // fk.BWD_TC_KEYS),
-                        "dq": b * hkv * fk.tc_tiles(sq, hq // hkv)},
+                blocks={"dkdv": b * hkv * -(-skv // fk.BWD_TC_KEYS)
+                        * fk.bwd_col_splits(d),
+                        "dq": b * hkv * fk.tc_tiles(sq, hq // hkv)
+                        * fk.bwd_col_splits(d)},
                 smem_bytes=fk.bwd_smem_bytes(dt, d))
             del qs, ks, vs, dos
         del base
@@ -1993,22 +2000,24 @@ def expected_train_launches(cfg, steps: int, grad_accum: int) -> dict:
     layer, each forward kernel of the layer once, again in the backward
     where the remat policy recomputes the layer ("full" and "dots": no
     kernel's output is a projection `_save_dots` keeps), and each
-    backward kernel once.  Attention (dense, MoE): the flash forward and
-    its backward; MoE under "grouped": three grouped products and their
-    backwards; ssm under "pallas": the SSD kernel and its backward; no
-    other kernel."""
-    mbs = steps * grad_accum * cfg.num_layers
-    fwd = mbs * (1 if cfg.remat == "none" else 2)
+    backward kernel once.  Attention (dense and MoE: every layer; hybrid:
+    each group's shared block, num_layers // shared_attn_period): the
+    flash forward and its backward; MoE under "grouped": three grouped
+    products and their backwards; ssm and hybrid (every Mamba layer)
+    under "pallas": the SSD kernel and its backward; no other kernel."""
+    mbs = steps * grad_accum
+    again = 1 if cfg.remat == "none" else 2
+    attn = {"hybrid": cfg.num_layers // max(1, cfg.shared_attn_period),
+            "ssm": 0}.get(cfg.family, cfg.num_layers)
     want = {name: 0 for name in kernel_modules()}
-    if cfg.family in ("dense", "moe"):
-        want["flash_attention"] = fwd
-        want["flash_attention_backward"] = mbs
+    want["flash_attention"] = mbs * attn * again
+    want["flash_attention_backward"] = mbs * attn
     if cfg.family == "moe" and cfg.moe_dispatch == "grouped":
-        want["grouped_matmul"] = 3 * fwd
-        want["grouped_matmul_backward"] = 3 * mbs
-    if cfg.family == "ssm" and cfg.ssd_impl == "pallas":
-        want["ssd_intra_chunk"] = fwd
-        want["ssd_intra_chunk_backward"] = mbs
+        want["grouped_matmul"] = 3 * mbs * cfg.num_layers * again
+        want["grouped_matmul_backward"] = 3 * mbs * cfg.num_layers
+    if cfg.family in ("ssm", "hybrid") and cfg.ssd_impl == "pallas":
+        want["ssd_intra_chunk"] = mbs * cfg.num_layers * again
+        want["ssd_intra_chunk_backward"] = mbs * cfg.num_layers
     return want
 
 
@@ -2165,25 +2174,37 @@ def phase_train(torch, dev, card: str, dense):
 # of each family's training run: mamba2-130m at full depth; qwen3 at its
 # full width but 4 of its 48 layers (about 16 bytes a parameter for the
 # bf16 weights, the f32 accumulated gradients and AdamW's two f32
-# moments: ~10 GB a layer, ~10 GB the embedding and head)
+# moments: ~10 GB a layer, ~10 GB the embedding and head); zamba2-2.7b at
+# full depth (~2.96 B parameters, ~47 GB at that rate) and its own
+# train_grad_accum 4, so a microbatch is 2 x 2048
 TRAIN_FAMILIES = (("mamba2-130m", None, 8, 2048, 2),
-                  ("qwen3-moe-30b-a3b", 4, 4, 2048, 2))
+                  ("qwen3-moe-30b-a3b", 4, 4, 2048, 2),
+                  ("zamba2-2.7b", None, 8, 2048, 4))
 TRAIN_FAMILY_STEPS = 8      # a held-out batch's loss must fall across these
 HELD_OUT_BATCH = 1000       # the MarkovLM batch index of that held-out batch
-# (arch, sequence) of the kernel route vs its plain versions, f32, 2
-# layers, 4 sequences: qwen3 ("grouped") and mamba2-130m ("pallas")
-TRAIN_PARITY_FAMILIES = (("qwen3-moe-30b-a3b", 256), ("mamba2-130m", 512))
+# (arch, layers, sequence) of the kernel route vs its plain versions,
+# f32, 4 sequences: qwen3 ("grouped") and mamba2-130m ("pallas") at 2
+# layers, zamba2-2.7b ("pallas" and flash at d 160) at 12, two groups, so
+# both shared blocks receive gradient
+TRAIN_PARITY_FAMILIES = (("qwen3-moe-30b-a3b", 2, 256),
+                         ("mamba2-130m", 2, 512),
+                         ("zamba2-2.7b", 12, 512))
 
 
 class plain_family_kernels:
-    """Within the block, `GroupedMatmulFn` and `SsdIntraChunkFn` compute
-    their plain versions on the card, forward and backward: the explicit
-    oracle the kernels are held against, never a path of the port."""
+    """Within the block, `GroupedMatmulFn`, `SsdIntraChunkFn` and
+    `FlashAttentionFn` compute their plain versions on the card, forward
+    and backward: the explicit oracle the kernels are held against, never
+    a path of the port."""
 
     def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fk
         from repro_torch.kernels.grouped_matmul import ops as gm
         from repro_torch.kernels.ssd_scan import ops as ssd
-        self.saved = [(gm, "_forward", gm.grouped_matmul_plain),
+        self.saved = [(fk, "flash_attention_lse", fk.flash_attention_lse_plain),
+                      (fk, "flash_attention_backward",
+                       fk.flash_attention_backward_plain),
+                      (gm, "_forward", gm.grouped_matmul_plain),
                       (gm, "grouped_matmul_backward",
                        gm.grouped_matmul_backward_plain),
                       (ssd, "_forward", ssd.ssd_intra_chunk_plain),
@@ -2206,16 +2227,17 @@ def family_cfg(arch: str, layers=None, **kw):
     cfg = get_arch(arch).model
     if cfg.family == "moe":
         kw.setdefault("moe_dispatch", "grouped")
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         kw.setdefault("ssd_impl", "pallas")
     return cfg.replace(num_layers=layers or cfg.num_layers, **kw)
 
 
 def phase_train_parity_families(torch, dev):
-    """The MoE and ssm families at 2 layers of their full width, f32: one
-    training step's loss and gradients (`make_grad_fn`, grad_accum 2)
-    through the kernel route ("grouped": the grouped matmul and its
-    backward; "pallas": the SSD kernel and its backward) against the
+    """The MoE, ssm and hybrid families at their full width, f32, at the
+    depths of `TRAIN_PARITY_FAMILIES`: one training step's loss and
+    gradients (`make_grad_fn`, grad_accum 2) through the kernel route
+    ("grouped": the grouped matmul and its backward; "pallas": the SSD
+    kernel and its backward; the flash forward and backward) against the
     same step with the kernels' plain versions patched in
     (`plain_family_kernels`), per gradient leaf in relative L2
     (`TRAIN_PARITY_TOL`)."""
@@ -2225,9 +2247,9 @@ def phase_train_parity_families(torch, dev):
 
     out = {}
     rtol_loss, rel_l2 = TRAIN_PARITY_TOL["float32"]
-    for arch, seq in TRAIN_PARITY_FAMILIES:
+    for arch, layers, seq in TRAIN_PARITY_FAMILIES:
         free_card(torch)
-        cfg = family_cfg(arch, 2, dtype="float32", param_dtype="float32",
+        cfg = family_cfg(arch, layers, dtype="float32", param_dtype="float32",
                          remat="full", logits_chunk=128)
         batch = TS.batch_to(make_source(DataConfig(
             source="markov", seq_len=seq, global_batch=4, seed=TRAIN_SEED),
@@ -2259,7 +2281,8 @@ def phase_train_parity_families(torch, dev):
         errs = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(
             1e-30)) for n in gp}
         worst = max(errs, key=errs.get)
-        out[arch] = {"route": cfg.moe_dispatch if cfg.family == "moe"
+        out[arch] = {"layers": layers,
+                     "route": cfg.moe_dispatch if cfg.family == "moe"
                      else cfg.ssd_impl, "launches": launched,
                      "loss_kernel": lk,
                      "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
@@ -2277,8 +2300,8 @@ def phase_train_parity_families(torch, dev):
         del runs, gk, gp
     free_card(torch)
     emit({"phase": "train_parity_families",
-          "config": "2 layers at full width, f32, remat full, logits_chunk "
-                    "128, 4 sequences, grad_accum 2",
+          "config": "full width, f32, remat full, logits_chunk 128, 4 "
+                    "sequences, grad_accum 2; layers per arch",
           "loss_rtol": rtol_loss, "grad_rel_l2_bound": rel_l2, **out})
 
 
@@ -2299,6 +2322,7 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     from repro_torch.utils.tree import tree_num_params
 
     free_card(torch)
+    t_begin = time.perf_counter()
     opt = _train_opt(100)
     source = make_source(DataConfig(source="markov", seq_len=seq,
                                     global_batch=global_batch,
@@ -2316,18 +2340,22 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
         m.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t_steps = time.perf_counter()
     state, losses, norms, secs = run_steps(torch, step, state, batches[:-1])
     peak = torch.cuda.max_memory_allocated()
+    t_prof = time.perf_counter()
     state, m, prof_s, busy_s, top = profiled_step(torch, step, state,
                                                   batches[-1])
     launches = {name: mm.launches for name, mm in mods.items()}
+    t_eval = time.perf_counter()
     held_after = float(evaluate(state.params, held_out))
     del state, m, batches, held_out
     free_card(torch)
     timed = secs[1:]
     want_first = first_loss(cfg)
     route = {"moe": f"moe_dispatch {cfg.moe_dispatch}",
-             "ssm": f"ssd_impl {cfg.ssd_impl}"}.get(cfg.family, "")
+             "ssm": f"ssd_impl {cfg.ssd_impl}",
+             "hybrid": f"ssd_impl {cfg.ssd_impl}"}.get(cfg.family, "")
     emit({"phase": f"train {cfg.name}", "card": card,
           "config": f"{cfg.name}, {cfg.num_layers} layers, {route}, bf16, "
                     f"AdamW, remat {cfg.remat}, logits_chunk "
@@ -2345,7 +2373,13 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
           "tokens_per_s": global_batch * seq * len(timed) / sum(timed),
           "max_memory_allocated": peak, "profiled_step_s": prof_s,
           "device_busy_s": busy_s, "device_busy_share": busy_s / prof_s,
-          "top_device_kernels": top, "launches": launches})
+          "top_device_kernels": top, "launches": launches,
+          # where the phase's own time went: set-up (data, init, the first
+          # held-out loss), the steps, the profiled step with the
+          # profiler's processing, the last held-out loss
+          "phase_s": {"setup": t_steps - t_begin, "steps": t_prof - t_steps,
+                      "profiled": t_eval - t_prof,
+                      "eval": time.perf_counter() - t_eval}})
     if not all(math.isfinite(x) for x in losses + norms):
         fail(f"train {cfg.name}: non-finite loss or grad norm {losses} "
              f"{norms}")
@@ -2503,17 +2537,33 @@ def ptxas_report(log: str, pattern: str, label) -> dict:
 def tc_ptxas(log: str) -> dict:
     """ptxas's report of each head-dim instance of the four bf16
     tensor-core attention kernels (flash_attention.cu, paged_prefill.cu,
-    paged_attention.cu and decode_attention.cu): {"flash d128": ...,
-    "paged_decode d160": ..., "split_decode d128": ...}."""
+    paged_attention.cu and decode_attention.cu) and of the flash
+    backward's two (flash_attention_bwd.cu): {"flash d128": ...,
+    "paged_decode d160": ..., "split_decode d128": ..., "flash_bwd_dkdv
+    d192": ...}."""
     names = {"flash": "flash", "prefill": "paged_prefill",
              "5repro6dec_tc16decode": "paged_decode",
-             "9repro_dec6dec_tc16decode": "split_decode"}
+             "9repro_dec6dec_tc16decode": "split_decode",
+             "dkdv": "flash_bwd_dkdv", "dq": "flash_bwd_dq"}
     out = ptxas_report(
-        log, r"(flash|prefill|5repro6dec_tc16decode|9repro_dec6dec_tc16decode)"
-             r"_tc_kernelILi(\d+)E",
+        log, r"(flash|prefill|5repro6dec_tc16decode|9repro_dec6dec_tc16decode"
+             r"|dkdv|dq)_tc_kernelILi(\d+)E",
         lambda m: f"{names[m[1]]} d{m[2]}")
     return dict(sorted(out.items(), key=lambda kv: (
         kv[0].split()[0], int(kv[0].split()[1][1:]))))
+
+
+def bwd_spills(report: dict) -> list:
+    """The flash backward's instances (in a `tc_ptxas` report) that
+    spill, or that ptxas did not report at all."""
+    import re
+    from repro_torch.kernels.flash_attention import ops as fk
+    bwd = {k: v for k, v in report.items() if k.startswith("flash_bwd")}
+    missing = [f"{k} d{d} (no report)" for k in ("flash_bwd_dkdv",
+                                                 "flash_bwd_dq")
+               for d in fk.BWD_TC_HEAD_DIMS if f"{k} d{d}" not in bwd]
+    return missing + [k for k, v in bwd.items()
+                      if re.search(r"\b[1-9]\d* bytes spill", v)]
 
 
 def grouped_ptxas(log: str) -> dict:
@@ -2554,11 +2604,15 @@ def main() -> int:
     lib = kbuild.library()
     ptxas = [ln.strip() for ln in lib.compiler_log.splitlines()
              if "registers" in ln or "spill" in ln]
+    tc_report = tc_ptxas(lib.compiler_log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.path.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "ptxas": ptxas,
-          "tc_ptxas": tc_ptxas(lib.compiler_log)})
+          "tc_ptxas": tc_report})
+    spilled = bwd_spills(tc_report)
+    if spilled:
+        fail(f"the flash backward spills at {spilled}")
 
     timings = phase_kernels(torch, dev, card)
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
@@ -2606,9 +2660,9 @@ def main() -> int:
         fam_launches = phase_train_family(
             torch, dev, card, family_cfg(arch, layers, remat="full",
                                          logits_chunk=512), gb, seq, accum)
-        for name in ("grouped_matmul_backward", "ssd_intra_chunk_backward"):
-            if fam_launches[name]:
-                train_launches[name] = fam_launches[name]
+        for name in ("flash_attention_backward", "grouped_matmul_backward",
+                     "ssd_intra_chunk_backward"):
+            train_launches[name] += fam_launches[name]
     paper_launches = phase_paper(torch, dev)
     phase_resnet50(torch, dev, card)
 

@@ -18,7 +18,8 @@ For every case and gradient it prints one JSON line: the worst
 `grad_floor`, as chip_smoke and tests/test_torch_flash_backward.py hold
 it), and under an atol scaled by the head's largest |plain| alone, for
 comparison.  It fails unless the kernel passes every case and each
-mutant fails the check.  Needs one CUDA card.
+mutant fails the check at every head dim of the cases (128, and past it
+160 and 192, where a block sums one column half).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ def child(name: str) -> int:
         for grad, x, y in zip(("dq", "dk", "dv"), got, want):
             err, ratio = worst_ratio(x, y, rtol, atol, floor=grad_floor)
             print(json.dumps({
-                "mutant": name, "case": label, "grad": grad,
+                "mutant": name, "case": label, "d": d, "grad": grad,
                 "max_abs_err": err, "worst_err_over_bound": ratio,
                 "head_scaled_atol_ratio": worst_ratio(x, y, rtol, 0.0,
                                                       floor=head)[1],
@@ -111,7 +112,7 @@ def main() -> int:
             procs[name] = subprocess.Popen(
                 [sys.executable, __file__, "--child", name], env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        worst = {}
+        worst = {}       # mutant -> head dim -> worst ratio over its cases
         for name, proc in procs.items():
             out, err = proc.communicate()
             if proc.returncode:
@@ -119,11 +120,15 @@ def main() -> int:
             rows = [json.loads(line) for line in out.splitlines()]
             for row in rows:
                 print(json.dumps(row), flush=True)
-            worst[name] = max(r["worst_err_over_bound"] for r in rows)
+            worst[name] = {}
+            for r in rows:
+                w = worst[name].get(r["d"], 0.0)
+                worst[name][r["d"]] = max(w, r["worst_err_over_bound"])
     print(json.dumps({"worst_err_over_bound": worst}), flush=True)
-    if not worst["kernel"] <= 1.0:
+    if not max(worst["kernel"].values()) <= 1.0:
         raise SystemExit("flash_bwd_mutants: the kernel as built fails")
-    missed = [n for n in MUTANTS if n != "kernel" and not worst[n] > 1.0]
+    missed = [(n, d) for n in MUTANTS if n != "kernel"
+              for d, w in worst[n].items() if not w > 1.0]
     if missed:
         raise SystemExit(f"flash_bwd_mutants: the check passes {missed}")
     return 0

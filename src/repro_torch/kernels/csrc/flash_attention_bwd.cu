@@ -23,15 +23,25 @@
 // is summed by one thread in a fixed order, so a rerun gives the same bits):
 //   (a) `dsum_kernel`: D in f32, one warp per (batch row, query, head).
 //   (b) dK/dV: one block per 64-key tile (bf16; 32 keys in f32) of one
-//       (batch row, kv head).  It walks the packed query rows (query
+//       (batch row, kv head) and, in bf16, one column half of dK and dV
+//       past head dim 128 (below).  It walks the packed query rows (query
 //       position, group member: the forward's packing) that see the tile,
 //       32 at a time, recomputes S^T, P^T and dP^T = V dO^T, and sums
 //       dV += P^T dO and dK += dS^T Q in registers, so the GQA group is
 //       summed inside the block.  The causal walk starts at the first query
 //       that sees the tile's first key.
 //   (c) dQ: one block per 64 packed query rows (bf16; 32 query rows of one
-//       head in f32), the forward's grid; it walks the K/V tiles up to the
-//       causal bound through a 2-stage cp.async ring and sums dQ += dS K.
+//       head in f32) and column half, the forward's grid; it walks the K/V
+//       tiles up to the causal bound through a 2-stage cp.async ring and
+//       sums dQ += dS K.
+// Past head dim 128 the bf16 blocks split their output columns: the
+// accumulators of dK and dV (and of dQ) take d / 2 f32 registers a thread
+// each at width d, which at d 160 and over would not fit beside the score
+// tiles without spilling.  So the grid's z holds two column halves
+// (`col_splits`), and a block sums only its d / 2 output columns while it
+// still loads full-width Q, dO, K and V and recomputes S and dP over all
+// of d (both reduce over it): the two halves recompute the scores twice,
+// for the same registers per thread as at d / 2 <= 128.
 // S, P and dS are f32; in bf16, P and dS are rounded to bf16 before the
 // tensor-core products (mma.sync m16n8k16, bf16 in, f32 out), as the
 // forward rounds p before P V.  f32 runs on CUDA cores (tensor cores
@@ -45,10 +55,11 @@
 // internlm2's training shape (s 2048) that is far above the card's ~295
 // flop/byte ridge, so the tensor cores bound it.
 //
-// Known limits, left for later work: no wgmma or TMA; head dims are
-// multiples of 16 up to 128 (the dK and dV accumulators live in registers,
-// d / 2 f32 each per thread); the dK/dV kernel reloads its K and V
-// fragments from shared memory for every query step.
+// Known limits, left for later work: no wgmma or TMA; bf16 head dims are
+// multiples of 16 up to 128 and of 32 from 160 to 256 (a column half must
+// be a multiple of 16); past 128 both halves recompute S and dP; the dK/dV
+// kernel reloads its K and V fragments from shared memory for every query
+// step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -110,6 +121,11 @@ constexpr int kPad = 8;       // bf16 elements of row padding (16 bytes)
 
 __host__ __device__ constexpr int ld(int d) { return d + kPad; }
 
+// column halves of the output per block row (grid z): 1 up to d 128, 2
+// past it, each of d / 2 columns; mirrored by kernels/flash_attention/ops.py
+// `bwd_col_splits`
+__host__ __device__ constexpr int col_splits(int d) { return d <= 128 ? 1 : 2; }
+
 // Shared memory, mirrored by kernels/flash_attention/ops.py
 // `bwd_smem_bytes`: K and V [64][d + 8], the Q and dO ring [2][32][d + 8]
 // bf16, then the ring's lse and D [2][32] f32.
@@ -133,7 +149,9 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = ld(D);
   constexpr int CPR = D / 8;     // 16-byte copies per row
   constexpr int NT = kQ / 8;     // S^T n-tiles per warp (query columns)
-  constexpr int OT = D / 8;      // dK / dV n-tiles per warp
+  constexpr int DC = D / col_splits(D);   // the block's output columns
+  constexpr int OT = DC / 8;     // dK / dV n-tiles per warp
+  static_assert(DC % 16 == 0, "a column half is a multiple of 16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + kKeys * LD;
@@ -147,6 +165,8 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int group = hq / hkv;
   const int rows = sq * group;
   const int t0 = blockIdx.y * kKeys;
+  // the block's first output column (0, as a constant, without a split)
+  const int c0 = col_splits(D) > 1 ? static_cast<int>(blockIdx.z) * DC : 0;
   // the first packed row that sees the tile's first key: q_offset + qi >= t0
   const int r_begin = causal ? min(rows, max(0, t0 - q_offset) * group) : 0;
   const int n_q = (rows - r_begin + kQ - 1) / kQ;
@@ -287,7 +307,7 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dn = 0; dn < OT / 2; ++dn) {
         // (rows 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-        const int toff = (kt2 * 16 + (lane & 15)) * LD + dn * 16 + (lane >> 4) * 8;
+        const int toff = (kt2 * 16 + (lane & 15)) * LD + c0 + dn * 16 + (lane >> 4) * 8;
         uint32_t bo[4], bq[4];
         ldsm_x4_trans(bo, dt + toff);
         ldsm_x4_trans(bq, qt + toff);
@@ -307,7 +327,7 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int key = hh ? key1 : key0;
     if (key >= skv) continue;
-    const long long base = (((long long)b * skv + key) * hkv + hk) * D + 2 * qd;
+    const long long base = (((long long)b * skv + key) * hkv + hk) * D + c0 + 2 * qd;
 #pragma unroll
     for (int n = 0; n < OT; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + base + n * 8) =
@@ -328,7 +348,9 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = ld(D);
   constexpr int CPR = D / 8;
   constexpr int NT = kTok / 8;   // score n-tiles per warp
-  constexpr int OT = D / 8;      // dQ n-tiles per warp
+  constexpr int DC = D / col_splits(D);   // the block's output columns
+  constexpr int OT = DC / 8;     // dQ n-tiles per warp
+  static_assert(DC % 16 == 0, "a column half is a multiple of 16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dos = qs + kRows * LD;
@@ -342,6 +364,8 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // causal: the last packed tile walks the most keys, and runs first
   const int z = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int r0 = z * kRows;
+  // the block's first output column (0, as a constant, without a split)
+  const int c0 = col_splits(D) > 1 ? static_cast<int>(blockIdx.z) * DC : 0;
   const int r_last = min(r0 + kRows, rows) - 1;
   const int kv_end = causal ? min(skv, q_offset + r_last / group + 1) : skv;
   const int n_kv = (kv_end + kTok - 1) / kTok;
@@ -476,7 +500,8 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int dn = 0; dn < OT / 2; ++dn) {
           uint32_t bk[4];   // (keys 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-          ldsm_x4_trans(bk, kt + (kt2 * 16 + (lane & 15)) * LD + dn * 16 + (lane >> 4) * 8);
+          ldsm_x4_trans(bk, kt + (kt2 * 16 + (lane & 15)) * LD + c0 + dn * 16 +
+                                (lane >> 4) * 8);
           mma_bf16(dqa[2 * dn], a, bk[0], bk[1]);
           mma_bf16(dqa[2 * dn + 1], a, bk[2], bk[3]);
         }
@@ -491,7 +516,8 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int rr = r0 + warp * 16 + g + 8 * hh;
     if (rr >= rows) continue;
     const int qi = rr / group, gi = rr - qi * group;
-    bf16* drow_out = dq + (((long long)b * sq + qi) * hq + hk * group + gi) * D + 2 * qd;
+    bf16* drow_out =
+        dq + (((long long)b * sq + qi) * hq + hk * group + gi) * D + c0 + 2 * qd;
 #pragma unroll
     for (int n = 0; n < OT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(drow_out + n * 8) =
@@ -511,21 +537,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   err = cudaFuncSetAttribute(dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s2));
   if (err != cudaSuccess) return err;
-  dkdv_tc_kernel<D><<<dim3(b * hkv, (skv + kKeys - 1) / kKeys), kThreads, s1, stream>>>(
+  dkdv_tc_kernel<D><<<dim3(b * hkv, (skv + kKeys - 1) / kKeys, col_splits(D)), kThreads, s1,
+                      stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, dsum, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), sq, skv, hq, hkv, q_offset, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int tiles = (sq * (hq / hkv) + kRows - 1) / kRows;
-  dq_tc_kernel<D><<<dim3(b * hkv, tiles), kThreads, s2, stream>>>(
+  dq_tc_kernel<D><<<dim3(b * hkv, tiles, col_splits(D)), kThreads, s2, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, dsum, static_cast<bf16*>(dq), sq, skv, hq, hkv,
       q_offset, causal);
   return cudaGetLastError();
 }
 
-// head dims 16, 32, ..., 128, each its own register layout
+// head dims 16, 32, ..., 128, then 160, 192, 224, 256 (column halves of
+// 80 ... 128), each its own register layout
 template <int D = 16>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* dsum, void* dq, void* dk, void* dv, int b,
@@ -534,9 +562,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* do
   if (d == D)
     return launch<D>(q, k, v, dout, lse, dsum, dq, dk, dv, b, sq, skv, hq, hkv, q_offset,
                      causal, stream);
-  if constexpr (D < 128)
-    return dispatch<D + 16>(q, k, v, dout, lse, dsum, dq, dk, dv, b, sq, skv, hq, hkv, d,
-                            q_offset, causal, stream);
+  if constexpr (D < 256)
+    return dispatch<(D < 128 ? D + 16 : D + 32)>(q, k, v, dout, lse, dsum, dq, dk, dv, b,
+                                                 sq, skv, hq, hkv, d, q_offset, causal,
+                                                 stream);
   return cudaErrorInvalidValue;
 }
 
@@ -790,7 +819,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 // q (b, sq, hq, d), k and v (b, skv, hkv, d), o, dout and dq (b, sq, hq, d),
 // dk and dv (b, skv, hkv, d), all f32 or all bf16 (dtype code 0 / 1),
 // contiguous and 16-byte aligned; lse and dsum (b, hq, sq) f32, dsum
-// scratch written here; d a multiple of 16 up to 128; sq, skv > 0.  Three
+// scratch written here; d a multiple of 16 up to 128 or (bf16) of 32 up to
+// 256, (f32) of 16 up to 256; sq, skv > 0.  Three
 // launches on `stream`: D, then dK/dV, then dQ.  Returns the first CUDA
 // error.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,

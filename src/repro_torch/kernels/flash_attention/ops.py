@@ -23,7 +23,9 @@ at or before its own position.
   of `kernels/csrc/flash_attention_bwd.cu` (three launches: D =
   rowsum(dO o), then dK/dV, then dQ; `BACKWARD.launches` counts calls)
   on a CUDA tensor and `flash_attention_backward_plain` on a CPU one.
-  The backward takes head dims that are multiples of 16 up to 128.
+  The backward takes head dims that are multiples of 16 up to 128 and,
+  in bf16, of 32 from 160 to 256 (f32: of 16 up to 256): past 128 its
+  bf16 blocks split the output columns in two halves (`bwd_col_splits`).
 
 The kernel has two designs, fixed by the dtype (`route`); neither falls
 back to the other:
@@ -84,7 +86,13 @@ TC_STAGES = 2          # K/V tiles in flight (cp.async ring)
 TC_PAD = 8             # bf16 elements of shared-memory row padding
 MAX_SMEM = 232_448
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128  # the backward keeps dK and dV in registers
+MAX_BWD_HEAD_DIM = 256
+# past this head dim the bf16 backward's blocks each sum one column half
+# of dK/dV and dQ in registers (flash_attention_bwd.cu `col_splits`), so
+# its head dims (`tc::dispatch`) are multiples of 16 up to it, then of 32
+BWD_SPLIT_HEAD_DIM = 128
+BWD_TC_HEAD_DIMS = (*range(16, BWD_SPLIT_HEAD_DIM + 1, 16),
+                    *range(BWD_SPLIT_HEAD_DIM + 32, MAX_BWD_HEAD_DIM + 1, 32))
 MAX_GRID_Y = 65535
 # the backward's geometry (flash_attention_bwd.cu): bf16 dK/dV blocks of
 # 64 keys walking 32 packed query rows a step, dQ blocks of 64 packed rows
@@ -286,6 +294,12 @@ def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
+def bwd_col_splits(d: int) -> int:
+    """Column halves of the bf16 backward's outputs, its grids' z
+    (flash_attention_bwd.cu `col_splits`)."""
+    return 1 if d <= BWD_SPLIT_HEAD_DIM else 2
+
+
 def bwd_smem_bytes(dtype, d: int) -> tuple[int, int]:
     """Dynamic shared memory of one dK/dV block and one dQ block of the
     backward (flash_attention_bwd.cu `dkdv_smem_bytes`, `dq_smem_bytes`
@@ -311,6 +325,9 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
                          f"on {q.device}")
     # the grids' y extents: (dK/dV key tiles, dQ row tiles or heads)
     if route(q.dtype) == TENSOR_CORES:
+        if d not in BWD_TC_HEAD_DIMS:
+            raise ValueError(f"head_dim {d}: the bf16 backward takes "
+                             f"{BWD_TC_HEAD_DIMS}")
         grid_y = (-(-skv // BWD_TC_KEYS), tc_tiles(sq, hq // hkv))
     else:
         grid_y = (-(-skv // BWD_F32_TILE), b * hq)

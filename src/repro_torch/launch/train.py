@@ -5,9 +5,9 @@ device.
         --steps 100 --global-batch 8 --seq 256 --reduced [--device cpu] \\
         [--ckpt-dir D --ckpt-every K] [--resume]
 
-Port of `repro.launch.train` for the dense, MoE and ssm families
-(`--arch internlm2-1.8b`, `qwen3-moe-30b-a3b`, `mamba2-130m`; the hybrid
-family's training is not ported yet and raises).  `--reduced` shrinks
+Port of `repro.launch.train` for the dense, MoE, ssm and hybrid
+families (`--arch internlm2-1.8b`, `qwen3-moe-30b-a3b`, `mamba2-130m`,
+`zamba2-2.7b`).  `--reduced` shrinks
 the model (`reduced_for_smoke`) so the loop runs on any box.  It runs
 on CUDA unless given `--device cpu`, and raises where there is no card.
 The loop keeps the reference's shape: a step-indexed data source (resume

@@ -1,7 +1,7 @@
 """Hybrid SSM + shared-attention model (zamba2 family): the serving
-hooks, contiguous and paged.
+hooks, contiguous and paged, and training (`forward`, `loss_fn`).
 
-Port of the serving half of `repro.models.hybrid`.  A Mamba-2 backbone
+Port of `repro.models.hybrid`.  A Mamba-2 backbone
 with a SHARED transformer block applied every `shared_attn_period`
 layers (zamba2-2.7b: every 6 of 54, 9 applications alternating between
 `num_shared_blocks` = 2 blocks).  The shared block runs on
@@ -310,6 +310,51 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
 
 # ---------------------------------------------------------------- training
 
+def _shared_apply(sp, cfg: ModelConfig, h, x0, proj_g, positions):
+    """The shared block on concat([h, x0]) at width 2d, projected back
+    onto h (the reference's `_shared_apply`, in its op order)."""
+    scfg = _shared_cfg(cfg)
+    b, s, _ = h.shape
+    cat = torch.cat([h, x0], dim=-1)
+    hn = L.rmsnorm_apply(sp["ln1"], cat, cfg.norm_eps)
+    q, k, v = L.attention_qkv(sp["attn"], scfg, hn, positions)
+    o = L.run_attention(scfg, q, k, v).reshape(b, s, scfg.q_dim)
+    return _shared_tail(sp, scfg, cat, o, proj_g, h)
+
+
+def forward_hidden(params, cfg: ModelConfig, x):
+    """x: (b, s, d) embedded input -> final hidden states (after the final
+    norm).  Each group (its P Mamba layers, then shared block g %
+    num_shared_blocks and its projection) runs under `cfg.remat`
+    (`transformer._maybe_remat`), as the reference remats its group
+    scan's body; the shared blocks' gradients sum over their
+    applications."""
+    G, _ = _groups(cfg)
+    x0 = x
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def group(h, g):
+        for p in params["mamba"][g]:
+            h = M._layer_apply(p, cfg, h)
+        return _shared_apply(_select_shared(params, cfg, g), cfg, h, x0,
+                             params["group_proj"][g], positions)
+
+    body = T._maybe_remat(group, cfg)
+    for g in range(G):
+        x = body(x, g)
+    return L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (b, s)} -> logits (b, s, vocab)."""
+    x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+    h = forward_hidden(params, cfg, x)
+    return L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Not ported yet (ROADMAP.md queue A.2, second half)."""
-    L.training_not_ported("hybrid")
+    """batch: {"tokens", "labels": (b, s)} -> mean next-token CE (f32
+    scalar; labels < 0 are ignored)."""
+    x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+    h = forward_hidden(params, cfg, x)
+    return L.lm_loss(h, T.head_weights(params, cfg), cfg, batch["labels"])

@@ -291,14 +291,29 @@ def silu(x):
     return x * torch.reciprocal(torch.exp(-x) + 1)
 
 
+def gelu(x):
+    """The reference's `jax.nn.gelu` (its default tanh approximation): in
+    bf16 op by op as XLA computes it, x * x * x, then c (x + a cube),
+    then x (0.5 (1 + tanh(.))), each rounded to bf16 with c, a, 0.5 and
+    1 bf16 tensors (bit-exact with the reference on the CPU, where
+    `F.gelu`, rounding once, differs in about a third of bf16 values).
+    Other dtypes take `F.gelu`."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+
+    def const(v):
+        return torch.tensor(v, dtype=torch.bfloat16, device=x.device)
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
+
+
 def mlp_apply(p, cfg: ModelConfig, x):
     if cfg.activation == "silu_glu":
         h = silu(matmul(x, p["wg"])) * matmul(x, p["wi"])
     elif cfg.activation == "relu2":
         h = torch.relu(matmul(x, p["wi"])).square()
     elif cfg.activation == "gelu":
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(matmul(x, p["wi"]), approximate="tanh")
+        h = gelu(matmul(x, p["wi"]))
     else:
         raise ValueError(cfg.activation)
     return matmul(h, p["wo"])
@@ -386,11 +401,3 @@ def lm_loss(hidden, head, cfg: ModelConfig, labels):
         return chunked_ce_loss(hidden, head, cfg, labels, cfg.logits_chunk)
     return cross_entropy(logits_from_hidden(head, cfg, hidden), labels)
 
-
-def training_not_ported(family: str):
-    """The refusal of a family whose training is not ported yet."""
-    raise NotImplementedError(
-        f"training of the {family} family is not ported yet: ROADMAP.md "
-        f"queue A.2, second half, part two (hybrid training, which needs "
-        f"the flash-attention backward at head dim 160 for zamba2's "
-        f"shared attention)")

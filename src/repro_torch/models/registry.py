@@ -18,10 +18,7 @@ Every serving hook returns (cache or arena, logits); sampling belongs to
 the serving step (serve/serve_step.py).  Training: every family exposes
     loss_fn(params, cfg, batch) -> mean CE (f32 scalar; MoE adds its
         router losses)
-and the dense, MoE and ssm families also `forward(params, cfg, batch)`
--> logits; the hybrid family's `loss_fn` raises NotImplementedError
-(ROADMAP.md queue A.2, second half, part two: it needs the
-flash-attention backward at head dim 160).  The draft pairing of
+and `forward(params, cfg, batch)` -> logits.  The draft pairing of
 speculative decode (`DRAFT_PAIRS`, `draft_config`, `self_draft_params`)
 lives here too.  The encoder and vlm families are not ported yet
 (ROADMAP.md queue A item 10).

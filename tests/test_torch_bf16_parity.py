@@ -108,6 +108,40 @@ def test_silu_is_bit_exact_with_jax_in_bf16():
     assert (bits(F.silu(x))[normal] != want[normal]).mean() > 0.2
 
 
+# ------------------------------------------------------------------ gelu
+
+def test_gelu_is_bit_exact_with_jax_in_bf16():
+    """Every finite bf16 value and 200,000 draws of 3 N(0, 1): the same
+    bits as `jax.nn.gelu` (tanh approximation) wherever the input and
+    the result (about x / 2 near 0) are normal floats.  Below that, XLA's
+    CPU flushes the subnormal to zero and torch does not: the two may
+    differ there, and only there, with the reference at 0.  f32 keeps
+    `F.gelu`."""
+    every = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    every = every[torch.isfinite(every)]
+    rng = np.random.default_rng(0)
+    draws = torch.from_numpy(
+        (rng.standard_normal(200_000) * 3).astype(np.float32)).bfloat16()
+    x = torch.cat([every, draws])
+    xj = jnp.asarray(bits(x).view(jnp.bfloat16))
+    got, want = bits(L.gelu(x)), bits(jax.jit(jax.nn.gelu)(xj))
+    assert L.gelu(x).dtype == torch.bfloat16
+
+    xf = x.float().numpy()
+    normal = (xf == 0) | (np.abs(xf) >= 4 * np.finfo(np.float32).tiny)
+    assert normal.sum() > 200_000
+    np.testing.assert_array_equal(got[normal], want[normal])
+    differ = got != want
+    assert not (differ & normal).any()
+    assert (want[differ].view(jnp.bfloat16).astype(np.float32) == 0).all()
+    # F.gelu rounds once and differs from the reference
+    assert (bits(F.gelu(x, approximate="tanh"))[normal]
+            != want[normal]).mean() > 0.2
+    f = torch.from_numpy(rng.standard_normal(1000).astype(np.float32) * 3)
+    assert torch.equal(L.gelu(f), F.gelu(f, approximate="tanh"))
+
+
 def test_silu_is_f_silu_in_f32():
     rng = np.random.default_rng(1)
     x = torch.from_numpy((rng.standard_normal(10_000) * 4).astype(np.float32))

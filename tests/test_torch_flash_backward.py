@@ -173,6 +173,23 @@ def test_run_attention_cpu_paths_stay_plain_under_grad(impl):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("d,match", [(272, "up to 256"),
+                                     (144, "bf16 backward takes")])
+def test_backward_launcher_refuses_head_dims_it_has_no_layout_for(d, match):
+    """The launcher's checks run before any build: past 256, and a bf16
+    head dim past 128 that two column halves of a multiple of 16 do not
+    make (f32 takes 144)."""
+    q, k, v, do, kw = (x.bfloat16() if torch.is_tensor(x) else x
+                       for x in _inputs((1, 8, 8, 2, 2, d, True, 0)))
+    o, lse = (x.contiguous() for x in fk.flash_attention_lse_plain(
+        q, k, v, **kw))
+    with pytest.raises(ValueError, match=match):
+        fk._launch_bwd(q, k, v, o, do, lse, True, 0)
+    assert [fk.bwd_col_splits(x) for x in (16, 128, 160, 192, 256)] == [
+        1, 1, 2, 2, 2]
+    assert fk.BWD_TC_HEAD_DIMS[-5:] == (128, 160, 192, 224, 256)
+
+
 def test_bwd_shared_memory_mirror_fits_a_block():
     for dtype in (torch.bfloat16, torch.float32):
         for d in range(16, fk.MAX_BWD_HEAD_DIM + 1, 16):
@@ -246,8 +263,15 @@ def _check_grads(got, want, dtype):
 
 
 # (b, sq, skv, hq, hkv, d, causal, q_offset): internlm2's heads, qwen3's
-# group, ragged lengths, a q_offset, non-causal, small head dims
+# group, ragged lengths, a q_offset, non-causal, small head dims, and past
+# 128 (two column halves a block row): zamba2's shared attention (d 160,
+# no GQA) and a group of 12 at nemotron's d 192, ragged, offset and
+# non-causal
 CARD_CASES = [
+    (2, 130, 130, 4, 4, 160, True, 0),
+    (1, 100, 300, 12, 1, 192, True, 200),
+    (1, 70, 97, 4, 2, 192, False, 0),
+    (1, 64, 64, 2, 2, 256, True, 0),
     (2, 256, 256, 16, 8, 128, True, 0),
     (1, 511, 511, 16, 8, 128, True, 0),
     (1, 100, 300, 16, 8, 128, True, 200),
@@ -325,9 +349,15 @@ def test_run_attention_on_card_never_drops_the_gradient(cuda_device):
 
 
 @pytest.mark.cuda
-def test_backward_refuses_head_dims_past_128(cuda_device):
+@pytest.mark.parametrize("d,match", [(272, "up to 256"),
+                                     (144, "bf16 backward takes")])
+def test_backward_refuses_head_dims_it_has_no_layout_for(cuda_device, d,
+                                                         match):
+    """The first head dim past the limit, and a bf16 one past 128 that
+    does not split in two halves of a multiple of 16."""
     q, k, v, do, kw = (x.to(cuda_device).bfloat16() if torch.is_tensor(x)
-                       else x for x in _inputs((1, 8, 8, 2, 2, 160, True, 0)))
-    o, lse = fk.flash_attention_lse(q, k, v, **kw)
-    with pytest.raises(ValueError, match="up to 128"):
+                       else x for x in _inputs((1, 8, 8, 2, 2, d, True, 0)))
+    o, lse = (x.contiguous() for x in fk.flash_attention_lse_plain(
+        q, k, v, **kw))
+    with pytest.raises(ValueError, match=match):
         fk.flash_attention_backward(q, k, v, o, do, lse, **kw)

@@ -363,17 +363,12 @@ def test_internlm2_training_fields_and_batch_specs():
 
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "ssm"])
-def test_other_families_refuse_training_naming_the_roadmap(family):
-    """The hybrid family still refuses, naming the next item; the MoE and
-    ssm families train (tests/test_torch_train_families.py holds them to
-    the reference): a finite loss from their own init."""
+def test_other_families_train_from_their_own_init(family):
+    """The MoE, hybrid and ssm families train
+    (tests/test_torch_train_families.py and test_torch_train_hybrid.py
+    hold them to the reference): a finite loss from their own init."""
     cfg = port_cfg(TINY[family])
     fam = registry.get_family(cfg)
-    if family == "hybrid":
-        with pytest.raises(NotImplementedError,
-                           match="A.2, second half, part two.*head dim 160"):
-            fam.loss_fn(None, cfg, None)
-        return
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
     loss = fam.loss_fn(fam.init(0, cfg, "cpu"), cfg,
