@@ -13,7 +13,9 @@ exit at the first failure):
    matmul and the SSD intra-chunk scan), with ptxas's
    registers and spills of every head-dim
    instance of the bf16 flash, paged-prefill, paged-decode and split-KV
-   decode kernels (`tc_ptxas`).
+   decode kernels (`tc_ptxas`) and of the bf16 SSD backward's column
+   and row kernels (`ssd_bwd_ptxas`); a spill in, or no report of, any
+   instance of the flash or SSD backward fails the phase.
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
@@ -87,8 +89,9 @@ exit at the first failure):
    (`ssd_scan_bwd.cu`: dx, ddt, dA, dB, dC) at mamba2-130m's (96
    batch*heads, 8 chunks of 256, p 64, n 128) and zamba2-2.7b's (160,
    p = n = 64), bf16 and f32, each per element against its plain
-   version with a byte-identical rerun; bf16 timed beside the plain
-   version, two `torch.bmm` (grouped) and the bound.
+   version (the SSD's also against its f64 plain version) with a
+   byte-identical rerun; bf16 timed beside the plain version, two
+   `torch.bmm` (grouped) and the bound.
 5. ws/os matmul kernels: the weight-stationary and output-stationary
    matmuls against their plain version at `tests/test_kernels.py`'s
    shapes in f32 and bf16 and at the four regimes of the dataflow sweep
@@ -1166,15 +1169,18 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
             parts = ("dx", "ddt", "dA", "dB", "dC")
             errs = [hold(f"{name} {part}", g, w_, ssd.BWD_TOLERANCE)
                     for part, g, w_ in zip(parts, got, want)]
-            if dt is f32:
-                # and against the f64 plain version: the kernel's f32
-                # sums are as close to the exact gradient as the bound
-                truth = ssd.ssd_intra_chunk_backward_plain(
-                    *(a.double() for a in args))
-                for part, g, t_ in zip(parts, got, truth):
-                    hold(f"{name} {part} against f64", g, t_,
-                         ssd.BWD_TOLERANCE)
-                del truth
+            # and against the f64 plain version, in both designs: the
+            # kernel's f32 sums (bf16: of operands split into bf16
+            # pieces) are as close to the exact gradient as the bound
+            truth = ssd.ssd_intra_chunk_backward_plain(
+                *(a.double() for a in args))
+            for part, g, t_ in zip(parts, got, truth):
+                hold(f"{name} {part} against f64", g, t_, ssd.BWD_TOLERANCE)
+            # the plain f32 version's own distance from f64, reported
+            # beside the kernel's: the f32 function's conditioning here
+            plain_f64 = {part: worst_ratio(w_, t_, *ssd.BWD_TOLERANCE)[1]
+                         for part, w_, t_ in zip(parts, want, truth)}
+            del truth
             again = ssd.ssd_intra_chunk_backward(*args)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{name}: a rerun gives other bits")
@@ -1197,9 +1203,13 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
                 plain_ms=time_ms(lambda: ssd.ssd_intra_chunk_backward_plain(
                     *args), flush, iters=3, warmup=1),
                 library_ms=None, bound_ms=ms, bound_by=by,
-                max_abs_err=max(errs), bh=bh, nc=nc, l=l, p=p, n=n,
-                blocks=2 * chunks * -(-l // 64),
-                smem_bytes=ssd.bwd_smem_bytes(p, n))
+                max_abs_err=max(errs), plain_against_f64=plain_f64,
+                bh=bh, nc=nc, l=l, p=p, n=n,
+                blocks={"column": ssd.bwd_num_blocks(bh, nc, l)
+                        * ssd.bwd_col_splits(dt, p, n),
+                        "row": ssd.bwd_num_blocks(bh, nc, l)},
+                smem_bytes=dict(zip(("column", "row"),
+                                    ssd.bwd_smem_bytes(dt, p, n))))
         del x32, B32, C32, dt_, dy, ds, args
         free_card(torch)
     return times
@@ -2035,9 +2045,18 @@ def run_steps(torch, step, state, batches):
     return state, losses, norms, secs
 
 
+# the port's kernels in a profile, by the C++ namespace of their source
+PORT_KERNEL_NAMESPACES = {
+    "repro_ssdb::": "ssd_intra_chunk_backward", "repro_ssd::": "ssd_intra_chunk",
+    "repro_fab::": "flash_attention_backward", "repro_fa::": "flash_attention",
+    "repro_gmb::": "grouped_matmul_backward", "repro_gm::": "grouped_matmul"}
+
+
 def profiled_step(torch, step, state, batch):
     """One step under torch.profiler: (state, its metrics, seconds, the
-    device's busy seconds, the kernels that take the most device time)."""
+    device's busy seconds, the kernels that take the most device time,
+    and the device time and launches of each of the port's kernels that
+    ran, `PORT_KERNEL_NAMESPACES`)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2050,9 +2069,16 @@ def profiled_step(torch, step, state, batch):
                   and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in dev_events)
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
+    port = {}
+    for e in dev_events:
+        for ns, name in PORT_KERNEL_NAMESPACES.items():
+            if ns in e.key:
+                got = port.setdefault(name, {"ms": 0.0, "calls": 0})
+                got["ms"] += e.self_device_time_total / 1e3
+                got["calls"] += e.count
     return state, m, prof_s, busy_us / 1e6, [
         {"name": e.key[:100], "ms": e.self_device_time_total / 1e3,
-         "calls": e.count} for e in top]
+         "calls": e.count} for e in top], port
 
 
 def first_loss(cfg) -> float:
@@ -2113,8 +2139,8 @@ def phase_train(torch, dev, card: str, dense):
     mgr.wait()               # the writer thread would share the host below
     write_s = time.perf_counter() - t0 - snapshot_s
     last = batches[-1]
-    state, m, prof_s, busy_s, top_kernels = profiled_step(torch, step, state,
-                                                          last)
+    state, m, prof_s, busy_s, top_kernels, port_kernels = profiled_step(
+        torch, step, state, last)
     loss_direct = float(m["loss"])
     like = TS.state_like(state)
     del state, m
@@ -2146,7 +2172,7 @@ def phase_train(torch, dev, card: str, dense):
           "max_memory_allocated": peak,
           "profiled_step_s": prof_s, "device_busy_s": busy_s,
           "device_busy_share": busy_s / prof_s,
-          "top_device_kernels": top_kernels,
+          "top_device_kernels": top_kernels, "port_kernels": port_kernels,
           "checkpoint": {"step": manifest["step"], "bytes": ckpt_bytes,
                          "host_snapshot_s": snapshot_s,
                          "write_s": write_s,
@@ -2344,8 +2370,8 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     state, losses, norms, secs = run_steps(torch, step, state, batches[:-1])
     peak = torch.cuda.max_memory_allocated()
     t_prof = time.perf_counter()
-    state, m, prof_s, busy_s, top = profiled_step(torch, step, state,
-                                                  batches[-1])
+    state, m, prof_s, busy_s, top, port_kernels = profiled_step(
+        torch, step, state, batches[-1])
     launches = {name: mm.launches for name, mm in mods.items()}
     t_eval = time.perf_counter()
     held_after = float(evaluate(state.params, held_out))
@@ -2373,7 +2399,8 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
           "tokens_per_s": global_batch * seq * len(timed) / sum(timed),
           "max_memory_allocated": peak, "profiled_step_s": prof_s,
           "device_busy_s": busy_s, "device_busy_share": busy_s / prof_s,
-          "top_device_kernels": top, "launches": launches,
+          "top_device_kernels": top, "port_kernels": port_kernels,
+          "launches": launches,
           # where the phase's own time went: set-up (data, init, the first
           # held-out loss), the steps, the profiled step with the
           # profiler's processing, the last held-out loss
@@ -2583,6 +2610,35 @@ def ssd_ptxas(log: str) -> dict:
     return dict(sorted(out.items(), key=lambda kv: int(kv[0].split("p")[-1])))
 
 
+def ssd_bwd_ptxas(log: str) -> dict:
+    """ptxas's report of each instance (p and n rounded up to a width of
+    16, 32, 64 or 128) of the bf16 SSD backward's column and row kernels
+    (ssd_scan_bwd.cu `tc::col_kernel`, `tc::row_kernel`; past p = n = 64
+    the column pass is two kernels, "col_dx" and "col_db"): {"ssd_bwd_col
+    p64 n128": ..., "ssd_bwd_col_db p128 n128": ...}."""
+    part = {"0": "col", "1": "col_dx", "2": "col_db", None: "row"}
+    out = ptxas_report(
+        log, r"tc10(?:col|row)_kernelILi(\d+)ELi(\d+)E(?:Li(\d)E)?",
+        lambda m: f"ssd_bwd_{part[m[3]]} p{m[1]} n{m[2]}")
+    return dict(sorted(out.items(), key=lambda kv: (
+        kv[0].split()[0], int(kv[0].split()[1][1:]),
+        int(kv[0].split()[2][1:]))))
+
+
+def ssd_bwd_spills(report: dict) -> list:
+    """The bf16 SSD backward's instances (in an `ssd_bwd_ptxas` report)
+    that spill, or that ptxas did not report at all."""
+    import re
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    want = [f"ssd_bwd_{k} p{pw} n{nw}"
+            for pw in ssd.BWD_TC_WIDTHS for nw in ssd.BWD_TC_WIDTHS
+            for k in (("col_dx", "col_db") if ssd.bwd_col_splits(
+                ssd.torch.bfloat16, pw, nw) > 1 else ("col",)) + ("row",)]
+    return [f"{k} (no report)" for k in want if k not in report] + [
+        k for k, v in report.items()
+        if re.search(r"\b[1-9]\d* bytes spill", v)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2605,14 +2661,18 @@ def main() -> int:
     ptxas = [ln.strip() for ln in lib.compiler_log.splitlines()
              if "registers" in ln or "spill" in ln]
     tc_report = tc_ptxas(lib.compiler_log)
+    ssd_bwd_report = ssd_bwd_ptxas(lib.compiler_log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.path.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "ptxas": ptxas,
-          "tc_ptxas": tc_report})
+          "tc_ptxas": tc_report, "ssd_bwd_ptxas": ssd_bwd_report})
     spilled = bwd_spills(tc_report)
     if spilled:
         fail(f"the flash backward spills at {spilled}")
+    spilled = ssd_bwd_spills(ssd_bwd_report)
+    if spilled:
+        fail(f"the SSD backward spills at {spilled}")
 
     timings = phase_kernels(torch, dev, card)
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)

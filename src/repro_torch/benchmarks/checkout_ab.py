@@ -8,6 +8,7 @@ serves (zamba2-2.7b and mamba2-130m, `ssd_impl="pallas"`).
     python3 src/repro_torch/benchmarks/checkout_ab.py ROOT [ROOT ...]
     python3 src/repro_torch/benchmarks/checkout_ab.py --serve serve_moe \
         ROOT [ROOT ...]
+    python3 src/repro_torch/benchmarks/checkout_ab.py --ssd-bwd ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository: the parent commit unpacked
 with `git archive` into a directory that `.gitignore` lists, say, and
@@ -30,7 +31,11 @@ the bf16 SSD kernel (parsed by this checkout's `chip_smoke.tc_ptxas`,
 empty where ROOT's library was already built), the kernel times and
 each serve's step times and peak memory.  `--serve P[,P...]` runs only
 the serve phases named (no kernel phase, no decode routes) in each
-root.  Needs one CUDA card; exits nonzero when a root's phases fail.
+root.  `--ssd-bwd` runs only ROOT's SSD intra-chunk backward at its
+chip_smoke's `SSD_BWD_CASES` in bf16 (`ssd_backward_times`: held to the
+plain version, timed as chip_smoke times it), with ptxas's report of
+the backward's bf16 kernels.  Needs one CUDA card; exits nonzero when a
+root's phases fail.
 """
 from __future__ import annotations
 
@@ -85,14 +90,53 @@ def decode_routes(torch, cs, dev, calls: int = 500) -> dict:
     return out
 
 
+def ssd_backward_times(torch, cs, dev) -> dict:
+    """ROOT's `ssd_intra_chunk_backward` at ROOT's chip_smoke
+    `SSD_BWD_CASES` with bf16 x, B and C, the inputs drawn from the
+    distributions `family_backward_kernels` draws them from: each case held to
+    the plain version by `BWD_TOLERANCE`, then timed as chip_smoke times
+    it (CUDA events, median of 10 after 2 warm-up calls, L2 flushed)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.tolerance import worst_ratio
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev).zero_
+    gdev = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for label, bh, nc, l, p, n in cs.SSD_BWD_CASES:
+        heads = bh // (4 if label == "mamba2-130m" else 2)
+        x = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
+        B = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
+        C = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
+        dt = torch.rand(bh, nc, l, generator=gdev, device=dev) * 0.1
+        A = (-torch.linspace(1.0, 16.0, heads, device=dev)).repeat(
+            bh // heads)
+        dy = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
+        ds = torch.randn(bh, nc, n, p, generator=gdev, device=dev)
+        args = (x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16(), dy, ds)
+        got = ssd.ssd_intra_chunk_backward(*args)
+        want = ssd.ssd_intra_chunk_backward_plain(*args)
+        ratio = max(worst_ratio(g, w, *ssd.BWD_TOLERANCE)[1]
+                    for g, w in zip(got, want))
+        if not ratio <= 1.0:
+            raise SystemExit(f"checkout_ab: ssd backward {label} disagrees "
+                             f"with its plain version: err / bound {ratio}")
+        del got, want
+        out[f"ssd_intra_chunk_backward {label}"] = {
+            "ms": cs.time_ms(lambda: ssd.ssd_intra_chunk_backward(*args),
+                             flush, iters=10, warmup=2),
+            "worst_err_over_bound": ratio}
+        del x, B, C, dt, dy, ds, args
+        torch.cuda.empty_cache()
+    return out
+
+
 SERVES = ("serve", "serve_contiguous", "serve_moe", "serve_hybrid",
           "serve_ssm")
 
 
-def run_one(root: Path, serves=SERVES) -> dict:
+def run_one(root: Path, serves=SERVES, ssd_bwd: bool = False) -> dict:
     """ROOT's phases on the card (every kernel phase when `serves` is all
-    of SERVES, else only the serve phases named); returns the summary
-    line."""
+    of SERVES, else only the serve phases named; with `ssd_bwd` only the
+    SSD backward's times); returns the summary line."""
     here = _this_chip_smoke()
     sys.path[:0] = [str(root / "src"), str(root)]
     import torch
@@ -112,6 +156,10 @@ def run_one(root: Path, serves=SERVES) -> dict:
     t0 = time.perf_counter()
     lib = kbuild.library()
     build_s = time.perf_counter() - t0
+    if ssd_bwd:
+        return {"ab": str(root), "card": card, "build_s": build_s,
+                "ssd_bwd_ptxas": here.ssd_bwd_ptxas(lib.compiler_log),
+                "times": ssd_backward_times(torch, cs, dev)}
     timings, moe, contig, routes = {}, {}, {}, {}
     if tuple(serves) == SERVES:
         timings = cs.phase_kernels(torch, dev, card)
@@ -173,6 +221,9 @@ def run_one(root: Path, serves=SERVES) -> dict:
 
 def main(argv: list[str]) -> int:
     serves = SERVES
+    ssd_bwd = argv[:1] == ["--ssd-bwd"]
+    if ssd_bwd:
+        argv = argv[1:]
     if argv[:1] == ["--serve"] and len(argv) > 1:
         serves = tuple(argv[1].split(","))
         argv = argv[2:]
@@ -181,15 +232,16 @@ def main(argv: list[str]) -> int:
                   file=sys.stderr)
             return 2
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(run_one(Path(argv[1]).resolve(), serves)),
+        print(json.dumps(run_one(Path(argv[1]).resolve(), serves, ssd_bwd)),
               flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--serve",
-                               ",".join(serves), "--one", root])
+        proc = subprocess.run([sys.executable, __file__]
+                              + (["--ssd-bwd"] if ssd_bwd else [])
+                              + ["--serve", ",".join(serves), "--one", root])
         if proc.returncode != 0:
             print(f"checkout_ab: {root} failed (exit {proc.returncode})",
                   file=sys.stderr)

@@ -24,9 +24,17 @@ of dt * A over the chunk:
   chunk decay, which it recomputes from seg); its backward is
   `ssd_intra_chunk_backward`: dx, ddt, dA (bh,), dB and dC, from the
   kernels of `kernels/csrc/ssd_scan_bwd.cu` on a CUDA tensor
-  (`BACKWARD.launches` counts calls, each launching two kernels) and
-  from `ssd_intra_chunk_backward_plain` on a CPU one, then d(seg) turned
-  into d(dt) by a reverse cumsum in torch.  dA is summed pair by pair
+  (`BACKWARD.launches` counts calls, each launching a column and a row
+  kernel, one block per 64-row slab of a chunk each, `bwd_num_blocks`)
+  and from `ssd_intra_chunk_backward_plain` on a CPU one, then d(seg)
+  turned into d(dt) by a reverse cumsum in torch.  The backward routes
+  by x's dtype as the forward does (`route`), with no fallback between
+  the two: bf16, what every SSM and hybrid training step runs, on
+  tensor cores (mma.sync, 32-token tiles through a cp.async ring, p
+  and n rounded up to an instance width of 16, 32, 64 or 128,
+  `bwd_width`), each f32 operand (dy, ds, the scores) fed as a sum of
+  bf16 pieces, so nothing is rounded that the plain version does not
+  round; f32 on CUDA cores.  dA is summed pair by pair
   with d seg_i / dA = cs_i (the cumsum of dt), whose differences are
   positive, and not as sum_k dt_k revcumsum(dseg)_k, where row and
   column sums of the same terms cancel.  The backward is the
@@ -67,8 +75,14 @@ TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # the backward's (rtol, atol relative to the row's largest |plain|), for
 # every input dtype: kernel and plain version compute the same f32
 # function of the inputs, summed in other orders (tiles, the warp scan
-# of seg, the reverse cumsum); worst element measured on an H100 at
-# mamba2-130m's training chunks: 0.07 of this bound
+# of seg, the reverse cumsum) and, in bf16, from operands split into
+# bf16 pieces (ssd_scan_bwd.cu: each product term within ~3 x 2**-16 of
+# its size).  Worst elements measured on an H100 at chip_smoke's
+# training chunks: f32 design 0.33 of this bound against the f64
+# gradient; bf16 design 0.52 against the plain version and 0.98 against
+# f64, at a dC element whose dy . x nearly cancels, where the f32 plain
+# version is far from f64 too (chip_smoke's `plain_against_f64`: the f32
+# function's own conditioning)
 BWD_TOLERANCE = (1e-4, 1e-4)
 
 # kernel geometry limits (csrc/ssd_scan.cu)
@@ -254,13 +268,58 @@ def _launch(x, dt, A, B_, C):
     return y, s, cd
 
 
-def bwd_smem_bytes(p: int, n: int) -> tuple[int, int]:
+# the backward's tensor-core design (ssd_scan_bwd.cu namespace tc)
+BWD_TC_TILE = 32       # tokens per walked tile
+BWD_SLAB = 64          # rows (columns j or rows i) per block, both designs
+BWD_TC_WIDTHS = (16, 32, 64, 128)
+
+
+def bwd_width(v: int) -> int:
+    """p or n rounded up to an instance width of the backward's
+    tensor-core kernels (ssd_scan_bwd.cu `tc::width`)."""
+    return next(w for w in BWD_TC_WIDTHS if v <= w)
+
+
+def bwd_smem_bytes(dtype, p: int, n: int) -> tuple[int, int]:
     """Dynamic shared memory of one block of the backward's column and
-    row kernels (ssd_scan_bwd.cu `k_smem_floats`, `q_smem_floats`)."""
+    row kernels in the design `dtype` takes.  bf16 (ssd_scan_bwd.cu
+    `tc::col_smem_bytes`, `tc::row_smem_bytes`), at widths pw, nw =
+    `bwd_width(p)`, `bwd_width(n)`: the column kernel's seg and cs [256]
+    and 8 warp totals in f64, dt [256] and the dy / ds ring [2][32][pw +
+    4] in f32, then B [64], the C ring [2][32] at nw + 8, x [64] and three
+    pieces [3][32] at pw + 8 in bf16; the row kernel's seg [256] and 8
+    warp totals in f64, dt [256] in f32, then C [64] and the B ring
+    [2][32] at nw + 8, dy's pieces [3][64] and the x ring [2][32] at pw +
+    8 in bf16.  f32 (`k_smem_floats`, `q_smem_floats`)."""
+    if route(dtype) == TENSOR_CORES:
+        pw, nw = bwd_width(p), bwd_width(n)
+        t = BWD_TC_TILE
+        return (8 * (2 * MAX_CHUNK + 8) + 4 * (MAX_CHUNK + 2 * t * (pw + 4))
+                + 2 * ((BWD_SLAB + 2 * t) * (nw + TC_PAD)
+                       + (BWD_SLAB + 3 * t) * (pw + TC_PAD)),
+                8 * (MAX_CHUNK + 8) + 4 * MAX_CHUNK
+                + 2 * ((BWD_SLAB + 2 * t) * (nw + TC_PAD)
+                       + (3 * BWD_SLAB + 2 * t) * (pw + TC_PAD)))
     rows = 96 * (n + 1)
     return (4 * (rows + 128 * (p + 1) + 3 * MAX_CHUNK + 2 * 32 * 65
                  + 3 * 256 + 2 * 64),
             4 * (rows + 96 * (p + 1) + 2 * MAX_CHUNK + 64 * 33 + 256))
+
+
+def bwd_num_blocks(bh: int, nc: int, l: int) -> int:
+    """Blocks of each of the backward's launches, in both designs: one
+    per (batch*head, chunk, 64-row slab)."""
+    return bh * nc * -(-l // BWD_SLAB)
+
+
+def bwd_col_splits(dtype, p: int, n: int) -> int:
+    """Column-pass launches of one backward call: in bf16, 2 where p's
+    and n's widths add up past 192 (p and n past 64), one summing dx and
+    the per-column scalars and one dB, so that neither spills
+    (ssd_scan_bwd.cu `tc::col_splits`); else 1."""
+    if route(dtype) == TENSOR_CORES and bwd_width(p) + bwd_width(n) > 192:
+        return 2
+    return 1
 
 
 def _launch_bwd(x, dt, A, B_, C, dy, ds):
@@ -271,8 +330,12 @@ def _launch_bwd(x, dt, A, B_, C, dy, ds):
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 {shape} "
                              f"on {x.device}")
-    if bh * nc * -(-l // 64) > 2 ** 31 - 1:
+    if bwd_num_blocks(bh, nc, l) > 2 ** 31 - 1:
         raise ValueError("too many (batch*head, chunk, slab) blocks")
+    if route(x.dtype) == TENSOR_CORES and any(
+            t.data_ptr() % 16 for t in (x, B_, C, dy, ds)):
+        raise ValueError("x, B, C, dy and ds must start on 16-byte "
+                         "boundaries")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((bh, nc, l, p), **f32)

@@ -233,6 +233,150 @@ def test_ssd_backward_of_bf16_inputs_is_the_f32_function_at_them():
     assert [g.dtype for g in grads] == [t.dtype for t in lo]
 
 
+# ------------------------------------- the bf16 tensor-core design
+
+def _pieces(t, k):
+    """t (f32) as k bf16 pieces (each a bf16 value held in f32): hi, then
+    the rounding of each remainder, as ssd_scan_bwd.cu `split2` and
+    `split3` cut it."""
+    out, r = [], t.float()
+    for _ in range(k):
+        h = r.bfloat16().float()
+        out.append(h)
+        r = r - h
+    return out
+
+
+def _tc_backward_emulated(x, dt, A, B, C, dy, ds, pieces=True):
+    """ssd_scan_bwd.cu's bf16 design in plain torch: seg and cs in f64,
+    each exp of an f64 difference rounded to f32; every product of two
+    bf16 values (exact in f32) summed in f32.  dy enters in three bf16
+    pieces (dy x^T), the scores and dcb in two (dx, dB, dC; dx drops
+    scores_lo dy_mid and dy_lo), ds in two.  With pieces=False every f32
+    operand is rounded to bf16 once instead."""
+    f32 = torch.float32
+    k3, k2 = (3, 2) if pieces else (1, 1)
+    x, B, C = x.to(f32), B.to(f32), C.to(f32)
+    seg = torch.cumsum(dt.double() * A.double()[:, None, None], dim=2)
+    cs = torch.cumsum(dt.double(), dim=2)
+    l = x.shape[2]
+    mask = torch.ones((l, l), dtype=torch.bool).tril()
+    diff = (seg[..., :, None] - seg[..., None, :]).to(f32)
+    L = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    dtf = dt[..., None, :]
+    cb = torch.einsum("bcin,bcjn->bcij", C, B)
+    dyp, dsp = _pieces(dy, k3), _pieces(ds, k2)
+    dsc = sum(torch.einsum("bcip,bcjp->bcij", d, x) for d in dyp) * mask
+    scores = cb * L * dtf
+    dcb = dsc * L * dtf
+    sp, dp = _pieces(scores, k2), _pieces(dcb, k2)
+    e = torch.exp((seg[..., -1:] - seg).to(f32))
+    w = e * dt
+    bds = sum(torch.einsum("bcjn,bcnp->bcjp", B, d) for d in dsp)
+    dsx = sum(torch.einsum("bcnp,bcjp->bcjn", d, x) for d in dsp)
+    dw = (B * dsx).sum(-1)
+    terms = [(sp[-1], dyp[0])] + ([(sp[0], dyp[1]), (sp[0], dyp[0])]
+                                  if pieces else [])
+    dx = sum(torch.einsum("bcij,bcip->bcjp", a, b_) for a, b_ in terms) \
+        + w[..., None] * bds
+    dC = sum(torch.einsum("bcij,bcjn->bcin", d, B) for d in dp)
+    dB = sum(torch.einsum("bcij,bcin->bcjn", d, C) for d in dp) \
+        + w[..., None] * dsx
+    ddt = (dsc * cb * L).sum(-2) + dw * e
+    p_ = dsc * scores
+    dww = dw * w
+    dseg = p_.sum(-1) - p_.sum(-2) - dww
+    dseg[..., -1] += dww.sum(-1)
+    dcs = (cs[..., :, None] - cs[..., None, :]).to(f32)
+    dA = ((p_ * dcs).sum((-1, -2))
+          + (dww * (cs[..., -1:] - cs).to(f32)).sum(-1)).sum(-1)
+    return dx, ssd._seg_to_dt(dt, A, ddt, dseg), dA, dB, dC
+
+
+def _tc_inputs(seed=0):
+    """mamba2-130m's chunk widths (l 256, p 64, n 128), bh 2, one chunk,
+    drawn as chip_smoke draws its SSD backward's inputs (bf16 x, B, C;
+    A from -1 to -16)."""
+    bh, nc, l, p, n = 2, 1, 256, 64, 128
+    rng = _rng(seed)
+    x = _t(rng, bh, nc, l, p, dtype=torch.bfloat16)
+    B = _t(rng, bh, nc, l, n, scale=0.3, dtype=torch.bfloat16)
+    C = _t(rng, bh, nc, l, n, scale=0.3, dtype=torch.bfloat16)
+    dt = torch.from_numpy(rng.uniform(0.0, 0.1, (bh, nc, l))).float()
+    A = torch.tensor([-1.0, -16.0])
+    dy = _t(rng, bh, nc, l, p, dtype=torch.float32)
+    ds = _t(rng, bh, nc, n, p, dtype=torch.float32)
+    return x, dt, A, B, C, dy, ds
+
+
+def test_ssd_tc_precision_scheme_holds_the_f64_gradient():
+    """The bf16 design's operand pieces, emulated in plain torch, hold
+    dx, ddt, dA, dB and dC within BWD_TOLERANCE of the f64 gradient (at
+    0.12 of it at this seed, the f32 plain version at 0.07); bf16
+    operands rounded once miss it 200-fold."""
+    args = _tc_inputs()
+    truth = ssd.ssd_intra_chunk_backward_plain(*(a.double() for a in args))
+    got = _tc_backward_emulated(*args)
+    for part, g, t_ in zip(("dx", "ddt", "dA", "dB", "dC"), got, truth):
+        assert g.dtype == torch.float32 and g.shape == t_.shape, part
+        err, ratio = worst_ratio(g, t_, *ssd.BWD_TOLERANCE)
+        assert ratio <= 0.5, (part, err, ratio)
+    once = _tc_backward_emulated(*args, pieces=False)
+    assert worst_ratio(once, truth, *ssd.BWD_TOLERANCE)[1] > 10
+
+
+def test_ssd_bwd_routes_widths_and_splits():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ssd.route(bf16) == ssd.TENSOR_CORES
+    assert ssd.route(f32) == ssd.CUDA_CORES
+    widths = {v: ssd.bwd_width(v) for v in range(8, ssd.MAX_DIM + 1, 8)}
+    assert widths[8] == widths[16] == 16 and widths[24] == widths[32] == 32
+    assert {widths[v] for v in (40, 48, 56, 64)} == {64}
+    assert {widths[v] for v in range(72, 129, 8)} == {128}
+    # the column pass splits in two only where both widths are 128
+    assert [ssd.bwd_col_splits(bf16, p, n) for p, n in (
+        (64, 128), (128, 64), (72, 72), (128, 128), (64, 64))] == [
+        1, 1, 2, 2, 1]
+    assert ssd.bwd_col_splits(f32, 128, 128) == 1
+    # one block per (batch*head, chunk, 64-row slab) in each launch
+    assert ssd.bwd_num_blocks(96, 8, 256) == 3072
+    assert ssd.bwd_num_blocks(160, 8, 256) == 5120
+    assert ssd.bwd_num_blocks(3, 2, 200) == 24
+    assert ssd.bwd_num_blocks(2, 1, 5) == 2
+
+
+def test_ssd_bwd_geometry_mirrors_the_kernel_source():
+    """ops.py's constants and shared-memory mirror against
+    csrc/ssd_scan_bwd.cu: the tc namespace's constants, the widths, the
+    bytes its header states, and every width pair within a block."""
+    import re
+    from pathlib import Path
+    src = (Path(ssd.__file__).parents[1] / "csrc" / "ssd_scan_bwd.cu").read_text()
+    tc = src[src.index("namespace tc {"):]
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", tc)}
+    assert const["kThreads"] == 128
+    assert const["kSlab"] == ssd.BWD_SLAB
+    assert const["kTok"] == ssd.BWD_TC_TILE
+    assert const["kPad"] == ssd.TC_PAD
+    assert const["kMaxChunk"] == ssd.MAX_CHUNK
+    assert "v <= 16 ? 16 : v <= 32 ? 32 : v <= 64 ? 64 : 128" in tc
+    assert "return pw + nw > 192 ? 2 : 1;" in tc
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ssd.bwd_smem_bytes(bf16, 64, 128) == (80_448, 74_816)
+    assert ssd.bwd_smem_bytes(bf16, 64, 64) == (64_064, 58_432)
+    assert ssd.bwd_smem_bytes(bf16, 40, 104) == ssd.bwd_smem_bytes(bf16, 64,
+                                                                   128)
+    for v in ("80,448", "74,816", "64,064", "58,432", "110,592", "138,880"):
+        assert v in src, v
+    # the f32 design's (k_smem_floats, q_smem_floats) is unchanged
+    assert ssd.bwd_smem_bytes(f32, 128, 128) == (138_880, 110_592)
+    for p in range(8, ssd.MAX_DIM + 1, 8):
+        for n in range(8, ssd.MAX_DIM + 1, 8):
+            for dtype in (bf16, f32):
+                assert max(ssd.bwd_smem_bytes(dtype, p, n)) <= ssd.MAX_SMEM
+
+
 # ----------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("which", ["grouped_matmul", "ssd_intra_chunk"])
@@ -302,15 +446,21 @@ def test_grouped_backward_kernel_matches_plain_on_card(cuda_device, case,
 
 
 # (bh, nc, l, p, n): mamba2-130m's training chunks (p 64, n 128), a
-# ragged chunk, zamba2's (p = n = 64) and a tiny one
+# ragged chunk, zamba2's (p = n = 64), a tiny one, and widths that take
+# the bf16 column pass's split (p = n = 128) and pad p and n to 64 and
+# 128 (40, 104)
 SSD_CARD_CASES = [(24, 2, 256, 64, 128), (3, 2, 200, 64, 128),
-                  (40, 2, 256, 64, 64), (2, 1, 5, 8, 16)]
+                  (40, 2, 256, 64, 64), (2, 1, 5, 8, 16),
+                  (4, 2, 130, 128, 128), (3, 1, 70, 40, 104)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", SSD_CARD_CASES)
 def test_ssd_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    """Each route against the plain version and against the f64 plain
+    version (the exact gradient at the inputs), and a bit-identical
+    rerun."""
     bh, nc, l, p, n = case
     g = torch.Generator(device=cuda_device).manual_seed(2)
     dev = cuda_device
@@ -326,6 +476,8 @@ def test_ssd_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
     want = ssd.ssd_intra_chunk_backward_plain(*args)
     torch.cuda.synchronize()
     _hold(got, want, *ssd.BWD_TOLERANCE)
+    truth = ssd.ssd_intra_chunk_backward_plain(*(a.double() for a in args))
+    _hold(got, truth, *ssd.BWD_TOLERANCE)
     again = ssd.ssd_intra_chunk_backward(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
