@@ -13,9 +13,11 @@ exit at the first failure):
    matmul and the SSD intra-chunk scan), with ptxas's
    registers and spills of every head-dim
    instance of the bf16 flash, paged-prefill, paged-decode and split-KV
-   decode kernels (`tc_ptxas`) and of the bf16 SSD backward's column
-   and row kernels (`ssd_bwd_ptxas`); a spill in, or no report of, any
-   instance of the flash or SSD backward fails the phase.
+   decode kernels and of both designs of the bf16 flash backward
+   (`tc_ptxas`; ptxas's warnings on wgmma or setmaxnreg in
+   `wgmma_warnings`) and of the bf16 SSD backward's column and row
+   kernels (`ssd_bwd_ptxas`); a spill in, or no report of, any instance
+   of the flash or SSD backward fails the phase.
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
@@ -81,7 +83,10 @@ exit at the first failure):
    against the plain one; a rerun of the backward bit-equal.  bf16
    cases are timed beside the plain backward, SDPA's backward (its
    forward + backward less its forward, K/V repeated) and the bound
-   (2.5 x the forward's FLOPs over the pairs seen, or the bytes).  Then
+   (2.5 x the forward's FLOPs over the pairs seen, or the bytes), each
+   with its design (`bwd_design`: wgmma at d 64 to 192 here),
+   group split, blocks and each pass timed alone (D, dK/dV, the
+   split's reduce, dQ).  Then
    the grouped-matmul backward (`grouped_matmul_bwd.cu`: dX, dW) at
    qwen3-moe-30b-a3b's training microbatch (4,096 tokens, top-8 of 128
    experts, capacity 320; K x F 2048 x 768 and 768 x 2048, the live
@@ -937,9 +942,10 @@ def phase_contig_kernels(torch, dev, card: str, flush):
 
 # (b, sq, skv, hq, hkv, d, causal, q_offset, label): internlm2-1.8b's
 # heads at the training microbatch (4 x 2048) and at a ragged 511, once
-# with a q_offset and once non-causal, qwen3-moe-30b-a3b's group, and
-# past head dim 128 (two column halves a block row): zamba2-2.7b's shared
-# attention at its training microbatch (2 x 2048, 32 heads of 160) and
+# with a q_offset and once non-causal, qwen3-moe-30b-a3b's group (the
+# bf16 design splits its walk over blocks), and past head dim 128 (a dK/dV
+# tile takes a dV block and a dK block): zamba2-2.7b's shared attention at
+# its training microbatch (2 x 2048, 32 heads of 160) and
 # nemotron-4-340b's group (96 query heads over 8, d 192)
 TRAIN_FLASH_CASES = (
     (4, 2048, 2048, 16, 8, 128, True, 0, "train"),
@@ -1028,6 +1034,7 @@ def phase_train_kernels(torch, dev, card: str, flush):
                 return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dos)
             full_ms = time_ms(sdpa_fwd_bwd, flush, iters=10, warmup=2)
             fwd_ms = time_ms(sdpa_fwd, flush, iters=10, warmup=2)
+            passes, splits = fk.backward_pass_timer(q, k, v, o, do, lse, **kw)
             times[f"flash_attention_backward {label}"] = dict(
                 ms=time_ms(lambda: fk.flash_attention_backward(
                     q, k, v, o, do, lse, **kw), flush, iters=10, warmup=2),
@@ -1037,13 +1044,13 @@ def phase_train_kernels(torch, dev, card: str, flush):
                     q, k, v, o, do, lse, **kw), flush, iters=3, warmup=1),
                 library_ms=full_ms - fwd_ms, library_fwd_bwd_ms=full_ms,
                 library_fwd_ms=fwd_ms, bound_ms=ms, bound_by=by,
-                max_abs_err=err, design=fk.route(dt),
-                blocks={"dkdv": b * hkv * -(-skv // fk.BWD_TC_KEYS)
-                        * fk.bwd_col_splits(d),
-                        "dq": b * hkv * fk.tc_tiles(sq, hq // hkv)
-                        * fk.bwd_col_splits(d)},
+                max_abs_err=err, design=fk.bwd_design(d),
+                passes_ms={name: time_ms(fn, flush, iters=10, warmup=2)
+                           for name, fn in passes.items()},
+                splits=splits,
+                blocks=fk.bwd_blocks(b, sq, skv, hq, hkv, d, splits),
                 smem_bytes=fk.bwd_smem_bytes(dt, d))
-            del qs, ks, vs, dos
+            del qs, ks, vs, dos, passes
         del base
     free_card(torch)
     times.update(family_backward_kernels(torch, dev, flush, rows))
@@ -1055,7 +1062,8 @@ def phase_train_kernels(torch, dev, card: str, flush):
                                  "X^T dY) over every row, dY in bf16",
                       "ssd": "none: no single PyTorch call computes it"},
           "timing": "CUDA events, median of 10 after 2 warm-up (plain: "
-                    "3 after 1), L2 flushed",
+                    "3 after 1; a flash backward's passes_ms: each pass "
+                    "launched alone into one call's buffers), L2 flushed",
           **times})
     return times
 
@@ -2565,9 +2573,11 @@ def tc_ptxas(log: str) -> dict:
     """ptxas's report of each head-dim instance of the four bf16
     tensor-core attention kernels (flash_attention.cu, paged_prefill.cu,
     paged_attention.cu and decode_attention.cu) and of the flash
-    backward's two (flash_attention_bwd.cu): {"flash d128": ...,
-    "paged_decode d160": ..., "split_decode d128": ..., "flash_bwd_dkdv
-    d192": ...}."""
+    backward's (flash_attention_bwd.cu: the mma.sync design's two, the
+    wgmma design's two and its group split's reduce): {"flash d128":
+    ..., "paged_decode d160": ..., "split_decode d128": ...,
+    "flash_bwd_dkdv d192": ..., "flash_bwd_dkdv_wg d128": ...,
+    "flash_bwd_reduce": ...}."""
     names = {"flash": "flash", "prefill": "paged_prefill",
              "5repro6dec_tc16decode": "paged_decode",
              "9repro_dec6dec_tc16decode": "split_decode",
@@ -2576,21 +2586,34 @@ def tc_ptxas(log: str) -> dict:
         log, r"(flash|prefill|5repro6dec_tc16decode|9repro_dec6dec_tc16decode"
              r"|dkdv|dq)_tc_kernelILi(\d+)E",
         lambda m: f"{names[m[1]]} d{m[2]}")
+    out.update(ptxas_report(log, r"(dkdv|dq)_wg_kernelILi(\d+)E",
+                            lambda m: f"flash_bwd_{m[1]}_wg d{m[2]}"))
+    out.update(ptxas_report(log, r"dkdv_reduce_kernel",
+                            lambda m: "flash_bwd_reduce"))
     return dict(sorted(out.items(), key=lambda kv: (
-        kv[0].split()[0], int(kv[0].split()[1][1:]))))
+        kv[0].split()[0], int((kv[0].split() + ["d0"])[1][1:]))))
 
 
 def bwd_spills(report: dict) -> list:
     """The flash backward's instances (in a `tc_ptxas` report) that
-    spill, or that ptxas did not report at all."""
+    spill, or that ptxas did not report at all: each bf16 head dim's two
+    kernels of its design (`bwd_design`), and the group split's reduce."""
     import re
     from repro_torch.kernels.flash_attention import ops as fk
     bwd = {k: v for k, v in report.items() if k.startswith("flash_bwd")}
-    missing = [f"{k} d{d} (no report)" for k in ("flash_bwd_dkdv",
-                                                 "flash_bwd_dq")
-               for d in fk.BWD_TC_HEAD_DIMS if f"{k} d{d}" not in bwd]
+    want = [f"flash_bwd_{k}{'_wg' if fk.bwd_design(d) == fk.WGMMA else ''}"
+            f" d{d}" for d in fk.BWD_TC_HEAD_DIMS for k in ("dkdv", "dq")]
+    missing = [f"{k} (no report)" for k in (*want, "flash_bwd_reduce")
+               if k not in bwd]
     return missing + [k for k, v in bwd.items()
                       if re.search(r"\b[1-9]\d* bytes spill", v)]
+
+
+def wgmma_warnings(log: str) -> list:
+    """ptxas's warnings about wgmma or setmaxnreg (a serialized wgmma, a
+    register count it ignored) in the build's compiler log."""
+    return sorted({ln.strip() for ln in log.splitlines()
+                   if "warning" in ln and ("wgmma" in ln or "setmaxnreg" in ln)})
 
 
 def grouped_ptxas(log: str) -> dict:
@@ -2666,7 +2689,8 @@ def main() -> int:
           "library": str(lib.path.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "ptxas": ptxas,
-          "tc_ptxas": tc_report, "ssd_bwd_ptxas": ssd_bwd_report})
+          "tc_ptxas": tc_report, "ssd_bwd_ptxas": ssd_bwd_report,
+          "wgmma_warnings": wgmma_warnings(lib.compiler_log)})
     spilled = bwd_spills(tc_report)
     if spilled:
         fail(f"the flash backward spills at {spilled}")

@@ -9,6 +9,7 @@ serves (zamba2-2.7b and mamba2-130m, `ssd_impl="pallas"`).
     python3 src/repro_torch/benchmarks/checkout_ab.py --serve serve_moe \
         ROOT [ROOT ...]
     python3 src/repro_torch/benchmarks/checkout_ab.py --ssd-bwd ROOT [ROOT ...]
+    python3 src/repro_torch/benchmarks/checkout_ab.py --flash-bwd ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository: the parent commit unpacked
 with `git archive` into a directory that `.gitignore` lists, say, and
@@ -34,8 +35,13 @@ the serve phases named (no kernel phase, no decode routes) in each
 root.  `--ssd-bwd` runs only ROOT's SSD intra-chunk backward at its
 chip_smoke's `SSD_BWD_CASES` in bf16 (`ssd_backward_times`: held to the
 plain version, timed as chip_smoke times it), with ptxas's report of
-the backward's bf16 kernels.  Needs one CUDA card; exits nonzero when a
-root's phases fail.
+the backward's bf16 kernels.  `--flash-bwd` runs only ROOT's bf16 flash
+backward at its chip_smoke's `TRAIN_FLASH_CASES` (`flash_backward_times`:
+held to the plain version as chip_smoke holds it, timed as chip_smoke
+times it, and each pass's device time from torch.profiler, which needs
+no per-pass entry point in ROOT), with ptxas's report of the bf16
+attention kernels.  Needs one CUDA card; exits nonzero when a root's
+phases fail.
 """
 from __future__ import annotations
 
@@ -129,14 +135,86 @@ def ssd_backward_times(torch, cs, dev) -> dict:
     return out
 
 
+# the flash backward's kernels by a substring of their demangled names,
+# in the order tried: the D pass, the group split's reduce, dK/dV, dQ
+FLASH_BWD_PASSES = (("dsum", "D"), ("reduce", "reduce"), ("dkdv", "dkdv"),
+                    ("dq_", "dq"))
+
+
+def pass_split(torch, fn, calls: int = 5) -> dict:
+    """Device ms per call of each flash-backward pass of fn(), from
+    torch.profiler over `calls` calls (`FLASH_BWD_PASSES`)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, name in FLASH_BWD_PASSES:
+            if key in e.key:
+                out[name] = out.get(name, 0.0) \
+                    + e.self_device_time_total / 1e3 / calls
+                break
+    return out
+
+
+def flash_backward_times(torch, cs, dev) -> dict:
+    """ROOT's bf16 `flash_attention_backward` at ROOT's chip_smoke
+    `TRAIN_FLASH_CASES`, inputs drawn as `phase_train_kernels` draws them:
+    each case held to the plain version (`TOLERANCE` with `grad_floor`,
+    per row) with a bit-identical rerun, then timed as chip_smoke times
+    it (CUDA events, median of 10 after 2 warm-up calls, L2 flushed),
+    and split by pass (`pass_split`)."""
+    from repro_torch.kernels.flash_attention import ops as fk
+    from repro_torch.kernels.tolerance import (TOLERANCE, grad_floor,
+                                               worst_ratio)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev).zero_
+    g = torch.Generator(device=dev).manual_seed(24)
+    rtol, atol = TOLERANCE[torch.bfloat16]
+    out = {}
+    for b, sq, skv, hq, hkv, d, causal, off, label in cs.TRAIN_FLASH_CASES:
+        q, k, v, do = (torch.randn(*s, generator=g, device=dev).bfloat16()
+                       for s in ((b, sq, hq, d), (b, skv, hkv, d),
+                                 (b, skv, hkv, d), (b, sq, hq, d)))
+        kw = dict(causal=causal, q_offset=off)
+        o, lse = fk.flash_attention_lse(q, k, v, **kw)
+        po, plse = fk.flash_attention_lse_plain(q, k, v, **kw)
+        got = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+        want = fk.flash_attention_backward_plain(q, k, v, po, do, plse, **kw)
+        ratio = max(worst_ratio(x, y, rtol, atol, floor=grad_floor)[1]
+                    for x, y in zip(got, want))
+        again = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+        if not ratio <= 1.0 or not all(
+                torch.equal(x, y) for x, y in zip(got, again)):
+            raise SystemExit(f"checkout_ab: flash backward {label}: err / "
+                             f"bound {ratio}, or a rerun gives other bits")
+        del got, want, again, po, plse
+
+        def call():
+            return fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+        out[f"flash_attention_backward {label}"] = {
+            "ms": cs.time_ms(call, flush, iters=10, warmup=2),
+            "passes_ms": pass_split(torch, call), "d": d,
+            "worst_err_over_bound": ratio}
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 SERVES = ("serve", "serve_contiguous", "serve_moe", "serve_hybrid",
           "serve_ssm")
 
 
-def run_one(root: Path, serves=SERVES, ssd_bwd: bool = False) -> dict:
+def run_one(root: Path, serves=SERVES, only: str = "") -> dict:
     """ROOT's phases on the card (every kernel phase when `serves` is all
-    of SERVES, else only the serve phases named; with `ssd_bwd` only the
-    SSD backward's times); returns the summary line."""
+    of SERVES, else only the serve phases named; with `only` "ssd-bwd"
+    or "flash-bwd" only that backward's times); returns the summary
+    line."""
     here = _this_chip_smoke()
     sys.path[:0] = [str(root / "src"), str(root)]
     import torch
@@ -156,10 +234,16 @@ def run_one(root: Path, serves=SERVES, ssd_bwd: bool = False) -> dict:
     t0 = time.perf_counter()
     lib = kbuild.library()
     build_s = time.perf_counter() - t0
-    if ssd_bwd:
+    if only == "ssd-bwd":
         return {"ab": str(root), "card": card, "build_s": build_s,
                 "ssd_bwd_ptxas": here.ssd_bwd_ptxas(lib.compiler_log),
                 "times": ssd_backward_times(torch, cs, dev)}
+    if only == "flash-bwd":
+        report = here.tc_ptxas(lib.compiler_log)
+        return {"ab": str(root), "card": card, "build_s": build_s,
+                "flash_bwd_ptxas": {k: v for k, v in report.items()
+                                    if k.startswith("flash_bwd")},
+                "times": flash_backward_times(torch, cs, dev)}
     timings, moe, contig, routes = {}, {}, {}, {}
     if tuple(serves) == SERVES:
         timings = cs.phase_kernels(torch, dev, card)
@@ -221,9 +305,9 @@ def run_one(root: Path, serves=SERVES, ssd_bwd: bool = False) -> dict:
 
 def main(argv: list[str]) -> int:
     serves = SERVES
-    ssd_bwd = argv[:1] == ["--ssd-bwd"]
-    if ssd_bwd:
-        argv = argv[1:]
+    only = ""
+    if argv[:1] in (["--ssd-bwd"], ["--flash-bwd"]):
+        only, argv = argv[0][2:], argv[1:]
     if argv[:1] == ["--serve"] and len(argv) > 1:
         serves = tuple(argv[1].split(","))
         argv = argv[2:]
@@ -232,7 +316,7 @@ def main(argv: list[str]) -> int:
                   file=sys.stderr)
             return 2
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(run_one(Path(argv[1]).resolve(), serves, ssd_bwd)),
+        print(json.dumps(run_one(Path(argv[1]).resolve(), serves, only)),
               flush=True)
         return 0
     if not argv:
@@ -240,7 +324,7 @@ def main(argv: list[str]) -> int:
         return 2
     for root in argv:
         proc = subprocess.run([sys.executable, __file__]
-                              + (["--ssd-bwd"] if ssd_bwd else [])
+                              + ([f"--{only}"] if only else [])
                               + ["--serve", ",".join(serves), "--one", root])
         if proc.returncode != 0:
             print(f"checkout_ab: {root} failed (exit {proc.returncode})",

@@ -21,7 +21,8 @@ SOURCES = ("paged_attention.cu", "paged_prefill.cu", "grouped_matmul.cu",
            "grouped_matmul_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
            "decode_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "ws_matmul.cu")
-HEADERS = ("paged_common.cuh", "mma_common.cuh", "paged_tc.cuh")
+HEADERS = ("paged_common.cuh", "mma_common.cuh", "paged_tc.cuh",
+           "wgmma_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,9 +60,9 @@ FLASH_ARGTYPES = [_VOIDP] * 4 + [_INT] * 9 + [_VOIDP]
 # repro_flash_attention_lse(q, k, v, out, lse, b, sq, skv, hq, hkv, d,
 #   q_offset, causal, dtype, stream)
 FLASH_LSE_ARGTYPES = [_VOIDP] * 5 + [_INT] * 9 + [_VOIDP]
-# repro_flash_attention_bwd(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq,
-#   skv, hq, hkv, d, q_offset, causal, dtype, stream)
-FLASH_BWD_ARGTYPES = [_VOIDP] * 10 + [_INT] * 9 + [_VOIDP]
+# repro_flash_attention_bwd(q, k, v, o, dout, lse, dsum, part, dq, dk, dv,
+#   b, sq, skv, hq, hkv, d, q_offset, causal, splits, dtype, passes, stream)
+FLASH_BWD_ARGTYPES = [_VOIDP] * 11 + [_INT] * 11 + [_VOIDP]
 # repro_ws_matmul(x, w, out, M, N, K, bm, bn, bk, splits, dtype, vec,
 #   stream)
 WS_ARGTYPES = [_VOIDP] * 3 + [_INT] * 9 + [_VOIDP]

@@ -20,12 +20,17 @@ at or before its own position.
 * Training: `FlashAttentionFn` (a `torch.autograd.Function`) runs the
   forward with the log-sum-exp (`flash_attention_lse`) and saves q, k,
   v, o and lse; its backward is `flash_attention_backward`, the kernel
-  of `kernels/csrc/flash_attention_bwd.cu` (three launches: D =
-  rowsum(dO o), then dK/dV, then dQ; `BACKWARD.launches` counts calls)
-  on a CUDA tensor and `flash_attention_backward_plain` on a CPU one.
-  The backward takes head dims that are multiples of 16 up to 128 and,
-  in bf16, of 32 from 160 to 256 (f32: of 16 up to 256): past 128 its
-  bf16 blocks split the output columns in two halves (`bwd_col_splits`).
+  of `kernels/csrc/flash_attention_bwd.cu` (D = rowsum(dO o), then
+  dK/dV, then, where the group is split, the reduce of its partials,
+  then dQ; `BACKWARD.launches` counts calls) on a CUDA tensor and
+  `flash_attention_backward_plain` on a CPU one.  The backward takes
+  head dims that are multiples of 16 up to 128 and, in bf16, of 32 from
+  160 to 256 (f32: of 16 up to 256).  bf16 has two designs, chosen by
+  the head dim alone (`bwd_design`): wgmma at 64 to 192, with the group
+  split over blocks where the key tiles alone leave the card half idle
+  (`bwd_group_splits`); mma.sync at 16 to 48 and at 224 and 256, whose
+  blocks past 128 split the output columns in two halves
+  (`bwd_col_splits`).
 
 The kernel has two designs, fixed by the dtype (`route`); neither falls
 back to the other:
@@ -87,9 +92,10 @@ TC_PAD = 8             # bf16 elements of shared-memory row padding
 MAX_SMEM = 232_448
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 256
-# past this head dim the bf16 backward's blocks each sum one column half
-# of dK/dV and dQ in registers (flash_attention_bwd.cu `col_splits`), so
-# its head dims (`tc::dispatch`) are multiples of 16 up to it, then of 32
+# past this head dim the bf16 mma.sync backward's blocks each sum one
+# column half of dK/dV and dQ in registers (flash_attention_bwd.cu
+# `col_splits`), so its head dims (`tc::dispatch`) are multiples of 16 up
+# to it, then of 32
 BWD_SPLIT_HEAD_DIM = 128
 BWD_TC_HEAD_DIMS = (*range(16, BWD_SPLIT_HEAD_DIM + 1, 16),
                     *range(BWD_SPLIT_HEAD_DIM + 32, MAX_BWD_HEAD_DIM + 1, 32))
@@ -99,6 +105,25 @@ MAX_GRID_Y = 65535
 # over 64-key tiles (TC_ROWS, TC_TILE_TOKENS); f32 tiles of 32
 BWD_TC_KEYS, BWD_TC_QROWS = 64, 32
 BWD_F32_TILE = 32
+# the bf16 backward's two designs, chosen by head dim alone (`bwd_design`):
+# wgmma at these (flash_attention_bwd.cu `wg::takes`), mma.sync at the rest
+WGMMA, MMA_SYNC = "wgmma", "mma_sync"
+BWD_WG_HEAD_DIMS = (64, 80, 96, 112, 128, 160, 192)
+# the wgmma design's geometry (namespace wg): dK/dV blocks of 128 keys (two
+# consumer warpgroups of 64) walking 64 packed query rows a step, dQ blocks
+# of 128 packed rows over 64-key tiles, a ring fed by a producer warpgroup
+# (384 threads), 3 stages deep up to 128 columns (d padded to whole
+# 64-column panels) and 2 past it, where each dK/dV tile takes two blocks,
+# one summing dV and one dK (`bwd_wg_roles`); a dK/dV tile's walk split
+# over at most MAX_GROUP_SPLITS blocks
+BWD_WG_KEYS, BWD_WG_QROWS = 128, 64
+BWD_WG_ROWS, BWD_WG_TOKENS = 128, 64
+BWD_WG_THREADS = 384
+MAX_GROUP_SPLITS = 16
+# the passes of one backward call, bits of the C entry point's `passes`
+# (flash_attention_bwd.cu `Pass`): D, dK/dV, the group split's reduce, dQ
+BWD_PASSES = {"D": 1, "dkdv": 2, "reduce": 4, "dq": 8}
+BWD_ALL_PASSES = sum(BWD_PASSES.values())
 
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
@@ -295,15 +320,100 @@ def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
 
 
 def bwd_col_splits(d: int) -> int:
-    """Column halves of the bf16 backward's outputs, its grids' z
-    (flash_attention_bwd.cu `col_splits`)."""
+    """Column halves of the bf16 mma.sync backward's outputs, its grids'
+    z (flash_attention_bwd.cu `col_splits`)."""
     return 1 if d <= BWD_SPLIT_HEAD_DIM else 2
+
+
+def bwd_design(d: int) -> str:
+    """The bf16 backward's design at head dim d (flash_attention_bwd.cu
+    `wg::takes`): `wgmma` at 64 to 128, 160 and 192, `mma_sync` at 16
+    to 48, 224 and 256."""
+    return WGMMA if d in BWD_WG_HEAD_DIMS else MMA_SYNC
+
+
+def bwd_wg_padded(d: int) -> int:
+    """The wgmma design's tile width: d in whole 64-column panels
+    (flash_attention_bwd.cu `wg::padded`)."""
+    return -(-d // 64) * 64
+
+
+def bwd_wg_stages(d: int) -> int:
+    """The wgmma design's ring depth (`wg::stages`)."""
+    return 3 if bwd_wg_padded(d) <= 128 else 2
+
+
+def bwd_wg_roles(d: int) -> int:
+    """Blocks a dK/dV tile of the wgmma design takes (its grid's z,
+    `wg::wide`): one summing dV and dK up to 128 columns, past it one for
+    dV and one for dK."""
+    return 1 if bwd_wg_padded(d) <= 128 else 2
+
+
+def bwd_wg_smem_bytes(d: int) -> tuple[int, int]:
+    """Dynamic shared memory of one dK/dV block and one dQ block of the
+    wgmma design (flash_attention_bwd.cu `wg::dkdv_smem_bytes`,
+    `wg::dq_smem_bytes`): 1024 bytes of alignment, bf16 tiles of whole
+    64-column panels, the ring's lse, D and key limits (dK/dV), and its
+    2 x stages mbarriers."""
+    st = bwd_wg_stages(d)
+    d = bwd_wg_padded(d)
+    return (1024 + 2 * (2 * BWD_WG_KEYS + st * 2 * BWD_WG_QROWS) * d
+            + st * BWD_WG_QROWS * 12 + st * 16,
+            1024 + 2 * (2 * BWD_WG_ROWS + st * 2 * BWD_WG_TOKENS) * d
+            + st * 16)
+
+
+def bwd_group_splits(b: int, sq: int, skv: int, hkv: int, group: int,
+                     sms: int, d: int = 128) -> int:
+    """Blocks each 128-key dK/dV tile's walk is split over (the grid's y
+    holds tile x splits): 1 when the tiles alone (and their roles,
+    `bwd_wg_roles`) give two blocks an SM; else enough for two, but no
+    chunk shorter than 4 steps of 64 packed rows of the longest walk, and
+    at most MAX_GROUP_SPLITS."""
+    blocks = b * hkv * -(-skv // BWD_WG_KEYS) * bwd_wg_roles(d)
+    if blocks >= 2 * sms:
+        return 1
+    steps = -(-sq * group // BWD_WG_QROWS)
+    return max(1, min(-(-2 * sms // blocks), steps // 4, MAX_GROUP_SPLITS))
+
+
+def bwd_chunk(n_steps: int, splits: int, c: int) -> tuple[int, int]:
+    """Steps j0 .. j1 - 1 of a walk of n_steps that chunk c of `splits`
+    takes (the kernel's `j0`, `j1`): equal shares, one step apart at
+    most."""
+    return n_steps * c // splits, n_steps * (c + 1) // splits
+
+
+def bwd_blocks(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+               splits: int = 1) -> dict:
+    """The bf16 backward's grid sizes at head dim d: {"dkdv": ..., "dq":
+    ...} blocks (with the group split's `splits`)."""
+    group = hq // hkv
+    if bwd_design(d) == WGMMA:
+        return {"dkdv": b * hkv * -(-skv // BWD_WG_KEYS) * splits
+                * bwd_wg_roles(d),
+                "dq": b * hkv * -(-sq * group // BWD_WG_ROWS)}
+    return {"dkdv": b * hkv * -(-skv // BWD_TC_KEYS) * bwd_col_splits(d),
+            "dq": b * hkv * tc_tiles(sq, group) * bwd_col_splits(d)}
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def bwd_smem_bytes(dtype, d: int) -> tuple[int, int]:
     """Dynamic shared memory of one dK/dV block and one dQ block of the
-    backward (flash_attention_bwd.cu `dkdv_smem_bytes`, `dq_smem_bytes`
-    and `f32::smem_bytes`)."""
+    backward (flash_attention_bwd.cu `dkdv_smem_bytes`, `dq_smem_bytes`,
+    the wgmma design's `bwd_wg_smem_bytes` and `f32::smem_bytes`)."""
+    if route(dtype) == TENSOR_CORES and bwd_design(d) == WGMMA:
+        return bwd_wg_smem_bytes(d)
     if route(dtype) == TENSOR_CORES:
         row = 2 * (d + TC_PAD)
         return ((2 * BWD_TC_KEYS + 2 * TC_STAGES * BWD_TC_QROWS) * row
@@ -316,7 +426,12 @@ def bwd_smem_bytes(dtype, d: int) -> tuple[int, int]:
     return 6 * tile + 2 * score + small, 5 * tile + score + small
 
 
-def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int,
+                passes: int = BWD_ALL_PASSES, bufs: dict | None = None):
+    """The backward kernel's passes named by the bits of `passes` (all by
+    default) into `bufs` (`_bwd_buffers`; fresh ones by default), whose
+    dq, dk and dv it returns.  A timing of one pass reuses the buffers of
+    a whole call."""
     b, sq, skv, hq, hkv, d = _check_inputs(
         q, k, v, q_offset, MAX_BWD_HEAD_DIM, (("o", o), ("do", do)))
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
@@ -324,11 +439,16 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
         raise ValueError(f"lse must be contiguous float32 ({b}, {hq}, {sq}) "
                          f"on {q.device}")
     # the grids' y extents: (dK/dV key tiles, dQ row tiles or heads)
+    splits = _bwd_splits(q, k)
     if route(q.dtype) == TENSOR_CORES:
         if d not in BWD_TC_HEAD_DIMS:
             raise ValueError(f"head_dim {d}: the bf16 backward takes "
                              f"{BWD_TC_HEAD_DIMS}")
-        grid_y = (-(-skv // BWD_TC_KEYS), tc_tiles(sq, hq // hkv))
+        if bwd_design(d) == WGMMA:
+            grid_y = (-(-skv // BWD_WG_KEYS) * splits,
+                      -(-sq * (hq // hkv) // BWD_WG_ROWS))
+        else:
+            grid_y = (-(-skv // BWD_TC_KEYS), tc_tiles(sq, hq // hkv))
     else:
         grid_y = (-(-skv // BWD_F32_TILE), b * hq)
     if max(grid_y) > MAX_GRID_Y:
@@ -337,21 +457,64 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
     if max(bwd_smem_bytes(q.dtype, d)) > MAX_SMEM:
         raise ValueError(f"head_dim {d} needs more shared memory than a "
                          f"block has")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if bufs is None:
+        bufs = _bwd_buffers(q, k, splits)
+    dq, dk, dv = bufs["dq"], bufs["dk"], bufs["dv"]
     if sq == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    part = bufs["part"]
     lib = B.library().lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), bufs["dsum"].data_ptr(),
+            part.data_ptr() if part is not None else None, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d,
-            int(q_offset), int(causal), DTYPE_CODES[q.dtype], stream)
+            int(q_offset), int(causal), splits, DTYPE_CODES[q.dtype],
+            int(passes), stream)
     B.check(err, "flash_attention_backward")
     BACKWARD.launches += 1
     return dq, dk, dv
+
+
+def _bwd_splits(q, k) -> int:
+    """The group split a call takes: `bwd_group_splits` on the wgmma
+    design, else 1."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if route(q.dtype) != TENSOR_CORES or bwd_design(d) != WGMMA:
+        return 1
+    return bwd_group_splits(b, sq, skv, hkv, hq // hkv, _sm_count(q.device),
+                            d)
+
+
+def _bwd_buffers(q, k, splits: int) -> dict:
+    """The backward's outputs and scratch: dq, dk, dv, D (b, hq, sq) f32,
+    and with a group split the f32 partials (splits, 2, b, skv, hkv, d)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    return {"dq": torch.empty_like(q), "dk": torch.empty_like(k),
+            "dv": torch.empty_like(k),
+            "dsum": torch.empty((b, hq, sq), dtype=torch.float32,
+                                device=q.device),
+            "part": (torch.empty((splits, 2, b, skv, hkv, d),
+                                 dtype=torch.float32, device=q.device)
+                     if splits > 1 else None)}
+
+
+def backward_pass_timer(q, k, v, o, do, lse, *, causal=True, q_offset=0):
+    """For timing the backward kernel's passes apart on the card: runs
+    one whole call, then returns ({pass name: a callable that launches
+    only that pass into the same buffers}, the group split).  The reduce
+    is there only when the group is split."""
+    splits = _bwd_splits(q, k)
+    bufs = _bwd_buffers(q, k, splits)
+    _launch_bwd(q, k, v, o, do, lse, causal, q_offset, bufs=bufs)
+    return {name: (lambda bit=bit: _launch_bwd(
+        q, k, v, o, do, lse, causal, q_offset, passes=bit, bufs=bufs))
+        for name, bit in BWD_PASSES.items()
+        if name != "reduce" or splits > 1}, splits
 
 
 def _device(q, what: str) -> str:

@@ -10,6 +10,9 @@ only PyTorch and the CUDA toolkit are installed:
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -196,6 +199,143 @@ def test_bwd_shared_memory_mirror_fits_a_block():
             assert max(fk.bwd_smem_bytes(dtype, d)) <= fk.MAX_SMEM
 
 
+_BWD_SRC = (Path(fk.__file__).resolve().parents[1] / "csrc"
+            / "flash_attention_bwd.cu").read_text()
+
+
+def _wg_constant(name):
+    """`constexpr int name = value;` in the wgmma design's namespace."""
+    wg = _BWD_SRC[_BWD_SRC.index("namespace wg {"):
+                  _BWD_SRC.index("}  // namespace wg")]
+    m = re.search(rf"\b{name} = (\d+)", wg)
+    assert m, name
+    return int(m[1])
+
+
+def test_bwd_wg_mirrors_match_the_source():
+    """ops.py's mirrors of the wgmma design against the .cu constants:
+    the geometry, threads, setmaxnreg's budget, the head dims `wg::takes`
+    states, the panels, ring depth and roles by width, the pass bits, and
+    each head dim's shared memory by the source's own formulas
+    (`wg::dkdv_smem_bytes`, `wg::dq_smem_bytes`)."""
+    consumers = _wg_constant("kConsumers")
+    keys, rows = 64 * consumers, 64 * consumers
+    q_rows, tok = _wg_constant("kQ"), _wg_constant("kTok")
+    assert (fk.BWD_WG_KEYS, fk.BWD_WG_QROWS, fk.BWD_WG_ROWS,
+            fk.BWD_WG_TOKENS) == (keys, q_rows, rows, tok)
+    assert "padded(int d) { return (d + 63) / 64 * 64; }" in _BWD_SRC
+    assert "wide(int d) { return padded(d) > 128; }" in _BWD_SRC
+    assert "stages(int d) { return wide(d) ? 2 : 3; }" in _BWD_SRC
+    assert re.search(r"dim3\(b \* hkv, \(skv \+ kKeys - 1\) / kKeys \* splits, "
+                     r"wide\(D\) \? 2 : 1\)", _BWD_SRC)
+    threads = 128 * (consumers + 1)
+    assert fk.BWD_WG_THREADS == threads
+    # ptxas gives each thread 65536 / threads registers at entry; the
+    # producers' and consumers' setmaxnreg counts must fit in that
+    entry = 65536 // threads // 8 * 8
+    assert (128 * _wg_constant("kProducerRegs")
+            + 128 * consumers * _wg_constant("kConsumerRegs")
+            <= threads * entry)
+    assert re.search(r"takes\(int d\) \{ return d % 16 == 0 && d >= 64 "
+                     r"&& d <= 192; \}", _BWD_SRC)
+    assert fk.BWD_WG_HEAD_DIMS == tuple(
+        d for d in fk.BWD_TC_HEAD_DIMS if 64 <= d <= 192)
+    passes = dict(re.findall(r"kPass(\w+) = (\d+)", _BWD_SRC))
+    assert {k.lower(): int(v) for k, v in passes.items()} == {
+        k.lower(): v for k, v in fk.BWD_PASSES.items()}
+    assert fk.BWD_ALL_PASSES == 15
+    for d in fk.BWD_WG_HEAD_DIMS:
+        dp = -(-d // 64) * 64
+        stages = 3 if dp <= 128 else 2
+        assert (fk.bwd_wg_padded(d), fk.bwd_wg_stages(d),
+                fk.bwd_wg_roles(d)) == (dp, stages, 1 if dp <= 128 else 2)
+        want = (1024 + 2 * (2 * keys + stages * 2 * q_rows) * dp
+                + stages * q_rows * 12 + stages * 16,
+                1024 + 2 * (2 * rows + stages * 2 * tok) * dp + stages * 16)
+        assert fk.bwd_wg_smem_bytes(d) == want
+        assert fk.bwd_smem_bytes(torch.bfloat16, d) == want
+        assert max(want) <= fk.MAX_SMEM
+
+
+def test_every_bf16_head_dim_has_a_design():
+    """Each head dim the bf16 backward takes has exactly one design, chosen
+    by d alone: wgmma from 64 to 192, mma.sync below and past it."""
+    designs = {d: fk.bwd_design(d) for d in fk.BWD_TC_HEAD_DIMS}
+    assert {d for d, x in designs.items() if x == fk.WGMMA} == set(
+        fk.BWD_WG_HEAD_DIMS)
+    assert {d for d, x in designs.items() if x == fk.MMA_SYNC} == {
+        16, 32, 48, 224, 256}
+    assert set(fk.BWD_WG_HEAD_DIMS) <= set(fk.BWD_TC_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("shape,d,splits", [
+    ((4, 2048, 2048, 8, 2), 128, 1),     # internlm2's training microbatch
+    ((1, 2048, 2048, 4, 8), 128, 5),     # qwen3-moe-30b-a3b's group of 8
+    ((1, 511, 511, 8, 2), 128, 4),       # ragged 511: capped by the walk
+    ((1, 64, 64, 1, 1), 128, 1),         # one step: nothing to split
+    ((1, 2048, 2048, 1, 64), 128, 16),   # capped at MAX_GROUP_SPLITS
+    ((2, 2048, 2048, 32, 1), 160, 1),    # zamba2's: 2 roles a tile
+    ((1, 2048, 2048, 8, 12), 192, 2),    # nemotron's group of 12
+])
+def test_bwd_group_splits_rule_and_grids(shape, d, splits):
+    b, sq, skv, hkv, group = shape
+    got = fk.bwd_group_splits(b, sq, skv, hkv, group, sms=132, d=d)
+    assert got == splits
+    tiles = -(-skv // fk.BWD_WG_KEYS)
+    blocks = fk.bwd_blocks(b, sq, skv, hkv * group, hkv, d, got)
+    assert blocks == {"dkdv": b * hkv * tiles * got * fk.bwd_wg_roles(d),
+                      "dq": b * hkv * -(-sq * group // fk.BWD_WG_ROWS)}
+    assert tiles * got <= fk.MAX_GRID_Y
+    # every chunk's share: the whole walk, in order, no step twice
+    for n in (1, 7, 64, 256):
+        steps = [j for c in range(got)
+                 for j in range(*fk.bwd_chunk(n, got, c))]
+        assert steps == list(range(n))
+
+
+def test_group_split_emulation_sums_to_the_plain_gradient():
+    """The kernel's split, emulated in f32: each 128-key tile's walk of
+    packed rows (query position, group member) from its causal start, cut
+    into `splits` chunks of whole 64-row steps (`bwd_chunk`), each
+    chunk's partial dK and dV summed in chunk order, equals
+    `flash_attention_backward_plain` within f32 rounding (a GQA group of
+    8, three key tiles, the last ragged)."""
+    b, s_, hq, hkv, d, off = 1, 300, 16, 2, 16, 0
+    q, k, v, do, kw = _inputs((b, s_, s_, hq, hkv, d, True, off), seed=11)
+    o, lse = fk.flash_attention_lse_plain(q, k, v, **kw)
+    _, dk, dv = fk.flash_attention_backward_plain(q, k, v, o, do, lse, **kw)
+    g, scale = hq // hkv, 1.0 / d ** 0.5
+    qg, dog = (x.reshape(b, s_, hkv, g, d) for x in (q, do))
+    p = torch.exp(torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
+                  - lse.reshape(b, hkv, g, s_, 1))
+    p = torch.where(fk._mask(s_, s_, off, q.device), p, 0.0)
+    dsum = (do * o).sum(-1).reshape(b, s_, hkv, g).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, v) - dsum[..., None])
+    # packed row r = qi * g + gi of each kv head, as (b, hkv, g, sq) masks
+    packed = (torch.arange(s_)[None, :] * g
+              + torch.arange(g)[:, None])[None, None]
+    splits = fk.bwd_group_splits(b, s_, s_, hkv, g, sms=132)
+    assert splits > 1
+    rows, step = s_ * g, fk.BWD_WG_QROWS
+    got_k, got_v = torch.zeros_like(dk), torch.zeros_like(dv)
+    for t0 in range(0, s_, fk.BWD_WG_KEYS):
+        keys = slice(t0, min(s_, t0 + fk.BWD_WG_KEYS))
+        r_begin = min(rows, max(0, t0 - off) * g)
+        n_q = -(-(rows - r_begin) // step)
+        acc_k = acc_v = 0.0
+        for c in range(splits):
+            j0, j1 = fk.bwd_chunk(n_q, splits, c)
+            live = ((packed >= r_begin + j0 * step)
+                    & (packed < r_begin + j1 * step))[..., None]
+            pc, dsc = p[..., keys] * live, ds[..., keys] * live
+            acc_v = acc_v + torch.einsum("bhgqk,bqhgd->bkhd", pc, dog)
+            acc_k = acc_k + torch.einsum("bhgqk,bqhgd->bkhd", dsc,
+                                         qg) * scale
+        got_k[:, keys], got_v[:, keys] = acc_k, acc_v
+    torch.testing.assert_close(got_k, dk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_v, dv, rtol=1e-5, atol=1e-6)
+
+
 def _key_tile_dq(q, k, v, o, do, lse, lo, hi):
     """Keys lo:hi's share of dQ (causal, one head per kv head, f32), as
     the plain version forms it."""
@@ -234,11 +374,23 @@ def test_backward_check_refuses_a_dropped_query_step_or_key_tile(drop):
 
 def test_flash_bwd_mutants_still_plant_their_faults():
     """Each mutant of `benchmarks/flash_bwd_mutants.py` (run on the card)
-    still finds its one line in the backward's source."""
+    still finds its lines in the backward's source, and plants a fault in
+    each bf16 design it names: the wgmma design's `namespace wg` and the
+    mma.sync design's `namespace tc`."""
     from repro_torch.benchmarks import flash_bwd_mutants as fm
     src = (fm.ROOT / "src" / fm.BWD).read_text()
+
+    def section(text, ns):
+        return text[text.index(f"namespace {ns} {{"):
+                    text.index(f"}}  // namespace {ns}")]
+    assert set(fm.DESIGNS) == set(fm.MUTANTS) - {"kernel"}
     for name in fm.MUTANTS:
-        assert (fm.mutate(src, name) == src) == (name == "kernel")
+        got = fm.mutate(src, name)
+        assert (got == src) == (name == "kernel")
+        for design, ns in ((fk.WGMMA, "wg"), (fk.MMA_SYNC, "tc")):
+            planted = section(got, ns) != section(src, ns)
+            assert planted == (design in fm.DESIGNS.get(name, ())), (
+                name, design)
 
 
 # ------------------------------------------------------------ on the card
@@ -263,11 +415,14 @@ def _check_grads(got, want, dtype):
 
 
 # (b, sq, skv, hq, hkv, d, causal, q_offset): internlm2's heads, qwen3's
-# group, ragged lengths, a q_offset, non-causal, small head dims, and past
-# 128 (two column halves a block row): zamba2's shared attention (d 160,
-# no GQA) and a group of 12 at nemotron's d 192, ragged, offset and
-# non-causal
+# group, ragged lengths, a q_offset, non-causal, small head dims (16: the
+# mma.sync design), the wgmma design's padded head dims (96, 80), past
+# 128 on it (a dV and a dK block a key tile): zamba2's shared attention
+# (d 160, no GQA) and a group of 12 at nemotron's d 192, ragged, offset
+# and non-causal; and d 256 (mma.sync, two column halves a block row)
 CARD_CASES = [
+    (1, 200, 200, 8, 2, 96, True, 0),
+    (1, 130, 150, 4, 4, 80, False, 0),
     (2, 130, 130, 4, 4, 160, True, 0),
     (1, 100, 300, 12, 1, 192, True, 200),
     (1, 70, 97, 4, 2, 192, False, 0),
@@ -304,6 +459,37 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, case, dtype):
     again = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
     for a, b in zip(got, again):      # no atomics: the same bits
         assert torch.equal(a, b)
+
+
+# (b, sq, skv, hq, hkv, d, causal, q_offset) where the wgmma design splits
+# the group: qwen3-moe-30b-a3b's group of 8 at 2048 tokens, and d 64
+SPLIT_CASES = [
+    (1, 2048, 2048, 32, 4, 128, True, 0),
+    (1, 300, 300, 16, 2, 64, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_group_split_matches_plain_on_card(cuda_device, case):
+    """The split's partials and reduce: held to the plain version, a rerun
+    bit-identical, and the same bits when each pass is launched alone."""
+    q, k, v, do, kw = (x.to(cuda_device).bfloat16() if torch.is_tensor(x)
+                       else x for x in _inputs(case, seed=6))
+    assert fk.bwd_design(case[5]) == fk.WGMMA
+    assert fk._bwd_splits(q, k) > 1
+    o, lse = fk.flash_attention_lse(q, k, v, **kw)
+    got = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    want = fk.flash_attention_backward_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    _check_grads(got, want, torch.bfloat16)
+    again = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    passes, splits = fk.backward_pass_timer(q, k, v, o, do, lse, **kw)
+    assert splits > 1 and set(passes) == set(fk.BWD_PASSES)
+    for name in ("D", "dkdv", "reduce", "dq"):
+        alone = passes[name]()
+    for a, b, c in zip(got, again, alone):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.cuda
