@@ -15,9 +15,11 @@ exit at the first failure):
    instance of the bf16 flash, paged-prefill, paged-decode and split-KV
    decode kernels and of both designs of the bf16 flash backward
    (`tc_ptxas`; ptxas's warnings on wgmma or setmaxnreg in
-   `wgmma_warnings`) and of the bf16 SSD backward's column and row
-   kernels (`ssd_bwd_ptxas`); a spill in, or no report of, any instance
-   of the flash or SSD backward fails the phase.
+   `wgmma_warnings`), of the bf16 SSD backward's column and row
+   kernels (`ssd_bwd_ptxas`) and of the grouped backward's kernels
+   (`grouped_bwd_ptxas`: dY's rounding, dX and dW on wgmma, f32); a
+   spill in, or no report of, any instance of the flash, SSD or grouped
+   backward fails the phase.
 2. kernels: each paged-attention kernel against its plain PyTorch
    version on the card, at the dense path's shapes (hq 16, hkv 8, d
    128, page 16, batch 8, ragged positions up to 1023, 64 table
@@ -87,7 +89,9 @@ exit at the first failure):
    with its design (`bwd_design`: wgmma at d 64 to 192 here),
    group split, blocks and each pass timed alone (D, dK/dV, the
    split's reduce, dQ).  Then
-   the grouped-matmul backward (`grouped_matmul_bwd.cu`: dX, dW) at
+   the grouped-matmul backward (`grouped_matmul_bwd.cu`: dY rounded
+   once, then dX and dW on persistent wgmma kernels, whose blocks per SM
+   from the card's occupancy API must equal ops.py's mirror) at
    qwen3-moe-30b-a3b's training microbatch (4,096 tokens, top-8 of 128
    experts, capacity 320; K x F 2048 x 768 and 768 x 2048, the live
    rows of a routing draw) and the SSD intra-chunk backward
@@ -96,7 +100,9 @@ exit at the first failure):
    p = n = 64), bf16 and f32, each per element against its plain
    version (the SSD's also against its f64 plain version) with a
    byte-identical rerun; bf16 timed beside the plain version, two
-   `torch.bmm` (grouped) and the bound.
+   `torch.bmm` (grouped) and the bound, the grouped backward also pass
+   by pass (each launched alone) with its grid, work items and shared
+   memory.
 5. ws/os matmul kernels: the weight-stationary and output-stationary
    matmuls against their plain version at `tests/test_kernels.py`'s
    shapes in f32 and bf16 and at the four regimes of the dataflow sweep
@@ -184,7 +190,9 @@ exit at the first failure):
    layers, `moe_dispatch="grouped"`, 4 x 2048 tokens in 2
    microbatches), bf16, AdamW, remat "full": eight steps (the first
    loss near ln V + 0.02^2 d / 2, plus the router losses for MoE; step
-   seconds, tokens/s, peak memory), one profiled step (busy share), a
+   seconds, tokens/s, peak memory), one profiled step (busy share; the
+   port's kernels' device time, the grouped backward's also by pass:
+   dY's rounding, dX, dW), a
    held-out batch's loss lower after the steps than before them, and
    the launches of the nine steps: per microbatch and layer the SSD
    kernel twice and its backward once, or the grouped matmul 3 x 2 and
@@ -1062,8 +1070,9 @@ def phase_train_kernels(torch, dev, card: str, flush):
                                  "X^T dY) over every row, dY in bf16",
                       "ssd": "none: no single PyTorch call computes it"},
           "timing": "CUDA events, median of 10 after 2 warm-up (plain: "
-                    "3 after 1; a flash backward's passes_ms: each pass "
-                    "launched alone into one call's buffers), L2 flushed",
+                    "3 after 1; a flash or grouped backward's passes_ms: "
+                    "each pass launched alone into one call's buffers), L2 "
+                    "flushed",
           **times})
     return times
 
@@ -1088,7 +1097,11 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
     element (`check`; grouped bf16 with `bf16_rounding` added, SSD by
     `ssd_scan/ops.py` BWD_TOLERANCE in both dtypes) with a
     byte-identical rerun; bf16 timed beside the plain
-    version, the library call (grouped: two torch.bmm) and the bound."""
+    version, the library call (grouped: two torch.bmm) and the bound,
+    the grouped backward also pass by pass (the rounding of dY, dX, dW,
+    each launched alone), with its persistent grid, work items and
+    shared memory, after its kernels' occupancy is held to ops.py's
+    mirror."""
     from repro_torch.kernels.grouped_matmul import ops as gm
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tolerance import worst_ratio
@@ -1104,6 +1117,14 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
         return err
 
     times = {}
+    # the persistent bf16 dX and dW kernels: the card's occupancy against
+    # ops.py's mirror
+    for kind in ("dx", "dw"):
+        blocks = gm.launched_bwd_blocks_per_sm(kind, dev)
+        if blocks != gm.bwd_blocks_per_sm():
+            fail(f"grouped backward {kind} kernel: {blocks} blocks per SM "
+                 f"on the card, ops.py's mirror says "
+                 f"{gm.bwd_blocks_per_sm()}")
     gen = torch.Generator(device="cpu").manual_seed(25)
     gdev = torch.Generator(device=dev).manual_seed(25)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1142,9 +1163,13 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
                       + 2 * E * C * K + 2 * E * K * F)
             ms, by = bound(nbytes, 4 * n_live * K * F)
             dyb = dy.to(bf16)
+            passes = gm.backward_pass_timer(x, w, dy, live)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             times[f"grouped_matmul_backward {label}"] = dict(
                 ms=time_ms(lambda: gm.grouped_matmul_backward(
                     x, w, dy, live), flush, iters=10, warmup=2),
+                passes_ms={name: time_ms(fn, flush, iters=10, warmup=2)
+                           for name, fn in passes.items()},
                 plain_ms=time_ms(lambda: gm.grouped_matmul_backward_plain(
                     x, w, dy, live), flush, iters=3, warmup=1),
                 library_ms=time_ms(lambda: (
@@ -1153,9 +1178,12 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
                     warmup=2),
                 bound_ms=ms, bound_by=by, max_abs_err=err,
                 live_rows=n_live, live_experts=experts,
-                blocks={"dx": E * -(-K // 64) * -(-C // 64),
-                        "dw": E * -(-K // 64) * -(-F // 64)})
-            del dyb
+                design="wgmma, persistent dX and dW, dY rounded once",
+                blocks=gm.bwd_grid(E, C, K, F, sms),
+                work_items={kind: len(gm.bwd_work_items(kind, E, C, K, F))
+                            for kind in ("dx", "dw")},
+                smem_bytes=gm.bwd_smem_bytes())
+            del dyb, passes
         del x32, w32, dy, x, w
     free_card(torch)
     for label, bh, nc, l, p, n in SSD_BWD_CASES:
@@ -2064,8 +2092,10 @@ def profiled_step(torch, step, state, batch):
     """One step under torch.profiler: (state, its metrics, seconds, the
     device's busy seconds, the kernels that take the most device time,
     and the device time and launches of each of the port's kernels that
-    ran, `PORT_KERNEL_NAMESPACES`)."""
+    ran, `PORT_KERNEL_NAMESPACES`; the grouped backward's time also by
+    pass, checkout_ab.py's `GROUPED_BWD_PASSES`)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.benchmarks.checkout_ab import GROUPED_BWD_PASSES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2084,6 +2114,13 @@ def profiled_step(torch, step, state, batch):
                 got = port.setdefault(name, {"ms": 0.0, "calls": 0})
                 got["ms"] += e.self_device_time_total / 1e3
                 got["calls"] += e.count
+                if name == "grouped_matmul_backward":
+                    # its passes: dY rounded, dX, dW
+                    part = next((p for k, p in GROUPED_BWD_PASSES
+                                 if k in e.key), "other")
+                    split = got.setdefault("passes_ms", {})
+                    split[part] = split.get(part, 0.0) \
+                        + e.self_device_time_total / 1e3
     return state, m, prof_s, busy_us / 1e6, [
         {"name": e.key[:100], "ms": e.self_device_time_total / 1e3,
          "calls": e.count} for e in top], port
@@ -2625,6 +2662,26 @@ def grouped_ptxas(log: str) -> dict:
         log, r"gm_bf16_kernel(?:ILb([01])E)?", lambda m: names[m[1]]).items()))
 
 
+def grouped_bwd_ptxas(log: str) -> dict:
+    """ptxas's report of each kernel of the grouped-matmul backward
+    (grouped_matmul_bwd.cu): the rounding of dY and the bf16 dX and dW
+    kernels ("round_dy", "dx_wg", "dw_wg"; a checkout before them has
+    "dx_bf16" and "dw_bf16") and the f32 one ("bwd_f32")."""
+    return dict(sorted(ptxas_report(
+        log, r"repro_gmb(?:2wg)?\d+(round_dy|dx_wg|dw_wg|dx_bf16|dw_bf16|bwd_f32)"
+             r"_kernel", lambda m: m[1]).items()))
+
+
+def grouped_bwd_spills(report: dict) -> list:
+    """The grouped backward's kernels (in a `grouped_bwd_ptxas` report)
+    that spill, or that ptxas did not report at all."""
+    import re
+    want = ("round_dy", "dx_wg", "dw_wg", "bwd_f32")
+    return [f"{k} (no report)" for k in want if k not in report] + [
+        k for k, v in report.items()
+        if re.search(r"\b[1-9]\d* bytes spill", v)]
+
+
 def ssd_ptxas(log: str) -> dict:
     """ptxas's report of each head-dim instance (p rounded up to 16) of
     the bf16 SSD kernel (`ssd_tc_kernel`): {"ssd_tc p64": ...}."""
@@ -2685,11 +2742,13 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     tc_report = tc_ptxas(lib.compiler_log)
     ssd_bwd_report = ssd_bwd_ptxas(lib.compiler_log)
+    grouped_bwd_report = grouped_bwd_ptxas(lib.compiler_log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.path.relative_to(ROOT)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "ptxas": ptxas,
           "tc_ptxas": tc_report, "ssd_bwd_ptxas": ssd_bwd_report,
+          "grouped_bwd_ptxas": grouped_bwd_report,
           "wgmma_warnings": wgmma_warnings(lib.compiler_log)})
     spilled = bwd_spills(tc_report)
     if spilled:
@@ -2697,6 +2756,9 @@ def main() -> int:
     spilled = ssd_bwd_spills(ssd_bwd_report)
     if spilled:
         fail(f"the SSD backward spills at {spilled}")
+    spilled = grouped_bwd_spills(grouped_bwd_report)
+    if spilled:
+        fail(f"the grouped backward spills at {spilled}")
 
     timings = phase_kernels(torch, dev, card)
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)

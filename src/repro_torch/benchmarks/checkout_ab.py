@@ -10,6 +10,7 @@ serves (zamba2-2.7b and mamba2-130m, `ssd_impl="pallas"`).
         ROOT [ROOT ...]
     python3 src/repro_torch/benchmarks/checkout_ab.py --ssd-bwd ROOT [ROOT ...]
     python3 src/repro_torch/benchmarks/checkout_ab.py --flash-bwd ROOT [ROOT ...]
+    python3 src/repro_torch/benchmarks/checkout_ab.py --grouped-bwd ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository: the parent commit unpacked
 with `git archive` into a directory that `.gitignore` lists, say, and
@@ -40,8 +41,13 @@ backward at its chip_smoke's `TRAIN_FLASH_CASES` (`flash_backward_times`:
 held to the plain version as chip_smoke holds it, timed as chip_smoke
 times it, and each pass's device time from torch.profiler, which needs
 no per-pass entry point in ROOT), with ptxas's report of the bf16
-attention kernels.  Needs one CUDA card; exits nonzero when a root's
-phases fail.
+attention kernels.  `--grouped-bwd` runs only ROOT's bf16 grouped-matmul
+backward at its chip_smoke's `GROUPED_BWD_CASES` (`grouped_backward_times`:
+held to the plain version as chip_smoke holds it, timed as chip_smoke
+times it, each pass's device time from torch.profiler and, where ROOT's
+ops.py has `backward_pass_timer`, each pass launched alone), with
+ptxas's report of the backward's kernels.  Needs one CUDA card; exits
+nonzero when a root's phases fail.
 """
 from __future__ import annotations
 
@@ -141,9 +147,14 @@ FLASH_BWD_PASSES = (("dsum", "D"), ("reduce", "reduce"), ("dkdv", "dkdv"),
                     ("dq_", "dq"))
 
 
-def pass_split(torch, fn, calls: int = 5) -> dict:
-    """Device ms per call of each flash-backward pass of fn(), from
-    torch.profiler over `calls` calls (`FLASH_BWD_PASSES`)."""
+# the grouped backward's kernels likewise: the rounding of dY, dX, dW
+GROUPED_BWD_PASSES = (("round_dy", "round"), ("dx_", "dx"), ("dw_", "dw"))
+
+
+def pass_split(torch, fn, calls: int = 5, passes=FLASH_BWD_PASSES) -> dict:
+    """Device ms per call of each backward pass of fn(), from
+    torch.profiler over `calls` calls (`passes`: substrings of the
+    kernels' names and the passes they stand for)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -155,7 +166,7 @@ def pass_split(torch, fn, calls: int = 5) -> dict:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for key, name in FLASH_BWD_PASSES:
+        for key, name in passes:
             if key in e.key:
                 out[name] = out.get(name, 0.0) \
                     + e.self_device_time_total / 1e3 / calls
@@ -206,15 +217,72 @@ def flash_backward_times(torch, cs, dev) -> dict:
     return out
 
 
+def grouped_backward_times(torch, cs, dev) -> dict:
+    """ROOT's bf16 `grouped_matmul_backward` at ROOT's chip_smoke
+    `GROUPED_BWD_CASES`, with qwen3's training microbatch's live rows
+    from a routing draw and the inputs drawn as `family_backward_kernels`
+    draws them: each case held to the plain version (`TOLERANCE` plus
+    `bf16_rounding`) with a bit-identical rerun, then timed as chip_smoke
+    times it (CUDA events, median of 10 after 2 warm-up calls, L2
+    flushed) and split by pass: device ms from torch.profiler
+    (`pass_split`), and each pass launched alone where ROOT has
+    `backward_pass_timer`."""
+    from repro_torch.kernels.grouped_matmul import ops as gm
+    from repro_torch.kernels.tolerance import worst_ratio
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev).zero_
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    gdev = torch.Generator(device=dev).manual_seed(25)
+    bf16 = torch.bfloat16
+    E, k, C = 128, 8, cs.TRAIN_MOE_CAPACITY
+    live = torch.clamp(cs.routed_rows(torch, E, cs.TRAIN_MOE_TOKENS, k, gen),
+                       max=C).to(dev)
+    out = {}
+    for K, F, label in cs.GROUPED_BWD_CASES:
+        mask = (torch.arange(C, device=dev)[None, :]
+                < live[:, None].long())[..., None]
+        x = (torch.randn(E, C, K, generator=gdev, device=dev) * mask).to(bf16)
+        w = (torch.randn(E, K, F, generator=gdev, device=dev) * 0.02).to(bf16)
+        dy = torch.randn(E, C, F, generator=gdev, device=dev) * mask
+        got = gm.grouped_matmul_backward(x, w, dy, live)
+        want = gm.grouped_matmul_backward_plain(x, w, dy, live)
+        ratio = max(worst_ratio(g, w_, *gm.TOLERANCE[bf16],
+                                floor=gm.bf16_rounding)[1]
+                    for g, w_ in zip(got, want))
+        again = gm.grouped_matmul_backward(x, w, dy, live)
+        if not ratio <= 1.0 or not all(
+                torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit(f"checkout_ab: grouped backward {label}: err / "
+                             f"bound {ratio}, or a rerun gives other bits")
+        del got, want, again
+
+        def call():
+            return gm.grouped_matmul_backward(x, w, dy, live)
+        row = {"ms": cs.time_ms(call, flush, iters=10, warmup=2),
+               "passes_ms": pass_split(torch, call,
+                                       passes=GROUPED_BWD_PASSES),
+               "K": K, "F": F, "live_rows": int(live.sum()),
+               "worst_err_over_bound": ratio}
+        if hasattr(gm, "backward_pass_timer"):
+            passes = gm.backward_pass_timer(x, w, dy, live)
+            row["passes_alone_ms"] = {
+                name: cs.time_ms(fn, flush, iters=10, warmup=2)
+                for name, fn in passes.items()}
+            del passes
+        out[f"grouped_matmul_backward {label}"] = row
+        del x, w, dy, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 SERVES = ("serve", "serve_contiguous", "serve_moe", "serve_hybrid",
           "serve_ssm")
 
 
 def run_one(root: Path, serves=SERVES, only: str = "") -> dict:
     """ROOT's phases on the card (every kernel phase when `serves` is all
-    of SERVES, else only the serve phases named; with `only` "ssd-bwd"
-    or "flash-bwd" only that backward's times); returns the summary
-    line."""
+    of SERVES, else only the serve phases named; with `only` "ssd-bwd",
+    "flash-bwd" or "grouped-bwd" only that backward's times); returns
+    the summary line."""
     here = _this_chip_smoke()
     sys.path[:0] = [str(root / "src"), str(root)]
     import torch
@@ -244,6 +312,10 @@ def run_one(root: Path, serves=SERVES, only: str = "") -> dict:
                 "flash_bwd_ptxas": {k: v for k, v in report.items()
                                     if k.startswith("flash_bwd")},
                 "times": flash_backward_times(torch, cs, dev)}
+    if only == "grouped-bwd":
+        return {"ab": str(root), "card": card, "build_s": build_s,
+                "grouped_bwd_ptxas": here.grouped_bwd_ptxas(lib.compiler_log),
+                "times": grouped_backward_times(torch, cs, dev)}
     timings, moe, contig, routes = {}, {}, {}, {}
     if tuple(serves) == SERVES:
         timings = cs.phase_kernels(torch, dev, card)
@@ -306,7 +378,7 @@ def run_one(root: Path, serves=SERVES, only: str = "") -> dict:
 def main(argv: list[str]) -> int:
     serves = SERVES
     only = ""
-    if argv[:1] in (["--ssd-bwd"], ["--flash-bwd"]):
+    if argv[:1] in (["--ssd-bwd"], ["--flash-bwd"], ["--grouped-bwd"]):
         only, argv = argv[0][2:], argv[1:]
     if argv[:1] == ["--serve"] and len(argv) > 1:
         serves = tuple(argv[1].split(","))

@@ -40,9 +40,11 @@ PREFILL_ARGTYPES = [_VOIDP] * 12 + [_INT] * 11 + [_VOIDP]
 GROUPED_ARGTYPES = [_VOIDP] * 4 + [_INT] * 6 + [_VOIDP]
 # repro_grouped_blocks_per_sm(vec, int* blocks)
 GROUPED_BLOCKS_ARGTYPES = [_INT, ctypes.POINTER(_INT)]
-# repro_grouped_matmul_bwd(x, w, dy, dx, dw, rows, E, C, K, F, dtype,
-#   stream)
-GROUPED_BWD_ARGTYPES = [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP]
+# repro_grouped_matmul_bwd(x, w, dy, dy16, dx, dw, rows, E, C, K, F,
+#   dtype, sms, passes, stream)
+GROUPED_BWD_ARGTYPES = [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP]
+# repro_grouped_bwd_blocks_per_sm(kind, int* blocks)
+GROUPED_BWD_BLOCKS_ARGTYPES = [_INT, ctypes.POINTER(_INT)]
 # repro_ssd_intra_chunk(x, dt, A, B, C, y, s, cd, bh, nc, l, p, n, dtype,
 #   stream)
 SSD_ARGTYPES = [_VOIDP] * 8 + [_INT] * 6 + [_VOIDP]
@@ -155,6 +157,9 @@ class KernelLibrary:
         lib.repro_grouped_blocks_per_sm.restype = ctypes.c_int
         lib.repro_grouped_matmul_bwd.argtypes = GROUPED_BWD_ARGTYPES
         lib.repro_grouped_matmul_bwd.restype = ctypes.c_int
+        lib.repro_grouped_bwd_blocks_per_sm.argtypes = \
+            GROUPED_BWD_BLOCKS_ARGTYPES
+        lib.repro_grouped_bwd_blocks_per_sm.restype = ctypes.c_int
         lib.repro_ssd_intra_chunk.argtypes = SSD_ARGTYPES
         lib.repro_ssd_intra_chunk.restype = ctypes.c_int
         lib.repro_ssd_intra_chunk_bwd.argtypes = SSD_BWD_ARGTYPES

@@ -17,7 +17,9 @@ Port of `repro.kernels.grouped_matmul` (TPU kernel
 * `grid`, `smem_bytes`, `blocks_per_sm` — the launch's blocks, the bf16
   kernel's shared memory and the blocks that share an SM, as the kernel
   computes them; `launched_blocks_per_sm` asks the card for the bf16
-  kernel's.
+  kernel's.  The backward's twins: `bwd_grid`, `bwd_work_items`,
+  `bwd_block_items`, `bwd_item_steps`, `bwd_smem_bytes`,
+  `bwd_blocks_per_sm`, `launched_bwd_blocks_per_sm`.
 * Training: `grouped_matmul` is forward only and raises when grad is
   enabled and x or w requires grad (its result would carry no
   gradient).  `GroupedMatmulFn` (a `torch.autograd.Function`) runs the
@@ -25,16 +27,21 @@ Port of `repro.kernels.grouped_matmul` (TPU kernel
   `grouped_matmul_backward`: dx = dy w^T and dw = x^T dy over each
   expert's live rows (dx zero past them, no gradient for rows), the
   kernels of `kernels/csrc/grouped_matmul_bwd.cu` on a CUDA tensor
-  (`BACKWARD.launches` counts calls, each launching dx then dw) and
-  `grouped_matmul_backward_plain` on a CPU one.  The reference has no
-  backward kernel (it differentiates its einsum twin).  dy arrives in
-  f32; the bf16 kernels round it to bf16 once, where they load it, and
-  the plain version rounds it at the same place: the gradient the
-  einsum twin's autograd sees, whose dy is bf16.  They store dx and dw
-  in bf16, the f32 sums rounded once (the gradients' own dtype, so
-  autograd casts nothing); the plain version returns the f32 sums, and
-  a kernel's bf16 result is held to them by TOLERANCE plus that one
-  rounding (`bf16_rounding`).  f32 operands give f32 gradients.
+  (`BACKWARD.launches` counts calls; bf16 launches three passes: dy's
+  live rows rounded to bf16 once into a scratch, then dX and dW on
+  wgmma, each a persistent grid, `bwd_grid`, whose blocks walk the
+  work items of `bwd_work_items`; f32 launches dX then dW) and
+  `grouped_matmul_backward_plain` on a CPU one.  The reference has
+  no backward kernel (it differentiates its einsum twin).  dy arrives
+  in f32; the bf16 kernels round it to bf16 once (`round_dy_plain` is
+  that pass's plain version), and the plain version rounds it at the
+  same place: the gradient the einsum twin's autograd sees, whose dy is
+  bf16.  They store dx and dw in bf16, the f32 sums rounded once (the
+  gradients' own dtype, so autograd casts nothing); the plain version
+  returns the f32 sums, and a kernel's bf16 result is held to them by
+  TOLERANCE plus that one rounding (`bf16_rounding`).  f32 operands
+  give f32 gradients.  `backward_pass_timer` launches the passes one by
+  one, for timing them apart.
 
 `rows` ((E,) int32, optional) is the number of live rows of each expert
 (the dropless dispatch's per-expert counts).  Rows at or past `rows[e]`
@@ -67,6 +74,17 @@ KS, STAGES, PAD = 32, 4, 8
 SM_SMEM = 233_472             # an SM's shared memory, shared by its blocks ...
 BLOCK_SMEM_RESERVED = 1_024   # ... each of which also takes this much
 MIN_BLOCKS = 5                # __launch_bounds__ of the bf16 kernel (kMinBlocks)
+
+# the bf16 backward's design (csrc/grouped_matmul_bwd.cu, namespace wg):
+# 384-thread blocks (two consumer warpgroups and a producer), items of
+# BWD_TILE_M output rows (64 a consumer) x BWD_TILE_N columns, 64-deep
+# ring steps through BWD_STAGES stages
+BWD_THREADS, BWD_TILE_M, BWD_TILE_N = 384, 128, 256
+BWD_STEP, BWD_STAGES = 64, 4
+# the passes of one backward call, bits of the C entry point's `passes`
+# (grouped_matmul_bwd.cu `Pass`): dy rounded (bf16 only), dX, dW
+BWD_PASSES = {"round": 1, "dx": 2, "dw": 4}
+BWD_ALL_PASSES = sum(BWD_PASSES.values())
 
 # (rtol, atol relative to the row's largest |plain|) by input dtype
 # (kernels/tolerance.py's rule).  Both versions sum the same exact
@@ -106,6 +124,19 @@ def grouped_matmul_backward_plain(x, w, dy, rows=None):
     return dx, dw
 
 
+def round_dy_plain(dy, rows=None, dtype=torch.bfloat16):
+    """The rounding pass's plain version: dy (E, C, F) f32 in `dtype`
+    (round to nearest even), rows past `rows[e]` zeros (the kernel reads
+    no dy there and writes the zeros that its TMA boxes reach: up to the
+    next multiple of 64 rows)."""
+    out = dy.to(dtype)
+    if rows is not None:
+        E, C = dy.shape[:2]
+        out = torch.where(_live_mask(rows, E, C, dy.device), out,
+                          torch.zeros((), dtype=dtype, device=dy.device))
+    return out
+
+
 def bf16_rounding(w):
     """The one rounding of the bf16 backward's stores, as a floor for
     `tolerance.worst_ratio`: half a bf16 ulp (at most 2**-8 of the
@@ -143,6 +174,81 @@ def launched_blocks_per_sm(vec: bool = True, device=None) -> int:
         err = lib.repro_grouped_blocks_per_sm(int(vec), ctypes.byref(blocks))
     B.check(err, "grouped_blocks_per_sm")
     return blocks.value
+
+
+def bwd_work_items(kind: str, E: int, C: int, K: int, F: int) -> list:
+    """The bf16 backward's work items in the kernel's order, expert-major
+    (grouped_matmul_bwd.cu `wg::item_of`): "dx" (expert, first row, first
+    k column), row ranges fastest; "dw" (expert, first k row, first f
+    column), f tiles fastest."""
+    tm, tn = BWD_TILE_M, BWD_TILE_N
+    if kind == "dx":
+        return [(e, r, k) for e in range(E) for k in range(0, K, tn)
+                for r in range(0, C, tm)]
+    return [(e, k, f) for e in range(E) for k in range(0, K, tm)
+            for f in range(0, F, tn)]
+
+
+def bwd_item_steps(kind: str, item: tuple, live: int, F: int) -> int:
+    """Ring steps of one item (`wg::item_of`): dX walks F when its rows
+    hold a live one, else none (it stores zeros); dW walks the expert's
+    live rows."""
+    if kind == "dx":
+        return -(-F // BWD_STEP) if item[1] < live else 0
+    return -(-live // BWD_STEP)
+
+
+def bwd_grid(E: int, C: int, K: int, F: int, sms: int) -> dict:
+    """Blocks of the persistent bf16 dX and dW launches: one an SM, at
+    most one an item (grouped_matmul_bwd.cu `wg::launch`)."""
+    return {kind: min(len(bwd_work_items(kind, E, C, K, F)), sms)
+            for kind in ("dx", "dw")}
+
+
+def bwd_block_items(kind: str, E: int, C: int, K: int, F: int,
+                    sms: int) -> list:
+    """The items each block of a persistent launch walks, in its order:
+    block b takes items b, b + blocks, b + 2 blocks, ..."""
+    items = bwd_work_items(kind, E, C, K, F)
+    blocks = bwd_grid(E, C, K, F, sms)[kind]
+    return [items[b::blocks] for b in range(blocks)]
+
+
+def bwd_smem_bytes() -> int:
+    """Dynamic shared memory of one bf16 dX or dW block
+    (grouped_matmul_bwd.cu `wg::kSmemBytes`): 1024 bytes to align the
+    panels, BWD_STAGES stages of a 128 x 64 and a 256 x 64 bf16 operand,
+    and the ring's 2 x BWD_STAGES mbarriers."""
+    stage = 2 * BWD_STEP * (BWD_TILE_M + BWD_TILE_N)
+    return 1024 + BWD_STAGES * stage + 2 * BWD_STAGES * 8
+
+
+def bwd_blocks_per_sm() -> int:
+    """bf16 dX or dW blocks that share an SM: as many as its shared
+    memory holds (the registers of 384 threads allow one)."""
+    return min(1, SM_SMEM // (bwd_smem_bytes() + BLOCK_SMEM_RESERVED))
+
+
+def launched_bwd_blocks_per_sm(kind: str, device=None) -> int:
+    """Blocks per SM of the bf16 backward's "dx" or "dw" kernel, from the
+    card's occupancy API."""
+    lib = B.library().lib
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.repro_grouped_bwd_blocks_per_sm(
+            0 if kind == "dx" else 1, ctypes.byref(blocks))
+    B.check(err, "grouped_bwd_blocks_per_sm")
+    return blocks.value
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def _check(x, w, rows):
@@ -190,7 +296,23 @@ def _launch(x, w, rows):
     return out
 
 
-def _launch_bwd(x, w, dy, rows):
+def _bwd_buffers(x, w) -> dict:
+    """The backward's outputs and scratch: dx, dw in x's dtype and (bf16)
+    dy's rounded rows, (E, C, F) bf16."""
+    E, C, K = x.shape
+    F = w.shape[2]
+    return {"dx": torch.empty((E, C, K), dtype=x.dtype, device=x.device),
+            "dw": torch.empty((E, K, F), dtype=x.dtype, device=x.device),
+            "dy16": (torch.empty((E, C, F), dtype=torch.bfloat16,
+                                 device=x.device)
+                     if x.dtype == torch.bfloat16 else None)}
+
+
+def _launch_bwd(x, w, dy, rows, passes: int = BWD_ALL_PASSES,
+                bufs: dict | None = None):
+    """The backward kernel's passes named by the bits of `passes` (all by
+    default) into `bufs` (`_bwd_buffers`; fresh ones by default), whose
+    dx and dw it returns."""
     E, C, K, F = _check(x, w, rows)
     if (dy.dtype != torch.float32 or tuple(dy.shape) != (E, C, F)
             or dy.device != x.device or not dy.is_contiguous()):
@@ -202,18 +324,33 @@ def _launch_bwd(x, w, dy, rows):
                          f"multiples of 8 and 16-byte aligned x, w, dy")
     if max(-(-K // 64), -(-C // 64)) > 65535:
         raise ValueError(f"K {K} or C {C} exceeds the grid")
-    dx = torch.empty((E, C, K), dtype=x.dtype, device=x.device)
-    dw = torch.empty((E, K, F), dtype=x.dtype, device=x.device)
+    if bufs is None:
+        bufs = _bwd_buffers(x, w)
+    dx, dw, dy16 = bufs["dx"], bufs["dw"], bufs["dy16"]
     lib = B.library().lib
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_grouped_matmul_bwd(
-            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+            None if dy16 is None else dy16.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), None if rows is None else rows.data_ptr(),
-            E, C, K, F, DTYPE_CODES[x.dtype], stream)
+            E, C, K, F, DTYPE_CODES[x.dtype], _sm_count(x.device),
+            int(passes), stream)
     B.check(err, "grouped_matmul_backward")
     BACKWARD.launches += 1
     return dx, dw
+
+
+def backward_pass_timer(x, w, dy, rows=None) -> dict:
+    """For timing the backward kernel's passes apart on the card: runs
+    one whole call, then returns {pass name: a callable that launches
+    only that pass into the same buffers} ("round" in bf16 only)."""
+    bufs = _bwd_buffers(x, w)
+    _launch_bwd(x, w, dy, rows, bufs=bufs)
+    return {name: (lambda bit=bit: _launch_bwd(x, w, dy, rows, passes=bit,
+                                               bufs=bufs))
+            for name, bit in BWD_PASSES.items()
+            if name != "round" or x.dtype == torch.bfloat16}
 
 
 def _device(x, what: str) -> str:

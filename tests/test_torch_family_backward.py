@@ -12,6 +12,9 @@ only PyTorch and the CUDA toolkit are installed:
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -125,6 +128,136 @@ def test_grouped_fn_carries_the_gradient_on_the_cpu(dtype):
     for g, wt in zip(got, want):
         assert g.dtype == dtype
         torch.testing.assert_close(g.double(), wt.double(), **F32_TOL)
+
+
+# ----------------------------------------------- grouped bf16 design mirrors
+
+_GMB_SRC = (Path(gm.__file__).resolve().parents[1] / "csrc"
+            / "grouped_matmul_bwd.cu").read_text()
+
+
+def test_grouped_bwd_geometry_mirrors_the_kernel_source():
+    """ops.py's mirrors of the bf16 wgmma design against
+    csrc/grouped_matmul_bwd.cu: the wg namespace's constants, the
+    setmaxnreg budget, the pass bits, and the shared memory by the
+    source's own formula and stated total."""
+    wg = _GMB_SRC[_GMB_SRC.index("namespace wg {"):
+                  _GMB_SRC.index("}  // namespace wg")]
+    const = {k: int(v) for k, v in re.findall(r"\b(k\w+) = (\d+)[,;]", wg)}
+    consumers = const["kConsumers"]
+    assert gm.BWD_THREADS == 128 * (consumers + 1)
+    assert "constexpr int kTileM = 64 * kConsumers;" in wg
+    assert (gm.BWD_TILE_M, gm.BWD_TILE_N) == (64 * consumers,
+                                              const["kTileN"])
+    assert (gm.BWD_STEP, gm.BWD_STAGES) == (const["kStep"],
+                                            const["kStages"])
+    # ptxas gives each of the block's threads 65536 / threads registers
+    # at entry; setmaxnreg's counts must fit in that
+    entry = 65536 // gm.BWD_THREADS // 8 * 8
+    assert (128 * const["kProducerRegs"]
+            + 128 * consumers * const["kConsumerRegs"]
+            <= gm.BWD_THREADS * entry)
+    passes = dict(re.findall(r"kPass(\w+) = (\d+)", _GMB_SRC))
+    assert {k.lower(): int(v) for k, v in passes.items()} == gm.BWD_PASSES
+    assert "kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;" in wg
+    stage = 2 * gm.BWD_TILE_M * gm.BWD_STEP + 2 * gm.BWD_TILE_N * gm.BWD_STEP
+    assert gm.bwd_smem_bytes() == (1024 + gm.BWD_STAGES * stage
+                                   + 2 * gm.BWD_STAGES * 8) == 197_696
+    assert "197,696 bytes" in wg and "4 x 49,152" in wg
+    assert gm.bwd_blocks_per_sm() == 1         # and so the block fits an SM
+    # the launch: one block an SM, at most one an item
+    assert "dim3(items < sms ? items : sms)" in wg
+    assert gm.bwd_grid(128, 320, 2048, 768, 132) == {"dx": 132, "dw": 132}
+    assert gm.bwd_grid(2, 40, 64, 32, 132) == {"dx": 2, "dw": 2}
+
+
+# (E, C, K, F, rows): qwen3's gate/up and down at its training capacity
+# (a routing draw's live counts), and ragged shapes with empty experts
+_ITEM_CASES = {
+    "qwen3_gate_up": (128, 320, 2048, 768, "draw"),
+    "qwen3_down": (128, 320, 768, 2048, "draw"),
+    "ragged": (9, 200, 72, 40, (0, 1, 63, 64, 65, 127, 128, 129, 200)),
+    "ragged_wide": (3, 70, 264, 296, (0, 70, 5)),
+}
+
+
+@pytest.mark.parametrize("name", list(_ITEM_CASES))
+def test_grouped_bwd_work_items_cover_every_tile_once(name):
+    """The persistent launches' items: every (expert, tile) of dX and
+    dW exactly once over the blocks, each block's items in increasing
+    (expert-major) order; the ring steps each item takes, zeros for an
+    expert with no live row; the tiles cover every output element."""
+    E, C, K, F, rows = _ITEM_CASES[name]
+    if rows == "draw":
+        rng = _rng(5)
+        choice = np.argsort(rng.random((4096, E)), axis=1)[:, :8]
+        rows = np.minimum(np.bincount(choice.ravel(), minlength=E), C)
+    live = [int(r) for r in rows]
+    for kind in ("dx", "dw"):
+        items = gm.bwd_work_items(kind, E, C, K, F)
+        experts = [it[0] for it in items]
+        assert experts == sorted(experts)        # expert-major
+        order = {it: i for i, it in enumerate(items)}
+        assert len(order) == len(items)
+        blocks = gm.bwd_block_items(kind, E, C, K, F, 132)
+        assert len(blocks) == min(132, len(items))
+        walked = [it for b in blocks for it in b]
+        assert sorted(walked) == sorted(items) and len(walked) == len(items)
+        for b in blocks:
+            idx = [order[it] for it in b]
+            assert idx == sorted(idx)
+        # the tiles lie on the (BWD_TILE_M, BWD_TILE_N) grid of each
+        # expert's output, every cell of it once
+        m, n = (C, K) if kind == "dx" else (K, F)
+        assert set(items) == {(e, m0, n0) for e in range(E)
+                              for m0 in range(0, m, gm.BWD_TILE_M)
+                              for n0 in range(0, n, gm.BWD_TILE_N)}
+        steps = [gm.bwd_item_steps(kind, it, live[it[0]], F) for it in items]
+        if kind == "dw":
+            per_item = [-(-live[e] // 64) for e, _, _ in items]
+            assert steps == per_item
+        else:
+            assert steps == [-(-F // 64) if r0 < live[e] else 0
+                             for e, r0, _ in items]
+        for e in range(E):
+            if live[e] == 0:
+                assert not any(s for it, s in zip(items, steps)
+                               if it[0] == e)
+    assert len(gm.bwd_work_items("dx", E, C, K, F)) == \
+        E * -(-C // 128) * -(-K // 256)
+    assert len(gm.bwd_work_items("dw", E, C, K, F)) == \
+        E * -(-K // 128) * -(-F // 256)
+
+
+def test_round_dy_plain_is_dy_in_bf16_on_the_live_rows():
+    """The rounding pass's plain version: the live rows are
+    `dy.to(bfloat16)` bit for bit (round to nearest even, exact ties
+    included), the rows past the live count zeros; it is the dy
+    `grouped_matmul_backward_plain` multiplies."""
+    E, C, F = 3, 10, 16
+    dy = _t(_rng(3), E, C, F, dtype=torch.float32)
+    # exact ties halfway between two bf16 values: 1 + 2^-8 rounds down
+    # to 1 (even), 1 + 3 * 2^-8 up to 1 + 2^-6; and their negatives
+    ties = torch.tensor([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8,
+                         -(1 + 2.0 ** -8), -(1 + 3 * 2.0 ** -8)])
+    dy[0, 0, :4] = ties
+    rows = torch.tensor([4, 0, 10], dtype=torch.int32)
+    got = gm.round_dy_plain(dy, rows)
+    assert got.dtype == torch.bfloat16
+    assert got[0, 0, :4].float().tolist() == [1.0, 1 + 2.0 ** -6, -1.0,
+                                              -(1 + 2.0 ** -6)]
+    live = torch.arange(C)[None, :] < rows[:, None]
+    want = dy.to(torch.bfloat16)
+    assert torch.equal(got[live].view(torch.int16), want[live].view(torch.int16))
+    assert not got[~live].float().any()
+    assert torch.equal(gm.round_dy_plain(dy), want)
+    x, w, _, r = _gm_inputs(GM_CASES["partly_live"], torch.bfloat16)
+    dy = _t(_rng(4), *x.shape[:2], w.shape[2], dtype=torch.float32)
+    rounded = gm.round_dy_plain(dy, r).float()
+    for g, wt in zip(gm.grouped_matmul_backward_plain(x, w, dy, r),
+                     gm.grouped_matmul_backward_plain(x.float(), w.float(),
+                                                      rounded, r)):
+        torch.testing.assert_close(g, wt, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------- SSD
@@ -443,6 +576,77 @@ def test_grouped_backward_kernel_matches_plain_on_card(cuda_device, case,
           floor=gm.bf16_rounding if dtype == torch.bfloat16 else None)
     again = gm.grouped_matmul_backward(x, w, dy, rows)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _gm_card_inputs(dev, E, C, K, F, live, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = None if live is None else torch.tensor(live, dtype=torch.int32,
+                                                  device=dev)
+    x = torch.randn(E, C, K, generator=g, device=dev).bfloat16()
+    w = (torch.randn(E, K, F, generator=g, device=dev) * 0.05).bfloat16()
+    dy = torch.randn(E, C, F, generator=g, device=dev)
+    return x, w, dy, rows
+
+
+# (E, C, K, F, live): each live count the 64-row granules and the
+# 128-row items meet, at K and F multiples of 8 but not of 64 (K 264:
+# two 256-column dX tiles, the second 8 wide), and every row live
+GM_RAGGED_CARD_CASES = [
+    (9, 200, 72, 40, (0, 1, 63, 64, 65, 127, 128, 129, 200)),
+    (9, 200, 264, 296, (0, 1, 63, 64, 65, 127, 128, 129, 200)),
+    (2, 130, 136, 24, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GM_RAGGED_CARD_CASES)
+def test_grouped_backward_ragged_live_counts_on_card(cuda_device, case):
+    """bf16 at ragged live counts and widths: held to the plain version
+    (TOLERANCE plus the one rounding), dX zeros past the live count, a
+    bit-identical rerun, each pass launched alone giving the same bits,
+    and one count a call in `BACKWARD.launches`."""
+    E, C, K, F, live = case
+    x, w, dy, rows = _gm_card_inputs(cuda_device, E, C, K, F, live)
+    before = gm.BACKWARD.launches
+    got = gm.grouped_matmul_backward(x, w, dy, rows)
+    assert gm.BACKWARD.launches == before + 1
+    want = gm.grouped_matmul_backward_plain(x, w, dy, rows)
+    torch.cuda.synchronize()
+    _hold(got, want, *gm.TOLERANCE[torch.bfloat16], floor=gm.bf16_rounding)
+    if rows is not None:
+        dead = torch.arange(C, device=cuda_device)[None, :] >= rows[:, None]
+        assert not got[0][dead].float().any()
+    again = gm.grouped_matmul_backward(x, w, dy, rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    passes = gm.backward_pass_timer(x, w, dy, rows)
+    assert list(passes) == ["round", "dx", "dw"]
+    for fn in passes.values():
+        alone = fn()
+    assert all(torch.equal(a, b) for a, b in zip(got, alone))
+
+
+@pytest.mark.cuda
+def test_grouped_backward_never_reads_rows_past_live_on_card(cuda_device):
+    """NaN written into x and dY past each expert's live rows leaves dX's
+    live rows and all of dW bit-identical to a clean run (dX past the
+    live rows stays zero)."""
+    E, C, K, F = 9, 200, 264, 296
+    live = (0, 1, 63, 64, 65, 127, 128, 129, 200)
+    x, w, dy, rows = _gm_card_inputs(cuda_device, E, C, K, F, live, seed=4)
+    clean = gm.grouped_matmul_backward(x, w, dy, rows)
+    dead = torch.arange(C, device=cuda_device)[None, :] >= rows[:, None]
+    x[dead] = float("nan")
+    dy[dead] = float("nan")
+    dirty = gm.grouped_matmul_backward(x, w, dy, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(clean[0], dirty[0]) and not dirty[0][dead].float().any()
+    assert torch.equal(clean[1], dirty[1])
+
+
+@pytest.mark.cuda
+def test_grouped_bwd_occupancy_matches_the_mirror(cuda_device):
+    for kind in ("dx", "dw"):
+        assert gm.launched_bwd_blocks_per_sm(kind) == gm.bwd_blocks_per_sm()
 
 
 # (bh, nc, l, p, n): mamba2-130m's training chunks (p 64, n 128), a
