@@ -31,8 +31,10 @@ exit at the first failure):
    tolerance.py`).  bf16 q with bf16 pages takes the tensor-core
    designs (decode: split over the KV length; each case names its
    design); bf16 decode (plain, and holes + partials) and prefill at c
-   64 are also held at qwen3-moe-30b-a3b's width (hq 32, hkv 4) and
-   zamba2-2.7b's (hq 32, hkv 32, d 160).  The main-path cases (prefill
+   64 are also held at qwen3-moe-30b-a3b's width (hq 32, hkv 4),
+   zamba2-2.7b's (hq 32, hkv 32, d 160), phi-3-vision-4.2b's (hq 32,
+   hkv 32, d 96) and nemotron-4-340b's (hq 96, hkv 8, d 192).  The
+   main-path cases (prefill
    at c 64 and at the verify window's c 5) are timed, and bf16 decode and prefill also at those two widths: kernel,
    plain version, one `scaled_dot_product_attention` call over the
    gathered K/V (a yardstick the port never calls) and the bound;
@@ -40,7 +42,10 @@ exit at the first failure):
    that walk pages.
 3. moe/ssd kernels: the grouped matmul at qwen3-moe-30b-a3b's shapes
    (128 experts, K x F 2048 x 768 and 768 x 2048 at C 64, 2048 x 768 at
-   C 4096, with the live rows of a random top-8 routing and without;
+   C 4096, with the live rows of a random top-8 routing and without)
+   and moonshot-v1-16b-a3b's (64 experts, top 6, 2048 x 1408 and 1408 x
+   2048 at C 64, 2048 x 1408 at C 3072: F 1408 is not a multiple of the
+   backward's 256-wide tile;
    bf16 with the routing's rows timed at all three, the bound counting
    the zero rows the function writes, beside a memset of the output;
    one MoE layer's dropless dispatch of a 512-token prompt timed beside
@@ -62,12 +67,14 @@ exit at the first failure):
    (batch 8, S 1024, hq 16, hkv 8, d 128, positions spread up to 1023
    and one idle row past S), in bf16 (the tensor-core kernel, one
    launch) and f32 (the split kernel, then the combine kernel, also
-   held alone), and in bf16 at qwen3-moe-30b-a3b's (hq 32, hkv 4) and
-   zamba2-2.7b's (hq 32, hkv 32, d 160) widths, output and partials,
+   held alone), and in bf16 at the served widths above (qwen3, zamba2,
+   phi-3-vision, nemotron), output and partials,
    bf16 also with NaN in every cache row past the positions (never
    read: the clean result); and the flash kernel at prompt lengths 5,
    200 and 511 (causal), one non-causal case and one with a q_offset,
-   and at 511 tokens at those two widths, in bf16 (tensor cores) and
+   at 511 tokens at those widths, and non-causal at hubert-xlarge's
+   training microbatch (4 x 2048 frames, 16 heads of 80), in bf16
+   (tensor cores) and
    f32 (CUDA cores); all against their plain versions by the same
    rule.  Each bf16 case is timed beside one
    `scaled_dot_product_attention` call and the bound; bf16 split-KV
@@ -79,8 +86,11 @@ exit at the first failure):
    scaled by the largest |plain| of its row, as the forward, plus a
    floor 1e-5 of its head's largest (`tolerance.grad_floor`), in bf16 (tensor cores) and f32 (CUDA cores), at internlm2-1.8b's
    heads for the training microbatch (4 x 2048, causal), a ragged 511
-   (causal; with q_offset 511 over 1022 keys; non-causal at batch 2)
-   and qwen3-moe-30b-a3b's group (hq 32, hkv 4) at 2048; the training
+   (causal; with q_offset 511 over 1022 keys; non-causal at batch 2),
+   qwen3-moe-30b-a3b's group (hq 32, hkv 4) at 2048, zamba2-2.7b's d
+   160, nemotron-4-340b's group of 12 at d 192, hubert-xlarge's
+   non-causal 16 heads of 80 and phi-3-vision-4.2b's causal 32 heads of
+   96 at their training microbatches (4 x 2048); the training
    forward's output bit-equal to the serving forward's and its lse
    against the plain one; a rerun of the backward bit-equal.  bf16
    cases are timed beside the plain backward, SDPA's backward (its
@@ -94,7 +104,9 @@ exit at the first failure):
    from the card's occupancy API must equal ops.py's mirror) at
    qwen3-moe-30b-a3b's training microbatch (4,096 tokens, top-8 of 128
    experts, capacity 320; K x F 2048 x 768 and 768 x 2048, the live
-   rows of a routing draw) and the SSD intra-chunk backward
+   rows of a routing draw) and moonshot-v1-16b-a3b's (4,096 tokens,
+   top-6 of 64, capacity 480; 2048 x 1408 and 1408 x 2048), and the
+   SSD intra-chunk backward
    (`ssd_scan_bwd.cu`: dx, ddt, dA, dB, dC) at mamba2-130m's (96
    batch*heads, 8 chunks of 256, p 64, n 128) and zamba2-2.7b's (160,
    p = n = 64), bf16 and f32, each per element against its plain
@@ -197,6 +209,25 @@ exit at the first failure):
    the launches of the nine steps: per microbatch and layer the SSD
    kernel twice and its backward once, or the grouped matmul 3 x 2 and
    its backward 3, flash 2 and its backward 1.
+13c. serve_vlm: phi-3-vision-4.2b at full width and depth (bf16,
+   paged, 32 layers), the 8 prompts each behind its own seeded image
+   of 576 patch rows (max_seq 1152 holds 576 + 511 + 32), one sampled,
+   one forked: every stream finishes, no page leaks, a byte-identical
+   rerun, each paged kernel 32 times per step call; then its 2-layer
+   f32 paged prefill, a chunk crossing from the image rows into the
+   text, and decode, card against CPU.  serve_configs: 4 prompts of 16
+   new tokens, paged, bf16, held as serve: yi-9b (48 layers),
+   moonshot-v1-16b-a3b (48 layers, 64 experts top 6, grouped dispatch),
+   deepseek-67b at 40 of its 95 layers and nemotron-4-340b at 4 of its
+   96 (their weights do not fit 80 GB; `SERVE_CONFIGS`).
+   train_encoder: hubert-xlarge at full width and depth (48 layers,
+   non-causal flash forward and backward at d 80, bf16, AdamW, remat
+   "full", 8 x 2048 frames of `SyntheticFrames` in 2 microbatches):
+   its labels are random, so every step trains on one batch, whose
+   loss must fall.  train_vlm: phi-3-vision-4.2b at full width and
+   depth (32 layers; 8 x (576 image rows + 1472 MarkovLM tokens) in 2
+   microbatches): the held-out loss must fall.  Both as the family train phases (step
+   seconds, positions/s, peak memory, busy share, launches).
 14. paper: every module of the port's paper harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
@@ -207,8 +238,9 @@ exit at the first failure):
    forward from torch.profiler, and peak memory; and the card against
    the CPU in f32 at batch 1, logits within 5e-4 of the largest |logit|.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device, or without the
+A "total" line gives the run's seconds and the launches of the serve
+phases of this last group.  The line before the last is the kernels'
+JSON record; the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 repository's `src/` beside it, the script exits nonzero and prints no
 result.
 """
@@ -227,10 +259,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 ROOT = Path(__file__).resolve().parent
 # (arch, hq, hkv, head_dim) of the served widths the paged decode,
-# paged prefill and flash kernels are also held and timed at, beside
-# internlm2-1.8b's (16, 8, 128)
+# paged prefill, split-KV decode and flash kernels are also held and
+# timed at, beside internlm2-1.8b's (16, 8, 128): phi-3-vision-4.2b's
+# group of 1 at d 96 and nemotron-4-340b's group of 12 at d 192 too
 PREFILL_WIDTHS = (("qwen3-moe-30b-a3b", 32, 4, 128),
-                  ("zamba2-2.7b", 32, 32, 160))
+                  ("zamba2-2.7b", 32, 32, 160),
+                  ("phi-3-vision-4.2b", 32, 32, 96),
+                  ("nemotron-4-340b", 96, 8, 192))
 
 
 def emit(obj) -> None:
@@ -581,6 +616,18 @@ def routed_rows(torch, E: int, tokens: int, k: int, gen):
     return torch.bincount(choice.reshape(-1), minlength=E).to(torch.int32)
 
 
+# (arch, experts, top-k, C, K, F) of the grouped matmul's cases:
+# qwen3-moe-30b-a3b's gate/up and down at C 64 and its gate/up at C 4096
+# (keys without the arch), and moonshot-v1-16b-a3b's (64 experts, top 6,
+# F 1408: 22 of the kernel's 64-wide n tiles, 5.5 of the backward's
+# 256-wide ones) at C 64 and a 512-token prompt's dropless C 3072
+GROUPED_CASES = (("", 128, 8, 64, 2048, 768), ("", 128, 8, 64, 768, 2048),
+                 ("", 128, 8, 4096, 2048, 768),
+                 ("moonshot-v1-16b-a3b", 64, 6, 64, 2048, 1408),
+                 ("moonshot-v1-16b-a3b", 64, 6, 64, 1408, 2048),
+                 ("moonshot-v1-16b-a3b", 64, 6, 3072, 2048, 1408))
+
+
 def phase_moe_ssd_kernels(torch, dev, card: str, flush):
     from repro_torch.kernels.grouped_matmul import ops as gm
     from repro_torch.kernels.ssd_scan import ops as ssd
@@ -603,8 +650,8 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
         return err
 
     # ---------------------------------------------------- grouped matmul
-    E, k, D, FF = 128, 8, 2048, 768
-    for C, K, F in ((64, D, FF), (64, FF, D), (4096, D, FF)):
+    D, FF = 2048, 768                    # qwen3-moe-30b-a3b's
+    for arch, E, k, C, K, F in GROUPED_CASES:
         rows = routed_rows(torch, E, C // k, k, gen).to(dev)
         live = (torch.arange(C, device=dev)[None, :]
                 < rows[:, None].long())[..., None]
@@ -616,7 +663,7 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                 got = gm.grouped_matmul(x, w, r)
                 want = gm.grouped_matmul_plain(x, w, r)
                 torch.cuda.synchronize()
-                name = (f"grouped E{E} C{C} K{K} F{F} {dt} "
+                name = (f"grouped E{E} top{k} C{C} K{K} F{F} {dt} "
                         f"{'rows' if r is not None else 'all rows'}")
                 err = hold(name, got, want, gm.TOLERANCE[dt])
                 del got, want
@@ -631,7 +678,8 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                 nbytes = 2 * experts * K * F + 2 * n_live * K + 4 * E * C * F
                 ms, by = bound(nbytes, 2 * n_live * K * F)
                 rr = r
-                key = f"grouped_matmul C{C}" + (" down" if K != D else "")
+                key = (f"grouped_matmul C{C}" + (" down" if K < F else "")
+                       + (f" {arch}" if arch else ""))
                 zeros = torch.empty(E, C, F, device=dev)
                 times[key] = dict(
                     ms=time_ms(lambda: gm.grouped_matmul(x, w, rr), flush),
@@ -654,6 +702,7 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
     # bf16; the down product's f32 output and its cast; the weights
     from repro_torch.configs import get_arch
     from repro_torch.models import moe as PM
+    E, k = 128, 8
     cfg = get_arch("qwen3-moe-30b-a3b").model.replace(moe_dispatch="grouped")
     T = 512
     params = PM.moe_block_init(torch.Generator(device=dev).manual_seed(7),
@@ -733,7 +782,9 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
     emit({"phase": "moe_ssd_kernels", "cases": rows_out})
     emit({"phase": "moe_ssd_kernel_times", "card": card, "dtype": "bfloat16",
           "shapes": {"grouped": {"E": E, "top_k": k, "d_model": D,
-                                 "moe_d_ff": FF},
+                                 "moe_d_ff": FF,
+                                 "cases (arch, E, top_k, C, K, F)":
+                                     GROUPED_CASES},
                      "ssd": "bh, nc, p and n in each case"},
           "grouped_bf16": {"blocks_per_sm": blocks,
                            "grid_c64": gm.grid(E, 64, FF),
@@ -899,6 +950,9 @@ def phase_contig_kernels(torch, dev, card: str, flush):
                    (1, 64, 300, True, 236, 16, 8, 128, "")]
     flash_cases += [(1, 511, 511, True, 0, hq_a, hkv_a, d_a, f" {arch}")
                     for arch, hq_a, hkv_a, d_a in PREFILL_WIDTHS]
+    # hubert-xlarge's encoder: non-causal over its training microbatch
+    # (4 x 2048 frames, 16 heads of 80)
+    flash_cases += [(4, 2048, 2048, False, 0, 16, 16, 80, " hubert-xlarge")]
     for b, sq, skv, causal, off, hq, hkv, d, width in flash_cases:
         q32, k32, v32 = (randn(b, sq, hq, d), randn(b, skv, hkv, d),
                          randn(b, skv, hkv, d))
@@ -954,7 +1008,10 @@ def phase_contig_kernels(torch, dev, card: str, flush):
 # bf16 design splits its walk over blocks), and past head dim 128 (a dK/dV
 # tile takes a dV block and a dK block): zamba2-2.7b's shared attention at
 # its training microbatch (2 x 2048, 32 heads of 160) and
-# nemotron-4-340b's group (96 query heads over 8, d 192)
+# nemotron-4-340b's group (96 query heads over 8, d 192); hubert-xlarge's
+# non-causal encoder at its training microbatch (4 x 2048 frames, 16
+# heads of 80) and phi-3-vision-4.2b's at its (4 x 2048 positions, 32
+# heads of 96)
 TRAIN_FLASH_CASES = (
     (4, 2048, 2048, 16, 8, 128, True, 0, "train"),
     (1, 511, 511, 16, 8, 128, True, 0, "511"),
@@ -963,6 +1020,8 @@ TRAIN_FLASH_CASES = (
     (1, 2048, 2048, 32, 4, 128, True, 0, "qwen3-moe-30b-a3b group"),
     (2, 2048, 2048, 32, 32, 160, True, 0, "zamba2-2.7b train"),
     (1, 2048, 2048, 96, 8, 192, True, 0, "nemotron-4-340b group"),
+    (4, 2048, 2048, 16, 16, 80, False, 0, "hubert-xlarge train"),
+    (4, 2048, 2048, 32, 32, 96, True, 0, "phi-3-vision-4.2b train"),
 )
 
 
@@ -1082,6 +1141,11 @@ def phase_train_kernels(torch, dev, card: str, flush):
 # gate/up and the down products
 TRAIN_MOE_TOKENS, TRAIN_MOE_CAPACITY = 4096, 320
 GROUPED_BWD_CASES = ((2048, 768, "gate/up"), (768, 2048, "down"))
+# moonshot-v1-16b-a3b's at the same 4096 tokens (top-6 of 64 experts,
+# capacity ceil(4096 x 6 / 64 x 1.25) = 480): F 1408 is 5.5 of the
+# backward's 256-wide output tiles (dW of gate/up, dX of down)
+MOONSHOT_BWD = (64, 6, 480, ((2048, 1408, "moonshot-v1-16b-a3b gate/up"),
+                             (1408, 2048, "moonshot-v1-16b-a3b down")))
 # (label, bh, nc, l, p, n): mamba2-130m's training microbatch (4 x 2048
 # tokens, 24 heads, chunks of 256, p 64, n 128) and zamba2-2.7b's heads
 # (80, p = n = 64) for 2 x 2048 tokens
@@ -1128,63 +1192,64 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(25)
     gdev = torch.Generator(device=dev).manual_seed(25)
     bf16, f32 = torch.bfloat16, torch.float32
-    E, k, C = 128, 8, TRAIN_MOE_CAPACITY
-    live = torch.clamp(routed_rows(torch, E, TRAIN_MOE_TOKENS, k, gen),
-                       max=C).to(dev)
-    n_live = int(live.sum())
-    for K, F, label in GROUPED_BWD_CASES:
-        mask = (torch.arange(C, device=dev)[None, :]
-                < live[:, None].long())[..., None]
-        x32 = torch.randn(E, C, K, generator=gdev, device=dev) * mask
-        w32 = torch.randn(E, K, F, generator=gdev, device=dev) * 0.02
-        dy = torch.randn(E, C, F, generator=gdev, device=dev) * mask
-        for dt in (bf16, f32):
-            x, w = x32.to(dt), w32.to(dt)
-            got = gm.grouped_matmul_backward(x, w, dy, live)
-            want = gm.grouped_matmul_backward_plain(x, w, dy, live)
-            torch.cuda.synchronize()
-            name = f"grouped backward E{E} C{C} K{K} F{F} ({label}) {dt}"
-            # bf16 stores the f32 sums rounded once: TOLERANCE plus
-            # that rounding (`bf16_rounding`)
-            floor = gm.bf16_rounding if dt is bf16 else None
-            err = max(hold(f"{name} {part}", g, w_, gm.TOLERANCE[dt], floor)
-                      for part, g, w_ in zip(("dX", "dW"), got, want))
-            again = gm.grouped_matmul_backward(x, w, dy, live)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail(f"{name}: a rerun gives other bits")
-            del got, want, again
-            if dt is not bf16:
-                continue
-            experts = int((live > 0).sum())
-            # x, w (bf16) and dy (f32) read (live rows, live experts'
-            # weights), dX (every row: the zeros too) and dW written in
-            # bf16, the gradients' dtype
-            nbytes = (2 * n_live * K + 2 * experts * K * F + 4 * n_live * F
-                      + 2 * E * C * K + 2 * E * K * F)
-            ms, by = bound(nbytes, 4 * n_live * K * F)
-            dyb = dy.to(bf16)
-            passes = gm.backward_pass_timer(x, w, dy, live)
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            times[f"grouped_matmul_backward {label}"] = dict(
-                ms=time_ms(lambda: gm.grouped_matmul_backward(
-                    x, w, dy, live), flush, iters=10, warmup=2),
-                passes_ms={name: time_ms(fn, flush, iters=10, warmup=2)
-                           for name, fn in passes.items()},
-                plain_ms=time_ms(lambda: gm.grouped_matmul_backward_plain(
-                    x, w, dy, live), flush, iters=3, warmup=1),
-                library_ms=time_ms(lambda: (
-                    torch.bmm(dyb, w.transpose(1, 2)),
-                    torch.bmm(x.transpose(1, 2), dyb)), flush, iters=10,
-                    warmup=2),
-                bound_ms=ms, bound_by=by, max_abs_err=err,
-                live_rows=n_live, live_experts=experts,
-                design="wgmma, persistent dX and dW, dY rounded once",
-                blocks=gm.bwd_grid(E, C, K, F, sms),
-                work_items={kind: len(gm.bwd_work_items(kind, E, C, K, F))
-                            for kind in ("dx", "dw")},
-                smem_bytes=gm.bwd_smem_bytes())
-            del dyb, passes
-        del x32, w32, dy, x, w
+    for E, k, C, cases in ((128, 8, TRAIN_MOE_CAPACITY, GROUPED_BWD_CASES),
+                           MOONSHOT_BWD):
+        live = torch.clamp(routed_rows(torch, E, TRAIN_MOE_TOKENS, k, gen),
+                           max=C).to(dev)
+        n_live = int(live.sum())
+        for K, F, label in cases:
+            mask = (torch.arange(C, device=dev)[None, :]
+                    < live[:, None].long())[..., None]
+            x32 = torch.randn(E, C, K, generator=gdev, device=dev) * mask
+            w32 = torch.randn(E, K, F, generator=gdev, device=dev) * 0.02
+            dy = torch.randn(E, C, F, generator=gdev, device=dev) * mask
+            for dt in (bf16, f32):
+                x, w = x32.to(dt), w32.to(dt)
+                got = gm.grouped_matmul_backward(x, w, dy, live)
+                want = gm.grouped_matmul_backward_plain(x, w, dy, live)
+                torch.cuda.synchronize()
+                name = f"grouped backward E{E} C{C} K{K} F{F} ({label}) {dt}"
+                # bf16 stores the f32 sums rounded once: TOLERANCE plus
+                # that rounding (`bf16_rounding`)
+                floor = gm.bf16_rounding if dt is bf16 else None
+                err = max(hold(f"{name} {part}", g, w_, gm.TOLERANCE[dt], floor)
+                          for part, g, w_ in zip(("dX", "dW"), got, want))
+                again = gm.grouped_matmul_backward(x, w, dy, live)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{name}: a rerun gives other bits")
+                del got, want, again
+                if dt is not bf16:
+                    continue
+                experts = int((live > 0).sum())
+                # x, w (bf16) and dy (f32) read (live rows, live experts'
+                # weights), dX (every row: the zeros too) and dW written in
+                # bf16, the gradients' dtype
+                nbytes = (2 * n_live * K + 2 * experts * K * F + 4 * n_live * F
+                          + 2 * E * C * K + 2 * E * K * F)
+                ms, by = bound(nbytes, 4 * n_live * K * F)
+                dyb = dy.to(bf16)
+                passes = gm.backward_pass_timer(x, w, dy, live)
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                times[f"grouped_matmul_backward {label}"] = dict(
+                    ms=time_ms(lambda: gm.grouped_matmul_backward(
+                        x, w, dy, live), flush, iters=10, warmup=2),
+                    passes_ms={name: time_ms(fn, flush, iters=10, warmup=2)
+                               for name, fn in passes.items()},
+                    plain_ms=time_ms(lambda: gm.grouped_matmul_backward_plain(
+                        x, w, dy, live), flush, iters=3, warmup=1),
+                    library_ms=time_ms(lambda: (
+                        torch.bmm(dyb, w.transpose(1, 2)),
+                        torch.bmm(x.transpose(1, 2), dyb)), flush, iters=10,
+                        warmup=2),
+                    bound_ms=ms, bound_by=by, max_abs_err=err,
+                    live_rows=n_live, live_experts=experts,
+                    design="wgmma, persistent dX and dW, dY rounded once",
+                    blocks=gm.bwd_grid(E, C, K, F, sms),
+                    work_items={kind: len(gm.bwd_work_items(kind, E, C, K, F))
+                                for kind in ("dx", "dw")},
+                    smem_bytes=gm.bwd_smem_bytes())
+                del dyb, passes
+            del x32, w32, dy, x, w
     free_card(torch)
     for label, bh, nc, l, p, n in SSD_BWD_CASES:
         heads = bh // (4 if label == "mamba2-130m" else 2)
@@ -1436,17 +1501,18 @@ OPT_OUT = 0                 # the 5-token prompt decodes plainly beside
 
 
 def serve_once(torch, dev, cfg, params, prompts, layout=None, max_new=32,
-               **engine_kw):
+               patches=None, max_seq=1024, **engine_kw):
     """Serve `prompts` (the SAMPLED one sampling, the FORKED one forked
     after its first token when the layout allows it, the
-    OPT_OUT one pinned to plain decode) through `LLMServer`;
-    `engine_kw` passes to the engine (`speculate_k`, `draft`)."""
+    OPT_OUT one pinned to plain decode) through `LLMServer`, each with
+    its image's `patches` rows where given (vlm); `engine_kw` passes to
+    the engine (`speculate_k`, `draft`)."""
     from repro_torch.serve.api import LLMServer
     from repro_torch.serve.engine import TokenEvent
     from repro_torch.serve.sampling import SamplingParams
 
     server = LLMServer(cfg, params, device=dev, max_batch=8,
-                       max_seq=1024, page_size=16, layout=layout,
+                       max_seq=max_seq, page_size=16, layout=layout,
                        **engine_kw)
     eng = server.engine
     # the contiguous layout refuses a fork
@@ -1485,7 +1551,8 @@ def serve_once(torch, dev, cfg, params, prompts, layout=None, max_new=32,
                              max_new_tokens=max_new) if i == SAMPLED
               else SamplingParams(max_new_tokens=max_new,
                                   speculative=i != OPT_OUT))
-        streams.append(server.generate(p, sp))
+        streams.append(server.generate(
+            p, sp, patch_embeds=None if patches is None else patches[i]))
     t0 = time.perf_counter()
     ttft = {}
     live = list(streams)
@@ -1581,12 +1648,14 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
                 plain=None, **engine_kw):
     """Serve the first `n_prompts` of the 8 prompts (+ one fork on the
     paged layout when the forked prompt is among them) twice on `cfg`
-    at full width and depth; with `twins` the 333-token prompt is
+    at the width and depth it has; with `twins` the 333-token prompt is
     replaced by a copy of the 200-token one, so identical prompts
-    co-prefill.  `engine_kw` passes to the engine (speculation);
-    `plain` (uid -> tokens of a plain run) is compared token by token
-    and the share printed.  Returns the launches and the streams (uid ->
-    tokens) of the first run."""
+    co-prefill.  A patch-frontend config (vlm) gives each prompt its
+    own seeded image of `num_patches` rows, and `max_seq` holds them
+    beside the longest prompt and its new tokens.  `engine_kw` passes
+    to the engine (speculation); `plain` (uid -> tokens of a plain run)
+    is compared token by token and the share printed.  Returns the
+    launches and the streams (uid -> tokens) of the first run."""
     import numpy as np
     from repro_torch.models import registry
 
@@ -1601,13 +1670,20 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
                for n in PROMPT_LENS][:n_prompts]
     if twins:
         prompts[6] = prompts[5].copy()
+    patches, max_seq = None, 1024
+    if cfg.frontend == "patch":
+        patches = [rng.standard_normal((cfg.num_patches, cfg.frontend_dim))
+                   .astype(np.float32) for _ in prompts]
+        need = cfg.num_patches + max(PROMPT_LENS) + max_new
+        max_seq = -(-need // 64) * 64
+    run_kw = dict(engine_kw, patches=patches, max_seq=max_seq)
     mods = kernel_modules()
 
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():                          # count the main path
         m.launches = 0
     server, streams, forked, ttft, wall, steps = serve_once(
-        torch, dev, cfg, params, prompts, layout, max_new, **engine_kw)
+        torch, dev, cfg, params, prompts, layout, max_new, **run_kw)
     launches = {name: m.launches for name, m in mods.items()}
     peak = torch.cuda.max_memory_allocated()
     st = server.stats
@@ -1651,12 +1727,13 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
 
     _, streams2, _, _, wall2, _ = serve_once(torch, dev, cfg, params,
                                              prompts, layout, max_new,
-                                             **engine_kw)
+                                             **run_kw)
     if first != {s.uid: s.result.tokens for s in streams2}:
         fail(f"{phase}: rerun streams differ")
     tokens = st["tokens_out"]
     emit({"phase": phase, "card": card, "arch": cfg.name,
           "layout": st["layout"], "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "max_seq": max_seq, "patch_rows": cfg.num_patches if patches else 0,
           "kv_dtype": cfg.kv_dtype,
           "moe_dispatch": cfg.moe_dispatch, "ssd_impl": cfg.ssd_impl,
           **engine_kw, **extra,
@@ -1680,6 +1757,30 @@ def phase_serve(torch, dev, card: str, phase: str, cfg, twins=False,
           "between_calls_s": wall - sum(v[1] for v in steps.values()),
           "rerun_identical": True, "leaked_pages": 0})
     return launches, first
+
+
+# (arch, layers kept (None: all)) of serve_configs, 4 prompts of 16 new
+# tokens each, bf16: yi-9b (17.7 GB of weights) and moonshot-v1-16b-a3b
+# (57.8 GB, grouped dispatch) whole; deepseek-67b's 95 layers of 1.38 GB
+# and nemotron-4-340b's of 6.91 GB (beside 3.4 and 18.9 GB of embedding
+# and head) do not fit 80 GB: 40 and 4 layers.  nemotron's init draws
+# its 4.7 B-element head in f32 and scales a bf16 copy (37.7 GB at
+# once), so 4 layers (27.6 GB) is the most that leaves room for it
+SERVE_CONFIGS = (("yi-9b", None), ("moonshot-v1-16b-a3b", None),
+                 ("deepseek-67b", 40), ("nemotron-4-340b", 4))
+
+
+def phase_serve_configs(torch, dev, card: str) -> dict:
+    """A short paged serve (the first 4 prompts, 16 new tokens, twice:
+    the rerun byte-identical, no page leaked, the launches held) of each
+    of `SERVE_CONFIGS`; returns each one's launches."""
+    out = {}
+    for arch, layers in SERVE_CONFIGS:
+        cfg = family_cfg(arch, layers)
+        out[arch], _ = phase_serve(torch, dev, card, f"serve_configs {arch}",
+                                   cfg, n_prompts=4, max_new=16)
+        free_card(torch)
+    return out
 
 
 SPEC_K = 4                  # the served speculative window
@@ -1809,10 +1910,14 @@ def phase_parity(torch, dev):
             fail(f"card vs CPU {k}: err {e}, err / bound {r}")
 
 
-def phase_parity_family(torch, dev, cfg, label: str):
-    """One paged prefill chunk from position 0, a second continuing one
-    row (the other inert), and one decode step, on the card and on the
-    CPU; logits, pages and per-slot state held by the per-element rule."""
+def phase_parity_family(torch, dev, cfg, label: str, base: int = 0):
+    """One paged prefill chunk from position `base` (row 1 from 0), a
+    second continuing row 0 (row 1 inert), and one decode step, on the
+    card and on the CPU; logits, pages and per-slot state held by the
+    per-element rule.  A vlm's chunks carry a patch plane: with `base`
+    4 short of its `num_patches`, row 0's first chunk crosses from the
+    image rows into the text (row 0's pages below `base` hold zeros on
+    both sides)."""
     from repro_torch.kernels.tolerance import worst_ratio
     from repro_torch.models import registry
 
@@ -1822,18 +1927,23 @@ def phase_parity_family(torch, dev, cfg, label: str):
     cpu = torch.device("cpu")
 
     params_cpu = tree_to(params, cpu)
-    page, P, mp, b, c = 16, 8, 4, 2, 8
+    page, b, c = 16, 2, 8
     g = torch.Generator().manual_seed(4)
+    n0 = (base + 2 * c) // page + 1          # row 0's pages, decode included
+    mp, P = max(4, n0), max(8, n0 + 2)
     bt = torch.full((b, mp), P, dtype=torch.int32)
-    bt[0, :2] = torch.tensor([3, 6], dtype=torch.int32)
+    bt[0, :n0] = torch.tensor([3, 6] if n0 == 2 else range(2, 2 + n0),
+                              dtype=torch.int32)
     bt[1, :1] = torch.tensor([1], dtype=torch.int32)
-    chunks = [(torch.tensor([0, 0], dtype=torch.int32),
+    chunks = [(torch.tensor([base, 0], dtype=torch.int32),
                torch.tensor([8, 5], dtype=torch.int32)),
-              (torch.tensor([8, 5], dtype=torch.int32),
+              (torch.tensor([base + 8, 5], dtype=torch.int32),
                torch.tensor([8, 0], dtype=torch.int32))]
     tokens = [torch.randint(0, cfg.vocab_size, (b, c), generator=g,
                             dtype=torch.int32) for _ in chunks]
-    positions = torch.tensor([16, 5], dtype=torch.int32)
+    planes = [torch.randn(b, c, cfg.frontend_dim, generator=g)
+              if cfg.frontend == "patch" else None for _ in chunks]
+    positions = torch.tensor([base + 16, 5], dtype=torch.int32)
     dec_tokens = torch.randint(0, cfg.vocab_size, (b,), generator=g,
                                dtype=torch.int32)
     out = []
@@ -1842,9 +1952,12 @@ def phase_parity_family(torch, dev, cfg, label: str):
                                      device=where)
         logits = []
         with torch.inference_mode():
-            for (start, clen), tok in zip(chunks, tokens):
+            for (start, clen), tok, plane in zip(chunks, tokens, planes):
+                chunk = {"tokens": tok.to(where)}
+                if plane is not None:
+                    chunk["patches"] = plane.to(where)
                 arena, lg = fam.paged_prefill(
-                    prm, cfg, {"tokens": tok.to(where)}, arena, bt.to(where),
+                    prm, cfg, chunk, arena, bt.to(where),
                     start.to(where), clen.to(where))
                 logits.append(lg.cpu()[clen > 0])
             arena, ld = fam.paged_decode_step(
@@ -2251,6 +2364,16 @@ def phase_train(torch, dev, card: str, dense):
 TRAIN_FAMILIES = (("mamba2-130m", None, 8, 2048, 2),
                   ("qwen3-moe-30b-a3b", 4, 4, 2048, 2),
                   ("zamba2-2.7b", None, 8, 2048, 4))
+# (arch, layers kept (None: all), global batch, sequence, microbatches,
+# phase, every step on batch 0) of the encoder's and the vlm's runs, both
+# at full depth: hubert-xlarge (0.95 B parameters), its 2048 frames a
+# sequence with random labels, so it trains on one batch; and
+# phi-3-vision-4.2b (3.83 B parameters), 1472 text tokens after its 576
+# image rows, 2048 positions.  At 24 of its 32 layers phi-3-vision
+# peaked at 48.7 GB on an H100 (16.6 bytes a parameter: bf16 weights,
+# f32 gradients, AdamW's two f32 moments), so all 32 take ~64 GB
+TRAIN_FRONTENDS = (("hubert-xlarge", None, 8, 2048, 2, "train_encoder", True),
+                   ("phi-3-vision-4.2b", None, 8, 1472, 2, "train_vlm", False))
 TRAIN_FAMILY_STEPS = 8      # a held-out batch's loss must fall across these
 HELD_OUT_BATCH = 1000       # the MarkovLM batch index of that held-out batch
 # (arch, layers, sequence) of the kernel route vs its plain versions,
@@ -2377,17 +2500,23 @@ def phase_train_parity_families(torch, dev):
 
 
 def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
-                       seq: int, accum: int) -> dict:
+                       seq: int, accum: int, phase: str | None = None,
+                       fixed: bool = False) -> dict:
     """One family at full width (bf16 params, AdamW at 3e-4, remat
-    "full", logits_chunk 512, MarkovLM data from the seed): the loss of
+    "full", logits_chunk 512, MarkovLM data from the seed; the vlm's
+    with seeded patch rows, the encoder's `SyntheticFrames`): the loss of
     a held-out batch (`HELD_OUT_BATCH`), then `TRAIN_FAMILY_STEPS` steps
-    (the first loss near `first_loss`; step seconds, tokens/s over all
-    but the first, peak memory), one step under torch.profiler (the
-    device's busy share and its top kernels), and the held-out loss
-    again, which must have fallen; every kernel's launches counted from
-    0 over the training steps and held against
-    `expected_train_launches`.  Returns them."""
+    (the first loss near `first_loss`; step seconds, positions per
+    second over all but the first, peak memory), one step under
+    torch.profiler (the device's busy share and its top kernels), and
+    the held-out loss again, which must have fallen; every kernel's
+    launches counted from 0 over the training steps and held against
+    `expected_train_launches`.  Returns them.  With `fixed` every step
+    trains on batch 0, and it is that batch's loss that must fall: the
+    encoder's labels are random, so no held-out loss can (reported, not
+    held)."""
     import math
+    from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, make_source
     from repro_torch.train import train_step as TS
     from repro_torch.utils.tree import tree_num_params
@@ -2398,11 +2527,13 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     source = make_source(DataConfig(source="markov", seq_len=seq,
                                     global_batch=global_batch,
                                     seed=TRAIN_SEED), cfg)
-    batches = [TS.batch_to(source.batch_at(i), dev)
+    batches = [TS.batch_to(source.batch_at(0 if fixed else i), dev)
                for i in range(TRAIN_FAMILY_STEPS + 1)]
     held_out = TS.batch_to(source.batch_at(HELD_OUT_BATCH), dev)
     step = TS.make_train_step(cfg, opt, grad_accum=accum)
     evaluate = TS.make_eval_step(cfg)
+    # positions a sequence trains on: the vlm's image rows too
+    per_seq = seq + (cfg.num_patches if cfg.frontend == "patch" else 0)
     state = TS.init_train_state(cfg, opt, seed=TRAIN_SEED, device=dev)
     n_params = tree_num_params(state.params)
     held_before = float(evaluate(state.params, held_out))
@@ -2418,6 +2549,7 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     state, m, prof_s, busy_s, top, port_kernels = profiled_step(
         torch, step, state, batches[-1])
     launches = {name: mm.launches for name, mm in mods.items()}
+    profiled_loss = float(m["loss"])
     t_eval = time.perf_counter()
     held_after = float(evaluate(state.params, held_out))
     del state, m, batches, held_out
@@ -2426,12 +2558,23 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     want_first = first_loss(cfg)
     route = {"moe": f"moe_dispatch {cfg.moe_dispatch}",
              "ssm": f"ssd_impl {cfg.ssd_impl}",
-             "hybrid": f"ssd_impl {cfg.ssd_impl}"}.get(cfg.family, "")
-    emit({"phase": f"train {cfg.name}", "card": card,
-          "config": f"{cfg.name}, {cfg.num_layers} layers, {route}, bf16, "
+             "hybrid": f"ssd_impl {cfg.ssd_impl}"}.get(
+        cfg.family, "causal flash" if cfg.causal else "non-causal flash")
+    data = {"encoder": f"SyntheticFrames seed {TRAIN_SEED} (random "
+                       f"labels)",
+            "vlm": f"MarkovLM seed {TRAIN_SEED} with {cfg.num_patches} "
+                   f"seeded patch rows a sequence"}.get(
+        cfg.family, f"MarkovLM seed {TRAIN_SEED}")
+    unit = "frames" if cfg.family == "encoder" else "tokens"
+    emit({"phase": phase or f"train {cfg.name}", "card": card,
+          "config": f"{cfg.name}, {cfg.num_layers} of "
+                    f"{get_arch(cfg.name).model.num_layers} layers, {route}, "
+                    f"bf16, "
                     f"AdamW, remat {cfg.remat}, logits_chunk "
-                    f"{cfg.logits_chunk}, {global_batch} x {seq} tokens in "
-                    f"{accum} microbatches, MarkovLM seed {TRAIN_SEED}",
+                    f"{cfg.logits_chunk}, {global_batch} x {seq} {unit} in "
+                    f"{accum} microbatches, {data}"
+                    + (", every step on batch 0" if fixed else ""),
+          "positions_per_sequence": per_seq,
           "params": n_params, "losses": losses, "grad_norms": norms,
           # the training loss over the first four steps (reported; lr is
           # 0 at step 0, so it shows two updates) beside the held-out
@@ -2439,9 +2582,11 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
           "four_step_loss": [losses[0], losses[3]],
           "four_step_loss_fell": losses[3] < losses[0],
           "held_out_loss": [held_before, held_after],
+          **({"fixed_batch_loss": [losses[0], losses[-1], profiled_loss]}
+             if fixed else {}),
           "ln_vocab": math.log(cfg.vocab_size),
           "expected_first_loss": want_first, "step_s": secs,
-          "tokens_per_s": global_batch * seq * len(timed) / sum(timed),
+          "tokens_per_s": global_batch * per_seq * len(timed) / sum(timed),
           "max_memory_allocated": peak, "profiled_step_s": prof_s,
           "device_busy_s": busy_s, "device_busy_share": busy_s / prof_s,
           "top_device_kernels": top, "port_kernels": port_kernels,
@@ -2458,7 +2603,12 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     if abs(losses[0] - want_first) > 0.1:
         fail(f"train {cfg.name}: first loss {losses[0]} not near "
              f"{want_first}")
-    if not held_after < held_before:
+    # after the timed steps' updates (the profiled step's loss is taken
+    # before its own)
+    if fixed and not profiled_loss < losses[0]:
+        fail(f"train {cfg.name}: the fixed batch's loss did not fall: "
+             f"{losses} then {profiled_loss}")
+    if not fixed and not held_after < held_before:
         fail(f"train {cfg.name}: the held-out loss did not fall: "
              f"{held_before} -> {held_after}")
     want = expected_train_launches(cfg, TRAIN_FAMILY_STEPS + 1, accum)
@@ -2809,6 +2959,22 @@ def main() -> int:
         for name in ("flash_attention_backward", "grouped_matmul_backward",
                      "ssd_intra_chunk_backward"):
             train_launches[name] += fam_launches[name]
+    # the vlm and encoder families and the configs that reuse the other
+    # families' code at new widths
+    vlm = get_arch("phi-3-vision-4.2b").model
+    vlm_launches, _ = phase_serve(torch, dev, card, "serve_vlm", vlm)
+    phase_parity_family(
+        torch, dev, vlm.replace(num_layers=2, **f32),
+        "phi-3-vision-4.2b width, 2 layers, f32, a chunk across the "
+        "patch/text boundary", base=vlm.num_patches - 4)
+    config_launches = phase_serve_configs(torch, dev, card)
+    for arch, layers, gb, seq, accum, phase, fixed in TRAIN_FRONTENDS:
+        fam_launches = phase_train_family(
+            torch, dev, card, family_cfg(arch, layers, remat="full",
+                                         logits_chunk=512), gb, seq, accum,
+            phase=phase, fixed=fixed)
+        train_launches["flash_attention_backward"] += \
+            fam_launches["flash_attention_backward"]
     paper_launches = phase_paper(torch, dev)
     phase_resnet50(torch, dev, card)
 
@@ -2886,6 +3052,10 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "launches": {"serve_vlm": vlm_launches,
+                       **{f"serve_configs {a}": v
+                          for a, v in config_launches.items()}}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

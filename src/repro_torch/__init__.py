@@ -3,7 +3,8 @@
 The JAX package `repro` is the reference; this package mirrors its
 module paths and names (`repro_torch.models.transformer` is the
 counterpart of `repro.models.transformer`, and so on), serves the
-dense, MoE, hybrid and SSM families on one NVIDIA H100, and carries the
+dense, MoE, hybrid, SSM and vlm families and trains those and the
+encoder on one NVIDIA H100, and carries the
 paper side (the analytic chip models, ResNet-50 and the dataflow
 ablation, `benchmarks/`).  Its kernels are hand-written CUDA C++ for
 `sm_90a` (`kernels/csrc/`), built at first use with `nvcc` and bound

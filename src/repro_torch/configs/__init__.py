@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port registers the architectures whose families it serves: the
-dense `internlm2-1.8b`, the MoE `qwen3-moe-30b-a3b`, the hybrid
-`zamba2-2.7b` and the pure-SSM `mamba2-130m`; the other architectures
-of `repro.configs` arrive with the slices that port their families
-(ROADMAP.md queue A item 10)."""
+The port registers every architecture of `repro.configs`, in its order
+and with its fields: the dense `deepseek-67b`, `internlm2-1.8b`,
+`nemotron-4-340b` and `yi-9b`, the encoder `hubert-xlarge`, the
+pure-SSM `mamba2-130m`, the hybrid `zamba2-2.7b`, the MoE
+`qwen3-moe-30b-a3b` and `moonshot-v1-16b-a3b` and the vlm
+`phi-3-vision-4.2b`."""
 from __future__ import annotations
 
 import importlib
@@ -12,11 +13,18 @@ import importlib
 from repro_torch.configs.base import ArchSpec  # noqa: F401 (re-exported)
 
 
+# arch id -> module, in the reference's order
 _MODULES = {
+    "deepseek-67b": "deepseek_67b",
     "internlm2-1.8b": "internlm2_1_8b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-    "zamba2-2.7b": "zamba2_2_7b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "yi-9b": "yi_9b",
+    "hubert-xlarge": "hubert_xlarge",
     "mamba2-130m": "mamba2_130m",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

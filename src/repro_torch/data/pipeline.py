@@ -13,6 +13,13 @@ Sources:
     pre-tokenized corpus format; windows are drawn by stateless index
     arithmetic so restore-from-checkpoint resumes EXACTLY (step -> window
     offsets, no iterator state to save).
+
+The families with a frontend stub train on batches the reference's
+sources do not make (they give tokens only, which its vlm and encoder
+losses cannot take), so `make_source` gives them their own:
+  * `WithPatches` — a vlm's token batches plus seeded patch rows.
+  * `SyntheticFrames` — an encoder's frames, mask and codebook labels.
+Both are stateless in `step` too.
 """
 from __future__ import annotations
 
@@ -134,15 +141,88 @@ class MemmapTokens:
             step += 1
 
 
+def _step_rng(data: DataConfig, step: int, row0: int, stream: int = 0):
+    """The generator of one step's draws for the rows from `row0` on
+    (`stream` keeps a source's second draw apart from its first)."""
+    return np.random.default_rng(
+        [(data.seed * 1_000_003 + step) * 65_537 + row0, stream])
+
+
+class WithPatches:
+    """A vlm's training batches: the token source's, plus
+    `patch_embeds` (rows, num_patches, frontend_dim) ~ N(0, 1) in f32
+    from the step's own generator (the stub frontend's image rows)."""
+
+    def __init__(self, tokens, data: DataConfig, cfg: ModelConfig,
+                 num_hosts: int = 1, host_id: int = 0):
+        self.tokens, self.data, self.cfg = tokens, data, cfg
+        self.sl = host_slice(data.global_batch, num_hosts, host_id)
+
+    def batch_at(self, step: int) -> dict[str, np.ndarray]:
+        batch = self.tokens.batch_at(step)
+        rng = _step_rng(self.data, step, self.sl.start, stream=1)
+        batch["patch_embeds"] = rng.standard_normal(
+            (self.sl.stop - self.sl.start, self.cfg.num_patches,
+             self.cfg.frontend_dim), dtype=np.float32)
+        return batch
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class SyntheticFrames:
+    """An encoder's training batches (HuBERT's masked prediction, by
+    `synthetic_batch`'s rule): frames ~ N(0, 1) (rows, seq_len,
+    frontend_dim) f32, a mask over ~40 % of the positions, codebook
+    labels ~ U[0, vocab) there and -1 elsewhere.  The labels are random,
+    so no held-out loss can fall; a fixed batch's can."""
+
+    MASK_SHARE = 0.4
+
+    def __init__(self, data: DataConfig, cfg: ModelConfig,
+                 num_hosts: int = 1, host_id: int = 0):
+        self.data, self.cfg = data, cfg
+        self.sl = host_slice(data.global_batch, num_hosts, host_id)
+
+    def batch_at(self, step: int) -> dict[str, np.ndarray]:
+        rows, s = self.sl.stop - self.sl.start, self.data.seq_len
+        rng = _step_rng(self.data, step, self.sl.start)
+        frames = rng.standard_normal((rows, s, self.cfg.frontend_dim),
+                                     dtype=np.float32)
+        mask = rng.random((rows, s)) < self.MASK_SHARE
+        labels = np.where(mask, rng.integers(0, self.cfg.vocab_size,
+                                             (rows, s)), -1)
+        return {"frames": frames, "mask": mask,
+                "labels": labels.astype(np.int32)}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
 def make_source(data: DataConfig, cfg: ModelConfig,
                 num_hosts: int = 1, host_id: int = 0):
+    """The training source of `data.source` for `cfg`'s family: token
+    batches, with patch rows for a vlm (`WithPatches`); an encoder
+    trains on `SyntheticFrames` whatever the source."""
+    if cfg.family == "encoder":
+        return SyntheticFrames(data, cfg, num_hosts, host_id)
     if data.source == "synthetic":
-        return SyntheticLM(data, cfg, num_hosts, host_id)
-    if data.source == "markov":
-        return MarkovLM(data, cfg, num_hosts, host_id)
-    if data.source == "memmap":
-        return MemmapTokens(data, cfg, num_hosts, host_id)
-    raise ValueError(f"unknown data source {data.source!r}")
+        src = SyntheticLM(data, cfg, num_hosts, host_id)
+    elif data.source == "markov":
+        src = MarkovLM(data, cfg, num_hosts, host_id)
+    elif data.source == "memmap":
+        src = MemmapTokens(data, cfg, num_hosts, host_id)
+    else:
+        raise ValueError(f"unknown data source {data.source!r}")
+    if cfg.frontend == "patch":
+        return WithPatches(src, data, cfg, num_hosts, host_id)
+    return src
 
 
 # ------------------------------------------------- non-LM synthetic batches

@@ -2,7 +2,9 @@
 or on per-slot contiguous caches.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch internlm2-1.8b|qwen3-moe-30b-a3b|zamba2-2.7b|mamba2-130m \
+        --arch internlm2-1.8b|yi-9b|deepseek-67b|nemotron-4-340b|\
+               qwen3-moe-30b-a3b|moonshot-v1-16b-a3b|zamba2-2.7b|\
+               mamba2-130m|phi-3-vision-4.2b \
         --requests 8 --max-new 32 [--layout paged|contiguous] \
         [--reduced] [--max-batch 4 --max-seq 128 --page-size 16] \
         [--prefill-chunk N] [--temperature T --top-k K --top-p P \
@@ -15,7 +17,10 @@ prompt lengths, runs the engine to completion and logs latency,
 throughput and pool statistics.  Each request gets its own sampling
 seed (base + uid), so reruns reproduce while requests decorrelate.
 Every family with a paged path defaults to the paged layout; the
-pure-SSM mamba2-130m serves from the contiguous one.
+pure-SSM mamba2-130m serves from the contiguous one.  A vlm
+(phi-3-vision-4.2b) request carries `num_patches` seeded image rows,
+which count against `--max-seq`; the encoder-only hubert-xlarge has
+nothing to serve and exits.
 The MoE and hybrid archs serve with their shipped `moe_dispatch="ep"` /
 `ssd_impl="xla"` (the einsum dispatch and the plain SSD); the
 grouped-matmul and SSD kernels are reached by serving
@@ -32,6 +37,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.models import registry
 from repro_torch.models.config import reduced_for_smoke
 from repro_torch.serve.api import LLMServer
 from repro_torch.serve.sampling import SamplingParams
@@ -85,12 +91,15 @@ def main(argv=None):
         cfg = reduced_for_smoke(cfg, max_seq=args.max_seq)
     if args.kv_dtype:
         cfg = cfg.replace(kv_dtype=args.kv_dtype)
-    budget = args.max_seq - args.max_new
-    if budget < 5:
+    if not registry.has_decode(cfg):
+        raise SystemExit(f"{args.arch} is encoder-only: nothing to serve")
+    patches = cfg.num_patches if cfg.frontend == "patch" else 0
+    budget = args.max_seq - args.max_new - patches
+    if budget < 5:       # before params init: fail fast on full models
         raise SystemExit(
-            f"--max-seq {args.max_seq} too small: --max-new {args.max_new} "
-            f"leaves no room for a prompt (need max_seq >= "
-            f"{args.max_new + 5})")
+            f"--max-seq {args.max_seq} too small: {patches} patch rows + "
+            f"--max-new {args.max_new} leave no room for a prompt "
+            f"(need max_seq >= {patches + args.max_new + 5})")
 
     server = LLMServer(cfg, device=args.device, seed=args.seed,
                        max_batch=args.max_batch, max_seq=args.max_seq,
@@ -102,10 +111,12 @@ def main(argv=None):
     for i in range(args.requests):
         plen = int(rng.integers(4, budget))
         prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+        pe = (rng.standard_normal((patches, cfg.frontend_dim))
+              .astype(np.float32) if patches else None)
         server.generate(prompt, SamplingParams(
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, seed=args.sample_seed + i,
-            max_new_tokens=args.max_new))
+            max_new_tokens=args.max_new), patch_embeds=pe)
 
     results = server.run()
     lat = sorted(r.latency_s for r in results)

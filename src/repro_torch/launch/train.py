@@ -5,9 +5,13 @@ device.
         --steps 100 --global-batch 8 --seq 256 --reduced [--device cpu] \\
         [--ckpt-dir D --ckpt-every K] [--resume]
 
-Port of `repro.launch.train` for the dense, MoE, ssm and hybrid
-families (`--arch internlm2-1.8b`, `qwen3-moe-30b-a3b`, `mamba2-130m`,
-`zamba2-2.7b`).  `--reduced` shrinks
+Port of `repro.launch.train` for every family: dense (`--arch
+internlm2-1.8b`, `yi-9b`, `deepseek-67b`, `nemotron-4-340b`), MoE
+(`qwen3-moe-30b-a3b`, `moonshot-v1-16b-a3b`), ssm (`mamba2-130m`),
+hybrid (`zamba2-2.7b`), encoder (`hubert-xlarge`: frames, mask and
+codebook labels from `data.SyntheticFrames`) and vlm
+(`phi-3-vision-4.2b`: token batches with seeded patch rows,
+`data.WithPatches`).  `--reduced` shrinks
 the model (`reduced_for_smoke`) so the loop runs on any box.  It runs
 on CUDA unless given `--device cpu`, and raises where there is no card.
 The loop keeps the reference's shape: a step-indexed data source (resume

@@ -31,9 +31,12 @@ from repro_torch.kernels.paged_prefill.ops import paged_prefill_attention
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device):
-    """N(0, 1) drawn in f32, cast, then scaled — the reference's order."""
+    """N(0, 1) drawn in f32, cast, then scaled — the reference's order.
+    The scaling is in place: the same bits as `x.to(dtype) * std`
+    without a third copy alive (nemotron-4-340b's 4.7 B-element head is
+    18.9 GB in f32 and 9.4 GB in bf16)."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return x.to(dtype) * std
+    return x.to(dtype).mul_(std)
 
 
 def matmul(x, w):

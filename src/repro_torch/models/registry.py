@@ -1,7 +1,8 @@
 """Model family registry — one functional interface per family.
 
-The port serves the dense, MoE, hybrid and ssm families.  A family
-module exposes
+The port has all six families of the reference: dense, MoE, hybrid,
+ssm and vlm serve; the encoder trains only.  A serving family module
+exposes
     init(seed, cfg, device) -> params
     init_cache(cfg, batch, max_seq, *, device) -> contiguous cache
     prefill(params, cfg, batch, cache)
@@ -20,12 +21,14 @@ the serving step (serve/serve_step.py).  Training: every family exposes
         router losses)
 and `forward(params, cfg, batch)` -> logits.  The draft pairing of
 speculative decode (`DRAFT_PAIRS`, `draft_config`, `self_draft_params`)
-lives here too.  The encoder and vlm families are not ported yet
-(ROADMAP.md queue A item 10).
+lives here too.  The encoder family's serving hooks are None (no
+decode), and the vlm's prompts carry patch rows (`Request.patch_embeds`),
+so it cannot be a speculative-decode target.
 """
 from __future__ import annotations
 
-from repro_torch.models import hybrid, mamba2, moe, transformer
+from repro_torch.models import (encoder, hybrid, mamba2, moe,
+                                transformer, vlm)
 from repro_torch.models.config import ModelConfig
 
 FAMILIES = {
@@ -33,19 +36,14 @@ FAMILIES = {
     "moe": moe,
     "ssm": mamba2,
     "hybrid": hybrid,
+    "encoder": encoder,
+    "vlm": vlm,
 }
-
-# families of the reference not ported yet (ROADMAP.md queue A item 10)
-_LATER = ("encoder", "vlm")
 
 
 def get_family(cfg: ModelConfig):
     if cfg.family in FAMILIES:
         return FAMILIES[cfg.family]
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue A "
-            f"item 10 (the other families)")
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 

@@ -50,6 +50,12 @@ def init(seed: int, cfg: ModelConfig, device):
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return init_from(gen, cfg, device)
+
+
+def init_from(gen, cfg: ModelConfig, device):
+    """`init`'s tree drawn from the generator `gen` (the vlm family draws
+    its projector from the same generator after it)."""
     params = {
         "embed": L.embedding_init(gen, cfg, device),
         "layers": [layer_init(gen, cfg, device)
@@ -163,10 +169,14 @@ def prefill(params, cfg: ModelConfig, batch, cache, ffn_fn=_mlp_ffn):
     """Run whole prompts of one length from position 0: fill the cache
     rows [0, s) and set pos = s, in place.  batch: {"tokens": (b, s)}.
     Returns (cache, logits at the last position (b, vocab))."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None, :]
-    x = L.embed_tokens(params["embed"], cfg, tokens)
+    x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+    return prefill_embeds(params, cfg, x, cache, ffn_fn)
+
+
+def prefill_embeds(params, cfg: ModelConfig, x, cache, ffn_fn=_mlp_ffn):
+    """`prefill` over already-embedded prompts x: (b, s, d)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
     for layer, p in enumerate(params["layers"]):
         hn = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, hn, positions)

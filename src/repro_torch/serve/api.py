@@ -120,10 +120,13 @@ class LLMServer:
     # ------------------------------------------------------------ public
 
     def generate(self, prompt, params: SamplingParams | None = None, *,
+                 patch_embeds=None,
                  uid: int | None = None) -> GenerationStream:
         """Submit one prompt under its own `SamplingParams` (default:
         greedy) and return its token stream.  Nothing runs until a
-        stream is iterated (or `run()` is called)."""
+        stream is iterated (or `run()` is called).  A vlm's prompt takes
+        its image as `patch_embeds` ((num_patches, frontend_dim)
+        f32)."""
         params = params or SamplingParams()
         uid = self._next_uid if uid is None else uid
         if uid in self._buffers:
@@ -131,7 +134,8 @@ class LLMServer:
         self._next_uid = max(self._next_uid, uid + 1)
         self._buffers[uid] = deque()
         self.engine.submit(Request(
-            uid=uid, prompt=np.asarray(prompt, np.int32), sampling=params))
+            uid=uid, prompt=np.asarray(prompt, np.int32),
+            patch_embeds=patch_embeds, sampling=params))
         return GenerationStream(self, uid, params)
 
     def cancel(self, uid: int) -> bool:

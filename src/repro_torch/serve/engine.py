@@ -44,13 +44,18 @@ row, every tick decodes every row, and retirement zeroes the row.  It is
 the default for families without a paged path (ssm); `fork` and
 speculative decode need the paged layout.
 
+vlm requests carry `num_patches` image rows (`Request.patch_embeds`)
+ahead of their tokens: the rows count as prompt positions, hash into the
+page contents like tokens (the same text under another image shares no
+page), and ride each paged prefill chunk as its patch plane.  A family
+without decode (the encoder) raises `ValueError`, as in the reference.
+
 Options the reference has and the port does not yet raise
 `NotImplementedError` naming the ROADMAP.md item that will port them:
 `mesh` (item 12, and with it the sharded verify), `host_tier_pages`
-and `prefix_cache=True` (item 7), `tenant_weights` (item 11), and the
-encoder and vlm families (item 10).  Families with per-slot recurrent state
-(hybrid) share prompt pages but never skip their compute, as in the
-reference.
+and `prefix_cache=True` (item 7) and `tenant_weights` (item 11).
+Families with per-slot recurrent state (hybrid) share prompt pages but
+never skip their compute, as in the reference.
 """
 from __future__ import annotations
 
@@ -86,19 +91,31 @@ class Request:
     # tokens a preempted slot had already generated: on readmission the
     # engine REPLAYS them as forced context instead of re-sampling
     replay: list[int] | None = None
+    patch_embeds: np.ndarray | None = None   # vlm: (num_patches, frontend_dim)
+
+    @property
+    def num_patch_tokens(self) -> int:
+        return 0 if self.patch_embeds is None else len(self.patch_embeds)
 
     @property
     def virtual_len(self) -> int:
-        """Prompt positions the cache must hold."""
-        return len(self.prompt)
+        """Prompt positions the cache must hold: image rows + tokens."""
+        return self.num_patch_tokens + len(self.prompt)
 
     @property
     def max_footprint(self) -> int:
         return self.virtual_len + self.max_new_tokens
 
     def virtual_bytes(self, lo: int, hi: int) -> bytes:
-        """Content of prompt positions [lo, hi) for page hashing."""
-        return self.prompt[lo:hi].tobytes()
+        """Content of virtual positions [lo, hi) for page hashing: the
+        image rows' bytes, then the tokens'."""
+        p = self.num_patch_tokens
+        parts = []
+        if lo < p:
+            parts.append(self.patch_embeds[lo:min(hi, p)].tobytes())
+        if hi > p:
+            parts.append(self.prompt[max(lo - p, 0):hi - p].tobytes())
+        return b"".join(parts)
 
 
 @dataclass
@@ -200,7 +217,9 @@ class ServingEngine:
                     "item 7")
         if tenant_weights is not None:
             _refuse("tenant budget shares (tenant_weights)", "item 11")
-        registry.get_family(cfg)           # raises for unported families
+        if registry.get_family(cfg).decode_step is None:
+            raise ValueError(f"family {cfg.family!r} cannot serve (no decode)")
+        self._patch_frontend = cfg.frontend == "patch"
         if layout is None:
             layout = "paged" if registry.has_paged(cfg) else "contiguous"
         if layout == "paged" and not registry.has_paged(cfg):
@@ -322,6 +341,12 @@ class ServingEngine:
             raise ValueError(
                 f"request {request.uid}: footprint {request.max_footprint} "
                 f"> max_seq {self.max_seq}")
+        if self._patch_frontend and (request.num_patch_tokens
+                                     != self.cfg.num_patches):
+            raise ValueError(
+                f"request {request.uid}: {self.cfg.family} requests need "
+                f"patch_embeds with {self.cfg.num_patches} rows, got "
+                f"{request.num_patch_tokens}")
         self.pending.append(request)
 
     def _free_slots(self) -> list[int]:
@@ -513,8 +538,12 @@ class ServingEngine:
             pages = SequencePageTable(self.pool)
             pages.append_tokens(req.max_footprint)
             clear_slot(self.cache, slot, self.cache_ax)
+            batch = {"tokens": req.prompt[None, :]}
+            if req.patch_embeds is not None:
+                batch["patch_embeds"] = np.asarray(req.patch_embeds,
+                                                   np.float32)[None]
             _, logits = self.prefill_fn(
-                self.params, {"tokens": req.prompt[None, :]},
+                self.params, batch,
                 slot_view(self.cache, slot, self.cache_ax))
             self.prefill_calls += 1
             self.prefill_tokens += req.virtual_len
@@ -596,14 +625,27 @@ class ServingEngine:
         start = np.zeros((b,), np.int32)
         clen = np.zeros((b,), np.int32)
         bt = np.full((b, self.max_pages), self.arena.null_page, np.int32)
+        # vlm: the chunk's (b, c, frontend_dim) patch plane beside its
+        # tokens; a row's positions below its patch count read the plane
+        patches = (np.zeros((b, c, self.cfg.frontend_dim), np.float32)
+                   if self._patch_frontend else None)
         for i, s in pre:
             req, n, pos = s.request, lens[i], s.prefill_pos
-            tokens[i, :n] = req.prompt[pos:pos + n]
+            p = req.num_patch_tokens
+            lo = max(pos, p)                 # first text position in chunk
+            if lo < pos + n:
+                tokens[i, lo - pos:n] = req.prompt[lo - p:pos + n - p]
+            if patches is not None and pos < p:
+                hi = min(pos + n, p)
+                patches[i, :hi - pos] = req.patch_embeds[pos:hi]
             start[i] = pos
             clen[i] = n
             bt[i, :len(s.pages.pages)] = s.pages.pages
+        chunk = {"tokens": tokens}
+        if patches is not None:
+            chunk["patches"] = patches
         self.arena.kv, first = self.prefill_fn(
-            self.params, {"tokens": tokens}, self.arena.kv, bt, start, clen,
+            self.params, chunk, self.arena.kv, bt, start, clen,
             self._sampling_state(dict(pre)))
         self.prefill_calls += 1
         self.prefill_shapes.add((b, c))
@@ -1009,6 +1051,7 @@ class ServingEngine:
         if src is None or src.prefilling:
             raise ValueError(f"uid {uid} is not active")
         child_req = Request(uid=new_uid, prompt=src.request.prompt,
+                            patch_embeds=src.request.patch_embeds,
                             sampling=sampling or src.request.sampling)
         self._resolve_sampling(child_req)
         child = _Slot(request=child_req, pages=src.pages.fork(),

@@ -11,8 +11,9 @@ fixed-schedule scan the engine does not use) is not ported yet
 (ROADMAP.md queue A item 11).
 
 Per call, the engine's host-built numpy tables (tokens, positions or
-start/chunk_len, block table), and the sampling knobs when a row
-samples, cross to the device in ONE transfer, and
+start/chunk_len, block table), the vlm's f32 patch rows, and the
+sampling knobs when a row samples, cross to the device in ONE transfer,
+and
 the step returns int32 tokens on the device: reading them is the only
 synchronisation of a tick (DESIGN.md §6 — logits never leave the step).
 """
@@ -29,25 +30,40 @@ from repro_torch.serve.sampling import (SamplingState, device_knobs,
 
 
 def to_device(device, *arrays: np.ndarray) -> list[torch.Tensor]:
-    """Copy int32 host arrays to `device` in one transfer; returns
-    contiguous views of the one device buffer, in the arrays' shapes."""
-    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
-                           for a in arrays])
+    """Copy host arrays to `device` in one transfer; returns contiguous
+    views of the one device buffer, in the arrays' shapes.  float32
+    arrays cross as their bits and come back float32; everything else
+    comes back int32."""
+    f32 = [np.asarray(a).dtype == np.float32 for a in arrays]
+    flat = np.concatenate([
+        (np.ascontiguousarray(a, np.float32).view(np.int32) if f
+         else np.asarray(a, np.int32)).reshape(-1)
+        for a, f in zip(arrays, f32)])
     buf = torch.from_numpy(flat).to(device)
     out, o = [], 0
-    for a in arrays:
+    for a, f in zip(arrays, f32):
         n = int(np.prod(np.shape(a), dtype=np.int64))
-        out.append(buf[o:o + n].view(np.shape(a)))
+        part = buf[o:o + n]
+        out.append((part.view(torch.float32) if f else part)
+                   .view(np.shape(a)))
         o += n
     return out
+
+
+def _host_batch(batch: dict) -> tuple[list[str], list[np.ndarray]]:
+    """A step's host inputs in a fixed order: "tokens", then the vlm's
+    patch rows ("patch_embeds" or "patches", f32) when present."""
+    keys = [k for k in ("tokens", "patch_embeds", "patches") if k in batch]
+    return keys, [batch[k] for k in keys]
 
 
 def make_serve_fns(cfg: ModelConfig, device):
     """Closures over the family's contiguous-cache hooks.
 
     prefill(params, batch, cache) -> (cache, logits (b, vocab))
-        `batch` is {"tokens": (b, s)} host int32: whole prompts of one
-        length from position 0.  The engine samples the first token
+        `batch` is {"tokens": (b, s)} host int32 (and the vlm's
+        "patch_embeds" (b, num_patches, frontend_dim) f32): whole
+        prompts of one length from position 0.  The engine samples the first token
         from the logits on the device.
     decode(params, cache, tokens, sampling) -> (cache, next_tokens (b,))
         Every row advances; only int32 tokens leave the step.
@@ -58,8 +74,9 @@ def make_serve_fns(cfg: ModelConfig, device):
 
     @torch.inference_mode()
     def prefill(params, batch, cache):
-        tokens, = to_device(device, batch["tokens"])
-        return fam.prefill(params, cfg, {"tokens": tokens}, cache)
+        keys, arrays = _host_batch(batch)
+        return fam.prefill(params, cfg,
+                           dict(zip(keys, to_device(device, *arrays))), cache)
 
     @torch.inference_mode()
     def decode(params, cache, tokens, sampling: SamplingState):
@@ -81,7 +98,8 @@ def make_paged_serve_fns(cfg: ModelConfig, device):
 
     prefill_chunk(params, chunk, arena, block_table, start (b,),
                   chunk_len (b,), sampling) -> (arena, next_tokens (b,))
-        `chunk` is {"tokens": (b, c)}: ONE bucketed width c serves every
+        `chunk` is {"tokens": (b, c)} (and the vlm's "patches" (b, c,
+        frontend_dim) f32 plane): ONE bucketed width c serves every
         admitting row; chunk_len ragged-masks each row (0 = inert).  The
         returned tokens are sampled at each row's LAST VALID position.
     decode(params, arena, block_table, positions, tokens, sampling)
@@ -97,10 +115,12 @@ def make_paged_serve_fns(cfg: ModelConfig, device):
     @torch.inference_mode()
     def prefill_chunk(params, chunk, arena, block_table, start, chunk_len,
                       sampling: SamplingState):
-        tokens, bt, st, cl, *knobs = to_device(
-            device, chunk["tokens"], block_table, start, chunk_len,
-            *host_knobs(sampling))
-        arena, logits = fam.paged_prefill(params, cfg, {"tokens": tokens},
+        keys, arrays = _host_batch(chunk)
+        n = len(arrays)
+        got = to_device(device, *arrays, block_table, start, chunk_len,
+                        *host_knobs(sampling))
+        (bt, st, cl), knobs = got[n:n + 3], got[n + 3:]
+        arena, logits = fam.paged_prefill(params, cfg, dict(zip(keys, got)),
                                           arena, bt, st, cl)
         return arena, sample_tokens(logits, sampling, device_knobs(knobs))
 

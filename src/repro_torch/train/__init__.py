@@ -1,6 +1,7 @@
 """Training: optimizers, the step with gradient accumulation,
-checkpoints, elastic batch plans and straggler detection (the dense,
-MoE, ssm and hybrid families; ROADMAP.md queue A.2)."""
+checkpoints, elastic batch plans and straggler detection (every
+family: dense, MoE, ssm and hybrid, ROADMAP.md queue A.2; encoder and
+vlm, A.3)."""
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.train.train_step import (TrainState, init_train_state,

@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX reference in bf16: the paged engine, bit for
 bit.  The bf16 twins of `test_engine_streams_and_stats_match_reference`
 (`test_torch_serve.py`, `test_torch_moe.py`, `test_torch_hybrid.py`) in
-"chunked" and "preempt" at TINY dense, moe (grouped dispatch) and
-hybrid (the SSD Pallas kernel): the same event streams and stats as the
+"chunked" and "preempt" at TINY dense, moe (grouped dispatch), hybrid
+(the SSD Pallas kernel) and vlm (each request with its seeded image
+rows, `test_torch_serve.image_rows`): the same event streams and stats as the
 reference engine, which runs in one subprocess without excess precision
 (`test_torch_bf16_parity.reference_runs`)."""
 from __future__ import annotations

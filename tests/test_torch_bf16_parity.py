@@ -358,7 +358,9 @@ def test_paged_step_arena_matches_reference_in_bf16(case):
 
 PAGED_ENGINE_CFG = {"dense": TINY["dense"],
                     "moe": TINY["moe"].replace(moe_dispatch="grouped"),
-                    "hybrid": TINY["hybrid"].replace(ssd_impl="pallas")}
+                    "hybrid": TINY["hybrid"].replace(ssd_impl="pallas"),
+                    # its requests carry `test_torch_serve.image_rows`
+                    "vlm": TINY["vlm"]}
 # the speculating engine's cases: (family, scenario) -> (k, draft)
 SPEC_CASES = {("dense", "chunked"): (2, "self:1"),
               ("dense", "preempt"): (4, "self:1"),

@@ -14,11 +14,13 @@ import jax
 import jax.numpy as jnp
 
 from conftest import TINY
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_arch as jax_get_arch
 from repro.models import layers as JL
 from repro.models import registry as jax_registry
 from repro.models.config import ModelConfig as JaxConfig
 from repro.models.config import reduced_for_smoke as jax_reduced
+from repro_torch.configs import ARCH_IDS as PORT_ARCH_IDS
 from repro_torch.configs import get_arch
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
@@ -63,6 +65,20 @@ def test_config_has_every_reference_field_and_derivation():
     assert pc.compute_dtype == torch.bfloat16
     assert pc.replace(kv_dtype="fp8").kv_store_dtype == torch.float8_e4m3fn
     assert pc.replace(kv_dtype="int8").kv_store_dtype == torch.int8
+
+
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_every_arch_config_equals_the_reference(arch):
+    """Every registered architecture, field for field, reduced or not,
+    with the reference's training settings."""
+    assert PORT_ARCH_IDS == JAX_ARCH_IDS
+    js, ps = jax_get_arch(arch), get_arch(arch)
+    jc, pc = js.model, ps.model
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+    assert (dataclasses.asdict(reduced_for_smoke(pc, max_seq=64))
+            == dataclasses.asdict(jax_reduced(jc, max_seq=64)))
+    for field in ("optimizer", "train_grad_accum", "rules", "source"):
+        assert getattr(ps, field) == getattr(js, field), field
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])

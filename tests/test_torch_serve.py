@@ -202,9 +202,28 @@ def _events(evs):
     return out
 
 
+def image_rows(cfg, uid):
+    """A vlm request's seeded image: image `uid % 2`, so a scenario holds
+    requests under one image and under another."""
+    rng = np.random.default_rng(1000 + uid % 2)
+    return rng.standard_normal(
+        (cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
+
+
+def with_images(request_cls, cfg):
+    """`request_cls`, giving each request of a patch-frontend config its
+    `image_rows`; unchanged for every other config."""
+    if cfg.frontend != "patch":
+        return request_cls
+    return lambda uid, **kw: request_cls(
+        uid=uid, patch_embeds=image_rows(cfg, uid), **kw)
+
+
 def _drive(engine, request_cls, script):
     """Run a scripted scenario: `script` maps a step number to actions
-    taken before that step ("submit", "fork", "cancel")."""
+    taken before that step ("submit", "fork", "cancel"); a vlm's
+    requests carry `image_rows`."""
+    request_cls = with_images(request_cls, engine.cfg)
     log = []
     step = 0
     while True:
@@ -537,7 +556,8 @@ def test_launch_serve_speculates_on_cpu(draft):
     assert "'verify_calls': 0" not in proc.stdout
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b",
+                                  "phi-3-vision-4.2b"])
 def test_launch_serve_runs_the_moe_and_hybrid_archs_on_cpu(arch):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
@@ -570,7 +590,24 @@ def test_unported_engine_options_refuse(dense, kw):
 
 
 @pytest.mark.parametrize("family", ["encoder", "vlm"])
-def test_unported_families_refuse(dense, family):
-    _, _, pp = dense
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(port_cfg(TINY[family]), pp, device="cpu")
+def test_the_encoder_is_refused_and_the_vlm_serves(family):
+    """The encoder has no decode: the engine raises the reference's
+    ValueError.  The vlm serves a request with its patch rows."""
+    cfg = TINY[family]
+    jp = jax_registry.get_family(cfg).init(jax.random.key(0), cfg)
+    pp = port_params(jp, cfg)
+    if family == "encoder":
+        with pytest.raises(ValueError) as want:
+            JaxEngine(cfg, jp)
+        with pytest.raises(ValueError) as got:
+            ServingEngine(port_cfg(cfg), pp, device="cpu")
+        assert str(got.value) == str(want.value) == \
+            "family 'encoder' cannot serve (no decode)"
+        return
+    eng = ServingEngine(port_cfg(cfg), pp, device="cpu", max_batch=1,
+                        max_seq=32, page_size=8)
+    eng.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32),
+                       patch_embeds=image_rows(cfg, 0), max_new_tokens=3))
+    res = eng.run()
+    assert len(res[0].tokens) == 3
+    assert eng.stats()["prefill_tokens"] == cfg.num_patches + 5

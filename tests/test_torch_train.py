@@ -328,6 +328,38 @@ def test_memmap_source_gives_the_reference_windows(tmp_path):
         np.testing.assert_array_equal(got["labels"], ref["labels"])
 
 
+@pytest.mark.parametrize("family", ["encoder", "vlm"])
+def test_frontend_families_get_batches_their_losses_take(family):
+    """The vlm's batches are the token source's plus seeded patch rows;
+    the encoder's are frames, a mask and labels at the masked positions.
+    Both are stateless in the step, and the family's loss takes them."""
+    cfg = port_cfg(TINY[family])
+    kw = dict(source="markov", seq_len=16, global_batch=4, seed=5)
+    src = PD.make_source(PD.DataConfig(**kw), cfg)
+    b3 = src.batch_at(3)
+    for k, v in src.batch_at(3).items():
+        np.testing.assert_array_equal(v, b3[k])
+    if family == "vlm":
+        assert isinstance(src, PD.WithPatches)
+        ref = JD.make_source(JD.DataConfig(**kw), TINY[family]).batch_at(3)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(b3[k], ref[k])
+        assert b3["patch_embeds"].shape == (4, cfg.num_patches,
+                                            cfg.frontend_dim)
+        assert b3["patch_embeds"].dtype == np.float32
+        assert not np.array_equal(b3["patch_embeds"],
+                                  src.batch_at(4)["patch_embeds"])
+    else:
+        assert isinstance(src, PD.SyntheticFrames)
+        assert b3["frames"].shape == (4, 16, cfg.frontend_dim)
+        assert b3["frames"].dtype == np.float32
+        np.testing.assert_array_equal(b3["labels"] >= 0, b3["mask"])
+        assert (b3["labels"] < cfg.vocab_size).all()
+    fam = registry.get_family(cfg)
+    loss = fam.loss_fn(fam.init(0, cfg, "cpu"), cfg, batch_to(b3, "cpu"))
+    assert loss.dim() == 0 and torch.isfinite(loss)
+
+
 def test_host_slice_and_synthetic_batch_match_the_reference():
     assert PD.host_slice(8, 4, 3) == JD.host_slice(8, 4, 3) == slice(6, 8)
     got = PD.synthetic_batch(CFG, 2, 8, seed=1)
@@ -393,6 +425,14 @@ def test_train_cli_runs_on_the_cpu_and_resumes(tmp_path):
                               "--resume"])
     # steps 3-4 after a restore equal the same steps of one run
     np.testing.assert_allclose(rest, full[2:], rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "phi-3-vision-4.2b"])
+def test_train_cli_runs_the_encoder_and_vlm_archs(arch):
+    losses = launch_train.main(["--arch", arch, "--reduced", "--device",
+                                "cpu", "--steps", "2", "--seq", "16",
+                                "--global-batch", "2"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_train_cli_wants_cuda_and_one_device(monkeypatch):
