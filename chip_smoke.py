@@ -151,6 +151,26 @@ exit at the first failure):
    differently from decode's, so that share is not held).  Then
    serve_int8: internlm2-1.8b on an int8 page arena, 4 prompts of 16
    new tokens, held as the plain serve.
+7b. serve_tier: internlm2-1.8b at full width and depth (bf16, page 16)
+   through `LLMServer` with the persistent prefix cache and the host
+   tier (run B: `prefix_cache=True`, `host_tier_pages` 512, watermark
+   0.75, a pool of `TIER_POOL` pages, under which wave 1 preempts) and
+   without (run A, the default pool): two waves of 8 prompts, each one
+   seeded 256-token system prefix and a distinct suffix of 16-240
+   tokens, 32 greedy new tokens, wave 2 after wave 1 retired and, in B,
+   after the idle cache was flushed to the host tier.  Gates: B's
+   streams equal A's; preemptions, tier spills, restores and
+   prefetches, cold spills and restores and cross-request hits all
+   above 0; B computes fewer prompt tokens; at the end the pool holds
+   exactly the cached pages, pinned, and no sequence's parcel is left;
+   the launches of both runs; a round trip of cached pages to pinned
+   host memory and back through the prefetch path bit-exact.  Then the
+   same on an int8 arena (2 prompts a wave, 16 new tokens; its scale
+   leaves in the round trip).  Printed: the bytes spilled and restored,
+   each kind of copy's seconds (CUDA events) and GB/s, the share of
+   host-to-device time the prefetch took off the compute stream, the
+   prompt tokens computed, wave 2's median TTFT, tokens/s and peak
+   memory of A and B.
 8. spec_parity: a 2-layer internlm2-width f32 model: speculative
    streams (greedy and sampled rows, k 1 and 4, drafts `self:1` and
    `mamba2-130m@reduced`) equal the plain engine's on the card.
@@ -1808,6 +1828,273 @@ def phase_serve_spec(torch, dev, card: str, cfg, plain) -> None:
                 n_prompts=4, max_new=16)
 
 
+# ----------------------------------------- serve_tier: cache + host tier
+
+TIER_SYSTEM = 256           # shared system-prompt tokens: 16 full pages
+TIER_SUFFIX = (16, 240)     # seeded distinct suffix lengths, inclusive
+TIER_WAVE = 8               # requests a wave; wave 2 follows wave 1's end
+TIER_NEW = 32               # greedy new tokens a request
+TIER_POOL = 128             # run B's pool pages: wave 1 preempts twice
+TIER_HOST_PAGES = 512       # run B's host tier (768 MiB of bf16 pages)
+TIER_WATERMARK = 0.75
+TIER_INT8 = (2, 16)         # the int8 case: requests a wave, new tokens
+
+
+def tier_prompts(cfg, per_wave: int):
+    """Two waves of `per_wave` prompts: one seeded 256-token system
+    prefix, each followed by its own seeded suffix of a distinct length
+    in TIER_SUFFIX."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    lens = rng.choice(np.arange(TIER_SUFFIX[0], TIER_SUFFIX[1] + 1),
+                      size=2 * TIER_WAVE, replace=False)
+    system = rng.integers(0, cfg.vocab_size, TIER_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+               .astype(np.int32) for n in lens]
+    return [prompts[:per_wave], prompts[TIER_WAVE:TIER_WAVE + per_wave]]
+
+
+class CopyClock:
+    """CUDA-event timings and bytes of the arena's page traffic: the
+    spills (`read_pages`: gather + copy to pinned host memory), the restores from host memory (`write_pages`, `write_page`:
+    host-to-device + scatter), the prefetches (host-to-device on the copy
+    stream) and the restores from a prefetched device copy."""
+
+    def __init__(self, torch, arena):
+        self.torch, self.arena = torch, arena
+        self.events = {k: [] for k in ("d2h", "h2d", "prefetch",
+                                       "from_prefetch", "cold_h2d")}
+        self.bytes = dict.fromkeys(self.events, 0)
+        if arena.copy_stream is None:
+            arena.copy_stream = torch.cuda.Stream(arena.device)
+        # read_page goes through read_pages
+        for name in ("read_pages", "write_pages", "write_page", "prefetch"):
+            setattr(arena, name, self._timed(name, getattr(arena, name)))
+
+    def _timed(self, name, fn):
+        torch, arena = self.torch, self.arena
+
+        def run(*args, **kw):
+            if name == "read_pages":
+                kind, pages = "d2h", len(args[0])
+            elif name == "write_page":
+                kind, pages = "cold_h2d", 1
+            elif name == "prefetch":
+                kind, pages = "prefetch", next(iter(args[0].values())).shape[1]
+            else:
+                on_card = next(iter(args[1].values())).is_cuda
+                kind = "from_prefetch" if on_card else "h2d"
+                pages = len(args[0])
+            stream = (arena.copy_stream if kind == "prefetch"
+                      else torch.cuda.current_stream(arena.device))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(stream)
+            out = fn(*args, **kw)
+            b.record(stream)
+            self.events[kind].append((a, b))
+            self.bytes[kind] += pages * arena.page_bytes
+            return out
+        return run
+
+    def report(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for kind, evs in self.events.items():
+            s = sum(a.elapsed_time(b) for a, b in evs) / 1e3
+            out[kind] = {"calls": len(evs), "bytes": self.bytes[kind],
+                         "s": s, "GB_per_s": (self.bytes[kind] / s / 1e9
+                                              if s else None)}
+        h2d = out["h2d"]["s"] + out["prefetch"]["s"]
+        out["prefetch_hidden_share"] = (out["prefetch"]["s"] / h2d
+                                        if h2d else None)
+        return out
+
+
+def serve_waves(torch, dev, cfg, params, waves, max_new, flush=False,
+                **engine_kw):
+    """Serve `waves` of greedy prompts through `LLMServer`, each wave
+    submitted after the one before has retired; with `flush` the store's
+    idle entries are evicted to the host tier between the waves.  Returns
+    the server, uid -> tokens, each wave's TTFT (uid -> s), the wall
+    seconds, the copy timings and the peak memory."""
+    from repro_torch.serve.api import LLMServer
+    from repro_torch.serve.engine import TokenEvent
+    from repro_torch.serve.sampling import SamplingParams
+
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    server = LLMServer(cfg, params, device=dev, max_batch=8, max_seq=1024,
+                       page_size=16, **engine_kw)
+    eng = server.engine
+    clock = CopyClock(torch, eng.arena)
+    streams, ttft, flushed = [], [], []
+    t0 = time.perf_counter()
+    for w, prompts in enumerate(waves):
+        if w and flush:
+            store = eng.prefix_store
+            flushed.append(store.evict(len(store)))
+        wave = [server.generate(p, SamplingParams(max_new_tokens=max_new))
+                for p in prompts]
+        tw = time.perf_counter()
+        first, live = {}, list(wave)
+        while live:
+            for s in list(live):
+                ev = next(s, None)
+                if ev is None:
+                    live.remove(s)
+                elif isinstance(ev, TokenEvent) and s.uid not in first:
+                    first[s.uid] = time.perf_counter() - tw
+        streams += wave
+        ttft.append(first)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    for s in streams:
+        if s.result is None or len(s.result.tokens) != max_new:
+            fail(f"serve_tier: stream {s.uid} did not finish its "
+                 f"{max_new} tokens")
+    return (server, {s.uid: s.result.tokens for s in streams}, ttft, wall,
+            clock.report(), torch.cuda.max_memory_allocated(), flushed)
+
+
+def tier_round_trip(torch, eng) -> dict:
+    """Read written pages (cached prompt pages) to pinned host memory,
+    bring them back into fresh pages through the prefetch path and hold
+    every page leaf (scales too) bit for bit.  Up to 16 pages; idle
+    entries are evicted first where the pool has no room for the copy."""
+    arena, pool, store = eng.arena, eng.pool, eng.prefix_store
+    n = min(16, len(store) // 2)
+    if n == 0:
+        fail("serve_tier: no cached page to round-trip")
+    store.evict(max(0, n - pool.free_pages))
+    src = [e.page for e in store._entries.values()][:n]
+    host = arena.read_pages(src)
+    if not all(t.is_pinned() for t in host.values()):
+        fail("serve_tier: spilled pages are not in pinned host memory")
+    fresh = pool.alloc(len(src))
+    staged, ready = arena.prefetch(host)
+    arena.write_pages(fresh, staged, ready=ready)
+    torch.cuda.synchronize()
+    idx_src = torch.tensor(src, device=arena.device)
+    idx_new = torch.tensor(fresh, device=arena.device)
+    leaves = sorted(host)
+    for name in leaves:
+        a = arena.kv[name]
+        if not torch.equal(a.index_select(1, idx_src),
+                           a.index_select(1, idx_new)):
+            fail(f"serve_tier: leaf {name} changed in a page round trip")
+    pool.free(fresh)
+    return {"pages": len(src), "leaves": leaves, "bit_exact": True}
+
+
+def phase_serve_tier(torch, dev, card: str, cfg) -> dict:
+    """internlm2-1.8b at full width and depth through `LLMServer` with
+    the persistent prefix cache and the host tier (run B) against the
+    plain engine (run A): two waves of TIER_WAVE prompts behind one
+    256-token system prefix, wave 2 after wave 1 retired and, in B,
+    after the idle cache was flushed to host DRAM, so wave 2 restores
+    cold parcels.  B's pool (TIER_POOL pages) preempts in wave 1 and
+    spills to the tier.  Gates: B's streams equal A's, the tier and cache
+    counters moved, B computed fewer prompt tokens, nothing leaked, the
+    launches held and a page round trip through the prefetch path is
+    bit-exact; then the same on an int8 arena (TIER_INT8).  Returns B's
+    launches."""
+    from repro_torch.models import registry
+
+    free_card(torch)
+    params = registry.get_family(cfg).init(0, cfg, dev)
+    mods = kernel_modules()
+    tier_kw = dict(prefix_cache=True, host_tier_pages=TIER_HOST_PAGES,
+                   high_watermark=TIER_WATERMARK, pool_pages=TIER_POOL)
+    out = {}
+    for label, c, per_wave, max_new in (
+            ("bf16", cfg, TIER_WAVE, TIER_NEW),
+            ("int8", cfg.replace(kv_dtype="int8"), *TIER_INT8)):
+        waves = tier_prompts(c, per_wave)
+        runs = {}
+        for run, kw in (("A", {}), ("B", tier_kw)):
+            for m in mods.values():                  # count the main path
+                m.launches = 0
+            server, toks, ttft, wall, copies, peak, flushed = serve_waves(
+                torch, dev, c, params, waves, max_new, flush=run == "B",
+                **kw)
+            launches = {n: m.launches for n, m in mods.items()}
+            st = server.stats
+            want = expected_launches(c, st)
+            if launches != want:
+                fail(f"serve_tier {label} {run}: kernel launches "
+                     f"{launches} != expected {want}")
+            runs[run] = dict(tokens=toks, ttft=ttft, wall=wall,
+                             copies=copies, peak=peak, st=st,
+                             launches=launches, flushed=flushed)
+            if run == "B":          # A's arena goes before B's run
+                runs[run]["server"] = server
+            del server
+        a, b = runs["A"], runs["B"]
+        if b["tokens"] != a["tokens"]:
+            diff = [u for u in a["tokens"] if a["tokens"][u] != b["tokens"][u]]
+            fail(f"serve_tier {label}: streams {diff} differ from run A")
+        st, eng = b["st"], b["server"].engine
+        tier, store, pool = st["host_tier"], st["prefix_store"], st["pool"]
+        moved = {"preemptions": st["preemptions"], "spills": tier["spills"],
+                 "restores": tier["restores"],
+                 "prefetches": tier["prefetches"],
+                 "cold_spills": store["cold_spills"],
+                 "cold_restores": store["cold_restores"],
+                 "cross_request_hits": store["cross_request_hits"]}
+        need = (moved if label == "bf16" else
+                {k: moved[k] for k in ("cold_spills", "cold_restores",
+                                       "cross_request_hits")})
+        idle = [k for k, v in need.items() if v <= 0]
+        if idle:
+            fail(f"serve_tier {label}: counters at 0: {idle} ({moved})")
+        if st["prefill_tokens"] >= a["st"]["prefill_tokens"]:
+            fail(f"serve_tier {label}: B computed {st['prefill_tokens']} "
+                 f"prompt tokens, A {a['st']['prefill_tokens']}")
+        if not (pool["allocated_pages"] == pool["pinned_pages"]
+                == len(eng.prefix_store)):
+            fail(f"serve_tier {label}: {pool['allocated_pages']} pages "
+                 f"allocated, {pool['pinned_pages']} pinned, "
+                 f"{len(eng.prefix_store)} cached")
+        left = [u for u in b["tokens"] if u in eng.host_tier]
+        if left:
+            fail(f"serve_tier {label}: parcels of {left} left in the tier")
+        if a["st"]["pool"]["allocated_pages"]:
+            fail(f"serve_tier {label}: run A leaked pages")
+        trip = tier_round_trip(torch, eng)
+        page_bytes = eng.arena.page_bytes
+        out[label] = {
+            "requests": 2 * per_wave, "max_new": max_new,
+            "pool_pages": {"A": a["st"]["pool"]["num_pages"],
+                           "B": pool["num_pages"]},
+            "page_bytes": page_bytes, "counters": moved,
+            "flushed_entries": b["flushed"],
+            "host_tier": tier, "prefix_store": store,
+            "bytes_spilled": tier["spilled_pages"] * page_bytes,
+            "bytes_restored": tier["restored_pages"] * page_bytes,
+            "copies": b["copies"],
+            "prompt_tokens_computed": {"A": a["st"]["prefill_tokens"],
+                                       "B": st["prefill_tokens"]},
+            "wave2_median_ttft_s": {
+                r: statistics.median(runs[r]["ttft"][1].values())
+                for r in runs},
+            "tokens_per_s": {r: runs[r]["st"]["tokens_out"] / runs[r]["wall"]
+                             for r in runs},
+            "wall_s": {r: runs[r]["wall"] for r in runs},
+            "max_memory_allocated": {r: runs[r]["peak"] for r in runs},
+            "launches": {r: {n: v for n, v in runs[r]["launches"].items()
+                             if v} for r in runs},
+            "round_trip": trip, "streams_equal": True}
+        del runs, a, b, eng, st
+        free_card(torch)
+    emit({"phase": "serve_tier", "card": card, "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": cfg.dtype, "page_size": 16,
+          "system_tokens": TIER_SYSTEM, "suffix_tokens": list(TIER_SUFFIX),
+          "host_tier_pages": TIER_HOST_PAGES, "watermark": TIER_WATERMARK,
+          **out})
+    return out["bf16"]["launches"]["B"]
+
+
 def phase_spec_parity(torch, dev, cfg) -> None:
     """Speculative streams equal plain decode's on the card in f32 (the
     reference's contract): a 2-layer internlm2-width f32 target, four
@@ -2924,6 +3211,7 @@ def main() -> int:
     hybrid = get_arch("zamba2-2.7b").model.replace(ssd_impl="pallas")
     launches, plain = phase_serve(torch, dev, card, "serve", dense)
     phase_serve_spec(torch, dev, card, dense, plain)
+    tier_launches = phase_serve_tier(torch, dev, card, dense)
     phase_spec_parity(torch, dev, dense.replace(
         num_layers=2, dtype="float32", param_dtype="float32"))
     moe_launches, _ = phase_serve(torch, dev, card, "serve_moe", moe)
@@ -3054,6 +3342,7 @@ def main() -> int:
                      "library_ms": t["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "launches": {"serve_vlm": vlm_launches,
+                       "serve_tier": tier_launches,
                        **{f"serve_configs {a}": v
                           for a, v in config_launches.items()}}})
     emit({"kernels": rows})

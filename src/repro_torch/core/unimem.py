@@ -1,17 +1,24 @@
 """UniMem — the paper's single-form pooled memory, as a page-pool arena.
 
-Port of `repro.core.unimem` for this slice: the host-side control plane
+Port of `repro.core.unimem` on one pool: the host-side control plane
 (page tables, free lists, refcounts, pinning) is copied as plain Python,
 and the quantized-page contract (`quantize_kv`/`dequantize_kv`) is
 rewritten in torch with the same numerics.  The device arena itself is
 owned by `serve/kv_cache.py`.
 
-`ShardedUniMemPool` (sharded serving) and `HostTier` (host-DRAM cold
-tier) wait for the slices that port those features (ROADMAP.md queue A
-items 7 and 12).
+`HostTier` is the LRU bank of host-DRAM page parcels behind the device
+pool: preempted sequences spill their exact KV bytes instead of dropping
+them, and readmission restores them (through an asynchronous prefetch
+on the card) instead of recomputing.  A parcel's payload is CPU tensors
+(pinned where the arena is on CUDA), since bf16 has no numpy dtype.
+
+`ShardedUniMemPool` and the allocator's `start`/rotation arguments it
+consumes wait for sharded serving (ROADMAP.md queue A item 12); the
+single pool's `fits(n)` and `alloc(n)` take no `start`.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import torch
@@ -162,6 +169,16 @@ class UniMemPool:
         self._pinned.discard(page)
         self._note_peak()
 
+    def is_pinned(self, page: int) -> bool:
+        return page in self._pinned
+
+    @property
+    def pinned_pages(self) -> int:
+        return len(self._pinned)
+
+    def is_allocated(self, page: int) -> bool:
+        return page in self._refcount
+
     def is_shared(self, page: int) -> bool:
         return self._refcount.get(page, 0) > 1
 
@@ -246,3 +263,93 @@ class SequencePageTable:
     def release(self) -> None:
         self.pool.free(self.pages)
         self.pages, self.num_tokens = [], 0
+
+
+# ------------------------------------------------------------- host tier
+
+@dataclass
+class HostParcel:
+    """One spilled sequence (or one cold prefix page): its page payloads
+    (CPU tensors, one leading-axis entry per page after the layer axis)
+    plus the engine metadata needed to rebuild the slot exactly (token
+    count, generated tail)."""
+    uid: object                    # request uid, or ("prefix", hash)
+    num_pages: int
+    data: dict                     # leaf name -> (L, npages, ...) CPU tensor
+    meta: dict = field(default_factory=dict)
+
+
+class HostTier:
+    """LRU host-DRAM cold bank behind the device page pool: capacity is
+    counted in PAGES.  Parcels are whole per-sequence spills, so the
+    pages of one sequence live and die together and a restore is one
+    batched write-back.
+
+    Eviction (capacity pressure) drops the oldest parcel; its sequence
+    falls back to the engine's replay/recompute admission, so the tier is
+    a fast path, never a correctness dependency."""
+
+    def __init__(self, capacity_pages: int):
+        self.capacity_pages = int(capacity_pages)
+        self._parcels: "OrderedDict[object, HostParcel]" = OrderedDict()
+        self._resident = 0
+        self._peak = 0
+        self.spills = 0
+        self.spilled_pages = 0
+        self.prefetches = 0
+        self.restores = 0
+        self.restored_pages = 0
+        self.evictions = 0
+        self.evicted_pages = 0
+
+    def __contains__(self, uid) -> bool:
+        return uid in self._parcels
+
+    @property
+    def resident_pages(self) -> int:
+        return self._resident
+
+    def put(self, parcel: HostParcel) -> bool:
+        """Spill a parcel, evicting LRU parcels to make room.  Returns
+        False (and stores nothing) when the parcel alone exceeds
+        capacity."""
+        if parcel.num_pages > self.capacity_pages:
+            return False
+        self.take(parcel.uid)                     # replace, don't double-count
+        while self._resident + parcel.num_pages > self.capacity_pages:
+            _, old = self._parcels.popitem(last=False)
+            self._resident -= old.num_pages
+            self.evictions += 1
+            self.evicted_pages += old.num_pages
+        self._parcels[parcel.uid] = parcel
+        self._resident += parcel.num_pages
+        self._peak = max(self._peak, self._resident)
+        self.spills += 1
+        self.spilled_pages += parcel.num_pages
+        return True
+
+    def peek(self, uid) -> HostParcel | None:
+        """Touch (LRU move-to-end) and return the parcel, still resident."""
+        p = self._parcels.get(uid)
+        if p is not None:
+            self._parcels.move_to_end(uid)
+        return p
+
+    def take(self, uid) -> HostParcel | None:
+        """Remove and return the parcel (restore or invalidation)."""
+        p = self._parcels.pop(uid, None)
+        if p is not None:
+            self._resident -= p.num_pages
+        return p
+
+    def stats(self) -> dict:
+        return dict(capacity_pages=self.capacity_pages,
+                    resident_pages=self._resident,
+                    peak_resident_pages=self._peak,
+                    parcels=len(self._parcels),
+                    spills=self.spills, spilled_pages=self.spilled_pages,
+                    prefetches=self.prefetches,
+                    restores=self.restores,
+                    restored_pages=self.restored_pages,
+                    evictions=self.evictions,
+                    evicted_pages=self.evicted_pages)

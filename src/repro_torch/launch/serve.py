@@ -9,7 +9,9 @@ or on per-slot contiguous caches.
         [--reduced] [--max-batch 4 --max-seq 128 --page-size 16] \
         [--prefill-chunk N] [--temperature T --top-k K --top-p P \
          --sample-seed S] [--kv-dtype int8|fp8|bf16] \
-        [--speculate K [--draft self:N|mamba2-130m]] [--device cpu]
+        [--speculate K [--draft self:N|mamba2-130m]] \
+        [--prefix-cache [--shared-prefix N]] [--host-tier-pages N] \
+        [--high-watermark F] [--device cpu]
 
 Builds the model with seeded random weights on the device (CUDA unless
 `--device` names another), submits a synthetic request stream with mixed
@@ -28,7 +30,14 @@ grouped-matmul and SSD kernels are reached by serving
 through `LLMServer`.  `--speculate K` decodes speculatively: the draft
 (`--draft`, default "self:1") proposes K tokens per window and one
 paged-prefill verify call judges them (paged layout, dense and MoE
-targets; the tokens are plain decode's).
+targets; the tokens are plain decode's).  `--prefix-cache` keeps full
+prompt pages after their request retires, so later requests that share
+the prefix (`--shared-prefix N` puts the same N system-prompt tokens
+ahead of every prompt) adopt them instead of prefilling;
+`--host-tier-pages` puts a host-DRAM tier of that many pages behind the
+pool (preempted sequences spill and restore, evicted cache pages spill
+cold); `--high-watermark` preempts (after shedding idle cache pages)
+above that fraction of the pool.
 """
 from __future__ import annotations
 
@@ -82,6 +91,24 @@ def main(argv=None):
                     help="draft model for --speculate: 'self:N' (first N "
                          "target layers, shared embeddings) or a registry "
                          "arch name, e.g. 'mamba2-130m'")
+    ap.add_argument("--host-tier-pages", type=int, default=None,
+                    help="host-DRAM cold tier capacity in pages: "
+                         "preempted sequences spill there and restore "
+                         "on readmission instead of recomputing (paged "
+                         "layout only)")
+    ap.add_argument("--high-watermark", type=float, default=None,
+                    help="pool fraction above which the engine "
+                         "proactively preempts youngest slots")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="keep full prompt pages alive after their "
+                         "request retires (serve/prefix_store.py): later "
+                         "requests sharing the prefix adopt the cached "
+                         "pages instead of re-prefilling; idle entries "
+                         "are evicted LRU under memory pressure")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many SHARED system-prompt tokens "
+                         "to every request (makes --prefix-cache hits "
+                         "visible in stats['prefix_store'])")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
@@ -105,12 +132,21 @@ def main(argv=None):
                        max_batch=args.max_batch, max_seq=args.max_seq,
                        page_size=args.page_size, layout=args.layout,
                        prefill_chunk=args.prefill_chunk,
+                       high_watermark=args.high_watermark,
+                       host_tier_pages=args.host_tier_pages,
+                       prefix_cache=args.prefix_cache,
                        speculate_k=args.speculate,
                        draft=args.draft if args.speculate else None)
     rng = np.random.default_rng(args.seed)
+    if args.shared_prefix >= budget - 4:
+        raise SystemExit(f"--shared-prefix {args.shared_prefix} leaves no "
+                         f"room for a per-request tail (budget {budget})")
+    system = rng.integers(0, cfg.vocab_size,
+                          (args.shared_prefix,)).astype(np.int32)
     for i in range(args.requests):
-        plen = int(rng.integers(4, budget))
+        plen = int(rng.integers(4, budget - args.shared_prefix))
         prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+        prompt = np.concatenate([system, prompt])
         pe = (rng.standard_normal((patches, cfg.frontend_dim))
               .astype(np.float32) if patches else None)
         server.generate(prompt, SamplingParams(

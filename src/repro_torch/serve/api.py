@@ -104,7 +104,9 @@ class LLMServer:
     `prefill_chunk`, `prefill_decode_ratio`, `speculate_k`/`draft` for
     speculative decode (the tokens stay plain decode's, streams fill
     faster; `SamplingParams(speculative=False)` pins a request to plain
-    decode), ...) pass through.
+    decode), `prefix_cache` (the persistent prefix cache),
+    `host_tier_pages` (the host-DRAM tier), `high_watermark`, ...) pass
+    through; `stats` then carries `prefix_store` and `host_tier`.
     `max_steps` bounds the engine ticks over the server's lifetime."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, device=None,

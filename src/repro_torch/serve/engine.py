@@ -8,14 +8,23 @@ chunking, preemption and fork decisions and emits the same tokens:
 
   * pages are allocated LAZILY as sequences grow — admission reserves
     only the first prefill chunk (watermark admission);
-  * full prompt pages are SHARED between in-flight requests through
-    chained page-content hashes (`serve/prefix_store.py`, donor
-    lifetime) with copy-on-write on partial last pages;
+  * full prompt pages are SHARED through chained page-content hashes
+    (`serve/prefix_store.py`) with copy-on-write on partial last pages:
+    between in-flight requests by default, and with `prefix_cache=True`
+    also after the donor retired (the persistent cache: idle pages stay
+    pinned in the pool and are evicted LRU, leaf first, under pressure);
   * prefill is BATCHED and BUCKETED — one step call per tick advances
     every admitting slot by a ragged chunk whose shared width snaps up
     to a power-of-two bucket;
-  * when the pool runs dry the YOUNGEST slot is preempted back to the
-    queue (recompute-on-readmit, already-published tokens replayed);
+  * when the pool runs dry, idle cached pages are evicted first, then
+    the YOUNGEST slot is preempted back to the queue
+    (recompute-on-readmit, already-published tokens replayed);
+  * with `host_tier_pages` a host-DRAM tier (`core/unimem.py`
+    `HostTier`) sits behind the pool: a preempted slot spills its
+    written pages there and readmission restores them instead of
+    recomputing; evicted cache pages spill there as cold parcels that a
+    later prompt can restore.  The head of the queue's parcel is
+    prefetched to the card on a side stream while the tick computes;
   * an optional token budget (`prefill_decode_ratio`) splits each tick
     between prefill and decode;
   * every emitted token is a `TokenEvent`, every retirement a
@@ -52,10 +61,10 @@ without decode (the encoder) raises `ValueError`, as in the reference.
 
 Options the reference has and the port does not yet raise
 `NotImplementedError` naming the ROADMAP.md item that will port them:
-`mesh` (item 12, and with it the sharded verify), `host_tier_pages`
-and `prefix_cache=True` (item 7) and `tenant_weights` (item 11).
-Families with per-slot recurrent state (hybrid) share prompt pages but
-never skip their compute, as in the reference.
+`mesh` (item 12, and with it the sharded verify) and `tenant_weights`
+(item 11).  Families with per-slot recurrent state (hybrid) share
+prompt pages but never skip their compute, and never spill to the host
+tier, as in the reference.
 """
 from __future__ import annotations
 
@@ -65,7 +74,8 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 
-from repro_torch.core.unimem import SequencePageTable, UniMemOOM, UniMemPool
+from repro_torch.core.unimem import (HostParcel, HostTier, SequencePageTable,
+                                     UniMemOOM, UniMemPool)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
 from repro_torch.serve.kv_cache import PagedKVArena, clear_slot, slot_view
@@ -210,11 +220,6 @@ class ServingEngine:
                  tenant_weights: dict[str, float] | None = None):
         if mesh is not None:
             _refuse("sharded serving (mesh)", "item 12")
-        if host_tier_pages:
-            _refuse("the host tier (host_tier_pages)", "item 7")
-        if prefix_cache:
-            _refuse("the persistent prefix cache (prefix_cache=True)",
-                    "item 7")
         if tenant_weights is not None:
             _refuse("tenant budget shares (tenant_weights)", "item 11")
         if registry.get_family(cfg).decode_step is None:
@@ -264,13 +269,30 @@ class ServingEngine:
             self.prefill_fn, self.decode_fn = make_paged_serve_fns(
                 cfg, self.device)
             self.pool = self.arena.pool
-            self.prefix_store = PrefixStore(self.pool)
             self.cache = None
+            # host-DRAM cold tier: preempted slots spill their written
+            # pages here instead of recomputing on readmission (families
+            # with per-slot recurrent state keep the replay path)
+            self.host_tier = (HostTier(host_tier_pages)
+                              if host_tier_pages else None)
+            # refcounted prompt-page cache keyed by chained content
+            # hashes; persistent=True keeps entries at refcount 0, pinned
+            # in the pool and reclaimed by LRU eviction under the
+            # watermark/OOM shed paths; persistent=False (default) is
+            # the donor-lifetime sharing, through the same store
+            self.prefix_store = PrefixStore(
+                self.pool, persistent=prefix_cache, arena=self.arena,
+                host_tier=self.host_tier)
+            # uid -> (parcel, device copy of its pages, copy-done event):
+            # the head-of-queue prefetch in step()
+            self._prefetched: dict[int, tuple] = {}
         else:
             # pages only count the reservations; the K/V (or conv/SSM
             # state) lives in one (max_batch, max_seq) cache
             self.arena = None
             self.prefix_store = None
+            self.host_tier = None
+            self._prefetched = {}
             self._slot_state = False
             self.cache = init_cache(cfg, max_batch, max_seq,
                                     device=self.device)
@@ -409,13 +431,19 @@ class ServingEngine:
         published K/V the new sequence skips; `adopted` pages are being
         written by a co-prefilling slot with identical content, or (for
         per-slot-state families) are published pages it must still
-        recompute through."""
+        recompute through.  Store matches may come from retired donors
+        (persistent cache), and even from cold host-tier parcels restored
+        on the spot; `store_hashes` names the matched entries the
+        admitting slot must acquire references on."""
         hashes = self._page_hashes(req)
         limit = (req.virtual_len - 1) // self.page_size
         written, adopted, store_hashes = [], [], []
         store = self.prefix_store
         for i, h in enumerate(hashes[:limit]):
             page = store.page_of(h)
+            if page is None and not adopted and not self._slot_state:
+                # device miss: a cold copy may still sit in the host tier
+                page = store.restore_cold(h, i)
             if page is not None:
                 store_hashes.append(h)
                 if not adopted and not self._slot_state:
@@ -433,7 +461,9 @@ class ServingEngine:
         return written, adopted, hashes, store_hashes
 
     def _register_prefix(self, slot: _Slot):
-        """Publish the slot's fully WRITTEN prompt pages for sharing."""
+        """Publish the slot's fully WRITTEN prompt pages for sharing,
+        each linked to its parent page's hash.  The store takes its own
+        pool reference per entry and the slot acquires one for itself."""
         store = self.prefix_store
         full = min(slot.request.virtual_len, slot.prefill_pos) // self.page_size
         for i, h in enumerate(slot.page_hashes[:full]):
@@ -442,7 +472,8 @@ class ServingEngine:
             mine = slot.pages.pages[i]
             page = store.page_of(h)
             if page is None:
-                page = store.register(h, mine)
+                parent = slot.page_hashes[i - 1] if i else None
+                page = store.register(h, mine, parent=parent, index=i)
             if page == mine and h not in slot.store_refs:
                 store.acquire(h)
                 slot.store_refs.add(h)
@@ -483,9 +514,34 @@ class ServingEngine:
             s.prefill_pos += ps
 
     def _drop_store_refs(self, s: _Slot) -> None:
+        """The slot's table is going away: release its store references
+        (persistent entries stay, pinned idle at refcount 0)."""
         for h in s.store_refs:
             self.prefix_store.release(h)
         s.store_refs.clear()
+
+    # ---------------------------------------------------- cache reclaim
+
+    def _reclaim_idle(self, need: int = 1,
+                      protect: set[int] | None = None) -> int:
+        """LRU-evict idle (refcount-0) cached pages to make room: the
+        watermark and OOM paths try this BEFORE preempting live slots,
+        because a dropped cache page costs a future prefill while a
+        preemption costs one now.  Returns pages actually freed."""
+        store = self.prefix_store
+        if store is None or not len(store):
+            return 0
+        return store.evict(need, protect=protect)
+
+    def _fits_or_reclaim(self, need: int,
+                         protect: set[int] | None = None) -> bool:
+        """`pool.fits`, with idle cache pages counted as reclaimable
+        headroom: evict and retry until the alloc fits or the idle set is
+        dry (entries in `protect`, just matched, are never victims)."""
+        while not self.pool.fits(need):
+            if not self._reclaim_idle(need, protect=protect):
+                return False
+        return True
 
     # ------------------------------------------------------------- admit
 
@@ -497,6 +553,15 @@ class ServingEngine:
         free = self._free_slots()
         while free and self.pending:
             req = self.pending[0]
+            if self.host_tier is not None and req.uid in self.host_tier:
+                verdict = self._restore_from_tier(req, free)
+                if verdict == "restored":
+                    continue
+                if verdict == "wait":
+                    break               # the pool must drain first
+                # "recompute": the parcel was dropped; normal admission
+                # (the replay pinned at preemption still replays the
+                # published tokens)
             plen = req.virtual_len
             written, adopted, hashes, store_hashes = self._match_prefix(req)
             shared_tokens = len(written) * self.page_size
@@ -504,7 +569,7 @@ class ServingEngine:
             first = min(self.prefill_chunk, plen - held)
             need = (self.pool.pages_for(held + first)
                     - len(written) - len(adopted))
-            if not self.pool.fits(need):
+            if not self._fits_or_reclaim(need, protect=set(store_hashes)):
                 break                            # UniMem backpressure
             self.pending.pop(0)
             slot = free.pop(0)
@@ -670,6 +735,10 @@ class ServingEngine:
                 fn()
                 return True
             except UniMemOOM:
+                # idle cached prefixes go first: reclaiming them costs a
+                # future prefill, preempting a live slot costs one now
+                if self._reclaim_idle():
+                    continue
                 if self._preempt_youngest(but=s):
                     continue
                 if len(self.slots) > 1:          # yield to the elders
@@ -693,6 +762,7 @@ class ServingEngine:
         self.preemptions += 1
         if len(victim.generated) > len(victim.request.replay or ()):
             victim.request.replay = list(victim.generated)
+        self._spill_slot(victim)                 # host tier, if enabled
         self._drop_store_refs(victim)
         victim.pages.release()
         del self.slots[idx]
@@ -707,6 +777,111 @@ class ServingEngine:
         idx, victim = max(victims, key=lambda kv: kv[1].order)
         self._preempt_slot(idx, victim)
         return True
+
+    # --------------------------------------------------------- host tier
+
+    def _spill_slot(self, victim: _Slot) -> None:
+        """Copy the victim's WRITTEN KV pages to the host-DRAM tier so
+        readmission restores them instead of recomputing.  Families with
+        per-slot recurrent state (hybrid conv/SSM) never spill: their
+        state rows cannot be rebuilt in another slot."""
+        tier = self.host_tier
+        if tier is None or self._slot_state:
+            return
+        if victim.prefilling:
+            valid = victim.prefill_pos
+        elif victim.generated:
+            # the LAST generated token's KV is written next decode tick
+            valid = victim.request.virtual_len + len(victim.generated) - 1
+        else:
+            valid = 0
+        if valid <= 0:
+            return
+        npages = self.pool.pages_for(valid)
+        pages = victim.pages.pages[:npages]
+        if len(pages) < npages:
+            return
+        data = self.arena.read_pages(pages)
+        meta = dict(tokens=valid, prefill_pos=victim.prefill_pos,
+                    rotation=0,             # one pool: no shard rotation
+                    generated=list(victim.generated),
+                    last_token=victim.last_token,
+                    page_hashes=list(victim.page_hashes))
+        self._prefetched.pop(victim.request.uid, None)   # stale copy
+        tier.put(HostParcel(uid=victim.request.uid, num_pages=npages,
+                            data=data, meta=meta))
+
+    def _restore_from_tier(self, req: Request, free: list[int]) -> str:
+        """Readmission fast path: rebuild the slot from its spilled
+        parcel (fresh pages, their contents written back from the
+        prefetched device copy when the prefetch got to it, generation
+        state resumed exactly).  Returns "restored", "wait" (the pool
+        must drain first) or "recompute" (the parcel is unusable and
+        dropped; the caller falls through to normal admission)."""
+        tier = self.host_tier
+        parcel = tier.peek(req.uid)
+        npages = parcel.num_pages
+        # thrash guard: restoring straight past the shedder's limit would
+        # preempt (and re-spill) somebody next tick.  Pinned idle cache
+        # pages do not count: they are evicted, not preempted, on demand
+        if self.high_watermark is not None and self.slots:
+            limit = int(self.high_watermark * self.pool.num_pages)
+            hot = (self.pool.num_pages - self.pool.free_pages
+                   - self.pool.pinned_pages)
+            if hot + npages > limit:
+                return "wait"
+        if not self._fits_or_reclaim(npages):
+            if self.slots:
+                return "wait"
+            tier.take(req.uid)          # pool genuinely too small
+            self._prefetched.pop(req.uid, None)
+            return "recompute"
+        tier.take(req.uid)
+        tier.restores += 1
+        tier.restored_pages += npages
+        pre = self._prefetched.pop(req.uid, None)
+        self.pending.pop(0)
+        slot = free.pop(0)
+        seq = SequencePageTable(self.pool)
+        seq.append_tokens(parcel.meta["tokens"])
+        if pre is not None and pre[0] is parcel:
+            # the compute stream waits for the side-stream copy; dropping
+            # the parcel's pinned tensors after this is safe, because the
+            # caching host allocator holds a block an asynchronous copy
+            # reads until that copy is done
+            self.arena.write_pages(seq.pages, pre[1], ready=pre[2])
+        else:
+            self.arena.write_pages(seq.pages, parcel.data)
+        s = _Slot(request=req, pages=seq,
+                  generated=list(parcel.meta["generated"]),
+                  last_token=parcel.meta["last_token"],
+                  admitted_at=time.perf_counter(), order=self._admitted,
+                  prefill_pos=parcel.meta["prefill_pos"],
+                  page_hashes=list(parcel.meta["page_hashes"]))
+        self._admitted += 1
+        # KV restored byte for byte: published history needs no replay
+        req.replay = None
+        self.slots[slot] = s
+        self._register_prefix(s)
+        log.info("engine: restored uid=%d from host tier (%d pages)",
+                 req.uid, npages)
+        return "restored"
+
+    def _tier_prefetch(self) -> None:
+        """Start moving the head-of-queue request's parcel back to the
+        device while this tick's compute runs (a side-stream copy on the
+        card, `PagedKVArena.prefetch`)."""
+        tier = self.host_tier
+        if tier is None or not self.pending:
+            return
+        uid = self.pending[0].uid
+        if uid in self._prefetched:
+            return
+        parcel = tier.peek(uid)
+        if parcel is None:
+            return
+        self._prefetched[uid] = (parcel, *self.arena.prefetch(parcel.data))
+        tier.prefetches += 1
 
     def _decode_rows(self) -> dict[int, _Slot]:
         """Active decode rows for this tick, throttled oldest-first by
@@ -932,6 +1107,8 @@ class ServingEngine:
         self._events.append(FinishEvent(uid=s.request.uid, reason=reason,
                                         result=result))
         self._emitted.pop(s.request.uid, None)
+        # a prefetched copy whose parcel the tier evicted meanwhile
+        self._prefetched.pop(s.request.uid, None)
         if self.layout == "paged":
             self._drop_store_refs(s)
         else:
@@ -962,6 +1139,9 @@ class ServingEngine:
             if r.uid != uid:
                 continue
             self.pending.pop(j)
+            if self.host_tier is not None:
+                self.host_tier.take(uid)         # drop the cold parcel
+            self._prefetched.pop(uid, None)
             result = Result(
                 uid=uid, tokens=list(r.replay or ()),
                 prompt_len=len(r.prompt),
@@ -977,6 +1157,9 @@ class ServingEngine:
         for i, s in list(self.slots.items()):
             if s.request.uid != uid:
                 continue
+            if self.host_tier is not None:
+                self.host_tier.take(uid)         # stale parcel, if any
+            self._prefetched.pop(uid, None)
             self._finish_slot(i, s, reason)
             self.cancellations += 1
             log.info("engine: cancelled uid=%d (active, %d tokens in)",
@@ -986,13 +1169,20 @@ class ServingEngine:
 
     def _enforce_high_watermark(self):
         """Proactive backpressure: when allocation crosses the high
-        watermark, preempt youngest slots (never the oldest) until the
-        pool is back under."""
+        watermark, shed idle cache pages first (no live slot loses work;
+        the cost is a possible future prefill, softened by the host
+        tier's cold spill), then preempt youngest slots (never the
+        oldest) until the pool is back under."""
         if self.high_watermark is None or self.layout != "paged":
             return
         limit = int(self.high_watermark * self.pool.num_pages)
-        while ((self.pool.num_pages - self.pool.free_pages) > limit
-               and len(self.slots) > 1):
+
+        def over():
+            return (self.pool.num_pages - self.pool.free_pages) > limit
+
+        while over() and self._reclaim_idle():
+            pass
+        while over() and len(self.slots) > 1:
             oldest = min(self.slots.values(), key=lambda s: s.order)
             if not self._preempt_youngest(but=oldest):
                 break
@@ -1002,6 +1192,7 @@ class ServingEngine:
             self._admit_paged()
         else:
             self._admit_contiguous()
+        self._tier_prefetch()       # overlaps the host-to-device copy
         self._prefill_tick()
         self._enforce_high_watermark()
         if self.layout == "paged":
@@ -1118,4 +1309,9 @@ class ServingEngine:
                                  if sp["draft_tokens"] else 0.0)
             sp["draft"] = self.draft.stats()
             out["speculative"] = sp
+        if self.host_tier is not None:          # DRAM cold tier traffic
+            tier = self.host_tier.stats()
+            tier["peak_bytes"] = (tier["peak_resident_pages"]
+                                  * self.arena.page_bytes)
+            out["host_tier"] = tier
         return out

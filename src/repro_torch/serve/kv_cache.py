@@ -14,6 +14,11 @@ per-ENGINE-slot state with the slot axis at `STATE_SLOT_AXIS`: pages
 copy on write, state rows copy on fork.  Page and state copies update
 the arena tensors in place.
 
+Host-tier traffic moves whole pages between the arena and host memory:
+`read_pages` gathers them into one pinned host buffer per leaf (the
+spill), `prefetch` starts the way back on a side CUDA stream, and
+`write_pages` scatters them into fresh pages (the restore).
+
 The contiguous layout (`layout="contiguous"`) keeps one (max_batch,
 max_seq) cache per family instead (`init_cache`); `clear_slot` and
 `slot_view` address one batch row of it through each leaf's batch axis,
@@ -61,6 +66,7 @@ class PagedKVArena:
                                            device=self.device)
         if self.pool is None:
             self.pool = UniMemPool(self.num_pages, self.page_size)
+        self.copy_stream = None          # the prefetch's side stream (CUDA)
 
     @property
     def null_page(self) -> int:
@@ -109,17 +115,80 @@ class PagedKVArena:
                 a.select(STATE_SLOT_AXIS, dst_slot).copy_(
                     a.select(STATE_SLOT_AXIS, src_slot))
 
+    # ------------------------------------------------- host-tier traffic
+
+    def read_pages(self, pages: list[int]) -> dict:
+        """The page leaves of `pages` as host tensors (the spill payload):
+        leaf name -> (L, len(pages), ...).  One gather per leaf; on the
+        card the gather is copied into a pinned host buffer, and the copy
+        waits for the device, so the buffer is whole when this returns.
+        The scale leaves of an int8/fp8 arena travel with their pages."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        out = {}
+        for name, a in self.kv.items():
+            if not is_page_leaf(name):
+                continue
+            g = a.index_select(1, idx)
+            if g.is_cuda:
+                host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                host.copy_(g)
+                g = host
+            out[name] = g
+        return out
+
     def read_page(self, page: int) -> dict:
-        """One page's leaves as host tensors: leaf name -> (L, ...)."""
-        return {name: a[:, page].cpu()
-                for name, a in self.kv.items() if is_page_leaf(name)}
+        """Single-page spill payload: leaf name -> (L, ...) host tensor,
+        the shape `write_page` takes back (the prefix store's cold
+        parcels, one page each)."""
+        return {name: a[:, 0] for name, a in self.read_pages([page]).items()}
 
     def write_page(self, page: int, data: dict) -> None:
         """Write one page's leaves back into the arena, in place.
         `data` maps leaf name -> (L, ...) tensor (host or device)."""
         for name, a in self.kv.items():
             if name in data:
-                a[:, page].copy_(torch.as_tensor(data[name]).to(a.dtype))
+                a[:, page].copy_(torch.as_tensor(data[name]).to(a.dtype),
+                                 non_blocking=True)
+
+    def write_pages(self, pages: list[int], data: dict, ready=None) -> None:
+        """Write the leaves of `pages` back into the arena, in place (the
+        restore path): `data` maps leaf name -> (L, len(pages), ...), on
+        the host (pinned on the card: one host-to-device copy per leaf)
+        or already on the device (`prefetch`'s copy, whose `ready` event
+        the current stream waits on first).  One `index_copy_` per leaf."""
+        cur = None
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            if ready is not None:
+                cur.wait_event(ready)
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for name, a in self.kv.items():
+            if name not in data:
+                continue
+            src = data[name]
+            a.index_copy_(1, idx, src.to(a.device, a.dtype, non_blocking=True))
+            if cur is not None and src.is_cuda:
+                # a prefetched copy was allocated on the copy stream: keep
+                # the allocator from handing it out before this copy runs
+                src.record_stream(cur)
+
+    def prefetch(self, data: dict):
+        """Start moving a parcel's host payload to the arena's device.  On
+        the card the copies run on a side stream (`copy_stream`) from the
+        pinned tensors and overlap the compute stream's work; returns the
+        device tensors and the event recorded after them, which
+        `write_pages(..., ready=)` waits on.  On the CPU a plain copy
+        (no event)."""
+        if self.device.type != "cuda":
+            return {n: t.clone() for n, t in data.items()}, None
+        if self.copy_stream is None:
+            self.copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self.copy_stream):
+            out = {n: t.to(self.device, non_blocking=True)
+                   for n, t in data.items()}
+            ready = torch.cuda.Event()
+            ready.record(self.copy_stream)
+        return out, ready
 
     def cow_for_write(self, seq: SequencePageTable) -> bool:
         """Make `seq`'s last page privately owned before a write lands in

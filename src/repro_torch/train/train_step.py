@@ -23,6 +23,7 @@ import torch
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -37,12 +38,14 @@ class TrainState:
 
 
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, seed=0,
-                     params=None, device="cpu") -> TrainState:
+                     params=None, device=None) -> TrainState:
     """A fresh state at step 0: `params` (e.g. the reference's, carried
     across by `models.convert.params_from_jax`) or the family's own
-    seeded init on `device`.  Every parameter requires grad."""
+    seeded init on `device` (None: CUDA, raising without a GPU, as every
+    entry point of the port).  Every parameter requires grad."""
     if params is None:
-        params = registry.get_family(cfg).init(seed, cfg, device)
+        params = registry.get_family(cfg).init(seed, cfg,
+                                               resolve_device(device))
     for p in tree_leaves(params):
         p.requires_grad_(True)
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))

@@ -7,6 +7,7 @@ byte-identical, pool statistics equal.  The reference engine runs with
 its default `attention_impl="flash_xla"` (its XLA paged oracles)."""
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -541,6 +542,29 @@ def test_launch_serve_runs_on_cpu():
     assert "served 3 requests" in proc.stdout
 
 
+def test_launch_serve_caches_prefixes_and_spills_on_cpu():
+    """The CLI's persistent prefix cache, host tier and watermark: with
+    more requests than slots, later requests hit the shared system
+    prompt their retired donors left in the cache, and at the end the
+    pool holds exactly the cached (pinned) pages."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu", "--requests", "6", "--max-batch", "2",
+         "--max-new", "4", "--max-seq", "64", "--page-size", "8",
+         "--prefix-cache", "--shared-prefix", "32",
+         "--host-tier-pages", "64", "--high-watermark", "0.75"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert "served 6 requests" in proc.stdout
+
+    def stat(key):
+        return int(re.search(rf"'{key}': (\d+)", proc.stdout).group(1))
+    assert stat("cross_request_hits") > 0
+    assert stat("allocated_pages") == stat("pinned_pages") == stat("entries")
+    assert stat("capacity_pages") == 64
+
+
 @pytest.mark.parametrize("draft", ["self:1", "mamba2-130m@reduced"])
 def test_launch_serve_speculates_on_cpu(draft):
     proc = subprocess.run(
@@ -580,8 +604,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(dense):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(host_tier_pages=8),
-                                dict(prefix_cache=True),
                                 dict(tenant_weights={})])
 def test_unported_engine_options_refuse(dense, kw):
     cfg, _, pp = dense

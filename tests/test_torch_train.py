@@ -29,8 +29,8 @@ from repro_torch.train.train_step import (batch_to, init_train_state,
                                           make_train_step,
                                           restore_train_state, state_like)
 from repro_torch.utils.tree import (tree_allclose, tree_any_nan,
-                                    tree_flatten_with_names, tree_num_params,
-                                    tree_size_bytes)
+                                    tree_flatten_with_names, tree_leaves,
+                                    tree_num_params, tree_size_bytes)
 from torch_port_helpers import port_cfg
 
 CFG = port_cfg(TINY["dense"])
@@ -41,7 +41,7 @@ def _opt(name="adamw", **kw):
 
 
 def _state(seed=0, opt=None, cfg=CFG):
-    return init_train_state(cfg, opt or _opt(), seed=seed)
+    return init_train_state(cfg, opt or _opt(), seed=seed, device="cpu")
 
 
 def _batch(cfg=CFG, batch=4, seq=32, seed=0):
@@ -441,3 +441,14 @@ def test_train_cli_wants_cuda_and_one_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--reduced", "--steps", "1"])
+
+
+def test_init_train_state_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The trainer's state init resolves no device to CUDA, as every
+    entry point of the port, and raises without a card; an explicit
+    device="cpu" still builds the state there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(CFG, _opt())
+    state = init_train_state(CFG, _opt(), device="cpu")
+    assert all(p.device.type == "cpu" for p in tree_leaves(state.params))

@@ -158,7 +158,7 @@ def test_a_reference_checkpoint_resumes_in_the_port(tmp_path):
     ref_next, (ref_loss,) = _ref_run("adamw", batches[2:], restored)
     pcfg = port_cfg(cfg)
     port_opt = PO.make_optimizer(_opt_cfg("adamw", PO.OptimizerConfig))
-    fresh = PTS.init_train_state(pcfg, port_opt, seed=1)
+    fresh = PTS.init_train_state(pcfg, port_opt, seed=1, device="cpu")
     state, manifest = PTS.restore_train_state(
         CheckpointManager(str(tmp_path)), PTS.state_like(fresh),
         device="cpu")

@@ -262,7 +262,7 @@ def test_a_reference_checkpoint_resumes_in_the_port(tmp_path):
     # the port restores the same files into its own TrainState
     pcfg = port_cfg(CFG)
     port_opt = PO.make_optimizer(_opt_cfg("adamw", PO.OptimizerConfig))
-    fresh = PTS.init_train_state(pcfg, port_opt, seed=1)
+    fresh = PTS.init_train_state(pcfg, port_opt, seed=1, device="cpu")
     state, manifest = PTS.restore_train_state(
         CheckpointManager(str(tmp_path)), PTS.state_like(fresh),
         device="cpu")
