@@ -171,6 +171,28 @@ exit at the first failure):
    host-to-device time the prefetch took off the compute stream, the
    prompt tokens computed, wave 2's median TTFT, tokens/s and peak
    memory of A and B.
+7c. serve_front: internlm2-1.8b at full width and depth (bf16, paged,
+   page 16) behind the network front (`serve/frontend`
+   `FrontendServer` on 127.0.0.1, an ephemeral port, max_batch 8,
+   max_seq 1024, `tick_token_budget` 256, tenants alpha 3 and beta 1),
+   driven over HTTP/SSE by `benchmarks/traffic_gen.py` `run`: the
+   seeded trace of 24 requests over 3 s (14 Poisson chats of up to 256
+   prompt and 24 new tokens, greedy or sampled; a burst of 6 at 1.5 s;
+   a 512-token beta prompt; an alpha fanout of 3 streams over one
+   socket; two beta streams dropped at their 3rd token).  Gates: every
+   stream not aborted finished, fanout children included; 6 completed
+   streams, greedy and sampled among them, replayed in process on the
+   card after the server stopped, each equal to what crossed the wire;
+   p99 TTFT finite for both tenants; after the drain allocated ==
+   pinned pages, both aborts cancelled, the cancel-reclaim latency
+   finite; no error frame, no failed tick, the engine thread gone
+   after `stop()`; the launches; and the reference's saturation check
+   at the same width (8 requests alternating tenants, 16-token prompts,
+   12 new tokens, max_batch 4, `tick_token_budget` 16: alpha's mean
+   finish step below beta's at equal token counts).  Printed: per
+   tenant TTFT and TPOT p50/p99 and goodput under the 5 s TTFT SLO, the
+   cancel-reclaim seconds, the trace's wall seconds and tokens/s, the
+   front's and the engine's counters.
 8. spec_parity: a 2-layer internlm2-width f32 model: speculative
    streams (greedy and sampled rows, k 1 and 4, drafts `self:1` and
    `mamba2-130m@reduced`) equal the plain engine's on the card.
@@ -2095,6 +2117,150 @@ def phase_serve_tier(torch, dev, card: str, cfg) -> dict:
     return out["bf16"]["launches"]["B"]
 
 
+FRONT_TRACE = dict(requests=24, horizon=3.0, seed=0)
+FRONT_ENGINE = dict(max_batch=8, max_seq=1024, tick_token_budget=256,
+                    page_size=16)
+FRONT_REPLAYS = 6            # wire streams replayed in process
+
+
+def front_saturation(torch, dev, cfg, params) -> dict:
+    """The reference's engine-level tenant check
+    (`tests/test_frontend.py` `test_tenant_budget_shares_under_saturation`)
+    at `cfg`'s width: 8 requests alternating alpha (weight 3) and beta
+    (weight 1), 16-token prompts, 12 new tokens, max_batch 4,
+    `tick_token_budget` 16.  Alpha's mean finish step must be below
+    beta's, and both tenants' token counts equal."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    eng = ServingEngine(cfg, params, device=dev, max_batch=4, max_seq=64,
+                        page_size=16, tick_token_budget=16,
+                        tenant_weights={"alpha": 3.0, "beta": 1.0})
+    rng = np.random.default_rng(0)
+    for uid in range(8):
+        eng.submit(Request(
+            uid=uid, prompt=rng.integers(1, cfg.vocab_size, 16)
+            .astype(np.int32), tenant="alpha" if uid % 2 == 0 else "beta",
+            sampling=SamplingParams(max_new_tokens=12)))
+    finish: dict[int, int] = {}
+    while eng.pending or eng.slots:
+        eng.step()
+        for r in eng.results:
+            finish.setdefault(r.uid, eng.steps)
+    if len(finish) != 8:
+        fail(f"serve_front saturation: {len(finish)} of 8 finished")
+    alpha = [finish[u] for u in range(8) if u % 2 == 0]
+    beta = [finish[u] for u in range(8) if u % 2 == 1]
+    tenants = eng.stats()["tenants"]
+    if not statistics.mean(alpha) < statistics.mean(beta):
+        fail(f"serve_front saturation: alpha finished at {alpha}, beta "
+             f"at {beta}")
+    if tenants["alpha"]["tokens"] != tenants["beta"]["tokens"]:
+        fail(f"serve_front saturation: tenant tokens {tenants}")
+    return {"finish_steps": {"alpha": alpha, "beta": beta},
+            "tenants": tenants, "steps": eng.steps}
+
+
+def phase_serve_front(torch, dev, card: str, cfg) -> dict:
+    """internlm2-1.8b at full width and depth behind the network front,
+    driven by `traffic_gen.run`'s two-tenant trace over HTTP/SSE on
+    localhost (`FRONT_TRACE`, `FRONT_ENGINE`); the in-process replays
+    run after the server stopped, on the default stream.  Gates: the
+    trace's four, `FRONT_REPLAYS` replays with greedy and sampled among
+    them, both aborts cancelled, no error frame or failed tick, the
+    engine thread gone, the launches, and `front_saturation`.  Returns
+    the launches."""
+    from repro_torch.benchmarks import traffic_gen
+    from repro_torch.models import registry
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = registry.get_family(cfg).init(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mods = kernel_modules()
+    seen = {}
+
+    def after_stop(srv):
+        seen["launches"] = {n: m.launches for n, m in mods.items()}
+        seen["stats"] = srv.llm.stats
+        seen["threads_alive"] = [t.name for t in (srv._engine_thread,
+                                                  srv._loop_thread)
+                                 if t is not None and t.is_alive()]
+        seen["tick_errors"] = list(srv.tick_errors)
+
+    for m in mods.values():                          # count the main path
+        m.launches = 0
+    t1 = time.perf_counter()
+    res = traffic_gen.run(**FRONT_TRACE, json_path=None, cfg=cfg,
+                          params=params, device=dev,
+                          identity_checks=FRONT_REPLAYS,
+                          after_stop=after_stop, **FRONT_ENGINE)
+    run_s = time.perf_counter() - t1
+    st, gates = seen["stats"], res["gates"]
+    if seen["tick_errors"]:
+        fail(f"serve_front: a tick failed on the engine thread:\n"
+             f"{seen['tick_errors'][0]}")
+    if seen["threads_alive"]:
+        fail(f"serve_front: {seen['threads_alive']} alive after stop()")
+    if res["error_frames"]:
+        fail(f"serve_front: error frames {res['error_frames']}")
+    failed = [k for k in ("streams_complete", "token_identity",
+                          "ttft_finite", "zero_leaked_pages")
+              if not gates[k]]
+    if failed:
+        bad = [r for r in res["replays"] if not r["equal"]]
+        fail(f"serve_front: gates {failed} failed ({gates}; replays "
+             f"that differ: {bad})")
+    temps = {r["temperature"] > 0 for r in res["replays"]}
+    if gates["identity_checked"] < FRONT_REPLAYS or temps != {False, True}:
+        fail(f"serve_front: replays {res['replays']} are not "
+             f"{FRONT_REPLAYS} with greedy and sampled among them")
+    rows = {r["tenant"]: r for r in res["rows"]}
+    if set(rows) != {"alpha", "beta"} or not all(
+            r["requests"] and r["ttft_p99_s"] is not None
+            for r in rows.values()):
+        fail(f"serve_front: a tenant never started: {res['rows']}")
+    fe = res["counters"]["frontend"]
+    if (fe["cancelled"] != 2 or st["cancellations"] != 2
+            or not res["cancel_reclaim_s"] < float("inf")):
+        fail(f"serve_front: aborts cancelled {fe['cancelled']} (engine "
+             f"{st['cancellations']}), reclaim {res['cancel_reclaim_s']}")
+    if st["pool"]["allocated_pages"] != st["pool"]["pinned_pages"]:
+        fail(f"serve_front: pool {st['pool']} after the drain")
+    want = expected_launches(cfg, st)
+    if seen["launches"] != want:
+        fail(f"serve_front: kernel launches {seen['launches']} != "
+             f"expected {want}")
+    t2 = time.perf_counter()
+    saturation = front_saturation(torch, dev, cfg, params)
+    saturation_s = time.perf_counter() - t2
+    del params
+    free_card(torch)
+    tokens = st["tokens_out"]
+    wall = res["trace"]["wall_s"]
+    emit({"phase": "serve_front", "card": card, "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": cfg.dtype, **FRONT_ENGINE,
+          "tenant_weights": traffic_gen.TENANT_WEIGHTS,
+          "trace": res["trace"], "ttft_slo_s": traffic_gen.TTFT_SLO_S,
+          "tenants": res["rows"], "tenant_tokens": res["tenant_tokens"],
+          "cancel_reclaim_s": res["cancel_reclaim_s"],
+          "wall_s": wall, "tokens_out": tokens,
+          "tokens_per_s": tokens / wall, "streams": res["streams"],
+          "frontend": fe,
+          "engine": {k: st[k] for k in ("admitted", "preemptions",
+                                        "cancellations", "steps",
+                                        "prefill_calls", "decode_calls",
+                                        "prefill_tokens")},
+          "replays": res["replays"], "gates": gates,
+          "launches": {n: v for n, v in seen["launches"].items() if v},
+          "saturation": saturation, "params_init_s": init_s,
+          "run_s": run_s, "saturation_s": saturation_s,
+          "phase_s": time.perf_counter() - t0})
+    return seen["launches"]
+
+
 def phase_spec_parity(torch, dev, cfg) -> None:
     """Speculative streams equal plain decode's on the card in f32 (the
     reference's contract): a 2-layer internlm2-width f32 target, four
@@ -3212,6 +3378,7 @@ def main() -> int:
     launches, plain = phase_serve(torch, dev, card, "serve", dense)
     phase_serve_spec(torch, dev, card, dense, plain)
     tier_launches = phase_serve_tier(torch, dev, card, dense)
+    front_launches = phase_serve_front(torch, dev, card, dense)
     phase_spec_parity(torch, dev, dense.replace(
         num_layers=2, dtype="float32", param_dtype="float32"))
     moe_launches, _ = phase_serve(torch, dev, card, "serve_moe", moe)
@@ -3343,6 +3510,7 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "launches": {"serve_vlm": vlm_launches,
                        "serve_tier": tier_launches,
+                       "serve_front": front_launches,
                        **{f"serve_configs {a}": v
                           for a, v in config_launches.items()}}})
     emit({"kernels": rows})

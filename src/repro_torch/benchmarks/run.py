@@ -6,9 +6,11 @@
 Each module returns {"name", "ok", "rows"} and pretty-prints computed vs
 published values; the harness exits nonzero if any paper claim fails.
 Only `ws_dataflow` runs on a device (its kernel check); the analytic
-tables need none.  The serving benchmarks of the reference harness
-(`serve_throughput`, `paged_kernel_bench`, `traffic_gen`) are not
-ported yet.
+tables need none.  Of the reference harness's serving benchmarks,
+`traffic_gen` runs on its own (`python -m
+repro_torch.benchmarks.traffic_gen`: it serves a model over the network
+front); `serve_throughput` and `paged_kernel_bench` are not ported
+yet.
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -184,13 +185,17 @@ class KernelLibrary:
 
 
 _library: KernelLibrary | None = None
+_library_lock = threading.Lock()
 
 
 def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernels."""
+    """Build (once per source hash) and load the kernels.  Locked: the
+    network front's engine thread and a caller's thread may both reach
+    the first launch."""
     global _library
-    if _library is None:
-        _library = KernelLibrary()
+    with _library_lock:
+        if _library is None:
+            _library = KernelLibrary()
     return _library
 
 

@@ -11,7 +11,8 @@ or on per-slot contiguous caches.
          --sample-seed S] [--kv-dtype int8|fp8|bf16] \
         [--speculate K [--draft self:N|mamba2-130m]] \
         [--prefix-cache [--shared-prefix N]] [--host-tier-pages N] \
-        [--high-watermark F] [--device cpu]
+        [--high-watermark F] [--device cpu] \
+        [--port N [--host H] [--tenant-budget alpha:3,beta:1]]
 
 Builds the model with seeded random weights on the device (CUDA unless
 `--device` names another), submits a synthetic request stream with mixed
@@ -38,10 +39,18 @@ ahead of every prompt) adopt them instead of prefilling;
 pool (preempted sequences spill and restore, evicted cache pages spill
 cold); `--high-watermark` preempts (after shedding idle cache pages)
 above that fraction of the pool.
+
+`--port N` serves the network front instead of the synthetic batch loop
+(`serve/frontend`: HTTP/1.1 + server-sent events on `--host`, port 0
+picks a free one) until interrupted; clients connect with
+`examples/serve_lm_torch.py --connect host:port`.  `--tenant-budget`
+gives each named tenant its weight in the engine's weighted max-min
+budget shares (unnamed tenants weigh 1; the front only).
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -53,6 +62,24 @@ from repro_torch.serve.sampling import SamplingParams
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("serve")
+
+
+def parse_tenant_budget(spec: str | None) -> dict[str, float] | None:
+    """'alpha:3,beta:1' -> {'alpha': 3.0, 'beta': 1.0}; '' / None -> None.
+    A bare name means weight 1.0."""
+    if not spec:
+        return None
+    out: dict[str, float] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, w = part.partition(":")
+        try:
+            out[name.strip()] = float(w) if w else 1.0
+        except ValueError:
+            raise SystemExit(f"--tenant-budget: bad weight in {part!r}")
+    return out
 
 
 def main(argv=None):
@@ -111,7 +138,17 @@ def main(argv=None):
                          "visible in stats['prefix_store'])")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--port", type=int, default=None,
+                    help="serve the NETWORK FRONT on this port instead of "
+                         "the synthetic batch loop (0 = ephemeral; runs "
+                         "until interrupted)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="bind address for --port")
+    ap.add_argument("--tenant-budget", default=None, metavar="T:W,...",
+                    help="per-tenant weighted max-min token-budget shares, "
+                         "e.g. 'alpha:3,beta:1' (unnamed tenants weigh 1)")
     args = ap.parse_args(argv)
+    tenant_weights = parse_tenant_budget(args.tenant_budget)
 
     cfg = get_arch(args.arch).model
     if args.reduced:
@@ -128,15 +165,34 @@ def main(argv=None):
             f"--max-new {args.max_new} leave no room for a prompt "
             f"(need max_seq >= {patches + args.max_new + 5})")
 
-    server = LLMServer(cfg, device=args.device, seed=args.seed,
-                       max_batch=args.max_batch, max_seq=args.max_seq,
-                       page_size=args.page_size, layout=args.layout,
-                       prefill_chunk=args.prefill_chunk,
-                       high_watermark=args.high_watermark,
-                       host_tier_pages=args.host_tier_pages,
-                       prefix_cache=args.prefix_cache,
-                       speculate_k=args.speculate,
-                       draft=args.draft if args.speculate else None)
+    engine_kw = dict(device=args.device, seed=args.seed,
+                     max_batch=args.max_batch, max_seq=args.max_seq,
+                     page_size=args.page_size, layout=args.layout,
+                     prefill_chunk=args.prefill_chunk,
+                     high_watermark=args.high_watermark,
+                     host_tier_pages=args.host_tier_pages,
+                     prefix_cache=args.prefix_cache,
+                     speculate_k=args.speculate,
+                     draft=args.draft if args.speculate else None)
+    if args.port is not None:
+        # network-front mode: the same engine, served over HTTP + SSE
+        # until interrupted
+        from repro_torch.serve.frontend import FrontendServer
+        srv = FrontendServer(cfg, host=args.host, port=args.port,
+                             tenant_weights=tenant_weights, **engine_kw)
+        srv.start()
+        log.info("serving %s over http://%s:%d (tenants: %s) — Ctrl-C "
+                 "to stop", args.arch, srv.host, srv.port,
+                 args.tenant_budget or "off")
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            log.info("stopping: %s", srv.llm.stats)
+            srv.stop()
+        return []
+
+    server = LLMServer(cfg, **engine_kw)
     rng = np.random.default_rng(args.seed)
     if args.shared_prefix >= budget - 4:
         raise SystemExit(f"--shared-prefix {args.shared_prefix} leaves no "

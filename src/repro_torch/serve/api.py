@@ -105,8 +105,9 @@ class LLMServer:
     speculative decode (the tokens stay plain decode's, streams fill
     faster; `SamplingParams(speculative=False)` pins a request to plain
     decode), `prefix_cache` (the persistent prefix cache),
-    `host_tier_pages` (the host-DRAM tier), `high_watermark`, ...) pass
-    through; `stats` then carries `prefix_store` and `host_tier`.
+    `host_tier_pages` (the host-DRAM tier), `high_watermark`,
+    `tenant_weights` (per-tenant budget shares), ...) pass through;
+    `stats` then carries `prefix_store`, `host_tier` and `tenants`.
     `max_steps` bounds the engine ticks over the server's lifetime."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, device=None,
@@ -122,13 +123,14 @@ class LLMServer:
     # ------------------------------------------------------------ public
 
     def generate(self, prompt, params: SamplingParams | None = None, *,
-                 patch_embeds=None,
-                 uid: int | None = None) -> GenerationStream:
+                 patch_embeds=None, uid: int | None = None,
+                 tenant: str = "default") -> GenerationStream:
         """Submit one prompt under its own `SamplingParams` (default:
         greedy) and return its token stream.  Nothing runs until a
         stream is iterated (or `run()` is called).  A vlm's prompt takes
         its image as `patch_embeds` ((num_patches, frontend_dim)
-        f32)."""
+        f32).  `tenant` names the budget-share bucket when the engine
+        runs with `tenant_weights` (inert otherwise)."""
         params = params or SamplingParams()
         uid = self._next_uid if uid is None else uid
         if uid in self._buffers:
@@ -137,7 +139,7 @@ class LLMServer:
         self._buffers[uid] = deque()
         self.engine.submit(Request(
             uid=uid, prompt=np.asarray(prompt, np.int32),
-            patch_embeds=patch_embeds, sampling=params))
+            patch_embeds=patch_embeds, sampling=params, tenant=tenant))
         return GenerationStream(self, uid, params)
 
     def cancel(self, uid: int) -> bool:

@@ -59,12 +59,19 @@ page contents like tokens (the same text under another image shares no
 page), and ride each paged prefill chunk as its patch plane.  A family
 without decode (the encoder) raises `ValueError`, as in the reference.
 
-Options the reference has and the port does not yet raise
-`NotImplementedError` naming the ROADMAP.md item that will port them:
-`mesh` (item 12, and with it the sharded verify) and `tenant_weights`
-(item 11).  Families with per-slot recurrent state (hybrid) share
-prompt pages but never skip their compute, and never spill to the host
-tier, as in the reference.
+With `tenant_weights` (a tenant -> weight dict, even empty) the tick is
+multi-tenant, as in the reference: admission takes the head request of
+the tenant with the smallest weighted slot occupancy, and the prefill
+chunk lengths, the decode rows and the speculative rows are capped by
+each tenant's weighted max-min share of the token budget
+(`serve/frontend/tenants.py`).  Contiguous admission stays first in,
+first out.
+
+The one option the reference has and the port does not yet raises
+`NotImplementedError` naming the ROADMAP.md item that will port it:
+`mesh` (item 12, and with it the sharded verify).  Families with
+per-slot recurrent state (hybrid) share prompt pages but never skip
+their compute, and never spill to the host tier, as in the reference.
 """
 from __future__ import annotations
 
@@ -97,11 +104,13 @@ class Request:
     uid: int
     prompt: np.ndarray                 # (prompt_len,) int32
     max_new_tokens: int = 32           # legacy mirror of sampling.max_new_tokens
+    eos_token: int = -1                # -1 = never; folded into sampling.stop
+    tenant: str = "default"            # budget-share bucket (frontend/tenants)
+    patch_embeds: np.ndarray | None = None   # vlm: (num_patches, frontend_dim)
     sampling: SamplingParams | None = None   # resolved by the engine at submit
     # tokens a preempted slot had already generated: on readmission the
     # engine REPLAYS them as forced context instead of re-sampling
     replay: list[int] | None = None
-    patch_embeds: np.ndarray | None = None   # vlm: (num_patches, frontend_dim)
 
     @property
     def num_patch_tokens(self) -> int:
@@ -200,16 +209,16 @@ class ServingEngine:
     families without a paged path or on request.
 
     Chunk widths snap UP to `prefill_buckets` — powers of two from 8 up
-    to `prefill_chunk`, plus `prefill_chunk` itself — so the set of
-    prefill shapes stays bounded; `prefill_shapes` records the (batch,
-    width) pairs dispatched.  Rows with fewer remaining tokens than the
-    bucket mask their tails, so bucketing never changes emitted
-    tokens."""
+    to `prefill_chunk`, plus `prefill_chunk` itself; on the card
+    `prefill_chunk` alone, so every prefill GEMM has one shape — and
+    `prefill_shapes` records the (batch, width) pairs dispatched.  Rows
+    with fewer remaining tokens than the bucket mask their tails, so
+    bucketing never changes emitted tokens."""
 
     def __init__(self, cfg: ModelConfig, params, *, device=None,
                  max_batch: int = 8, max_seq: int = 1024,
                  page_size: int = 16, pool_pages: int | None = None,
-                 layout: str | None = None,
+                 temperature: float = 0.0, layout: str | None = None,
                  prefill_chunk: int | None = None, mesh=None,
                  high_watermark: float | None = None,
                  prefill_decode_ratio: float | None = None,
@@ -220,8 +229,6 @@ class ServingEngine:
                  tenant_weights: dict[str, float] | None = None):
         if mesh is not None:
             _refuse("sharded serving (mesh)", "item 12")
-        if tenant_weights is not None:
-            _refuse("tenant budget shares (tenant_weights)", "item 11")
         if registry.get_family(cfg).decode_step is None:
             raise ValueError(f"family {cfg.family!r} cannot serve (no decode)")
         self._patch_frontend = cfg.frontend == "patch"
@@ -241,6 +248,21 @@ class ServingEngine:
         # fraction of pool pages above which the engine proactively
         # preempts youngest slots (None = preempt only on hard OOM)
         self.high_watermark = high_watermark
+        # the default temperature of a request submitted without
+        # SamplingParams (the legacy constructor knob)
+        self.default_temperature = temperature
+        # per-tenant weighted max-min budget shares: a tenant -> weight
+        # dict (even {}; unnamed tenants weigh 1.0) makes admission
+        # order, prefill chunk caps and decode row caps follow the
+        # weighted shares inside the tick.  Shares need a budget to
+        # divide, so the prefill/decode ratio defaults on
+        self.tenants = None
+        self.tenant_tokens: dict[str, int] = {}
+        if tenant_weights is not None:
+            from repro_torch.serve.frontend.tenants import TenantScheduler
+            self.tenants = TenantScheduler(tenant_weights)
+            if prefill_decode_ratio is None:
+                prefill_decode_ratio = 0.5
         pool_pages = pool_pages or (max_batch * max_seq) // page_size
         self.max_pages = -(-max_seq // page_size)     # block-table width
         self.prefill_chunk = prefill_chunk or max(page_size * 4, 32)
@@ -255,6 +277,12 @@ class ServingEngine:
         self.prefill_buckets = sorted(
             {1 << b for b in range(3, self.prefill_chunk.bit_length())
              if (1 << b) < self.prefill_chunk} | {self.prefill_chunk})
+        if self.device.type == "cuda":
+            # one chunk width on the card: cuBLAS picks a GEMM by its
+            # shape, so under several widths a row's bits would follow
+            # its batch-mates' chunk width, and a stream would depend on
+            # what it was batched and chunked with
+            self.prefill_buckets = [self.prefill_chunk]
         self.prefill_shapes: set[tuple[int, int]] = set()
 
         if layout == "paged":
@@ -342,14 +370,20 @@ class ServingEngine:
     # ------------------------------------------------------------ intake
 
     def _resolve_sampling(self, request: Request) -> None:
-        """Fill in `request.sampling` (greedy when absent; a non-default
-        legacy `max_new_tokens` overrides a params-default budget) and
-        keep the legacy mirror coherent — the engine reads `sampling`
-        only."""
+        """Fill in `request.sampling` from the legacy fields and keep
+        their mirrors coherent — the engine reads `sampling` only.  An
+        `eos_token` joins the stop set, a request without params takes
+        the engine's default temperature, and a non-default legacy
+        `max_new_tokens` overrides a params-default budget."""
         sp = request.sampling
         if sp is None:
-            sp = SamplingParams(max_new_tokens=request.max_new_tokens)
+            stop = (request.eos_token,) if request.eos_token >= 0 else ()
+            sp = SamplingParams(temperature=self.default_temperature,
+                                max_new_tokens=request.max_new_tokens,
+                                stop=stop)
         else:
+            if request.eos_token >= 0 and request.eos_token not in sp.stop:
+                sp = replace(sp, stop=sp.stop + (request.eos_token,))
             default_budget = SamplingParams().max_new_tokens
             if (request.max_new_tokens != default_budget
                     and sp.max_new_tokens == default_budget):
@@ -382,6 +416,8 @@ class ServingEngine:
         s.generated.append(tok)
         s.last_token = tok
         self.tokens_out += 1
+        t = s.request.tenant
+        self.tenant_tokens[t] = self.tenant_tokens.get(t, 0) + 1
         idx = len(s.generated) - 1
         uid = s.request.uid
         if idx >= self._emitted.get(uid, 0):
@@ -545,6 +581,30 @@ class ServingEngine:
 
     # ------------------------------------------------------------- admit
 
+    def _next_admission(self) -> int:
+        """Index into `pending` of the next admission candidate.  First
+        in, first out without tenant scheduling; with it, the head
+        request of the tenant with the smallest weighted slot occupancy
+        (max-min over held slots).  First in, first out within a tenant
+        (a preempted request, at the queue front, keeps its priority)
+        and across equal occupancies."""
+        if self.tenants is None or len(self.pending) <= 1:
+            return 0
+        held: dict[str, int] = {}
+        for s in self.slots.values():
+            t = s.request.tenant
+            held[t] = held.get(t, 0) + 1
+        best, best_key = 0, None
+        seen: set[str] = set()
+        for j, r in enumerate(self.pending):
+            if r.tenant in seen:
+                continue
+            seen.add(r.tenant)
+            key = held.get(r.tenant, 0) / self.tenants.weight_of(r.tenant)
+            if best_key is None or key < best_key:
+                best, best_key = j, key
+        return best
+
     def _admit_paged(self):
         """Watermark admission: a request enters as soon as the pool can
         hold its FIRST prefill chunk; the rest of the prompt's pages are
@@ -552,9 +612,10 @@ class ServingEngine:
         backpressure.  Shared prefix pages cost nothing extra."""
         free = self._free_slots()
         while free and self.pending:
-            req = self.pending[0]
+            pidx = self._next_admission()
+            req = self.pending[pidx]
             if self.host_tier is not None and req.uid in self.host_tier:
-                verdict = self._restore_from_tier(req, free)
+                verdict = self._restore_from_tier(req, free, pidx)
                 if verdict == "restored":
                     continue
                 if verdict == "wait":
@@ -571,7 +632,7 @@ class ServingEngine:
                     - len(written) - len(adopted))
             if not self._fits_or_reclaim(need, protect=set(store_hashes)):
                 break                            # UniMem backpressure
-            self.pending.pop(0)
+            self.pending.pop(pidx)
             slot = free.pop(0)
             if written or adopted:
                 self.pool.share(written + adopted)
@@ -665,9 +726,25 @@ class ServingEngine:
                 for i, s in pre}
         budget = self._prefill_token_budget()
         if budget is not None:
+            caps = None
+            if self.tenants is not None:
+                # weighted max-min shares of the prefill budget over the
+                # tenants with prefilling slots; chunk lengths then cap
+                # oldest-first WITHIN each tenant's share
+                demands: dict[str, int] = {}
+                for i, s in pre:
+                    t = s.request.tenant
+                    demands[t] = demands.get(t, 0) + lens[i]
+                caps = self.tenants.allocate(budget, demands,
+                                             kind="prefill")
             for i, s in sorted(pre, key=lambda kv: kv[1].order):
-                lens[i] = min(lens[i], max(budget, 0))
-                budget -= lens[i]
+                if caps is None:
+                    lens[i] = min(lens[i], max(budget, 0))
+                    budget -= lens[i]
+                else:
+                    t = s.request.tenant
+                    lens[i] = min(lens[i], max(caps.get(t, 0), 0))
+                    caps[t] = caps.get(t, 0) - lens[i]
             pre = [(i, s) for i, s in pre if lens[i] > 0]
             if not pre:
                 return
@@ -811,7 +888,8 @@ class ServingEngine:
         tier.put(HostParcel(uid=victim.request.uid, num_pages=npages,
                             data=data, meta=meta))
 
-    def _restore_from_tier(self, req: Request, free: list[int]) -> str:
+    def _restore_from_tier(self, req: Request, free: list[int],
+                           pidx: int = 0) -> str:
         """Readmission fast path: rebuild the slot from its spilled
         parcel (fresh pages, their contents written back from the
         prefetched device copy when the prefetch got to it, generation
@@ -840,7 +918,7 @@ class ServingEngine:
         tier.restores += 1
         tier.restored_pages += npages
         pre = self._prefetched.pop(req.uid, None)
-        self.pending.pop(0)
+        self.pending.pop(pidx)
         slot = free.pop(0)
         seq = SequencePageTable(self.pool)
         seq.append_tokens(parcel.meta["tokens"])
@@ -874,7 +952,7 @@ class ServingEngine:
         tier = self.host_tier
         if tier is None or not self.pending:
             return
-        uid = self.pending[0].uid
+        uid = self.pending[self._next_admission()].uid
         if uid in self._prefetched:
             return
         parcel = tier.peek(uid)
@@ -892,7 +970,26 @@ class ServingEngine:
         # so excluding a row there would corrupt its cache: no budget
         budget = (self._decode_slot_budget() if self.layout == "paged"
                   else None)
-        if budget is None or len(active) <= budget:
+        if budget is None:
+            return active
+        if self.tenants is not None:
+            # per-tenant row shares of the decode budget (max-min,
+            # weighted); rows keep oldest-first WITHIN their tenant.
+            # budget >= 1 leaves some tenant a positive cap, so decode
+            # always progresses
+            demands: dict[str, int] = {}
+            for s in active.values():
+                t = s.request.tenant
+                demands[t] = demands.get(t, 0) + 1
+            caps = self.tenants.allocate(budget, demands, kind="decode")
+            keep: dict[int, _Slot] = {}
+            for i, s in sorted(active.items(), key=lambda kv: kv[1].order):
+                t = s.request.tenant
+                if caps.get(t, 0) > 0:
+                    keep[i] = s
+                    caps[t] -= 1
+            return keep
+        if len(active) <= budget:
             return active
         keep = sorted(active.items(), key=lambda kv: kv[1].order)[:budget]
         return dict(keep)
@@ -943,13 +1040,31 @@ class ServingEngine:
         active = {i: s for i, s in self.slots.items()
                   if not s.prefilling and s.generated}
         budget = self._decode_slot_budget()
+        rows = sorted(active.items(), key=lambda kv: kv[1].order)
+        wants_map = {i: (s.request.sampling.speculative
+                         and s.request.replay is None
+                         and s.pages.num_tokens + k + 1 <= self.max_seq)
+                     for i, s in rows}
+        caps = None
+        if budget is not None and self.tenants is not None:
+            # the plain path's per-tenant decode shares, a speculating
+            # row charging its whole k+1 window against its tenant
+            demands: dict[str, int] = {}
+            for i, s in rows:
+                t = s.request.tenant
+                demands[t] = demands.get(t, 0) + ((k + 1) if wants_map[i]
+                                                  else 1)
+            caps = self.tenants.allocate(budget, demands, kind="decode")
         spec: dict[int, _Slot] = {}
         plain: dict[int, _Slot] = {}
-        for i, s in sorted(active.items(), key=lambda kv: kv[1].order):
-            wants = (s.request.sampling.speculative
-                     and s.request.replay is None
-                     and s.pages.num_tokens + k + 1 <= self.max_seq)
-            if budget is not None:
+        for i, s in rows:
+            wants = wants_map[i]
+            if caps is not None:
+                t = s.request.tenant
+                if caps.get(t, 0) <= 0:
+                    continue            # a granted tenant always exists
+                caps[t] -= (k + 1) if wants else 1
+            elif budget is not None:
                 if budget <= 0 and (spec or plain):
                     continue
                 budget -= (k + 1) if wants else 1
@@ -1242,6 +1357,7 @@ class ServingEngine:
         if src is None or src.prefilling:
             raise ValueError(f"uid {uid} is not active")
         child_req = Request(uid=new_uid, prompt=src.request.prompt,
+                            eos_token=src.request.eos_token,
                             patch_embeds=src.request.patch_embeds,
                             sampling=sampling or src.request.sampling)
         self._resolve_sampling(child_req)
@@ -1300,6 +1416,12 @@ class ServingEngine:
             "prefill_decode_ratio": self.prefill_decode_ratio,
             "pool": self.pool.stats().__dict__,
         }
+        if self.tenants is not None:            # per-tenant budget shares
+            out["tenants"] = {
+                t: {"weight": self.tenants.weight_of(t),
+                    "tokens": self.tenant_tokens.get(t, 0)}
+                for t in sorted(set(self.tenant_tokens)
+                                | set(self.tenants.weights))}
         if self.prefix_store is not None:       # prompt-page reuse traffic
             out["prefix_store"] = self.prefix_store.stats()
         if self.draft is not None:              # speculative decode traffic

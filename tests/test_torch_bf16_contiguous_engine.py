@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from test_torch_bf16_parity import ENGINE_CASES, port_run, reference_runs
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import pytest
 
 from test_torch_bf16_parity import ENGINE_CASES, port_run, reference_runs
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.kv_cache import PagedKVArena
 from test_torch_serve import _events
 from torch_port_helpers import port_cfg, port_params, tensor_to_numpy
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 STAT_KEYS = ("steps", "tokens_out", "prefill_tokens", "admitted",
              "preemptions", "cancellations", "peak_kv_bytes",
@@ -252,17 +253,6 @@ def _count_prefetch_restores(eng):
         eng.restored_from_prefetch += any(data is d for d in staged)
         return write_pages(pages, data, ready=ready)
     arena.prefetch, arena.write_pages = counted_prefetch, counted_write_pages
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The TINY models' ops are too small to split: one intra-op thread,
-    so the port's steps do not wait on a thread pool that other test
-    workers' pools crowd out."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=SCENARIOS)

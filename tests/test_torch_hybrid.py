@@ -34,6 +34,7 @@ from test_torch_moe import engine_scenario, run_paged_steps
 from test_torch_serve import _drive
 from torch_port_helpers import (jax_family_params, np_tree, params_to_numpy,
                                 port_cfg)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 

@@ -46,7 +46,8 @@ def _assert_importing_loads_no_jax(modules: str):
 
 def test_importing_the_serving_api_loads_no_jax():
     _assert_importing_loads_no_jax(
-        "repro_torch.serve.api, repro_torch.launch.serve")
+        "repro_torch.serve.api, repro_torch.launch.serve, "
+        "repro_torch.serve.frontend, repro_torch.benchmarks.traffic_gen")
 
 
 def test_importing_the_paper_harness_loads_no_jax():

@@ -1112,3 +1112,82 @@ def test_build_names_the_library_by_its_sources_inside_the_repo():
         return
     with pytest.raises(RuntimeError, match="nvcc"):
         build._nvcc()
+
+
+@pytest.mark.cuda
+def test_card_streams_do_not_follow_their_batch_mates(cuda_device):
+    """On the card every prefill chunk has one width (the engine's one
+    bucket), so a request's bf16 K/V and tokens do not depend on the
+    chunk widths of the rows it was batched with: cuBLAS picks a GEMM by
+    its shape, and at internlm2-1.8b's (8192, 2048) down projection the
+    rows of an M 64 product differ from the same rows of an M 512 one.
+    The second layer's K/V of a 16-token prompt hold layer 0's down
+    projection."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = ModelConfig(name="card-dense", family="dense", num_layers=2,
+                      d_model=2048, vocab_size=1024, num_heads=16,
+                      num_kv_heads=8, head_dim=128, d_ff=8192,
+                      attn_chunk=64, max_seq=256, dtype="bfloat16",
+                      param_dtype="bfloat16")
+    params = registry.get_family(cfg).init(0, cfg, cuda_device)
+    rng = np.random.default_rng(5)
+    long = rng.integers(1, cfg.vocab_size, 100).astype(np.int32)
+    short = rng.integers(1, cfg.vocab_size, 16).astype(np.int32)
+
+    def serve(prompts, uid):
+        """The first page of `uid`'s prompt after the first tick, and
+        its tokens."""
+        eng = ServingEngine(cfg, params, device=cuda_device, max_batch=8,
+                            max_seq=256, page_size=16)
+        assert eng.prefill_buckets == [eng.prefill_chunk]
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+        eng.step()
+        slot = next(s for s in eng.slots.values() if s.request.uid == uid)
+        page = eng.arena.read_pages(slot.pages.pages[:1])
+        return page, {r.uid: r.tokens for r in eng.run()}[uid]
+
+    page, tokens = serve([short], 0)
+    for prompts, uid in (([short, long], 0), ([long, long[:40], short], 2)):
+        got_page, got_tokens = serve(prompts, uid)
+        for name, leaf in page.items():
+            assert torch.equal(got_page[name], leaf), name
+        assert got_tokens == tokens
+
+
+def test_the_library_is_built_once_under_concurrent_first_calls(
+        monkeypatch):
+    """`build.library()` is locked: the network front's engine thread and
+    a caller's thread may reach the first launch together.  Sixteen
+    threads, a short switch interval, one (slow) build."""
+    import sys
+    import threading
+    import time
+
+    made = []
+
+    class SlowLibrary:
+        def __init__(self):
+            time.sleep(0.01)
+            made.append(self)
+
+    monkeypatch.setattr(build, "_library", None)
+    monkeypatch.setattr(build, "KernelLibrary", SlowLibrary)
+    got = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: got.append(
+            build.library())) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(made) == 1 and len(got) == 16
+    assert all(lib is made[0] for lib in got)

@@ -33,6 +33,7 @@ from repro_torch.models import transformer as PT
 from test_torch_moe import _paged_case
 from test_torch_serve import FILTERS, _drive, _prompts, _scenario
 from torch_port_helpers import jax_family_params, port_cfg
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from repro_torch.serve.sampling import (SamplingParams, device_knobs,
                                         state_for_slots)
 from repro_torch.serve.serve_step import to_device
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 ROOT = Path(__file__).resolve().parents[1]
@@ -603,8 +604,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(dense):
         LLMServer(port_cfg(cfg))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(tenant_weights={})])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_engine_options_refuse(dense, kw):
     cfg, _, pp = dense
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -21,6 +21,7 @@ from repro.serve.engine import Request as JaxRequest
 from repro_torch.serve.engine import Request, ServingEngine
 from test_torch_serve import _drive, _scenario
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 CFGS = {"dense": TINY["dense"],
         "moe": TINY["moe"].replace(moe_dispatch="grouped")}

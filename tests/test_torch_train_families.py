@@ -39,6 +39,7 @@ from test_torch_train_parity import (_assert_params_equal, _batch,
                                      _ref_loss_and_grads, _ref_params,
                                      _ref_steps)
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 MOE, SSM = TINY["moe"], TINY["ssm"]
 REMATS = ["none", "full", "dots"]

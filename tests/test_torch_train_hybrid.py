@@ -43,6 +43,7 @@ from test_torch_train_parity import (_assert_params_equal, _batch,
                                      _opt_cfg, _port_batch, _port_steps,
                                      _ref_loss_and_grads, _ref_params)
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 HYBRID = TINY["hybrid"]
 # (label, config): TINY, and three groups so a shared block serves two

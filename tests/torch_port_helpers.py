@@ -1,11 +1,12 @@
 """Shared helpers of the PyTorch-port tests (`test_torch_*.py`): config
 and parameter bridging between the JAX reference and the port, for the
-dense, MoE and hybrid families."""
+dense, MoE and hybrid families, and the one-thread module fixture."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 import jax
 
@@ -67,3 +68,16 @@ def jax_family_params(cfg, seed: int = 0):
     from repro.models import registry
     params = registry.get_family(cfg).init(jax.random.key(seed), cfg)
     return params, port_params(params, cfg)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The TINY models' ops are too small to split: one intra-op thread
+    for the module (it holds in threads started later too), so the
+    port's steps do not wait on a thread pool that other test workers'
+    pools crowd out.  A module takes it with
+    `from torch_port_helpers import one_torch_thread  # noqa: F401`."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
