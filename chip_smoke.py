@@ -193,6 +193,38 @@ exit at the first failure):
    tenant TTFT and TPOT p50/p99 and goodput under the 5 s TTFT SLO, the
    cancel-reclaim seconds, the trace's wall seconds and tokens/s, the
    front's and the engine's counters.
+7b. serve_tools: the serving tools on the card.  (a) at the
+   reference's tiny f32 configurations, `serve_throughput.run` with
+   every family (dense at three batch/seq points; moe, hybrid, vlm),
+   the sampling, quantized-arena, host-tier, prefix-trace and
+   speculative (k 4, `self:1`) sweeps, on the tool's default weights
+   (the port's seeded init, drawn on the card): every row's tokens identical
+   across the layouts with paged KV <= contiguous, int8 pages <= 0.55x
+   bf16 with identical tokens, spills and restores with identical
+   tokens, cross-request prefix hits with fewer prompt tokens and
+   identical tokens, sampled streams that replay and diverge from
+   greedy, speculative streams identical greedy and sampled; every
+   engine's launches equal `expected_launches` of its stats and it
+   leaves no page but the cached ones (`EngineLedger`); the two timing
+   verdicts (cached TTFT below cold, speculative tokens/s above plain)
+   printed, not gated.  Then `paged_kernel_bench.run`: every row held
+   (f32 at the reference's geometries by its allclose 1e-5, bf16 at
+   internlm2-1.8b's width under `tolerance.py`), and the paged kernels
+   with f32 queries over bf16 pages (the quantized sweep's bf16 arena)
+   against their plain versions (decode and a 64-row prefill chunk at
+   bf16's bound with at most `MAX_DIFFERENT_SHARE` of the elements
+   differing, decode's partials at f32's bound).  (b) internlm2-1.8b at full width and
+   depth through `_row` (8 prompts of 16-511 tokens from
+   `default_rng(0)`, 32 new tokens, max_batch 8, max_seq 1024, page
+   16): bf16 twice (paged peak KV <= contiguous, each layout's rerun
+   byte-identical, the share of equal tokens between the layouts
+   printed), then f32 (identical greedy tokens in both layouts), the
+   launches held.  (c) `decode_many` at full width (bf16, contiguous,
+   a 128-token prompt, 64 steps): greedy equal to the engine's stream
+   at max_batch 1, flash launched once per layer and split-KV decode
+   64 x 24 times, a sampled run (T 0.8, key 0) repeated identically
+   and leaving the greedy tokens; its decode tokens/s beside the
+   engine's decode ticks' (each from the first token on).
 8. spec_parity: a 2-layer internlm2-width f32 model: speculative
    streams (greedy and sampled rows, k 1 and 4, drafts `self:1` and
    `mamba2-130m@reduced`) equal the plain engine's on the card.
@@ -270,7 +302,7 @@ exit at the first failure):
    depth (32 layers; 8 x (576 image rows + 1472 MarkovLM tokens) in 2
    microbatches): the held-out loss must fall.  Both as the family train phases (step
    seconds, positions/s, peak memory, busy share, launches).
-14. paper: every module of the port's paper harness
+14. paper: every paper module of the port's harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
    launched once (by the sweep's check) and no other kernel.
@@ -1643,8 +1675,9 @@ def expected_launches(cfg, st, draft=None) -> dict:
     none) — paged decode/prefill on the arena, split-KV decode/flash on
     the contiguous cache, where in f32 split-KV decode's combine kernel
     follows each split launch (bf16 merges inside the one launch) — the
-    grouped matmul 3 times per MoE layer, the
-    SSD kernel once per Mamba layer of a prefill call, and no ws or os
+    grouped matmul 3 times per MoE layer under the grouped dispatch, the
+    SSD kernel once per Mamba layer of a prefill call under
+    `ssd_impl="pallas"`, and no ws or os
     matmul and no backward kernel (no serving path runs them).  Speculating (`draft`), each
     verify call walks the arena with the paged-prefill kernel once per
     layer, and each decode step of a dense draft's contiguous cache
@@ -1664,9 +1697,11 @@ def expected_launches(cfg, st, draft=None) -> dict:
                                if cfg.dtype == "float32" else 0),
             "flash_attention": 0 if paged else pre * attn,
             "grouped_matmul": (3 * cfg.num_layers * (pre + dec + verify)
-                               if cfg.family == "moe" else 0),
+                               if cfg.family == "moe"
+                               and cfg.moe_dispatch == "grouped" else 0),
             "ssd_intra_chunk": (cfg.num_layers * pre
-                                if cfg.family in ("hybrid", "ssm") else 0),
+                                if cfg.family in ("hybrid", "ssm")
+                                and cfg.ssd_impl == "pallas" else 0),
             "flash_attention_backward": 0, "grouped_matmul_backward": 0,
             "ssd_intra_chunk_backward": 0, "ws_matmul": 0, "os_matmul": 0}
 
@@ -2259,6 +2294,371 @@ def phase_serve_front(torch, dev, card: str, cfg) -> dict:
           "run_s": run_s, "saturation_s": saturation_s,
           "phase_s": time.perf_counter() - t0})
     return seen["launches"]
+
+
+# ---------------------------------------------------- phase 7b: serve_tools
+
+TOOLS_SWEEPS = dict(sampling=True, quant=True, host_tier=True,
+                    prefix_trace=True, speculate=SPEC_K, draft="self:1")
+TOOLS_STREAM = dict(requests=8, prompt_lo=16, prompt_hi=511, max_new=32,
+                    max_batch=8, max_seq=1024)
+TOOLS_DECODE_MANY = dict(prompt=128, steps=64, temperature=0.8)
+# paged_kernel_bench's bf16 rows at internlm2-1.8b's width:
+# (dtype, hq, hkv, d, page, max_pages, k of the verify window)
+TOOLS_BENCH_GEOMS = (("bf16", 16, 8, 128, 16, 64, SPEC_K),)
+
+
+class EngineLedger:
+    """Every engine `serve_throughput` builds while the ledger is open,
+    in order: its config, its final stats, the kernel launches it made
+    and `expected_launches` of its stats.  The tools build their engines
+    one after another, so an engine's launches are the counters'
+    growth from its construction to the next engine's (or the ledger's
+    close); the previous engine is released before the next one
+    allocates."""
+
+    def __init__(self, torch, module):
+        self.torch, self.module = torch, module
+        self.mods = kernel_modules()
+        self.entries: list[dict] = []
+        self._open = None
+
+    def _counts(self) -> dict:
+        return {name: m.launches for name, m in self.mods.items()}
+
+    def _close(self) -> None:
+        if self._open is None:
+            return
+        eng, start = self._open
+        self._open = None
+        now, st = self._counts(), eng.stats()
+        self.entries.append({
+            "arch": eng.cfg.name, "family": eng.cfg.family,
+            "layout": st["layout"], "dtype": eng.cfg.dtype,
+            "kv_dtype": eng.cfg.kv_dtype, "stats": st,
+            "launches": {n: now[n] - start[n] for n in now},
+            "want": expected_launches(eng.cfg, st, eng.draft)})
+        del eng
+        free_card(self.torch)
+
+    def __enter__(self):
+        ledger, base = self, self.module.ServingEngine
+        self._base = base
+
+        class Counted(base):
+            def __init__(self, *args, **kw):
+                ledger._close()
+                start = ledger._counts()
+                super().__init__(*args, **kw)
+                ledger._open = (self, start)
+        self.module.ServingEngine = Counted
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.module.ServingEngine = self._base
+        if exc_type is None:
+            self._close()
+        self._open = None
+
+    def check(self, phase: str) -> dict:
+        """Fail unless every engine launched what its stats predict and
+        left no page allocated beyond the pinned (cached) ones; returns
+        the launches summed over the engines."""
+        total = {name: 0 for name in self.mods}
+        for e in self.entries:
+            pool = e["stats"]["pool"]
+            if pool["allocated_pages"] != pool["pinned_pages"]:
+                fail(f"{phase}: {e['arch']} ({e['layout']}) leaked pages: "
+                     f"{pool}")
+            if e["launches"] != e["want"]:
+                fail(f"{phase}: {e['arch']} ({e['layout']}, {e['dtype']}) "
+                     f"kernel launches {e['launches']} != expected "
+                     f"{e['want']}")
+            for name, n in e["launches"].items():
+                total[name] += n
+        return total
+
+
+def tools_stream(cfg):
+    """`TOOLS_STREAM`'s requests: 8 prompts of 16-511 tokens from
+    `np.random.default_rng(0)`, 32 new tokens each."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    ts = TOOLS_STREAM
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size,
+                int(rng.integers(ts["prompt_lo"], ts["prompt_hi"] + 1)))
+            .astype(np.int32), max_new_tokens=ts["max_new"])
+            for i in range(ts["requests"])]
+
+
+def tools_layouts(torch, dev, ST, cfg, params, reruns: int) -> dict:
+    """`serve_throughput._row` over `tools_stream` at `cfg`, `reruns`
+    times, with each `_run`'s output kept: returns the rows, the runs by
+    layout and the engines' ledger."""
+    ts = TOOLS_STREAM
+    reqs = tools_stream(cfg)
+    runs, base_run = {"contiguous": [], "paged": []}, ST._run
+
+    def kept_run(cfg_, params_, layout, *args, **kw):
+        out = base_run(cfg_, params_, layout, *args, **kw)
+        runs[layout].append(out)
+        return out
+    ST._run = kept_run
+    try:
+        with EngineLedger(torch, ST) as ledger:
+            rows = [ST._row(cfg, params, reqs, ts["max_batch"],
+                            ts["max_seq"], device=dev)
+                    for _ in range(reruns)]
+    finally:
+        ST._run = base_run
+    return {"rows": rows, "runs": runs, "ledger": ledger}
+
+
+def mixed_pages_check(torch, dev) -> list:
+    """The paged kernels with f32 queries over bf16 pages (an f32 model
+    over a `kv_dtype="bf16"` arena, the CUDA-core design) against their
+    plain versions at the dense path's shapes: decode and a 64-row
+    prefill chunk, which round as the plain version does (bf16's bound,
+    and at most `MAX_DIFFERENT_SHARE` of the elements differing), and
+    decode's partials over a table with holes (p in f32: f32's bound)."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_prefill import ops as pp
+    from repro_torch.kernels.tolerance import (MAX_DIFFERENT_SHARE,
+                                               different_share)
+
+    kb = KernelBench(torch, dev)
+    k, v, _, _ = kb.pages(torch.bfloat16)
+    rows = []
+
+    def held(name, got, want):
+        check(name, got, want, torch.bfloat16, rows)
+        share = different_share(got, want)
+        rows[-1].update(different_share=share,
+                        max_different_share=MAX_DIFFERENT_SHARE)
+        if not share <= MAX_DIFFERENT_SHARE:
+            fail(f"kernel {name}: {share} of the elements differ from the "
+                 f"plain version's (at most {MAX_DIFFERENT_SHARE})")
+
+    q = kb.q((kb.b, kb.hq, kb.d), torch.float32)
+    held("f32 q / bf16 pages decode",
+         pa.paged_decode_attention(q, k, v, kb.bt, kb.positions),
+         pa.paged_decode_attention_plain(q, k, v, kb.bt, kb.positions))
+    kw = dict(page_positions=kb.holes(), partials=True)
+    check("f32 q / bf16 pages decode holes+partials",
+          pa.paged_decode_attention(q, k, v, kb.bt, kb.positions, **kw),
+          pa.paged_decode_attention_plain(q, k, v, kb.bt, kb.positions, **kw),
+          torch.float32, rows)
+    c = 64
+    qc = kb.q((kb.b, c, kb.hq, kb.d), torch.float32)
+    start = torch.clamp(kb.positions - c + 1, min=0).to(torch.int32)
+    clen = torch.full_like(start, c)
+    held("f32 q / bf16 pages prefill c64",
+         pp.paged_prefill_attention(qc, k, v, kb.bt, start, clen),
+         pp.paged_prefill_attention_plain(qc, k, v, kb.bt, start, clen))
+    return rows
+
+
+def decode_many_launches(cfg, steps: int) -> dict:
+    """Launches of one batch-1 prefill and `decode_many(steps)` on the
+    contiguous cache of a dense `cfg` in bf16: flash once per layer,
+    split-KV decode once per layer a step, nothing else."""
+    want = {name: 0 for name in kernel_modules()}
+    want.update(flash_attention=cfg.num_layers,
+                decode_attention=steps * cfg.num_layers)
+    return want
+
+
+def tools_decode_many(torch, dev, cfg, params) -> dict:
+    """`make_serve_fns`'s `decode_many` at `cfg` (contiguous, batch 1,
+    max_seq 1024) against the engine's greedy stream at max_batch 1 on
+    the same prompt, a sampled run repeated and leaving the greedy
+    tokens, and the launches of the greedy run: flash once per layer for
+    the prefill, split-KV decode once per layer a step.  Both rates are
+    of the decode steps alone: `decode_many` from its first token in,
+    the engine from its first token's event to its last."""
+    import numpy as np
+    from repro_torch.serve import Request, ServingEngine, TokenEvent
+    from repro_torch.serve import prng
+    from repro_torch.serve.serve_step import init_cache, make_serve_fns
+
+    dm = TOOLS_DECODE_MANY
+    ms = TOOLS_STREAM["max_seq"]
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, dm["prompt"]).astype(np.int32)
+    eng = ServingEngine(cfg, params, device=dev, max_batch=1, max_seq=ms,
+                        layout="contiguous")
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=dm["steps"] + 1))
+    engine_tokens, stamps = [], []
+    for ev in eng.stream():
+        if isinstance(ev, TokenEvent):
+            engine_tokens.append(ev.token)
+            stamps.append(time.perf_counter())
+    engine_s = stamps[-1] - stamps[0]
+    del eng
+    free_card(torch)
+
+    def once(temperature, key):
+        prefill, _, decode_many = make_serve_fns(cfg, dev,
+                                                 temperature=temperature)
+        cache = init_cache(cfg, 1, ms, device=dev)
+        cache, logits = prefill(params, {"tokens": prompt[None]}, cache)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, rest, key_out = decode_many(params, cache, first, key,
+                                           dm["steps"])
+        toks = [int(first[0])] + rest[0].tolist()   # the one read
+        dt = time.perf_counter() - t1
+        return toks, dt, key_out.tolist()
+
+    (greedy, greedy_s, _), launches = count_path(
+        lambda: once(0.0, prng.key(0, dev)))
+    want = decode_many_launches(cfg, dm["steps"])
+    if launches != want:
+        fail(f"serve_tools decode_many: kernel launches {launches} != "
+             f"expected {want}")
+    if greedy != engine_tokens:
+        same = sum(a == b for a, b in zip(greedy, engine_tokens))
+        fail(f"serve_tools decode_many: greedy tokens differ from the "
+             f"engine's at max_batch 1 ({same} of {len(greedy)} equal)")
+    sampled = [once(dm["temperature"], prng.key(0, dev)) for _ in range(2)]
+    if sampled[0][0] != sampled[1][0] or sampled[0][2] != sampled[1][2]:
+        fail("serve_tools decode_many: a sampled rerun differs")
+    if sampled[0][0] == greedy:
+        fail(f"serve_tools decode_many: the sampled run (T "
+             f"{dm['temperature']}) gave the greedy tokens")
+    return {"prompt": dm["prompt"], "steps": dm["steps"],
+            "launches": {n: v for n, v in launches.items() if v},
+            "equal_to_engine": True,
+            "decode_many_tokens_per_s": dm["steps"] / greedy_s,
+            "engine_decode_tokens_per_s": dm["steps"] / engine_s,
+            "sampled_tokens_per_s": dm["steps"] / sampled[0][1],
+            "sampled_rerun_identical": True,
+            "sampled_diverged_from_greedy": True,
+            "key_out": sampled[0][2]}
+
+
+def phase_serve_tools(torch, dev, card: str, dense) -> dict:
+    """The serving tools on the card.  a: `serve_throughput.run` with
+    every family and sweep at the reference's configurations (f32), then
+    `paged_kernel_bench.run` (the reference's f32 geometries and bf16 at
+    internlm2-1.8b's width), and the f32-query / bf16-page kernels
+    against their plain versions.  b: the two layouts at internlm2-1.8b's
+    full width and depth through `_row` (`TOOLS_STREAM`), bf16 twice
+    (paged KV <= contiguous, each layout's rerun identical) and f32
+    (identical greedy tokens in both layouts).  c: `decode_many` at full
+    width against the engine.  Gates as documented at each step; the
+    tools' timing verdicts are printed, not gated.  Returns the launches
+    of the served runs."""
+    from repro_torch.benchmarks import paged_kernel_bench as PKB
+    from repro_torch.benchmarks import serve_throughput as ST
+    from repro_torch.models import registry
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    # a. the reference's configurations, f32, on the tool's default
+    # weights (the port's seeded init, drawn on the card)
+    with EngineLedger(torch, ST) as ledger:
+        res = ST.run(device=dev, **TOOLS_SWEEPS)
+    tools_launches = ledger.check("serve_tools run")
+    ta = time.perf_counter()
+    bad = [f"{r['family']} b{r['batch']} s{r['max_seq']}"
+           for r in res["rows"]
+           if not (r["tokens_match"] and r["paged_kv_mb"] <= r["contig_kv_mb"])]
+    q, tier, pre = res["quant"], res["host_tier"], res["prefix"]
+    smp, spec = res["sampling"], res["speculative"]
+    gates = {
+        "rows": not bad,
+        "quant": q["tokens_match"] and q["bytes_ratio"] <= 0.55,
+        "host_tier": (tier["spills"] > 0 and tier["restores"] > 0
+                      and tier["tokens_match"]),
+        "prefix": (pre["cross_request_hits"] > 0 and pre["tokens_match"]
+                   and pre["prefill_tokens_cached"]
+                   < pre["prefill_tokens_cold"]),
+        "sampling": smp["deterministic"] and smp["diverged_from_greedy"],
+        "speculative": spec["tokens_match"] and spec["tokens_match_sampled"]}
+    timing = {"prefix_steady_ttft_cached_below_cold":
+              pre["steady_ttft_cached_s"] < pre["steady_ttft_cold_s"],
+              "speculative_ratio_above_1": spec["speedup"] > 1.0}
+    bench = PKB.run(dev, extra_geoms=TOOLS_BENCH_GEOMS)
+    mixed = mixed_pages_check(torch, dev)
+    tb = time.perf_counter()
+    emit({"phase": "serve_tools", "part": "reference configs", "card": card,
+          "rows": res["rows"], "quant": q, "host_tier": tier, "prefix": pre,
+          "sampling": smp, "speculative": spec, "gates": gates,
+          "timing_verdicts": timing, "ok_as_the_reference_judges": res["ok"],
+          "engines": len(ledger.entries), "launches": tools_launches,
+          "paged_kernel_bench": bench, "mixed_pages": mixed,
+          "run_s": ta - t0, "bench_s": tb - ta})
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        fail(f"serve_tools: gates {failed} failed (rows {bad})")
+    if not bench["ok"]:
+        fail(f"serve_tools: paged_kernel_bench rows differ: "
+             f"{[r['geom'] for r in bench['rows'] if not r['match']]}")
+
+    # b. the layouts at full width and depth, bf16 (twice) then f32
+    params = registry.get_family(dense).init(0, dense, dev)
+    bf16 = tools_layouts(torch, dev, ST, dense, params, reruns=2)
+    full_launches = bf16["ledger"].check("serve_tools full width bf16")
+    row = bf16["rows"][0]
+    if not row["paged_kv_mb"] <= row["contig_kv_mb"]:
+        fail(f"serve_tools: paged KV {row['paged_kv_mb']} MB above "
+             f"contiguous {row['contig_kv_mb']} MB")
+    for layout, (run1, run2) in bf16["runs"].items():
+        if run1["tokens"] != run2["tokens"]:
+            fail(f"serve_tools: the bf16 {layout} rerun differs")
+    c1, p1 = bf16["runs"]["contiguous"][0], bf16["runs"]["paged"][0]
+    pairs = [(a, b) for uid in c1["tokens"]
+             for a, b in zip(c1["tokens"][uid], p1["tokens"][uid])]
+    share = sum(a == b for a, b in pairs) / len(pairs)
+    del params
+    free_card(torch)
+    f32cfg = dense.replace(dtype="float32", param_dtype="float32")
+    params = registry.get_family(f32cfg).init(0, f32cfg, dev)
+    f32 = tools_layouts(torch, dev, ST, f32cfg, params, reruns=1)
+    f32_launches = f32["ledger"].check("serve_tools full width f32")
+    if not f32["rows"][0]["tokens_match"]:
+        fail(f"serve_tools: f32 greedy tokens differ between the layouts "
+             f"at full width: {f32['rows'][0]}")
+    del params
+    free_card(torch)
+    tc = time.perf_counter()
+
+    # c. decode_many at full width, bf16, contiguous
+    params = registry.get_family(dense).init(0, dense, dev)
+    many = tools_decode_many(torch, dev, dense, params)
+    del params
+    free_card(torch)
+    td = time.perf_counter()
+
+    for name, n in (*full_launches.items(), *f32_launches.items()):
+        tools_launches[name] += n
+    for name, n in many["launches"].items():
+        tools_launches[name] += n
+    emit({"phase": "serve_tools", "part": "full width", "card": card,
+          "arch": dense.name, "layers": dense.num_layers,
+          **TOOLS_STREAM, "page_size": 16,
+          "bf16": {"rows": bf16["rows"],
+                   "paged_tokens_per_s": [r["paged_tok_s"]
+                                          for r in bf16["rows"]],
+                   "contig_tokens_per_s": [r["contig_tok_s"]
+                                           for r in bf16["rows"]],
+                   "paged_kv_mb": row["paged_kv_mb"],
+                   "contig_kv_mb": row["contig_kv_mb"],
+                   "kv_ratio": row["kv_ratio"],
+                   "share_equal_between_layouts": share,
+                   "reruns_identical": True,
+                   "launches": {n: v for n, v in full_launches.items() if v}},
+          "f32": {"row": f32["rows"][0], "tokens_match": True,
+                  "launches": {n: v for n, v in f32_launches.items() if v}},
+          "decode_many": many,
+          "layouts_s": tc - tb, "decode_many_s": td - tc,
+          "phase_s": td - t0})
+    return tools_launches
 
 
 def phase_spec_parity(torch, dev, cfg) -> None:
@@ -3074,11 +3474,13 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
 # ------------------------------------------------------ phase 14: paper
 
 def phase_paper(torch, dev):
-    """Every module of the port's paper harness on the card; returns the
-    kernel launches of the run."""
+    """Every paper module of the port's harness on the card (its
+    serving tools run in `serve_tools`); returns the kernel launches of
+    the run."""
     from repro_torch.benchmarks import run as paper
 
-    results, launches = count_path(lambda: paper.run_all(dev))
+    results, launches = count_path(
+        lambda: paper.run_all(dev, paper.PAPER_MODULES))
     emit({"phase": "paper", "results": results, "launches": launches})
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
@@ -3379,6 +3781,7 @@ def main() -> int:
     phase_serve_spec(torch, dev, card, dense, plain)
     tier_launches = phase_serve_tier(torch, dev, card, dense)
     front_launches = phase_serve_front(torch, dev, card, dense)
+    tools_launches = phase_serve_tools(torch, dev, card, dense)
     phase_spec_parity(torch, dev, dense.replace(
         num_layers=2, dtype="float32", param_dtype="float32"))
     moe_launches, _ = phase_serve(torch, dev, card, "serve_moe", moe)
@@ -3511,6 +3914,7 @@ def main() -> int:
           "launches": {"serve_vlm": vlm_launches,
                        "serve_tier": tier_launches,
                        "serve_front": front_launches,
+                       "serve_tools": tools_launches,
                        **{f"serve_configs {a}": v
                           for a, v in config_launches.items()}}})
     emit({"kernels": rows})

@@ -1,21 +1,46 @@
 """Serving example with the PyTorch port: the counterpart of
-`examples/serve_lm.py`'s streaming demo and its network-client demo.
+`examples/serve_lm.py` (its batch loop, its streaming demo and its
+network-client demo).
 
     PYTHONPATH=src python examples/serve_lm_torch.py [--device cpu]
-        [--temperature T] [--top-k K] [--top-p P] [--seed S]
+        [--stream] [--temperature T] [--top-k K] [--top-p P] [--seed S]
         [--kv-dtype int8|fp8|bf16] [--host-tier-pages N]
+        [--prefix-cache] [--speculate K] [--draft self:1]
         [--connect HOST:PORT]
 
-By default it demonstrates the streaming API (`repro_torch.serve.api`
-`LLMServer`) on a reduced internlm2-1.8b with seeded random weights, on
-the card unless `--device` names another: `generate(prompt,
-SamplingParams(...))` returns a `GenerationStream` that yields
-`TokenEvent`s as the engine ticks, and `stream.fork(params)` branches
-the in-flight sequence under a second sampling regime over shared
-copy-on-write pages.  The sampling flags set the per-request
-`SamplingParams` (temperature 0 = greedy; each request gets seed
-S + index); `--kv-dtype` picks the page arena's storage dtype and
-`--host-tier-pages` puts a host-DRAM tier behind the pool.
+Everything runs on a reduced internlm2-1.8b with seeded random weights,
+on the card unless `--device` names another.  Without `--stream` the
+example runs the classic batch loop: a bursty stream of 12 mixed-length
+requests through the paged engine (lazy page allocation: pool memory
+tracks tokens in flight), then the two UniMem sharing paths end to end:
+
+  * prefix sharing — identical prompts reuse each other's prompt pages
+    through the page-hash cache (refcounts, zero copies, zero
+    recompute of the shared K/V);
+  * `engine.fork()` — branch an in-flight sequence; the child shares
+    every page and the first divergent write copies only the partial
+    last page.
+
+`--prefix-cache` turns on the PERSISTENT cross-request prefix store:
+after the batch loop the same request stream reruns against the
+retained prompt pages and the example prints the cross-request hit and
+eviction counts.  `--speculate K` decodes speculatively: a draft
+(`--draft`, default `self:1` = the target's first layer sharing its
+embeddings and head) proposes K tokens a window and the target verifies
+the window in one batched paged call; the tokens stay byte-identical to
+plain decode, and the example prints the accept rate.  The reference's
+`--devices N` (a sharded arena) waits for sharded serving (ROADMAP.md
+queue A item 12).
+
+`--stream` demonstrates the streaming API (`repro_torch.serve.api`
+`LLMServer`): `generate(prompt, SamplingParams(...))` returns a
+`GenerationStream` that yields `TokenEvent`s as the engine ticks, and
+`stream.fork(params)` branches the in-flight sequence under a second
+sampling regime over shared copy-on-write pages.  The sampling flags
+set the per-request `SamplingParams` (temperature 0 = greedy; each
+request gets seed S + index); `--kv-dtype` picks the page arena's
+storage dtype and `--host-tier-pages` puts a host-DRAM tier behind the
+pool.
 
 `--connect host:port` builds no model and runs as a NETWORK CLIENT
 against a running front (`python -m repro_torch.launch.serve --reduced
@@ -79,6 +104,107 @@ def demo_stream(cfg, sp, seed: int, device=None,
           f"{st['pool']['allocated_pages']} still allocated")
     if "host_tier" in st:
         print(f"host tier: {st['host_tier']}")
+
+
+def demo_batch(cfg, params, device, *, temperature=0.0, top_k=0, top_p=1.0,
+               seed=0, host_tier_pages=None, prefix_cache=False,
+               speculate=0, draft="self:1") -> dict:
+    """The batch loop: 12 mixed-length requests through the paged engine
+    with pool statistics (the persistent cache's rerun, speculation and
+    the host tier where asked), then the prefix-sharing and fork demos.
+    Returns the engine's stats after the loop."""
+    import numpy as np
+
+    from repro_torch.serve import Request, SamplingParams, ServingEngine
+
+    engine = ServingEngine(cfg, params, device=device, max_batch=4,
+                           max_seq=128, page_size=16,
+                           host_tier_pages=host_tier_pages,
+                           prefix_cache=prefix_cache,
+                           speculate_k=speculate,
+                           draft=draft if speculate else None)
+
+    def submit_wave(base_uid):
+        rng = np.random.default_rng(seed)
+        for uid in range(12):
+            plen = int(rng.integers(4, 80))
+            engine.submit(Request(
+                uid=base_uid + uid,
+                prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+                sampling=SamplingParams(
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=seed + uid,
+                    max_new_tokens=int(rng.integers(4, 16)))))
+        return rng
+
+    rng = submit_wave(0)
+    results = engine.run()
+    lats = sorted(r.latency_s for r in results)
+    st = engine.pool.stats()
+    mode = "greedy" if temperature == 0.0 else (
+        f"T={temperature} k={top_k} p={top_p}")
+    print(f"[{engine.layout}/arena/{mode}] served {len(results)} requests"
+          f" | p50 {lats[len(lats) // 2]:.2f}s p95 {lats[-1]:.2f}s | "
+          f"{engine.tokens_out} tokens in {engine.steps} engine steps")
+    print(f"pool: peak {st.peak_allocated_pages}/{st.num_pages} pages "
+          f"({engine.peak_kv_bytes() / 1e6:.2f} MB KV high-water vs "
+          f"{engine.max_batch * engine.max_seq // engine.page_size} pages "
+          f"a contiguous layout would pin)")
+    if speculate:
+        sp_st = engine.stats()["speculative"]
+        print(f"speculative: k={sp_st['k']} accept rate "
+              f"{sp_st['accept_rate']:.2f}, "
+              f"{sp_st['emitted_tokens'] / max(sp_st['windows'], 1):.2f} "
+              f"tokens/window over {sp_st['windows']} windows "
+              f"(draft {sp_st['draft']['spec']}) — tokens byte-identical "
+              "to plain decode")
+    if engine.host_tier is not None:
+        ht = engine.stats()["host_tier"]
+        print(f"host tier: {ht['spills']} spills / {ht['restores']} "
+              f"restores ({ht['peak_bytes'] / 1e6:.2f} MB peak resident)")
+    if prefix_cache:
+        # resubmit the SAME stream: with the persistent cache the prompt
+        # pages of wave 1 are still resident, so wave 2 adopts them
+        rng = submit_wave(100)
+        engine.run()
+        ps = engine.stats()["prefix_store"]
+        print(f"prefix store: wave-2 rerun reused {ps['reused_pages']} "
+              f"pages ({ps['cross_request_hits']} cross-request hits, "
+              f"{ps['entries']} entries resident, "
+              f"{ps['evictions']} evicted)")
+    stats = engine.stats()
+    del engine
+
+    # --- prefix sharing: same 64-token prompt, pages reused on device
+    prompt = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    eng = ServingEngine(cfg, params, device=device, max_batch=4, max_seq=128,
+                        page_size=16)
+    for uid in range(3):
+        eng.submit(Request(uid=uid, prompt=prompt.copy(), max_new_tokens=6))
+    eng.step()
+    st = eng.pool.stats()
+    print(f"prefix sharing: 3 identical prompts -> {st.allocated_pages} pages "
+          f"allocated ({st.shared_pages} shared) vs "
+          f"{3 * eng.pool.pages_for(64)} unshared")
+    res = eng.run()
+    assert all(r.tokens == res[0].tokens for r in res)
+    del eng
+
+    # --- fork: branch an in-flight sequence, COW on the last page only
+    eng = ServingEngine(cfg, params, device=device, max_batch=2, max_seq=128,
+                        page_size=16)
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=10))
+    while not any(s.generated for s in eng.slots.values()):
+        eng.step()
+    eng.fork(0, new_uid=1)
+    st = eng.pool.stats()
+    print(f"fork: parent+child share {st.shared_pages} pages; "
+          f"first divergent write copies exactly one")
+    res = eng.run()
+    assert len(res) == 2
+    assert eng.pool.stats().allocated_pages == 0
+    print("all pages returned to the pool")
+    return stats
 
 
 def demo_connect(target: str, seed: int = 0) -> dict:
@@ -151,12 +277,18 @@ def demo_connect(target: str, seed: int = 0) -> dict:
 
 def main(argv=None):
     from repro_torch.configs import get_arch
+    from repro_torch.models import registry
     from repro_torch.models.config import reduced_for_smoke
     from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--stream", action="store_true",
+                    help="demo the streaming LLMServer.generate API "
+                         "(tokens print as emitted; fork under a second "
+                         "sampling regime) instead of the batch loop")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0, help="top-k (0 = off)")
@@ -171,6 +303,18 @@ def main(argv=None):
     ap.add_argument("--host-tier-pages", type=int, default=None,
                     help="enable the host-DRAM cold tier with this many "
                          "pages")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="persistent cross-request prefix cache: prompt "
+                         "pages survive retirement and a rerun of the "
+                         "same stream adopts them instead of prefilling")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decode: draft K tokens per window, "
+                         "verify in one batched call — tokens stay "
+                         "byte-identical to plain decode")
+    ap.add_argument("--draft", default="self:1",
+                    help="draft for --speculate: 'self:N' (first N "
+                         "target layers, shared embeddings) or a "
+                         "registry arch name")
     ap.add_argument("--connect", default=None, metavar="HOST:PORT",
                     help="run as a network client against a serving "
                          "front (repro_torch.launch.serve --port N) "
@@ -181,11 +325,19 @@ def main(argv=None):
     cfg = reduced_for_smoke(get_arch("internlm2-1.8b").model, max_seq=128)
     if args.kv_dtype:
         cfg = cfg.replace(kv_dtype=args.kv_dtype)    # quantized page arena
-    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                        top_p=args.top_p, seed=args.seed)
-    demo_stream(cfg, sp, args.seed, device=args.device,
-                host_tier_pages=args.host_tier_pages)
-    return None
+    if args.stream:
+        sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, seed=args.seed)
+        demo_stream(cfg, sp, args.seed, device=args.device,
+                    host_tier_pages=args.host_tier_pages)
+        return None
+    device = resolve_device(args.device)
+    params = registry.get_family(cfg).init(0, cfg, device)
+    return demo_batch(cfg, params, device, temperature=args.temperature,
+                      top_k=args.top_k, top_p=args.top_p, seed=args.seed,
+                      host_tier_pages=args.host_tier_pages,
+                      prefix_cache=args.prefix_cache,
+                      speculate=args.speculate, draft=args.draft)
 
 
 if __name__ == "__main__":

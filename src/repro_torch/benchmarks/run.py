@@ -5,12 +5,12 @@
 
 Each module returns {"name", "ok", "rows"} and pretty-prints computed vs
 published values; the harness exits nonzero if any paper claim fails.
-Only `ws_dataflow` runs on a device (its kernel check); the analytic
-tables need none.  Of the reference harness's serving benchmarks,
-`traffic_gen` runs on its own (`python -m
-repro_torch.benchmarks.traffic_gen`: it serves a model over the network
-front); `serve_throughput` and `paged_kernel_bench` are not ported
-yet.
+The analytic tables need no device; `ws_dataflow` (its kernel check),
+and the reference harness's serving benchmarks `serve_throughput` (the
+contiguous vs paged layouts), `paged_kernel_bench` (the paged kernels
+against their plain versions) and `traffic_gen` (a two-tenant trace
+over the network front) run on `--device`.  Nothing is written to the
+working directory.
 """
 from __future__ import annotations
 
@@ -24,24 +24,38 @@ from repro_torch.benchmarks import (
     table57_projection,
     resnet50_throughput,
     ws_dataflow,
+    serve_throughput,
+    paged_kernel_bench,
+    traffic_gen,
 )
 
-MODULES = [table1_datapath, table23_diebench, table4_cost,
-           table57_projection, resnet50_throughput, ws_dataflow]
+# the paper's tables and its dataflow sweep, then the serving tools
+PAPER_MODULES = [table1_datapath, table23_diebench, table4_cost,
+                 table57_projection, resnet50_throughput, ws_dataflow]
+MODULES = PAPER_MODULES + [serve_throughput, paged_kernel_bench, traffic_gen]
+ON_DEVICE = (ws_dataflow, serve_throughput, paged_kernel_bench)
 
 
-def run_all(device=None) -> list[dict]:
-    """Every module's result, `ws_dataflow`'s kernel check on `device`
-    (CUDA unless told otherwise)."""
-    return [mod.run(device) if mod is ws_dataflow else mod.run()
-            for mod in MODULES]
+def run_all(device=None, modules=MODULES) -> list[dict]:
+    """Every module's result (of `modules`), the device-bound ones on
+    `device` (CUDA unless told otherwise); `traffic_gen` writes no JSON
+    file."""
+    out = []
+    for mod in modules:
+        if mod is traffic_gen:
+            out.append(mod.run(json_path=None, device=device))
+        elif mod in ON_DEVICE:
+            out.append(mod.run(device=device))
+        else:
+            out.append(mod.run())
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port's paper harness")
     ap.add_argument("--device", default=None,
-                    help="device of ws_dataflow's kernel check: cuda (the "
-                         "default) or cpu")
+                    help="device of the kernel check and the serving "
+                         "benchmarks: cuda (the default) or cpu")
     results = run_all(ap.parse_args(argv).device)
     for mod, res in zip(MODULES, results):
         mod.pretty(res)

@@ -10,7 +10,12 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchSpec  # noqa: F401 (re-exported)
+from repro_torch.configs.base import (  # noqa: F401 (re-exported)
+    ArchSpec,
+    ShapeSpec,
+    SHAPES,
+    train_batch_specs,
+)
 
 
 # arch id -> module, in the reference's order
@@ -37,3 +42,7 @@ def get_arch(name: str) -> ArchSpec:
     spec: ArchSpec = mod.ARCH
     spec.model.validate()
     return spec
+
+
+def all_archs() -> dict[str, ArchSpec]:
+    return {name: get_arch(name) for name in _MODULES}

@@ -47,6 +47,10 @@ def is_page_leaf(name: str) -> bool:
     return name in PAGED_KV_KEYS or name in PAGED_SCALE_KEYS
 
 
+def scale_key(kv_key: str) -> str:
+    return f"{kv_key}_scale"
+
+
 def quantize_kv(x: torch.Tensor, store_dtype: torch.dtype):
     """Quantize K or V activations to `store_dtype` with one f32 scale
     per (token, kv head) — amax over the head_dim lane axis.

@@ -49,7 +49,8 @@
 // * f32 q, or int8 / fp8 pages: the CUDA-core machine `attend_rows`
 //   (paged_common.cuh), grid (b, hkv): one block per (batch row, kv
 //   head) holds the whole query group and reads every live page of its
-//   row once.
+//   row once (K twice for bf16 pages under f32 q, which round as the
+//   plain version does).
 //
 // Left for later work: wgmma and TMA, and int8/fp8 and f32 on this design.
 #include <type_traits>

@@ -1,6 +1,6 @@
 // Shared device code of the two paged-attention kernels (decode and
 // chunk prefill) for Hopper (sm_90a): the CUDA-core machine that both
-// run for f32 q and for int8/fp8 pages.  bf16 q with bf16 pages runs
+// run for f32 q and for int8/fp8 pages (f32 q over bf16 pages included).  bf16 q with bf16 pages runs
 // tensor-core designs instead (paged_attention.cu namespace dec_tc,
 // paged_prefill.cu namespace tc, over paged_tc.cuh's tile walk).
 //
@@ -19,7 +19,8 @@
 // page once per (batch row, kv head) block with 16-byte vector loads
 // (2 x 16 B for f32, 8 B for int8/fp8) and stops at the last page any
 // of its rows can see, so no byte past the causal limit moves; the
-// whole GQA group (or chunk tile) shares every page it loads.  Known
+// whole GQA group (or chunk tile) shares every page it loads (bf16
+// pages under f32 q read K twice: see attend_rows).  Known
 // limits of this machine, left for later work: no tensor cores (scores
 // and the PV product run on CUDA cores from f32 in shared memory), small
 // tiles (rows x d <= 4096, so a chunk's rows are split over blocks that
@@ -33,6 +34,8 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -69,7 +72,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // 8 consecutive page elements -> f32, as one or two vector loads (bf16
-// pages take the tensor-core designs).  The caller guarantees
+// pages under bf16 q take the tensor-core designs; under f32 q, an f32
+// model over a bf16 arena, this machine).  The caller guarantees
 // 8-element alignment (d % 8 == 0, 16-byte base).
 template <typename T> __device__ __forceinline__ void load8(const T* p, float* o);
 
@@ -78,6 +82,14 @@ template <> __device__ __forceinline__ void load8<float>(const float* p, float* 
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+template <> __device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                                 float* o) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __bfloat162float(e[i]);
 }
 
 template <> __device__ __forceinline__ void load8<int8_t>(const int8_t* p, float* o) {
@@ -157,6 +169,14 @@ inline size_t smem_bytes(int R, int d, int page) {
 // column's first position; nullptr means column j holds positions
 // j*page ...).  Writes the normalised row (or, with `partials`, the raw
 // f32 carry acc, m, l) at flat row rid[r].
+//
+// bf16 pages under f32 q (an f32 model over a bf16 arena) take the
+// plain version's rounding, which is the reference oracle's: the
+// normalised p is rounded to bf16, the PV product sums in f32 and the
+// output is rounded to bf16 once.  The normalised p needs each row's
+// final (m, l), so the walk runs twice: the first folds (m, l) from K
+// alone, the second rounds p = exp(s - m) / l and accumulates.  Partials
+// keep p in f32 in one walk, as the plain version does.
 template <typename TQ, typename TKV>
 __device__ void attend_rows(const Smem& sm, const TQ* __restrict__ q,
                             const TKV* __restrict__ kp, const TKV* __restrict__ vp,
@@ -193,113 +213,135 @@ __device__ void attend_rows(const Smem& sm, const TQ* __restrict__ q,
   for (int j = 0; j < kAccPerThread; ++j) acc[j] = 0.f;
   __syncthreads();
 
-  for (int col0 = 0; col0 < n_cols; col0 += tp) {
-    if (tid < tp) {
-      const int col = col0 + tid;
-      int slot = -1, base = kPosPad;
-      if (col < n_cols) {
-        const int b0 = ppos_row != nullptr ? ppos_row[col] : col * page;
-        if (b0 <= max_lim) {
-          slot = bt_row[col];
-          base = b0;
-        }
-      }
-      sm.slot[tid] = slot;
-      sm.base[tid] = base;
-    }
-    __syncthreads();
-
-    // K/V tile -> shared f32, dequantising int8/fp8 with the per-token
-    // scale as it lands; skipped columns become zeros
-    const int vec_per_row = d / 8;
-    for (int vi = tid; vi < T * vec_per_row; vi += kThreads) {
-      const int tt = vi / vec_per_row;
-      const int c = (vi - tt * vec_per_row) * 8;
-      const int pj = tt / page, t = tt - pj * page;
-      const int slot = sm.slot[pj];
-      float kv[8], vv[8];
-      if (slot >= 0) {
-        const long long row = ((long long)slot * page + t) * hkv + h;
-        load8<TKV>(kp + row * d + c, kv);
-        load8<TKV>(vp + row * d + c, vv);
-        if (ks != nullptr) {
-          const float a = ks[row], bsc = vs[row];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            kv[i] *= a;
-            vv[i] *= bsc;
+  const bool norm_p = std::is_same_v<TKV, __nv_bfloat16> && !partials;
+  const int walks = norm_p ? 2 : 1;
+  for (int walk = 0; walk < walks; ++walk) {
+    // the walk that folds (m, l), and the one that accumulates acc
+    const bool fold = walk == 0;
+    const bool accumulate = walk == walks - 1;
+    for (int col0 = 0; col0 < n_cols; col0 += tp) {
+      if (tid < tp) {
+        const int col = col0 + tid;
+        int slot = -1, base = kPosPad;
+        if (col < n_cols) {
+          const int b0 = ppos_row != nullptr ? ppos_row[col] : col * page;
+          if (b0 <= max_lim) {
+            slot = bt_row[col];
+            base = b0;
           }
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) kv[i] = vv[i] = 0.f;
+        sm.slot[tid] = slot;
+        sm.base[tid] = base;
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        sm.k[tt * ldk + c + i] = kv[i];
-        sm.v[tt * d + c + i] = vv[i];
-      }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // masked scores, one thread per (row, token) pair
-    for (int pi = tid; pi < R * T; pi += kThreads) {
-      const int r = pi / T, tt = pi - r * T;
-      const int pj = tt / page;
-      const int kv_pos = sm.base[pj] + (tt - pj * page);
-      float s = kNegInf;
-      if (sm.slot[pj] >= 0 && kv_pos <= sm.lim[r]) {
-        const float* qr = sm.q + r * ldk;
-        const float* kr = sm.k + tt * ldk;
-        float dot = 0.f;
-        for (int c = 0; c < d; ++c) dot = fmaf(qr[c], kr[c], dot);
-        s = dot / sqrt_d;
-      }
-      sm.s[pi] = s;
-    }
-    __syncthreads();
-
-    // fold the tile into (m, l): one warp per row.  p is masked to 0
-    // explicitly, so a fully masked tile leaves the carry untouched
-    // (kernel.py accumulate_block)
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < R; r += kThreads / 32) {
-      float* sr = sm.s + r * T;
-      float mx = kNegInf;
-      for (int tt = lane; tt < T; tt += 32) mx = fmaxf(mx, sr[tt]);
-      mx = warp_max(mx);
-      const float m_old = sm.m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int tt = lane; tt < T; tt += 32) {
-        const float s = sr[tt];
-        const float p = s > 0.5f * kNegInf ? expf(s - m_new) : 0.f;
-        sr[tt] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sm.l[r] = sm.l[r] * corr + sum;
-        sm.m[r] = m_new;
-        sm.corr[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V, each thread owning fixed (row, column)s
+      // K (and, on the accumulating walk, V) tile -> shared f32,
+      // dequantising int8/fp8 with the per-token scale as it lands;
+      // skipped columns become zeros
+      const int vec_per_row = d / 8;
+      for (int vi = tid; vi < T * vec_per_row; vi += kThreads) {
+        const int tt = vi / vec_per_row;
+        const int c = (vi - tt * vec_per_row) * 8;
+        const int pj = tt / page, t = tt - pj * page;
+        const int slot = sm.slot[pj];
+        float kv[8], vv[8];
+        if (slot >= 0) {
+          const long long row = ((long long)slot * page + t) * hkv + h;
+          load8<TKV>(kp + row * d + c, kv);
+          if (accumulate) load8<TKV>(vp + row * d + c, vv);
+          if (ks != nullptr) {
+            const float a = ks[row], bsc = vs[row];
 #pragma unroll
-    for (int j = 0; j < kAccPerThread; ++j) {
-      const int e = tid + j * kThreads;
-      if (e < R * d) {
-        const int r = e / d, c = e - r * d;
-        const float* pr = sm.s + r * T;
-        float a = acc[j] * sm.corr[r];
-        for (int tt = 0; tt < T; ++tt) a = fmaf(pr[tt], sm.v[tt * d + c], a);
-        acc[j] = a;
+            for (int i = 0; i < 8; ++i) {
+              kv[i] *= a;
+              vv[i] *= bsc;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kv[i] = vv[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          sm.k[tt * ldk + c + i] = kv[i];
+          if (accumulate) sm.v[tt * d + c + i] = vv[i];
+        }
       }
+      __syncthreads();
+
+      // masked scores, one thread per (row, token) pair
+      for (int pi = tid; pi < R * T; pi += kThreads) {
+        const int r = pi / T, tt = pi - r * T;
+        const int pj = tt / page;
+        const int kv_pos = sm.base[pj] + (tt - pj * page);
+        float s = kNegInf;
+        if (sm.slot[pj] >= 0 && kv_pos <= sm.lim[r]) {
+          const float* qr = sm.q + r * ldk;
+          const float* kr = sm.k + tt * ldk;
+          float dot = 0.f;
+          for (int c = 0; c < d; ++c) dot = fmaf(qr[c], kr[c], dot);
+          s = dot / sqrt_d;
+        }
+        sm.s[pi] = s;
+      }
+      __syncthreads();
+
+      // fold the tile into (m, l): one warp per row.  p is masked to 0
+      // explicitly, so a fully masked tile leaves the carry untouched
+      // (kernel.py accumulate_block).  The second walk of a two-walk row
+      // only turns the scores into its rounded normalised p.
+      const int warp = tid / 32, lane = tid % 32;
+      for (int r = warp; r < R; r += kThreads / 32) {
+        float* sr = sm.s + r * T;
+        if (!fold) {
+          const float m = sm.m[r], l = sm.l[r];
+          for (int tt = lane; tt < T; tt += 32) {
+            const float s = sr[tt];
+            sr[tt] = s > 0.5f * kNegInf
+                         ? __bfloat162float(__float2bfloat16(expf(s - m) / l))
+                         : 0.f;
+          }
+          if (lane == 0) sm.corr[r] = 1.f;
+          continue;
+        }
+        float mx = kNegInf;
+        for (int tt = lane; tt < T; tt += 32) mx = fmaxf(mx, sr[tt]);
+        mx = warp_max(mx);
+        const float m_old = sm.m[r];
+        const float m_new = fmaxf(m_old, mx);
+        float sum = 0.f;
+        for (int tt = lane; tt < T; tt += 32) {
+          const float s = sr[tt];
+          const float p = s > 0.5f * kNegInf ? expf(s - m_new) : 0.f;
+          sr[tt] = p;
+          sum += p;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const float corr = expf(m_old - m_new);
+          sm.l[r] = sm.l[r] * corr + sum;
+          sm.m[r] = m_new;
+          sm.corr[r] = corr;
+        }
+      }
+      __syncthreads();
+
+      // acc = acc * corr + p @ V, each thread owning fixed (row, column)s
+      if (accumulate) {
+#pragma unroll
+        for (int j = 0; j < kAccPerThread; ++j) {
+          const int e = tid + j * kThreads;
+          if (e < R * d) {
+            const int r = e / d, c = e - r * d;
+            const float* pr = sm.s + r * T;
+            float a = acc[j] * sm.corr[r];
+            for (int tt = 0; tt < T; ++tt) a = fmaf(pr[tt], sm.v[tt * d + c], a);
+            acc[j] = a;
+          }
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
 #pragma unroll
@@ -313,8 +355,10 @@ __device__ void attend_rows(const Smem& sm, const TQ* __restrict__ q,
         if (partials) {
           acc_out[o] = acc[j];
         } else {
-          // zero-l rows (fully masked) emit exact zeros
-          out[o] = from_f32<TQ>(acc[j] / fmaxf(sm.l[r], 1e-30f));
+          // zero-l rows (fully masked) emit exact zeros; a two-walk
+          // row's acc is already normalised, and rounds to bf16 once
+          out[o] = norm_p ? from_f32<TQ>(__bfloat162float(__float2bfloat16(acc[j])))
+                          : from_f32<TQ>(acc[j] / fmaxf(sm.l[r], 1e-30f));
         }
       }
     }
@@ -333,6 +377,7 @@ template <typename Fn>
 cudaError_t dispatch_types(int q_dtype, int kv_dtype, Fn&& fn) {
   if (q_dtype == kF32) {
     if (kv_dtype == kF32) return fn.template operator()<float, float>();
+    if (kv_dtype == kBF16) return fn.template operator()<float, __nv_bfloat16>();
     if (kv_dtype == kI8) return fn.template operator()<float, int8_t>();
     if (kv_dtype == kFP8) return fn.template operator()<float, __nv_fp8_e4m3>();
   } else if (q_dtype == kBF16) {

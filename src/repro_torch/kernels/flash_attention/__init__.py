@@ -1,2 +1,3 @@
 """Causal / non-causal GQA flash attention (kernel wrapper and plain
 version): ops.py."""
+from repro_torch.kernels.flash_attention.ops import flash_attention

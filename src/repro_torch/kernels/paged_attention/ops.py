@@ -41,7 +41,11 @@ The kernel has two designs, fixed by the (q, pages) dtype pair
   and raises on others.
 * f32 q, or int8 / fp8 pages: the CUDA-core machine shared with paged
   prefill (f32 scores and p, from shared memory, one block per batch
-  row and kv head).  It keeps p in f32 for the PV product.
+  row and kv head).  It keeps p in f32 for the PV product, except with
+  bf16 pages under f32 q (an f32 model over a bf16 arena): there it
+  takes the plain version's rounding (the normalised p and the output
+  rounded to bf16), walking the table twice, once for each row's
+  (m, l) and once to accumulate.
 
 In bf16 each design thus differs from the plain version by bf16
 rounding of p or of the output; `kernels/tolerance.py` states the
@@ -262,8 +266,11 @@ def check_kernel_inputs(q, k_pages, v_pages, index_tensors, k_scale, v_scale):
     if v_pages.dtype != kv_dtype:
         raise ValueError("k_pages and v_pages differ in dtype")
     quant = kv_dtype in QUANT_DTYPES
-    if not quant and kv_dtype != q.dtype:
-        raise ValueError(f"pages {kv_dtype} must match q {q.dtype} or be "
+    # an f32 model may store its pages in bf16 (`kv_dtype="bf16"`)
+    if not quant and kv_dtype != q.dtype and not (
+            q.dtype == torch.float32 and kv_dtype == torch.bfloat16):
+        raise ValueError(f"pages {kv_dtype} must match q {q.dtype}, be "
+                         f"bfloat16 under float32 q, or be "
                          f"int8/float8_e4m3fn")
     if quant != (k_scale is not None):
         raise ValueError("k_scale/v_scale go with int8/fp8 pages, and only "

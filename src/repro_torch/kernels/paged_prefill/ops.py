@@ -29,7 +29,9 @@ The kernel has two designs, fixed by the (q, pages) dtype pair
 * f32 q, or int8 / fp8 pages: the CUDA-core machine shared with paged
   decode (f32 scores and p, from shared memory).  f32 stays off the
   tensor cores because there it would be TF32, which the port never
-  uses; quantized pages are dequantised to f32 as they land.
+  uses; quantized pages are dequantised to f32 as they land.  bf16
+  pages under f32 q take the plain version's rounding in two walks
+  (`kernels/paged_attention/ops.py`).
 """
 from __future__ import annotations
 

@@ -58,6 +58,11 @@ def has_decode(cfg: ModelConfig) -> bool:
     return getattr(get_family(cfg), "decode_step", None) is not None
 
 
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """Sub-quadratic families run long_500k; pure full-attention skip it."""
+    return cfg.family in ("ssm", "hybrid")
+
+
 # --------------------------------------------- speculative decode drafts
 #
 # A draft proposes k tokens from its own contiguous cache and the target

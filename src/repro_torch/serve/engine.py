@@ -326,8 +326,8 @@ class ServingEngine:
                                     device=self.device)
             self.cache_ax = registry.get_family(cfg).cache_axes()
             self.pool = UniMemPool(pool_pages, page_size)
-            self.prefill_fn, self.decode_fn = make_serve_fns(cfg,
-                                                             self.device)
+            self.prefill_fn, self.decode_fn, _ = make_serve_fns(
+                cfg, self.device)
 
         # speculative decode: a draft proposes `speculate_k`-token windows
         # and ONE batched paged-prefill verify call judges them.

@@ -19,12 +19,19 @@ Host-tier traffic moves whole pages between the arena and host memory:
 spill), `prefetch` starts the way back on a side CUDA stream, and
 `write_pages` scatters them into fresh pages (the restore).
 
+`paged_write`, `gather_pages` and `paged_decode_attention` are the
+reference's multi-layer tool and test entry points over (L, P, page,
+hkv, hd) arenas: one token's K/V written through a block table, the
+pages gathered back into contiguous rows, and one layer's decode
+attention through the plain version of the paged kernel.
+
 The contiguous layout (`layout="contiguous"`) keeps one (max_batch,
 max_seq) cache per family instead (`init_cache`); `clear_slot` and
 `slot_view` address one batch row of it through each leaf's batch axis,
 found in the family's `cache_axes()`.  Admission prefills through the
 view of a cleared row, which leaves the cache as the reference's
-`insert_slot` of a fresh batch=1 prefill would.
+`insert_slot` of a fresh batch=1 prefill would; `insert_slot` itself
+writes a separate batch=1 cache into a row.
 """
 from __future__ import annotations
 
@@ -34,10 +41,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.unimem import SequencePageTable, UniMemPool, is_page_leaf
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention_plain
 from repro_torch.models.config import ModelConfig
 
 # slot axis of the per-slot state leaves ((G, P, max_batch, ...))
 STATE_SLOT_AXIS = 2
+# the masked score of the reference's kv_cache (its attention oracles')
+NEG_INF = -1e30
 
 
 @dataclass
@@ -201,6 +211,55 @@ class PagedKVArena:
         return True
 
 
+# ----------------------------------------- multi-layer tool entry points
+
+def paged_write(k_arena, v_arena, k_new, v_new, block_table, positions):
+    """Write one token's K/V for every sequence into its page, in place.
+
+    k_arena/v_arena: (L, P, page, hkv, hd); k_new/v_new: (L, b, hkv, hd);
+    block_table: (b, max_pages) int; positions: (b,) token index being
+    written.  Returns the arenas.  Rows are written in batch order, so a
+    page two rows share ends with the last row's token, as the
+    reference's scan leaves it."""
+    page_size = k_arena.shape[2]
+    positions = torch.as_tensor(positions, device=k_arena.device).long()
+    bt = torch.as_tensor(block_table, device=k_arena.device).long()
+    phys = bt.gather(1, (positions // page_size)[:, None])[:, 0]
+    offset = positions % page_size
+    for arena, new in ((k_arena, k_new), (v_arena, v_new)):
+        new = torch.as_tensor(new, device=arena.device)
+        for i in range(new.shape[1]):
+            arena[:, phys[i], offset[i]] = new[:, i].to(arena.dtype)
+    return k_arena, v_arena
+
+
+def gather_pages(arena, block_table):
+    """arena: (L, P, page, hkv, hd); block_table: (b, max_pages)
+    -> contiguous copy (L, b, max_pages*page, hkv, hd)."""
+    L, _, page, hkv, hd = arena.shape
+    b, mp = block_table.shape
+    g = arena[:, torch.as_tensor(block_table, device=arena.device).long()]
+    return g.reshape(L, b, mp * page, hkv, hd)
+
+
+def paged_decode_attention(q, k_arena, v_arena, block_table, positions,
+                           layer: int):
+    """Single-token paged attention for one layer of a multi-layer arena.
+
+    q: (b, hq, hd); arenas (L, P, page, hkv, hd); positions: (b,) index
+    of the newest token (inclusive).  Returns (b, hq*hd).  The plain
+    version of the paged decode kernel, with the reference oracle's
+    score rounding (serving runs the kernel through the model's layers;
+    this is the tool and test entry point)."""
+    b, hq, hd = q.shape
+    dev = k_arena.device
+    o = paged_decode_attention_plain(
+        q, k_arena[layer], v_arena[layer],
+        torch.as_tensor(block_table, device=dev).long(),
+        torch.as_tensor(positions, device=dev), round_scores=True)
+    return o.reshape(b, hq * hd)
+
+
 # ------------------------------------------------------- contiguous slots
 
 def batch_axis_index(axes: tuple) -> int:
@@ -213,6 +272,17 @@ def clear_slot(cache: dict, slot: int, cache_axes: dict) -> dict:
     attention); returns the cache."""
     for name, a in cache.items():
         a.select(batch_axis_index(tuple(cache_axes[name])), slot).zero_()
+    return cache
+
+
+def insert_slot(cache: dict, slot_cache: dict, slot: int,
+                cache_axes: dict) -> dict:
+    """Write a batch=1 cache into row `slot` of a batched cache, in
+    place (each leaf cast to the cache's dtype); returns the cache."""
+    for name, a in cache.items():
+        i = batch_axis_index(tuple(cache_axes[name]))
+        a.select(i, slot).copy_(
+            torch.as_tensor(slot_cache[name]).squeeze(i).to(a.dtype))
     return cache
 
 

@@ -8,6 +8,8 @@ draws the same token in both packages:
 
 * `key(seed)` for a uint32 seed is the threefry key (0, seed);
 * `fold_in(key, data)` is `threefry2x32(key, (0, data))`;
+* `split(key, num)`: key i is `threefry2x32(key, (hi(i), lo(i)))`, both
+  words (the partitionable split);
 * `random_bits(key, n)`: draw i is `x0 ^ x1` of
   `threefry2x32(key, (hi(i), lo(i)))`, the 64-bit index i split into
   two 32-bit halves (the partitionable counter layout);
@@ -55,6 +57,20 @@ def fold_in(seed, data):
     int64 tensors: the (b,) pair of key words."""
     return threefry2x32(torch.zeros_like(seed), seed & MASK32,
                         torch.zeros_like(data), data & MASK32)
+
+
+def key(seed: int, device=None):
+    """`jax.random.key_data(jax.random.key(seed))` for a uint32 seed: the
+    (2,) key words (0, seed) as an int64 tensor."""
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def split(k0, k1, num: int = 2):
+    """`jax.random.split` of the keys (k0, k1) into `num`: the new keys'
+    words (y0, y1), each shaped (*k0.shape, num)."""
+    idx = torch.arange(num, dtype=torch.int64, device=k0.device)
+    return threefry2x32(k0[..., None], k1[..., None], idx >> 32,
+                        idx & MASK32)
 
 
 def random_bits(k0, k1, n: int):

@@ -270,3 +270,9 @@ def verify_tokens(logits, draft, state: SamplingState, knobs=None):
     matches = (draft == target[:, :r - 1]).to(torch.int32)
     accept = torch.cumprod(matches, dim=1).sum(dim=1).to(torch.int32)
     return target, accept
+
+
+# standalone entry for host code that holds logits already (the
+# reference's `jax.jit(sample_tokens)`): the draw runs on the logits'
+# device, so the host never argmaxes
+sample = sample_tokens

@@ -6,9 +6,10 @@ arena (`make_paged_verify_fn`).
 Port of `repro.serve.serve_step`.  The reference jits the closures and
 donates the cache so XLA updates it in place; here the closures run
 eagerly under `torch.inference_mode()` and the family hooks update the
-cache or arena tensors in place.  The reference's `decode_many` (a
-fixed-schedule scan the engine does not use) is not ported yet
-(ROADMAP.md queue A item 11).
+cache or arena tensors in place.  `decode_many` (a fixed-schedule loop
+the engine does not use, the reference's one-dispatch scan) keeps its
+tokens and key on the device for the whole loop: reading the tokens it
+returns is its one synchronisation.
 
 Per call, the engine's host-built numpy tables (tokens, positions or
 start/chunk_len, block table), the vlm's f32 patch rows, and the
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
+from repro_torch.serve import prng
 from repro_torch.serve.sampling import (SamplingState, device_knobs,
                                         expand_state, host_knobs,
                                         sample_tokens, verify_tokens)
@@ -57,7 +59,22 @@ def _host_batch(batch: dict) -> tuple[list[str], list[np.ndarray]]:
     return keys, [batch[k] for k in keys]
 
 
-def make_serve_fns(cfg: ModelConfig, device):
+def sample_logits(logits, key, temperature: float):
+    """logits: (b, V) -> tokens (b,) int32.  The reference's legacy
+    single-temperature sampler, kept for `decode_many` (the engine
+    samples per request through `SamplingState`): the argmax at
+    temperature 0, else `jax.random.categorical(key, logits /
+    temperature)` over the whole (b, V) plane, one key of (2,) words
+    (`prng.key`), bit for bit in its uniforms."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits.float() / temperature
+    b, v = scaled.shape
+    noise = prng.gumbel(key[0:1], key[1:2], b * v).reshape(b, v)
+    return torch.argmax(noise + scaled, dim=-1).to(torch.int32)
+
+
+def make_serve_fns(cfg: ModelConfig, device, *, temperature: float = 0.0):
     """Closures over the family's contiguous-cache hooks.
 
     prefill(params, batch, cache) -> (cache, logits (b, vocab))
@@ -67,6 +84,13 @@ def make_serve_fns(cfg: ModelConfig, device):
         from the logits on the device.
     decode(params, cache, tokens, sampling) -> (cache, next_tokens (b,))
         Every row advances; only int32 tokens leave the step.
+    decode_many(params, cache, tokens, key, num_steps)
+        -> (cache, tokens (b, num_steps), key)
+        `num_steps` decode steps from `tokens` ((b,) int32, host or
+        device), each sampled by `sample_logits` at `temperature` with
+        a subkey split from `key` ((2,) words, `prng.key`) as the
+        reference's scan body splits it.  The tokens and the key stay
+        on the device between steps: nothing in the loop reads them.
 
     The returned tokens are an int32 device tensor."""
     fam = registry.get_family(cfg)
@@ -84,7 +108,21 @@ def make_serve_fns(cfg: ModelConfig, device):
         cache, logits = fam.decode_step(params, cfg, cache, tok)
         return cache, sample_tokens(logits, sampling, device_knobs(knobs))
 
-    return prefill, decode
+    @torch.inference_mode()
+    def decode_many(params, cache, tokens, key, num_steps: int):
+        tok = torch.as_tensor(tokens).to(device, torch.int32)
+        k0, k1 = torch.as_tensor(key).to(device, torch.int64)
+        out = []
+        for _ in range(num_steps):
+            cache, logits = fam.decode_step(params, cfg, cache, tok)
+            y0, y1 = prng.split(k0, k1)          # key, sub = split(key)
+            k0, k1 = y0[0], y1[0]
+            tok = sample_logits(logits, torch.stack([y0[1], y1[1]]),
+                                temperature)
+            out.append(tok)
+        return cache, torch.stack(out, dim=1), torch.stack([k0, k1])
+
+    return prefill, decode, decode_many
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device):

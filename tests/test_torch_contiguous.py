@@ -29,7 +29,8 @@ from repro_torch.kernels.flash_attention import ops as fk
 from repro_torch.models import layers as PL
 from repro_torch.models import registry
 from repro_torch.serve import kv_cache as PKV
-from torch_port_helpers import (np_tree, params_to_numpy, port_cfg,
+from torch_port_helpers import (one_torch_thread,  # noqa: F401
+                                np_tree, params_to_numpy, port_cfg,
                                 port_params)
 
 F32 = dict(atol=1e-5, rtol=1e-5)

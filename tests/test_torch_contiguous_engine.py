@@ -26,6 +26,7 @@ from repro.serve.sampling import SamplingParams as JaxSP
 from repro_torch.serve.engine import FinishEvent, Request, ServingEngine
 from repro_torch.serve.sampling import SamplingParams
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 ROOT = Path(__file__).resolve().parents[1]

@@ -820,7 +820,7 @@ def test_the_serving_example_streams_and_connects(dense):
     spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    assert mod.main(["--device", "cpu", "--temperature", "0.8",
+    assert mod.main(["--device", "cpu", "--stream", "--temperature", "0.8",
                      "--host-tier-pages", "8"]) is None
     _, pp = dense
     srv = FrontendServer(port_cfg(CFG), pp, device="cpu", **FRONT_KW,

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of `src/repro_torch` (nor
-`chip_smoke.py`) imports `jax` or the reference package `repro`, and
-importing the serving API or the paper harness loads no JAX."""
+`chip_smoke.py`, nor the port's examples `examples/*_torch.py`) imports
+`jax` or the reference package `repro`, and importing the serving API,
+the serving tools or the paper harness loads no JAX."""
 from __future__ import annotations
 
 import ast
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -47,7 +48,10 @@ def _assert_importing_loads_no_jax(modules: str):
 def test_importing_the_serving_api_loads_no_jax():
     _assert_importing_loads_no_jax(
         "repro_torch.serve.api, repro_torch.launch.serve, "
-        "repro_torch.serve.frontend, repro_torch.benchmarks.traffic_gen")
+        "repro_torch.serve.frontend, repro_torch.benchmarks.traffic_gen, "
+        "repro_torch.benchmarks.serve_throughput, "
+        "repro_torch.benchmarks.paged_kernel_bench, "
+        "repro_torch.benchmarks.quant_margin")
 
 
 def test_importing_the_paper_harness_loads_no_jax():

@@ -26,7 +26,8 @@ from repro_torch.kernels.grouped_matmul import ops as gm
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_prefill import ops as pp
 from repro_torch.kernels.ssd_scan import ops as ssd
-from repro_torch.kernels.tolerance import TOLERANCE, worst_ratio
+from repro_torch.kernels.tolerance import (MAX_DIFFERENT_SHARE, TOLERANCE,
+                                          different_share, worst_ratio)
 
 QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
@@ -95,6 +96,63 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, quant,
     got = pa.paged_decode_attention(*args, **kw)
     assert pa.launches == before + 1
     _assert_close(got, pa.paged_decode_attention_plain(*args, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [0, 1, 64, "partials"])
+def test_f32_queries_over_bf16_pages_match_plain_on_card(cuda_device, c):
+    """An f32 model over a `kv_dtype="bf16"` arena: the CUDA-core design
+    with bf16 pages (decode for c 0, a prefill chunk of c rows, or
+    decode's partials over a table with holes).  The normalized output
+    rounds as the plain version does, so it is held at bf16's bound and
+    to at most `MAX_DIFFERENT_SHARE` of its elements differing; the
+    partials keep p in f32 in both and are held at f32's bound."""
+    case = _case(cuda_device, torch.bfloat16, None)
+    kv = (case["k"], case["v"], case["bt"])
+    decode = c in (0, "partials")
+    before = (pa.launches, pp.launches)
+    if decode:
+        q = torch.randn(4, case["hq"], case["d"], device=cuda_device)
+        args = (q, *kv, case["positions"])
+        kw = (dict(page_positions=case["holes"], partials=True)
+              if c == "partials" else {})
+        got = pa.paged_decode_attention(*args, **kw)
+        want = pa.paged_decode_attention_plain(*args, **kw)
+    else:
+        q = torch.randn(4, c, case["hq"], case["d"], device=cuda_device)
+        args = (q, *kv, *_chunk(case, c, cuda_device))
+        got = pp.paged_prefill_attention(*args)
+        want = pp.paged_prefill_attention_plain(*args)
+    assert (pa.launches, pp.launches) == (before[0] + decode,
+                                          before[1] + (not decode))
+    if c == "partials":
+        _assert_close(got, want, torch.float32)
+        return
+    assert got.dtype == torch.float32
+    _assert_close(got, want, torch.bfloat16)
+    assert different_share(got, want) <= MAX_DIFFERENT_SHARE
+
+
+@pytest.mark.parametrize("c", [0, 64])
+def test_different_share_rejects_bf16_scores(c):
+    """The rule that holds the f32-query / bf16-page kernels: the plain
+    version with q rounded to bf16 before q.k (what a kernel with a bf16
+    score product would compute) differs from the plain version in far
+    more than `MAX_DIFFERENT_SHARE` of the elements."""
+    case = _case(torch.device("cpu"), torch.bfloat16, None)
+    kv = (case["k"], case["v"], case["bt"])
+    gen = torch.Generator().manual_seed(c)
+    if c == 0:
+        q = torch.randn(4, case["hq"], case["d"], generator=gen)
+        plain, rest = pa.paged_decode_attention_plain, (case["positions"],)
+    else:
+        q = torch.randn(4, c, case["hq"], case["d"], generator=gen)
+        plain = pp.paged_prefill_attention_plain
+        rest = _chunk(case, c, torch.device("cpu"))
+    want = plain(q, *kv, *rest)
+    assert different_share(want, want) == 0.0
+    bf16_scores = plain(q.to(torch.bfloat16).float(), *kv, *rest)
+    assert different_share(bf16_scores, want) > 10 * MAX_DIFFERENT_SHARE
 
 
 @pytest.mark.cuda

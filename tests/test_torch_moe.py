@@ -26,7 +26,8 @@ from repro_torch.kernels.grouped_matmul import ops as gm
 from repro_torch.models import moe as PM
 from repro_torch.serve.engine import Request, ServingEngine
 from test_torch_serve import _drive, _prompts, _scenario
-from torch_port_helpers import (jax_family_params, np_tree, params_to_numpy,
+from torch_port_helpers import (one_torch_thread,  # noqa: F401
+                                jax_family_params, np_tree, params_to_numpy,
                                 port_cfg)
 
 F32 = dict(atol=1e-5, rtol=1e-5)

@@ -23,6 +23,8 @@ from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_prefill import ops as pp
 from repro_torch.kernels.tolerance import TOLERANCE, worst_ratio
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 F32 = dict(atol=1e-5, rtol=1e-5)
 QUANT = {"int8": (torch.int8, jnp.int8),
          "fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn)}

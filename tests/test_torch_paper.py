@@ -31,6 +31,8 @@ from repro_torch.core import projection as PPJ
 from repro_torch.core import simulator as PSIM
 from repro_torch.models import resnet as PR
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_BENCHMARKS = {m.__name__.rsplit(".", 1)[1]: m for m in (
     table1_datapath, table23_diebench, table4_cost, table57_projection,

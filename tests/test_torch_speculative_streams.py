@@ -22,6 +22,7 @@ from repro.serve.sampling import SamplingParams as JaxSP
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.sampling import SamplingParams
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

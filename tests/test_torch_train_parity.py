@@ -32,6 +32,7 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.utils.tree import (tree_flatten_with_names, tree_leaves,
                                     tree_map)
 from torch_port_helpers import port_cfg, port_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 CFG = TINY["dense"]
 # bf16 at TINY: the loss within 1 %, each gradient leaf within 3 % in
