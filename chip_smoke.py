@@ -225,6 +225,29 @@ exit at the first failure):
    64 x 24 times, a sampled run (T 0.8, key 0) repeated identically
    and leaving the greedy tokens; its decode tokens/s beside the
    engine's decode ticks' (each from the first token on).
+7d. serve_sharded: near-memory sharded serving, the UniMem arena cut
+   into SHARDS banks (all on this card as separate allocations; one a
+   card on a machine with as many).  First the kernel gate at
+   internlm2-1.8b's width (hq 16, hkv 8, d 128, page 16, batch 8, a
+   GLOBAL table over 4 banks with rotations 0-3 and one idle row): the
+   decode, prefill c 64 and verify c 5 walks run per bank in partials
+   mode on the compacted tables and merge through the combine kernel
+   (`layers.run_paged_*_attention` under `mem_axis`), held per element
+   against the plain version over the whole global table in bf16 and
+   f32; each bank's partials-mode call at the compacted width, the
+   combine alone and the whole banked layer are timed beside the
+   single-arena kernel.  Then internlm2-1.8b at full width and depth
+   (paged, page 16, max_batch 8, max_seq 1024) on `tools_stream`'s 8
+   prompts of 16-511 tokens, 32 new: bf16 single arena and 4 banks in
+   turns (tokens/s, the share of equal tokens printed; each bank's
+   page bytes equal, at least 3 banks used, the pool drained, one
+   prefill width, row 1, row 2 and the combine launched decode x
+   layers x n, (prefill + verify) x layers x n and (decode + prefill +
+   verify) x layers times), f32 (the 4-bank streams equal the single
+   arena's), and an f32 run on a `SHARD_TIER` pool with a host tier:
+   spills and restores, every restored sequence's pages on its
+   rotation's banks, streams equal to the single arena's on the same
+   pool.
 8. spec_parity: a 2-layer internlm2-width f32 model: speculative
    streams (greedy and sampled rows, k 1 and 4, drafts `self:1` and
    `mamba2-130m@reduced`) equal the plain engine's on the card.
@@ -2661,6 +2684,421 @@ def phase_serve_tools(torch, dev, card: str, dense) -> dict:
     return tools_launches
 
 
+# -------------------------------------------- phase 7d: serve_sharded
+
+SHARDS = 4                  # banks of the sharded arena
+# the tier run's pool: small enough that preemption spills, shared by
+# the single arena it is compared with
+SHARD_TIER = dict(pool_pages=64, high_watermark=0.75, host_tier_pages=512)
+
+
+def shard_bench(torch, dev, n=SHARDS, b=8, mp=64, page=16, hkv=8, d=128):
+    """The kernel gate's banks at internlm2's width: n banks of pps + 1
+    slots (each bank's null slot last, zeros) and a GLOBAL table over
+    them (pool page g = bank g // pps, slot g % pps; the null id
+    n * pps).  Row i's rotation is i % n: its logical page j comes from
+    bank (rot + j) % n up to the page of its position; row 1 is idle
+    (all null, position 0)."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    pps = b * mp // n
+    positions = [1023, 0, 511, 17, 700, 64, 255, 999]
+    idle = 1
+    bt = torch.full((b, mp), n * pps, dtype=torch.int32)
+    free = [torch.randperm(pps, generator=g).tolist() for _ in range(n)]
+    for i in range(b):
+        if i == idle:
+            continue
+        for j in range(positions[i] // page + 1):
+            s = (i % n + j) % n
+            bt[i, j] = s * pps + free[s].pop()
+    banks = {}
+    for name in ("k", "v"):
+        x = torch.randn((n, pps + 1, page, hkv, d), generator=g)
+        x[:, pps] = 0
+        banks[name] = x
+    return dict(n=n, b=b, mp=mp, page=page, hkv=hkv, d=d, pps=pps, idle=idle,
+                bt=bt.to(dev), positions=torch.tensor(
+                    positions, dtype=torch.int32, device=dev),
+                banks={k: v.to(dev) for k, v in banks.items()})
+
+
+# the sharded path's kernels by their names in a profiler trace
+BANK_KERNELS = {"repro::dec_tc::decode_tc_kernel": "paged_decode_attention",
+                "paged_decode_kernel": "paged_decode_attention",
+                "prefill_tc_kernel": "paged_prefill_attention",
+                "paged_prefill_kernel": "paged_prefill_attention",
+                "combine_kernel": "combine_splits"}
+
+
+def device_split(torch, fn, calls: int = 20) -> dict:
+    """fn() `calls` times back to back under torch.profiler, per call:
+    the host's seconds to the card's finish, the card's busy time, and
+    each of the path's kernels' device time and launches
+    (`BANK_KERNELS`; "other": PyTorch's own, the stacks and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, busy = {}, 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        name = next((v for k, v in BANK_KERNELS.items() if k in e.key),
+                    "other")
+        got = kernels.setdefault(name, {"ms": 0.0, "launches": 0.0})
+        got["ms"] += e.self_device_time_total / 1e3 / calls
+        got["launches"] += e.count / calls
+        busy += e.self_device_time_total / 1e3 / calls
+    return {"wall_ms": 1e3 * wall / calls, "busy_ms": busy,
+            "kernels": kernels}
+
+
+def shard_kernel_gate(torch, dev, card: str) -> dict:
+    """Rows 1 and 2 in partials mode on each bank's compacted walk,
+    merged by the combine kernel, against the plain version over the
+    whole global table (decode, prefill c 64, verify c 5; bf16 and f32;
+    per element, `tolerance.py`), then timings at bf16: each bank's
+    partials call at the compacted width ceil(max_pages / n), the
+    combine kernel alone, the whole banked layer and the single-arena
+    kernel over the same global table."""
+    from repro_torch.kernels.decode_attention import ops as dk
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_prefill import ops as pp
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import ModelConfig
+
+    sb = shard_bench(torch, dev)
+    n, b, page, hkv, d, pps = (sb[k] for k in ("n", "b", "page", "hkv", "d",
+                                               "pps"))
+    hq = 16
+    bt, pos = sb["bt"], sb["positions"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = ModelConfig(name="gate", family="dense", num_layers=1,
+                      d_model=hq * d, vocab_size=8, num_heads=hq,
+                      num_kv_heads=hkv, head_dim=d, mem_axis="mem")
+    gen = torch.Generator(device="cpu").manual_seed(2)
+
+    def q_of(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dev).to(dtype)
+
+    def flat(x):
+        """The banks as one arena (the plain version's), null page last."""
+        return torch.cat([x[:, :pps].reshape(n * pps, page, hkv, d),
+                          torch.zeros((1, page, hkv, d), dtype=x.dtype,
+                                      device=x.device)])
+
+    # prefill rows end at each row's position; the idle row and, at
+    # c 5, the rows that do not speculate carry 0
+    clen_for = {64: [64, 0, 64, 18, 33, 1, 64, 40],
+                5: [5, 0, 5, 5, 0, 5, 5, 5]}
+    rows, keep = [], {}
+    for qdt in (bf16, f32):
+        kb = tuple(sb["banks"]["k"].to(qdt))
+        vb = tuple(sb["banks"]["v"].to(qdt))
+        kf, vf = flat(sb["banks"]["k"].to(qdt)), flat(sb["banks"]["v"].to(qdt))
+        q = q_of((b, hq, d), qdt)
+        got = L.run_paged_decode_attention(cfg, q, kb, vb, bt, pos)
+        want = pa.paged_decode_attention_plain(q, kf, vf, bt, pos)
+        torch.cuda.synchronize()
+        err = check(f"sharded decode {qdt}, {n} banks", got,
+                    want.reshape(b, hq * d), qdt, rows)
+        if not bool(torch.isfinite(got).all()) or bool(got[sb["idle"]].any()):
+            fail("serve_sharded: the idle row's merge is not finite zeros")
+        keep[("decode", qdt)] = dict(q=q, kb=kb, vb=vb, kf=kf, vf=vf, err=err)
+        for c, clen in clen_for.items():
+            cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+            st = torch.clamp(pos + 1 - cl, min=0).to(torch.int32)
+            qc = q_of((b, c, hq, d), qdt)
+            got = L.run_paged_prefill_attention(cfg, qc, kb, vb, bt, st, cl)
+            want = pp.paged_prefill_attention_plain(qc, kf, vf, bt, st, cl)
+            torch.cuda.synchronize()
+            err = check(f"sharded prefill c={c} {qdt}, {n} banks", got,
+                        want.reshape(b, c, hq * d), qdt, rows)
+            keep[("prefill", c, qdt)] = dict(q=qc, start=st, clen=cl,
+                                             err=err)
+
+    # ------------------------------------------- bf16 timings, bank 0
+    dec = keep[("decode", bf16)]
+    tables = L.shard_tables(cfg, bt, dec["kb"])
+    lbt, ppos = tables.walks[0], tables.positions[0]
+    elt = 2
+
+    # bank 0's resident tokens each row sees, each read once
+    tok = sum(min(page, int(pos[i]) - p + 1)
+              for i in range(b)
+              for p in ppos[i][ppos[i] < pa.POS_PAD].tolist()
+              if p <= int(pos[i]))
+    kv_bytes = 2 * tok * hkv * d * elt
+    m_l_acc = b * hq * (d + 2) * 4
+    part_args = (dec["q"], dec["kb"][0], dec["vb"][0], lbt, pos)
+    part_kw = dict(page_positions=ppos, partials=True)
+    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    flush = flush_buf.zero_
+    timings = {}
+    timings["decode partials, bank 0"] = dict(
+        ms=time_ms(lambda: pa.paged_decode_attention(*part_args, **part_kw),
+                   flush),
+        plain_ms=time_ms(lambda: pa.paged_decode_attention_plain(
+            *part_args, **part_kw), flush),
+        library_ms=None, max_abs_err=dec["err"],
+        bytes=kv_bytes + b * hq * d * elt + m_l_acc
+        + 4 * int(((ppos < pa.POS_PAD).sum())),
+        ops=4 * hq * d * tok, columns=lbt.shape[1])
+    pre = keep[("prefill", 64, bf16)]
+    pre_args = (pre["q"], dec["kb"][0], dec["vb"][0], lbt, pre["start"],
+                pre["clen"])
+    vis = 0
+    for i in range(b):
+        for p in ppos[i][ppos[i] < pa.POS_PAD].tolist():
+            for r in range(int(pre["clen"][i])):
+                qpos = int(pre["start"][i]) + r
+                vis += max(0, min(page, qpos - p + 1))
+    timings["prefill c=64 partials, bank 0"] = dict(
+        ms=time_ms(lambda: pp.paged_prefill_attention(*pre_args, **part_kw),
+                   flush),
+        plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
+            *pre_args, **part_kw), flush),
+        library_ms=None, max_abs_err=pre["err"],
+        bytes=kv_bytes + b * 64 * hq * d * elt + 64 * m_l_acc,
+        ops=4 * hq * d * vis, columns=lbt.shape[1])
+    parts = [pa.paged_decode_attention(dec["q"], dec["kb"][s], dec["vb"][s],
+                                       tables.walks[s], pos,
+                                       page_positions=tables.positions[s],
+                                       partials=True) for s in range(n)]
+    mg, lg, ag = (torch.stack([p[i] for p in parts], dim=1).contiguous()
+                  for i in range(3))
+    comb = dk.combine_splits_kernel(mg, lg, ag, b, hq, d, bf16)
+    comb_plain = dk.combine_splits(mg, lg, ag, b, hq, d, bf16)
+    comb_err = check(f"combine of {n} banks' partials", comb, comb_plain,
+                     bf16, rows)
+    timings["combine_splits, 4 banks"] = dict(
+        ms=time_ms(lambda: dk.combine_splits_kernel(mg, lg, ag, b, hq, d,
+                                                    bf16), flush),
+        plain_ms=time_ms(lambda: dk.combine_splits(mg, lg, ag, b, hq, d,
+                                                   bf16), flush),
+        library_ms=None, max_abs_err=comb_err,
+        bytes=n * m_l_acc + b * hq * d * elt, ops=3 * n * b * hq * d)
+    timings["decode, the whole banked layer"] = dict(
+        ms=time_ms(lambda: L.run_paged_decode_attention(
+            cfg, dec["q"], dec["kb"], dec["vb"], bt, pos, tables=tables),
+            flush),
+        single_arena_ms=time_ms(lambda: pa.paged_decode_attention(
+            dec["q"], dec["kf"], dec["vf"], bt, pos), flush))
+    # where the banked layer's time goes: the card's busy time by kernel
+    # against the host's time per call, no flush (launches back to back)
+    profiles = {
+        "decode, banked layer": device_split(
+            torch, lambda: L.run_paged_decode_attention(
+                cfg, dec["q"], dec["kb"], dec["vb"], bt, pos,
+                tables=tables)),
+        "decode, one arena": device_split(
+            torch, lambda: pa.paged_decode_attention(
+                dec["q"], dec["kf"], dec["vf"], bt, pos)),
+        "prefill c=64, banked layer": device_split(
+            torch, lambda: L.run_paged_prefill_attention(
+                cfg, pre["q"], dec["kb"], dec["vb"], bt, pre["start"],
+                pre["clen"], tables=tables)),
+        "prefill c=64, one arena": device_split(
+            torch, lambda: pp.paged_prefill_attention(
+                pre["q"], dec["kf"], dec["vf"], bt, pre["start"],
+                pre["clen"]))}
+    for t in timings.values():
+        if "bytes" in t:
+            t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"])
+    del flush_buf
+    return {"cases": rows, "timings": timings, "profiles": profiles,
+            "shapes": {"banks": n, "b": b, "hq": hq, "hkv": hkv, "d": d,
+                       "page": page, "max_pages": sb["mp"],
+                       "compacted_columns": -(-sb["mp"] // n),
+                       "rotations": sorted({i % n for i in range(b)
+                                            if i != sb["idle"]}),
+                       "idle_row": sb["idle"]}}
+
+
+def sharded_expected_launches(cfg, st, n: int) -> dict:
+    """Launches of a served run on n banks: every attention layer of a
+    step call walks every bank (row 1 for decode, row 2 for prefill and
+    verify) and merges them with one combine launch."""
+    want = expected_launches(cfg, st)
+    verify = st.get("speculative", {}).get("verify_calls", 0)
+    layers = cfg.num_layers
+    want["paged_decode_attention"] = st["decode_calls"] * layers * n
+    want["paged_prefill_attention"] = (st["prefill_calls"] + verify) \
+        * layers * n
+    want["combine_splits"] = (st["decode_calls"] + st["prefill_calls"]
+                              + verify) * layers
+    return want
+
+
+def phase_serve_sharded(torch, dev, card: str, cfg) -> dict:
+    """Near-memory sharded serving on the card (phase 7d of the module
+    docstring).  Returns the launches of the first bf16 4-bank run."""
+    from repro_torch.launch.mesh import make_mem_mesh
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    gate = shard_kernel_gate(torch, dev, card)
+    tg = time.perf_counter()
+    mesh = make_mem_mesh(SHARDS, devices=None if dev.type == "cuda"
+                         else [dev])
+    mods = kernel_modules()
+    ts = TOOLS_STREAM
+    restored = []
+
+    def serve(c, params, sharded, **kw):
+        free_card(torch)
+        eng = ServingEngine(c, params, device=dev, max_batch=ts["max_batch"],
+                            max_seq=ts["max_seq"], page_size=16,
+                            mesh=mesh if sharded else None, **kw)
+        if sharded and kw.get("host_tier_pages"):
+            base = eng._restore_from_tier
+
+            def checked(req, free, pidx=0):
+                verdict = base(req, free, pidx)
+                if verdict == "restored":
+                    s = next(s for s in eng.slots.values()
+                             if s.request is req)
+                    rot, pages = s.pages.rotation, s.pages.pages
+                    if any(eng.pool.shard_of(p) != (rot + j) % SHARDS
+                           for j, p in enumerate(pages)):
+                        fail(f"serve_sharded: uid {req.uid} restored off "
+                             f"its rotation {rot}'s banks")
+                    restored.append((req.uid, rot, len(pages)))
+                return verdict
+            eng._restore_from_tier = checked
+        for r in tools_stream(c):
+            eng.submit(r)
+        for m in mods.values():                  # count the main path
+            m.launches = 0
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+        launches = {name: m.launches for name, m in mods.items()}
+        st = eng.stats()
+        toks = {r.uid: r.tokens for r in eng.results}
+        if len(toks) != ts["requests"] or any(
+                len(v) != ts["max_new"] for v in toks.values()):
+            fail(f"serve_sharded: streams did not finish: "
+                 f"{ {u: len(v) for u, v in toks.items()} }")
+        if st["pool"]["allocated_pages"]:
+            fail(f"serve_sharded: {st['pool']['allocated_pages']} pages "
+                 f"leaked")
+        if sharded:
+            want = sharded_expected_launches(c, st, SHARDS)
+            if launches != want:
+                fail(f"serve_sharded: kernel launches {launches} != "
+                     f"expected {want}")
+            banks = st["shard_kv_bytes"]
+            if banks != [sum(banks) // SHARDS] * SHARDS:
+                fail(f"serve_sharded: bank bytes {banks} are not total / "
+                     f"{SHARDS}")
+            peaks = [x["peak_allocated_pages"] for x in st["shards"]]
+            if sum(p > 0 for p in peaks) < 3:
+                fail(f"serve_sharded: banks used {peaks}")
+            if dev.type == "cuda" and {w for _, w in st["prefill_shapes"]} \
+                    != {eng.prefill_chunk}:
+                fail(f"serve_sharded: prefill widths "
+                     f"{st['prefill_shapes']} (one bucket on the card)")
+        del eng
+        return toks, wall, launches, st
+
+    def share_equal(a, b_):
+        pairs = [(x, y) for u in a for x, y in zip(a[u], b_[u])]
+        return sum(x == y for x, y in pairs) / max(1, len(pairs))
+
+    # bf16: the single arena and 4 banks in turns
+    params = registry.get_family(cfg).init(0, cfg, dev)
+    runs = []
+    for sharded in (False, True, False, True):
+        toks, wall, launches, st = serve(cfg, params, sharded)
+        runs.append(dict(sharded=sharded, toks=toks, wall=wall,
+                         launches=launches, st=st))
+    single, banked = runs[0], runs[1]
+    if runs[3]["toks"] != banked["toks"]:
+        fail("serve_sharded: the 4-bank rerun's streams differ")
+    tokens = banked["st"]["tokens_out"]
+    bf16_out = {
+        "tokens_per_s": [{"banks": SHARDS if r["sharded"] else 1,
+                          "tokens_per_s": tokens / r["wall"]} for r in runs],
+        "share_equal_single_arena": share_equal(single["toks"],
+                                                banked["toks"]),
+        # uid -> the first index where the 4-bank stream leaves the
+        # single arena's (None: equal); later tokens follow from it
+        "first_difference": {
+            u: next((i for i, (x, y) in enumerate(zip(a, banked["toks"][u]))
+                     if x != y), None)
+            for u, a in single["toks"].items()},
+        "shard_kv_bytes": banked["st"]["shard_kv_bytes"],
+        "peak_pages_per_bank": [x["peak_allocated_pages"]
+                                for x in banked["st"]["shards"]],
+        "peak_kv_bytes": {"single": single["st"]["peak_kv_bytes"],
+                          "banked": banked["st"]["peak_kv_bytes"]},
+        "prefill_calls": banked["st"]["prefill_calls"],
+        "decode_calls": banked["st"]["decode_calls"],
+        "launches": {n: v for n, v in banked["launches"].items() if v}}
+    launches_out = banked["launches"]
+    del params, runs, single, banked
+    tb = time.perf_counter()
+
+    # f32: the 4-bank streams equal the single arena's, then the tier
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params = registry.get_family(c32).init(0, c32, dev)
+    f32_single = serve(c32, params, False)
+    f32_banked = serve(c32, params, True)
+    if f32_banked[0] != f32_single[0]:
+        diff = [(u, next(i for i, (x, y) in enumerate(zip(a, f32_banked[0][u]))
+                         if x != y))
+                for u, a in f32_single[0].items() if a != f32_banked[0][u]]
+        fail(f"serve_sharded: f32 streams on {SHARDS} banks differ from the "
+             f"single arena's at (uid, index) {diff}")
+    tier_single = serve(c32, params, False, **SHARD_TIER)
+    tier_banked = serve(c32, params, True, **SHARD_TIER)
+    ht = tier_banked[3]["host_tier"]
+    if ht["spills"] < 1 or ht["restores"] < 1 or not restored:
+        fail(f"serve_sharded: the tier run did not spill and restore: {ht}")
+    if tier_banked[0] != tier_single[0]:
+        fail("serve_sharded: the 4-bank tier run's streams differ from the "
+             "single arena's on the same pool")
+    del params
+    free_card(torch)
+    td = time.perf_counter()
+    emit({"phase": "serve_sharded", "card": card, "arch": cfg.name,
+          "layers": cfg.num_layers, "banks": SHARDS,
+          "mesh": mesh.describe(), "page_size": 16,
+          "max_batch": ts["max_batch"], "max_seq": ts["max_seq"],
+          "requests": ts["requests"], "max_new": ts["max_new"],
+          "kernel_gate": gate["cases"], "gate_shapes": gate["shapes"],
+          "timing": "CUDA events, median of 30 after 5 warm-up, L2 flushed",
+          "kernel_times": gate["timings"],
+          "device_split": gate["profiles"],
+          "bf16": bf16_out,
+          "f32": {"streams_equal_single_arena": True,
+                  "tokens_per_s": {"single": f32_single[3]["tokens_out"]
+                                   / f32_single[1],
+                                   "banked": f32_banked[3]["tokens_out"]
+                                   / f32_banked[1]},
+                  "launches": {n: v for n, v in f32_banked[2].items() if v}},
+          "tier": {**SHARD_TIER, "host_tier": ht,
+                   "preemptions": tier_banked[3]["preemptions"],
+                   "restored": restored,
+                   "peak_pages_per_bank": [
+                       x["peak_allocated_pages"]
+                       for x in tier_banked[3]["shards"]],
+                   "streams_equal_single_arena": True},
+          "gate_s": tg - t0, "bf16_s": tb - tg, "f32_s": td - tb,
+          "phase_s": td - t0})
+    return launches_out
+
+
 def phase_spec_parity(torch, dev, cfg) -> None:
     """Speculative streams equal plain decode's on the card in f32 (the
     reference's contract): a 2-layer internlm2-width f32 target, four
@@ -3782,6 +4220,7 @@ def main() -> int:
     tier_launches = phase_serve_tier(torch, dev, card, dense)
     front_launches = phase_serve_front(torch, dev, card, dense)
     tools_launches = phase_serve_tools(torch, dev, card, dense)
+    shard_launches = phase_serve_sharded(torch, dev, card, dense)
     phase_spec_parity(torch, dev, dense.replace(
         num_layers=2, dtype="float32", param_dtype="float32"))
     moe_launches, _ = phase_serve(torch, dev, card, "serve_moe", moe)
@@ -3842,8 +4281,9 @@ def main() -> int:
                                    + ssm_launches["ssd_intra_chunk"])
     launches["decode_attention"] = contig_launches["decode_attention"]
     # bf16 decode merges its splits in one launch: the combine kernel
-    # runs on the f32 contiguous path
-    launches["combine_splits"] = f32_contig_launches["combine_splits"]
+    # runs on the f32 contiguous path and merges the sharded arena's banks
+    launches["combine_splits"] = (f32_contig_launches["combine_splits"]
+                                  + shard_launches["combine_splits"])
     launches["flash_attention"] = contig_launches["flash_attention"]
     for name in ("flash_attention_backward", "grouped_matmul_backward",
                  "ssd_intra_chunk_backward"):
@@ -3915,6 +4355,7 @@ def main() -> int:
                        "serve_tier": tier_launches,
                        "serve_front": front_launches,
                        "serve_tools": tools_launches,
+                       "serve_sharded": shard_launches,
                        **{f"serve_configs {a}": v
                           for a, v in config_launches.items()}}})
     emit({"kernels": rows})

@@ -6,7 +6,7 @@ network-client demo).
         [--stream] [--temperature T] [--top-k K] [--top-p P] [--seed S]
         [--kv-dtype int8|fp8|bf16] [--host-tier-pages N]
         [--prefix-cache] [--speculate K] [--draft self:1]
-        [--connect HOST:PORT]
+        [--devices N] [--connect HOST:PORT]
 
 Everything runs on a reduced internlm2-1.8b with seeded random weights,
 on the card unless `--device` names another.  Without `--stream` the
@@ -28,9 +28,14 @@ eviction counts.  `--speculate K` decodes speculatively: a draft
 (`--draft`, default `self:1` = the target's first layer sharing its
 embeddings and head) proposes K tokens a window and the target verifies
 the window in one batched paged call; the tokens stay byte-identical to
-plain decode, and the example prints the accept rate.  The reference's
-`--devices N` (a sharded arena) waits for sharded serving (ROADMAP.md
-queue A item 12).
+plain decode, and the example prints the accept rate.  `--devices N`
+(default 1) serves the batch loop and the streaming demo from the
+near-memory SHARDED arena of DESIGN.md §2 with N banks: each bank
+keeps its pages, every bank walks only its resident pages, and only the
+softmax summaries come back to be merged.  The banks go round-robin
+over the visible cards (N banks on one card share it), or all on
+`--device` when one is named; the example prints each bank's peak pages
+and bytes.
 
 `--stream` demonstrates the streaming API (`repro_torch.serve.api`
 `LLMServer`): `generate(prompt, SamplingParams(...))` returns a
@@ -55,10 +60,11 @@ import argparse
 
 
 def demo_stream(cfg, sp, seed: int, device=None,
-                host_tier_pages: int | None = None):
+                host_tier_pages: int | None = None, mesh=None):
     """The streaming API: tokens print as the engine emits them, then a
     fork decodes the same prompt under a second sampling regime from
-    shared COW pages."""
+    shared COW pages.  With a mesh, the same streams serve from the
+    sharded arena."""
     import numpy as np
 
     from repro_torch.serve.api import LLMServer
@@ -67,7 +73,7 @@ def demo_stream(cfg, sp, seed: int, device=None,
 
     rng = np.random.default_rng(seed)
     server = LLMServer(cfg, device=device, seed=seed, max_batch=4,
-                       max_seq=128, page_size=16,
+                       max_seq=128, page_size=16, mesh=mesh,
                        host_tier_pages=host_tier_pages)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 40)))
                .astype(np.int32) for _ in range(3)]
@@ -108,17 +114,18 @@ def demo_stream(cfg, sp, seed: int, device=None,
 
 def demo_batch(cfg, params, device, *, temperature=0.0, top_k=0, top_p=1.0,
                seed=0, host_tier_pages=None, prefix_cache=False,
-               speculate=0, draft="self:1") -> dict:
+               speculate=0, draft="self:1", mesh=None) -> dict:
     """The batch loop: 12 mixed-length requests through the paged engine
     with pool statistics (the persistent cache's rerun, speculation and
     the host tier where asked), then the prefix-sharing and fork demos.
-    Returns the engine's stats after the loop."""
+    With a mesh the batch loop serves from the sharded arena.  Returns
+    the engine's stats after the loop."""
     import numpy as np
 
     from repro_torch.serve import Request, SamplingParams, ServingEngine
 
     engine = ServingEngine(cfg, params, device=device, max_batch=4,
-                           max_seq=128, page_size=16,
+                           max_seq=128, page_size=16, mesh=mesh,
                            host_tier_pages=host_tier_pages,
                            prefix_cache=prefix_cache,
                            speculate_k=speculate,
@@ -143,13 +150,20 @@ def demo_batch(cfg, params, device, *, temperature=0.0, top_k=0, top_p=1.0,
     st = engine.pool.stats()
     mode = "greedy" if temperature == 0.0 else (
         f"T={temperature} k={top_k} p={top_p}")
-    print(f"[{engine.layout}/arena/{mode}] served {len(results)} requests"
+    arena = "sharded arena" if engine.mesh is not None else "arena"
+    print(f"[{engine.layout}/{arena}/{mode}] served {len(results)} requests"
           f" | p50 {lats[len(lats) // 2]:.2f}s p95 {lats[-1]:.2f}s | "
           f"{engine.tokens_out} tokens in {engine.steps} engine steps")
     print(f"pool: peak {st.peak_allocated_pages}/{st.num_pages} pages "
           f"({engine.peak_kv_bytes() / 1e6:.2f} MB KV high-water vs "
           f"{engine.max_batch * engine.max_seq // engine.page_size} pages "
           f"a contiguous layout would pin)")
+    if engine.mesh is not None:
+        shards = engine.pool.shard_stats()
+        print(f"near-memory banks on {engine.stats()['mesh']['devices']}: "
+              f"peak pages per bank "
+              f"{[s['peak_allocated_pages'] for s in shards]} | resident "
+              f"KV bytes per bank {engine.arena.shard_kv_bytes()}")
     if speculate:
         sp_st = engine.stats()["speculative"]
         print(f"speculative: k={sp_st['k']} accept rate "
@@ -315,6 +329,10 @@ def main(argv=None):
                     help="draft for --speculate: 'self:N' (first N "
                          "target layers, shared embeddings) or a "
                          "registry arch name")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="banks of the near-memory sharded arena (1 = one "
+                         "arena); on --device when named, else "
+                         "round-robin over the visible cards")
     ap.add_argument("--connect", default=None, metavar="HOST:PORT",
                     help="run as a network client against a serving "
                          "front (repro_torch.launch.serve --port N) "
@@ -325,11 +343,17 @@ def main(argv=None):
     cfg = reduced_for_smoke(get_arch("internlm2-1.8b").model, max_seq=128)
     if args.kv_dtype:
         cfg = cfg.replace(kv_dtype=args.kv_dtype)    # quantized page arena
+    mesh = None
+    if args.devices > 1:
+        from repro_torch.launch.mesh import make_mem_mesh
+        mesh = make_mem_mesh(args.devices, devices=None if args.device is None
+                             else [args.device])
+        args.device = args.device or mesh.devices[0]
     if args.stream:
         sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                             top_p=args.top_p, seed=args.seed)
         demo_stream(cfg, sp, args.seed, device=args.device,
-                    host_tier_pages=args.host_tier_pages)
+                    host_tier_pages=args.host_tier_pages, mesh=mesh)
         return None
     device = resolve_device(args.device)
     params = registry.get_family(cfg).init(0, cfg, device)
@@ -337,7 +361,7 @@ def main(argv=None):
                       top_k=args.top_k, top_p=args.top_p, seed=args.seed,
                       host_tier_pages=args.host_tier_pages,
                       prefix_cache=args.prefix_cache,
-                      speculate=args.speculate, draft=args.draft)
+                      speculate=args.speculate, draft=args.draft, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -32,9 +32,12 @@ identical greedy tokens).  `--speculate K [--draft SPEC]` adds the
 SPECULATIVE DECODE sweep (byte-identical streams, greedy AND sampled,
 at tokens/s ratio > 1).  `--json PATH` writes the record (`"schema":
 6`) without the reference's compiled-HLO attention statistics
-(`attention_hlo`), which wait for the XLA tools (ROADMAP.md queue A
-item 14); `--shards N` (the sharded arena) waits for sharded serving
-(queue A item 12).
+(`attention_hlo`), which wait for the XLA tools (ROADMAP.md queue A,
+A.7 (item 14)).  `--shards N` serves the paged side (and every sweep)
+from the near-memory SHARDED arena (`serve/sharded/`): N banks, on the
+run's device when it is the CPU, else round-robin over the visible
+cards; `shard_topology` reports the shards, the axis and each bank's
+device, and each row the per-bank peak pages and bytes.
 
 `run` keeps the reference's arguments and adds `device` (CUDA unless
 "cpu" is given) and `params_for`, a `cfg -> params` hook (default: the
@@ -135,9 +138,11 @@ def _stream(rng, cfg, n, prompt_hi, max_new):
     return reqs
 
 
-def _run(cfg, params, layout, reqs, mb, ms, device=None, **eng_kw):
+def _run(cfg, params, layout, reqs, mb, ms, device=None, mesh=None,
+         **eng_kw):
     eng = ServingEngine(cfg, params, device=device, max_batch=mb,
-                        max_seq=ms, page_size=16, layout=layout, **eng_kw)
+                        max_seq=ms, page_size=16, layout=layout,
+                        mesh=mesh if layout == "paged" else None, **eng_kw)
     for r in reqs:
         eng.submit(Request(uid=r.uid, prompt=r.prompt,
                            max_new_tokens=r.max_new_tokens,
@@ -150,20 +155,25 @@ def _run(cfg, params, layout, reqs, mb, ms, device=None, **eng_kw):
                peak_kv_bytes=eng.peak_kv_bytes(), tokens=toks,
                shared=eng.pool.stats().shared_pages,
                prefill_shapes=len(eng.prefill_shapes))
+    if eng.mesh is not None:
+        out["per_shard_peak_pages"] = [
+            s["peak_allocated_pages"] for s in eng.pool.shard_stats()]
+        out["per_shard_kv_bytes"] = eng.arena.shard_kv_bytes()
     if eng.host_tier is not None:
         out["host_tier"] = eng.stats()["host_tier"]
     return out
 
 
-def _row(cfg, params, reqs, mb, ms, oracle_cfg=None, device=None):
-    """paged side runs `cfg` (possibly --impl/--kv-dtype overridden);
-    the contiguous reference stays on `oracle_cfg`, so the parity gate
-    is paged-vs-oracle."""
+def _row(cfg, params, reqs, mb, ms, oracle_cfg=None, device=None,
+         mesh=None):
+    """paged side runs `cfg` (possibly --impl/--kv-dtype/--shards
+    overridden); the contiguous reference stays on `oracle_cfg`, one
+    arena, so the parity gate is paged-vs-oracle."""
     contig = _run(oracle_cfg or cfg, params, "contiguous", reqs, mb, ms,
                   device)
-    paged = _run(cfg, params, "paged", reqs, mb, ms, device)
+    paged = _run(cfg, params, "paged", reqs, mb, ms, device, mesh)
     same = contig["tokens"] == paged["tokens"]
-    return dict(
+    row = dict(
         family=cfg.family, batch=mb, max_seq=ms, requests=len(reqs),
         contig_tok_s=contig["tok_s"], paged_tok_s=paged["tok_s"],
         contig_kv_mb=contig["peak_kv_bytes"] / 1e6,
@@ -173,9 +183,13 @@ def _row(cfg, params, reqs, mb, ms, oracle_cfg=None, device=None):
         tokens_match=same,
         ok=same and paged["peak_kv_bytes"] <= contig["peak_kv_bytes"],
     )
+    if mesh is not None:
+        row["per_shard_peak_pages"] = paged["per_shard_peak_pages"]
+        row["per_shard_kv_bytes"] = paged["per_shard_kv_bytes"]
+    return row
 
 
-def _sampling_sweep(cfg, params, device=None) -> dict:
+def _sampling_sweep(cfg, params, device=None, mesh=None) -> dict:
     """Greedy vs per-request-sampled serving on the SAME stream.
 
     Every request carries its own SamplingParams (temperature ramp,
@@ -195,7 +209,7 @@ def _sampling_sweep(cfg, params, device=None) -> dict:
 
     def serve(sampled):
         eng = ServingEngine(cfg, params, device=device, max_batch=mb,
-                            max_seq=ms, page_size=16)
+                            max_seq=ms, page_size=16, mesh=mesh)
         for uid, p in enumerate(prompts):
             eng.submit(Request(
                 uid=uid, prompt=p.copy(),
@@ -219,7 +233,8 @@ def _sampling_sweep(cfg, params, device=None) -> dict:
                 ok=deterministic and diverged)
 
 
-def _quant_sweep(impl=None, ppb=1, device=None, params_for=None) -> dict:
+def _quant_sweep(impl=None, ppb=1, device=None, params_for=None,
+                 mesh=None) -> dict:
     """int8 page arena vs bf16 on the SAME greedy stream: the int8
     payload + f32 scale column must hold the paged KV high-water to
     <= 0.55x the bf16 arena's AND the greedy tokens must stay
@@ -238,7 +253,8 @@ def _quant_sweep(impl=None, ppb=1, device=None, params_for=None) -> dict:
         # arena stores the compute dtype (f32 here), which would
         # overstate the int8 win
         cfg = base.replace(kv_dtype=tag)
-        runs[tag] = _run(cfg, params_for(cfg), "paged", reqs, mb, ms, device)
+        runs[tag] = _run(cfg, params_for(cfg), "paged", reqs, mb, ms, device,
+                         mesh)
     ratio = runs["int8"]["peak_kv_bytes"] / runs["bf16"]["peak_kv_bytes"]
     same = runs["bf16"]["tokens"] == runs["int8"]["tokens"]
     return dict(head_dim=base.head_dim, requests=n,
@@ -251,7 +267,7 @@ def _quant_sweep(impl=None, ppb=1, device=None, params_for=None) -> dict:
                 ok=same and ratio <= 0.55)
 
 
-def _tier_sweep(device=None, params_for=None) -> dict:
+def _tier_sweep(device=None, params_for=None, mesh=None) -> dict:
     """Forced-watermark host-tier smoke: a pool deliberately sized PAST
     by the workload, with the host-DRAM tier behind it.  The shedder
     preempts under the high watermark, preempted slots SPILL to host,
@@ -262,10 +278,11 @@ def _tier_sweep(device=None, params_for=None) -> dict:
     rng = np.random.default_rng(4242)
     reqs = _stream(rng, CFG, n, phi, mnew)
     params = _params_for(params_for, device)(CFG)
-    base = _run(CFG, params, "paged", reqs, mb, ms, device, pool_pages=64)
+    base = _run(CFG, params, "paged", reqs, mb, ms, device, mesh,
+                pool_pages=64)
     # limit = 0.5 * 16 = 8 pages vs ~4 pages per active sequence: the
     # shedder MUST preempt, so the tier MUST see spill traffic
-    tiered = _run(CFG, params, "paged", reqs, mb, ms, device,
+    tiered = _run(CFG, params, "paged", reqs, mb, ms, device, mesh,
                   pool_pages=16, high_watermark=0.5, host_tier_pages=64)
     ht = tiered["host_tier"]
     same = base["tokens"] == tiered["tokens"]
@@ -284,7 +301,7 @@ def _tier_sweep(device=None, params_for=None) -> dict:
                 ok=same and spilled)
 
 
-def _prefix_sweep(device=None, params_for=None) -> dict:
+def _prefix_sweep(device=None, params_for=None, mesh=None) -> dict:
     """--prefix-trace: N requests sharing one SYSTEM PROMPT, served
     strictly sequentially — every donor retires before the next request
     arrives, so any page reuse crosses request lifetimes through the
@@ -305,7 +322,7 @@ def _prefix_sweep(device=None, params_for=None) -> dict:
     def serve(cached):
         eng = ServingEngine(CFG, params, device=device, max_batch=2,
                             max_seq=256, page_size=16, prefill_chunk=16,
-                            pool_pages=64, prefix_cache=cached)
+                            pool_pages=64, prefix_cache=cached, mesh=mesh)
         ttft = {}
         for uid, p in enumerate(prompts):
             t0 = time.perf_counter()
@@ -360,7 +377,7 @@ def _high_agreement(params):
 
 
 def _speculate_sweep(k: int, draft: str, device=None,
-                     params_for=None) -> dict:
+                     params_for=None, mesh=None) -> dict:
     """--speculate K: draft-propose / batched-verify decode vs plain
     one-token decode on the SAME decode-heavy stream.
 
@@ -383,7 +400,7 @@ def _speculate_sweep(k: int, draft: str, device=None,
         # warmup never changes the timed tokens)
         eng = ServingEngine(cfg, params, device=device, max_batch=mb,
                             max_seq=ms, page_size=16, speculate_k=spec_k,
-                            draft=draft if spec_k else None)
+                            draft=draft if spec_k else None, mesh=mesh)
 
         def batch(base_uid):
             for uid, p in enumerate(prompts):
@@ -419,7 +436,11 @@ def _speculate_sweep(k: int, draft: str, device=None,
                 accepted_tokens=st["accepted_tokens"],
                 emitted_tokens=st["emitted_tokens"],
                 tokens_match=same, tokens_match_sampled=same_sampled,
-                ok=same and same_sampled and ratio > 1.0)
+                # the ratio gate is one arena's only: on a mesh the run
+                # is a byte-identity check of the sharded verify path
+                # (propose, verify, rollback), not a speed claim
+                ok=same and same_sampled
+                and (mesh is not None or ratio > 1.0))
 
 
 def run(families=None, impl=None, ppb=1, attn_hlo=False,
@@ -427,14 +448,16 @@ def run(families=None, impl=None, ppb=1, attn_hlo=False,
         quant: bool = False, host_tier: bool = False,
         prefix_trace: bool = False, speculate: int = 0,
         draft: str = "self:1", device=None, params_for=None) -> dict:
-    if shards > 1:
-        raise SystemExit(f"--shards {shards}: sharded serving is not "
-                         f"ported yet: ROADMAP.md queue A item 12")
     if attn_hlo:
         raise NotImplementedError(
             "the compiled-HLO attention statistics are not ported yet: "
-            "ROADMAP.md queue A item 14")
+            "ROADMAP.md queue A, A.7 (item 14)")
     device = resolve_device(device)
+    mesh = None
+    if shards > 1:
+        from repro_torch.launch.mesh import make_mem_mesh
+        mesh = make_mem_mesh(shards, devices=None if device.type == "cuda"
+                             else [device])
     params_for = _params_for(params_for, device)
     families = families or list(FAMILY_CFGS)
 
@@ -456,7 +479,8 @@ def run(families=None, impl=None, ppb=1, attn_hlo=False,
         for mb, ms, n, phi, mnew in SWEEP:
             rng = np.random.default_rng(hash((mb, ms)) % 2**32)
             r = _row(cfg, params, _stream(rng, cfg, n, phi, mnew), mb, ms,
-                     oracle_cfg=FAMILY_CFGS["dense"], device=device)
+                     oracle_cfg=FAMILY_CFGS["dense"], device=device,
+                     mesh=mesh)
             ok &= r["ok"]
             rows.append(r)
     # family sweep: the rest of the zoo paged-native at one tiny point
@@ -468,7 +492,8 @@ def run(families=None, impl=None, ppb=1, attn_hlo=False,
         rng = np.random.default_rng(1000 + sum(map(ord, fam)))
         p = FAM_POINT
         r = _row(cfg, params, _stream(rng, cfg, p["n"], p["phi"], p["mnew"]),
-                 p["mb"], p["ms"], oracle_cfg=FAMILY_CFGS[fam], device=device)
+                 p["mb"], p["ms"], oracle_cfg=FAMILY_CFGS[fam], device=device,
+                 mesh=mesh)
         ok &= r["ok"]
         rows.append(r)
     result = {"name": "serve_throughput", "schema": SCHEMA, "ok": ok,
@@ -476,31 +501,38 @@ def run(families=None, impl=None, ppb=1, attn_hlo=False,
               "attention_impl": impl or CFG.attention_impl,
               "pages_per_block": ppb,
               "kv_dtype": kv_dtype or "bf16",
-              "shard_topology": {"shards": shards, "mesh_axis": None,
+              "shard_topology": {"shards": shards,
+                                 "mesh_axis": "mem" if mesh is not None
+                                 else None,
                                  "devices": (torch.cuda.device_count()
                                              if device.type == "cuda"
                                              else 1),
+                                 "bank_devices": ([str(d) for d in
+                                                   mesh.devices]
+                                                  if mesh is not None
+                                                  else None),
                                  "backend": device.type}}
     if quant:
         result["quant"] = _quant_sweep(impl=impl, ppb=ppb, device=device,
-                                       params_for=params_for)
+                                       params_for=params_for, mesh=mesh)
         ok = ok and result["quant"]["ok"]
         result["ok"] = ok
     if host_tier:
-        result["host_tier"] = _tier_sweep(device, params_for)
+        result["host_tier"] = _tier_sweep(device, params_for, mesh)
         ok = ok and result["host_tier"]["ok"]
         result["ok"] = ok
     if prefix_trace:
-        result["prefix"] = _prefix_sweep(device, params_for)
+        result["prefix"] = _prefix_sweep(device, params_for, mesh)
         ok = ok and result["prefix"]["ok"]
         result["ok"] = ok
     if sampling:
         cfg = cfg_of("dense")
-        result["sampling"] = _sampling_sweep(cfg, params_for(cfg), device)
+        result["sampling"] = _sampling_sweep(cfg, params_for(cfg), device,
+                                             mesh)
         result["ok"] = ok = ok and result["sampling"]["ok"]
     if speculate > 0:
         result["speculative"] = _speculate_sweep(speculate, draft, device,
-                                                 params_for)
+                                                 params_for, mesh)
         result["ok"] = ok = ok and result["speculative"]["ok"]
     return result
 
@@ -589,8 +621,8 @@ def main(argv=None) -> int:
                          "(attn_pages_per_block; a TPU grid knob the CUDA "
                          "kernels do not read)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="sharded serving: not ported yet (ROADMAP.md "
-                         "queue A item 12)")
+                    help="serve the paged side from the near-memory "
+                         "sharded arena with N banks")
     ap.add_argument("--sampling", action="store_true",
                     help="add the in-step sampling sweep (per-request "
                          "temperature + top-p + seeds on the dense "

@@ -37,8 +37,12 @@ PASS gates (wall-clock magnitudes are reported, not judged):
       no open routes).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.traffic_gen \\
-        [--requests 24] [--horizon 1.5] [--seed 0] \\
+        [--requests 24] [--horizon 1.5] [--seed 0] [--shards N] \\
         [--json BENCH_traffic.json] [--device cpu]
+
+`--shards N` serves the trace from the near-memory sharded arena (N
+banks, on `--device` when named, else round-robin over the visible
+cards; the record's `shard_topology` names each bank's device).
 
 `run` takes the model config, its params, the engine's sizes and the
 device as keyword arguments (defaults: the reference's tiny `CFG`,
@@ -279,19 +283,27 @@ def run(requests: int = 24, horizon: float = 1.5, seed: int = 0,
         cfg: ModelConfig = CFG, params=None, max_batch: int = 4,
         max_seq: int = 256, tick_token_budget: int = 64,
         page_size: int = 16, device=None, identity_checks: int = 3,
-        after_stop=None) -> dict:
+        after_stop=None, shards: int | None = None) -> dict:
     """Serve the seeded trace through a `FrontendServer` on `device`
     (CUDA unless named) and judge the four gates.  `params=None` draws
     the model's seeded random weights on the device.  `after_stop`, if
     given, is called with the stopped server before the in-process
-    replays (which run on the same device, the server's engine gone)."""
+    replays (which run on the same device and mesh, the server's engine
+    gone).  `shards` > 1 serves from the sharded arena: its banks on
+    `device` when it is named, else round-robin over the visible cards;
+    the trace record's `shard_topology` says where."""
+    mesh = None
+    if shards and shards > 1:
+        from repro_torch.launch.mesh import make_mem_mesh
+        mesh = make_mem_mesh(shards, devices=None if device is None
+                             else [device])
     rng = np.random.default_rng(seed)
     entries = build_trace(rng, requests, horizon, max_seq, cfg.vocab_size)
 
     srv = FrontendServer(cfg, params, host="127.0.0.1", port=0,
                          device=device, max_batch=max_batch,
                          max_seq=max_seq, page_size=page_size,
-                         tick_token_budget=tick_token_budget,
+                         tick_token_budget=tick_token_budget, mesh=mesh,
                          tenant_weights=TENANT_WEIGHTS)
     srv.start()
     t0 = time.perf_counter()
@@ -317,7 +329,7 @@ def run(requests: int = 24, horizon: float = 1.5, seed: int = 0,
     params, device = srv.llm.engine.params, srv.llm.engine.device
     del srv                          # the server's arena goes first
     oracle = LLMServer(cfg, params, device=device, max_batch=max_batch,
-                       max_seq=max_seq, page_size=page_size)
+                       max_seq=max_seq, page_size=page_size, mesh=mesh)
     ok_identity, replays = _token_identity(oracle, obs, identity_checks)
     del oracle
     # (c) p99 TTFT finite: every accepted stream actually started
@@ -339,7 +351,10 @@ def run(requests: int = 24, horizon: float = 1.5, seed: int = 0,
                       ttft_finite=ok_ttft, zero_leaked_pages=ok_leak),
         "rows": rows,
         "trace": dict(requests=len(entries), horizon_s=horizon, seed=seed,
-                      wall_s=wall, shards=1),
+                      wall_s=wall, shards=shards or 1),
+        "shard_topology": ({"shards": 1, "mesh_axis": None,
+                            "devices": [str(device)]} if mesh is None
+                           else mesh.describe()),
         "cancel_reclaim_s": reclaim_s,
         "counters": dict(admitted=stats.get("admitted"),
                          preemptions=stats.get("preemptions"),
@@ -391,18 +406,15 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--horizon", type=float, default=1.5)
     ap.add_argument("--shards", type=int, default=None,
-                    help="sharded serving: not ported yet (ROADMAP.md "
-                         "queue A item 12)")
+                    help="serve from the near-memory sharded arena with "
+                         "N banks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="BENCH_traffic.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     a = ap.parse_args(argv)
-    if a.shards and a.shards > 1:
-        raise SystemExit("--shards: sharded serving is not ported yet: "
-                         "ROADMAP.md queue A item 12")
     res = run(requests=a.requests, horizon=a.horizon, seed=a.seed,
-              json_path=a.json, device=a.device)
+              json_path=a.json, device=a.device, shards=a.shards)
     pretty(res)
     return 0 if res["ok"] else 1
 

@@ -1,10 +1,11 @@
 """UniMem — the paper's single-form pooled memory, as a page-pool arena.
 
-Port of `repro.core.unimem` on one pool: the host-side control plane
-(page tables, free lists, refcounts, pinning) is copied as plain Python,
-and the quantized-page contract (`quantize_kv`/`dequantize_kv`) is
-rewritten in torch with the same numerics.  The device arena itself is
-owned by `serve/kv_cache.py`.
+Port of `repro.core.unimem`: the host-side control plane (page tables,
+free lists, refcounts, pinning, the sharded pool's per-bank accounting)
+is copied as plain Python, and the quantized-page contract
+(`quantize_kv`/`dequantize_kv`) is rewritten in torch with the same
+numerics.  The device arena itself is owned by `serve/kv_cache.py` (one
+pool) and `serve/sharded/arena.py` (a bank per shard).
 
 `HostTier` is the LRU bank of host-DRAM page parcels behind the device
 pool: preempted sequences spill their exact KV bytes instead of dropping
@@ -12,9 +13,11 @@ them, and readmission restores them (through an asynchronous prefetch
 on the card) instead of recomputing.  A parcel's payload is CPU tensors
 (pinned where the arena is on CUDA), since bf16 has no numpy dtype.
 
-`ShardedUniMemPool` and the allocator's `start`/rotation arguments it
-consumes wait for sharded serving (ROADMAP.md queue A item 12); the
-single pool's `fits(n)` and `alloc(n)` take no `start`.
+`ShardedUniMemPool` spreads the pool over near-memory banks: logical
+page j of a sequence lives on bank (rotation + j) % n.  The allocator's
+`start` (the logical index the first new page serves) and
+`SequencePageTable.rotation` feed that placement; a single pool ignores
+both.
 """
 from __future__ import annotations
 
@@ -118,8 +121,11 @@ class UniMemPool:
 
     # ------------------------------------------------------------- alloc
 
-    def alloc(self, n: int = 1) -> list[int]:
-        """Allocate n pages."""
+    def alloc(self, n: int = 1, start: int | None = None) -> list[int]:
+        """Allocate n pages.  `start` is the LOGICAL page index the first
+        new page will serve in its sequence: ignored here, consumed by
+        the sharded pool's page -> bank placement."""
+        del start
         if len(self._free) < n:
             raise UniMemOOM(
                 f"UniMem pool exhausted: want {n} pages, {len(self._free)} free "
@@ -135,8 +141,10 @@ class UniMemPool:
         self._peak = max(self._peak, alloc)
         self._peak_hot = max(self._peak_hot, alloc - len(self._pinned))
 
-    def fits(self, n: int) -> bool:
-        """Would `alloc(n)` succeed right now?"""
+    def fits(self, start: int, n: int) -> bool:
+        """Would `alloc(n, start)` succeed right now?  (The sharded pool
+        answers per bank.)"""
+        del start
         return n <= len(self._free)
 
     def share(self, pages: list[int]) -> list[int]:
@@ -186,6 +194,10 @@ class UniMemPool:
     def is_shared(self, page: int) -> bool:
         return self._refcount.get(page, 0) > 1
 
+    def shard_of(self, page: int) -> int:
+        """The bank that owns a page: a single pool is one bank."""
+        return 0
+
     # ------------------------------------------------------------- stats
 
     @property
@@ -216,19 +228,132 @@ class UniMemPool:
 
 
 @dataclass
+class ShardedUniMemPool(UniMemPool):
+    """The pool spread over `num_shards` near-memory banks (DESIGN.md
+    §2).  Physical ids are blocked per bank (page p lives on bank
+    p // pages_per_shard), while LOGICAL placement is strided: logical
+    page j of a sequence is allocated from bank (rotation + j) % n (the
+    rotation arrives folded into `start` by `SequencePageTable`), so a
+    sequence's pages interleave over every bank and each bank's walk of
+    it is n times shorter.  A replacement (copy on write) or shared page
+    serves the same logical index, hence stays on its bank.  An alloc
+    raises UniMemOOM when the OWNING bank is full even if others have
+    room: per-bank backpressure, which the engine answers with
+    preemption as for a full single pool."""
+    num_shards: int = 1
+
+    def __post_init__(self):
+        if self.num_pages % self.num_shards:
+            raise ValueError(
+                f"num_pages {self.num_pages} must divide over "
+                f"{self.num_shards} shards")
+        super().__post_init__()
+        self._shard_peak = [0] * self.num_shards
+        # per-bank free counts, kept incrementally: fits() runs at every
+        # admission attempt
+        self._free_counts = [self.pages_per_shard] * self.num_shards
+
+    @property
+    def pages_per_shard(self) -> int:
+        return self.num_pages // self.num_shards
+
+    def shard_of(self, page: int) -> int:
+        """The owning bank: blocked id layout, as the arena's banks."""
+        return page // self.pages_per_shard
+
+    def _shard_free(self) -> list[int]:
+        return list(self._free_counts)
+
+    def free(self, pages: list[int]) -> None:
+        returned = len(self._free)
+        super().free(pages)
+        for p in self._free[returned:]:       # only last-ref pages return
+            self._free_counts[self.shard_of(p)] += 1
+
+    def _demand(self, start: int | None, n: int) -> list[int]:
+        """Per-bank demand of an alloc: strided from logical index
+        `start`; spread to the least-loaded banks when untracked."""
+        demand = [0] * self.num_shards
+        if start is None:
+            supply = self._shard_free()
+            for _ in range(n):
+                s = max(range(self.num_shards),
+                        key=lambda i: supply[i] - demand[i])
+                demand[s] += 1
+            return demand
+        for k in range(n):
+            demand[(start + k) % self.num_shards] += 1
+        return demand
+
+    def fits(self, start: int, n: int) -> bool:
+        supply = self._shard_free()
+        return all(d <= s for d, s in zip(self._demand(start, n), supply))
+
+    def alloc(self, n: int = 1, start: int | None = None) -> list[int]:
+        demand = self._demand(start, n)
+        supply = self._shard_free()
+        short = [(i, d, s) for i, (d, s) in enumerate(zip(demand, supply))
+                 if d > s]
+        if short:                       # raise BEFORE any mutation
+            i, d, s = short[0]
+            raise UniMemOOM(
+                f"UniMem shard {i} exhausted: want {d} pages, {s} free of "
+                f"{self.pages_per_shard} (pool: {len(self._free)} free of "
+                f"{self.num_pages})")
+        pages = []
+        by_shard: dict[int, list[int]] = {}
+        for idx in range(len(self._free) - 1, -1, -1):   # LIFO per bank
+            by_shard.setdefault(self.shard_of(self._free[idx]), []).append(idx)
+        if start is None:
+            order = [s for s, d in enumerate(demand) for _ in range(d)]
+        else:
+            order = [(start + k) % self.num_shards for k in range(n)]
+        for s in order:
+            pages.append(self._free[by_shard[s].pop(0)])
+        for p in pages:
+            self._free.remove(p)
+            self._refcount[p] = 1
+            s = self.shard_of(p)
+            self._free_counts[s] -= 1
+            self._shard_peak[s] = max(self._shard_peak[s],
+                                      self.pages_per_shard
+                                      - self._free_counts[s])
+        self._note_peak()
+        return pages
+
+    def shard_stats(self) -> list[dict]:
+        """Per-bank free, allocated, pinned and peak page counts.  Pinned
+        pages count as allocated (they occupy their bank)."""
+        free = self._shard_free()
+        pinned = [0] * self.num_shards
+        for p in self._pinned:
+            pinned[self.shard_of(p)] += 1
+        return [dict(shard=s, free_pages=free[s],
+                     allocated_pages=self.pages_per_shard - free[s],
+                     pinned_pages=pinned[s],
+                     peak_allocated_pages=self._shard_peak[s])
+                for s in range(self.num_shards)]
+
+
+@dataclass
 class SequencePageTable:
     """Per-sequence logical->physical page map, length in tokens.
-    (The reference's shard `rotation` belongs to the sharded pool and
-    waits for it.)"""
+    Allocations carry the LOGICAL index of the page they extend, offset
+    by `rotation`, so a sharded pool keeps logical page j on bank
+    (rotation + j) % n.  `rotation` is the per-prompt bank offset (the
+    engine derives it from the prompt's first page; inert on a single
+    pool): without it page 0 of every sequence would land on bank 0."""
     pool: UniMemPool
     pages: list[int] = field(default_factory=list)
     num_tokens: int = 0
+    rotation: int = 0
 
     def append_tokens(self, n: int) -> list[int]:
         """Extend by n tokens, allocating pages as needed (copy-on-write is
         the caller's job for shared last pages)."""
         need = self.pool.pages_for(self.num_tokens + n) - len(self.pages)
-        new = self.pool.alloc(need) if need > 0 else []
+        new = (self.pool.alloc(need, start=self.rotation + len(self.pages))
+               if need > 0 else [])
         self.pages.extend(new)
         self.num_tokens += n
         return new
@@ -236,16 +361,19 @@ class SequencePageTable:
     def fork(self) -> "SequencePageTable":
         """Share the full prefix with a new sequence (no copy)."""
         self.pool.share(self.pages)
-        return SequencePageTable(self.pool, list(self.pages), self.num_tokens)
+        return SequencePageTable(self.pool, list(self.pages), self.num_tokens,
+                                 self.rotation)
 
     def cow_last_page(self) -> tuple[int, int] | None:
         """Copy-on-write: swap a SHARED last page for a private one before
         writing into it.  Returns (src, dst) physical ids so the caller
-        can copy the device page, or None when nothing is to do."""
+        can copy the device page, or None when nothing is to do.  The
+        replacement serves the same logical index, so it lands on the
+        same bank."""
         if not self.pages or not self.pool.is_shared(self.pages[-1]):
             return None
         src = self.pages[-1]
-        dst = self.pool.alloc(1)[0]
+        dst = self.pool.alloc(1, start=self.rotation + len(self.pages) - 1)[0]
         self.pool.free([src])               # drop our ref; peers keep theirs
         self.pages[-1] = dst
         return src, dst

@@ -11,7 +11,7 @@ or on per-slot contiguous caches.
          --sample-seed S] [--kv-dtype int8|fp8|bf16] \
         [--speculate K [--draft self:N|mamba2-130m]] \
         [--prefix-cache [--shared-prefix N]] [--host-tier-pages N] \
-        [--high-watermark F] [--device cpu] \
+        [--high-watermark F] [--shards N] [--device cpu] \
         [--port N [--host H] [--tenant-budget alpha:3,beta:1]]
 
 Builds the model with seeded random weights on the device (CUDA unless
@@ -38,7 +38,14 @@ ahead of every prompt) adopt them instead of prefilling;
 `--host-tier-pages` puts a host-DRAM tier of that many pages behind the
 pool (preempted sequences spill and restore, evicted cache pages spill
 cold); `--high-watermark` preempts (after shedding idle cache pages)
-above that fraction of the pool.
+above that fraction of the pool.  `--shards N` serves from the
+near-memory SHARDED arena (`serve/sharded/`): one bank of pages per
+shard, each bank walking its resident pages and the softmax summaries
+merged on the lead device.  The banks go round-robin over the visible
+cards (N banks on one card share it as separate allocations; one bank a
+card where there are N), or all on `--device` when one is named
+(`--device cpu --shards 4` for the CPU); the launch log and the stats'
+"mesh" say where each bank lies.
 
 `--port N` serves the network front instead of the synthetic batch loop
 (`serve/frontend`: HTTP/1.1 + server-sent events on `--host`, port 0
@@ -136,6 +143,10 @@ def main(argv=None):
                     help="prepend this many SHARED system-prompt tokens "
                          "to every request (makes --prefix-cache hits "
                          "visible in stats['prefix_store'])")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="banks of the near-memory sharded page arena (1 = "
+                         "one arena); on --device when named, else "
+                         "round-robin over the visible cards")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--port", type=int, default=None,
@@ -165,7 +176,14 @@ def main(argv=None):
             f"--max-new {args.max_new} leave no room for a prompt "
             f"(need max_seq >= {patches + args.max_new + 5})")
 
-    engine_kw = dict(device=args.device, seed=args.seed,
+    mesh = None
+    if args.shards > 1:
+        from repro_torch.launch.mesh import make_mem_mesh
+        mesh = make_mem_mesh(args.shards, devices=None if args.device is None
+                             else [args.device])
+        log.info("sharded arena: %d banks on %s", args.shards,
+                 [str(d) for d in mesh.devices])
+    engine_kw = dict(device=args.device, seed=args.seed, mesh=mesh,
                      max_batch=args.max_batch, max_seq=args.max_seq,
                      page_size=args.page_size, layout=args.layout,
                      prefill_chunk=args.prefill_chunk,

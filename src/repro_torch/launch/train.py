@@ -17,8 +17,8 @@ on CUDA unless given `--device cpu`, and raises where there is no card.
 The loop keeps the reference's shape: a step-indexed data source (resume
 replays the same batches), the straggler monitor, async checkpoints
 every --ckpt-every steps, and resume from the latest one (--resume).
-Meshes other than 1x1 (sharded state, per-host data slices) are
-ROADMAP.md queue A item 12.
+Meshes other than 1x1 (sharded state, per-host data slices) are sharded
+training (ROADMAP.md queue A, A.6 part two (item 12)).
 """
 from __future__ import annotations
 
@@ -59,7 +59,8 @@ def main(argv=None):
     if args.mesh != "1x1":
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded training is not ported yet "
-            f"(ROADMAP.md queue A item 12); the port trains on one device")
+            f"(ROADMAP.md queue A, A.6 part two (item 12)); the port "
+            f"trains on one device")
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.model

@@ -6,9 +6,11 @@ the tests can compare the two.  Dtypes map to torch dtypes.
 
 `attn_pages_per_block` stays as a field for that parity: it sizes the
 TPU kernel's sequential grid cell, and the CUDA kernels do not read it
-(each block walks its pages in tiles of its own size).  `mem_axis` is likewise
-carried but unused (sharding is ROADMAP.md queue A item 12), and so is
-`scan_layers`: the port's layer loop is a Python loop either way.
+(each block walks its pages in tiles of its own size).  `mem_axis` set
+(by `serve/sharded/serve_step.py`) makes the paged hooks walk a sharded
+arena's banks and merge their summaries (`models/layers.py`);
+`scan_layers` is carried but unused: the port's layer loop is a Python
+loop either way.
 """
 from __future__ import annotations
 

@@ -23,7 +23,10 @@ engine slot i, slot axis `kv_cache.STATE_SLOT_AXIS`).  The hooks update
 pages AND state IN PLACE and return the arena: a row's state starts
 from zero when its chunk starts at position 0, and is written back only
 where the row advanced (prefill: chunk_len > 0; decode: position > 0),
-so decode-active and empty rows keep theirs.
+so decode-active and empty rows keep theirs.  In a sharded arena
+(`cfg.mem_axis`) the pages are per-bank tuples and the state leaves live
+once, on the lead device (the reference replicates them on every bank,
+which gives the same values).
 
 The contiguous cache (`init_cache`) holds the same conv/SSM rows with
 the batch on axis 2 beside (G, b, max_seq, hkv, hd) K/V and a (b,) pos;
@@ -240,6 +243,7 @@ def paged_prefill(params, cfg: ModelConfig, chunk, arena, block_table,
     # rows pick up the state their previous chunk wrote back
     live = (start > 0).to(arena["conv"].dtype)
     adv = chunk_len > 0                  # state writeback only where advanced
+    tables = L.shard_tables(scfg, block_table, arena["k"])  # sharded only
     for g in range(G):
         for i in range(P):
             p = params["mamba"][g][i]
@@ -258,11 +262,12 @@ def paged_prefill(params, cfg: ModelConfig, chunk, arena, block_table,
         cat = torch.cat([x, x0], dim=-1)
         hn = L.rmsnorm_apply(sp["ln1"], cat, cfg.norm_eps)
         q, k, v = L.attention_qkv(sp["attn"], scfg, hn, positions)
-        T._paged_write_kv(scfg, pg, k, v, block_table, start, valid)
+        T._paged_write_kv(scfg, pg, k, v, block_table, start, valid, tables)
         o = L.run_paged_prefill_attention(scfg, q, pg["k"], pg["v"],
                                           block_table, start, chunk_len,
                                           k_scale=pg.get("k_scale"),
-                                          v_scale=pg.get("v_scale"))
+                                          v_scale=pg.get("v_scale"),
+                                          tables=tables)
         x = _shared_tail(sp, scfg, cat, o, params["group_proj"][g], x)
     h = L.rmsnorm_apply(params["ln_f"], T._last_valid(x, chunk_len),
                         cfg.norm_eps)
@@ -281,6 +286,7 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
     x = L.embed_tokens(params["embed"], cfg, tokens[:, None])[:, 0]   # (b, d)
     x0 = x
     act = positions > 0              # inactive rows keep their stored state
+    tables = L.shard_tables(scfg, block_table, arena["k"])  # sharded only
     for g in range(G):
         for i in range(P):
             p = params["mamba"][g][i]
@@ -297,11 +303,13 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
         cat = torch.cat([x, x0], dim=-1)[:, None, :]                   # (b,1,2d)
         hn = L.rmsnorm_apply(sp["ln1"], cat, cfg.norm_eps)
         q, k, v = L.attention_qkv(sp["attn"], scfg, hn, positions[:, None])
-        T._paged_write_kv(scfg, pg, k, v, block_table, positions)
+        T._paged_write_kv(scfg, pg, k, v, block_table, positions, None,
+                          tables)
         o = L.run_paged_decode_attention(scfg, q[:, 0], pg["k"], pg["v"],
                                          block_table, positions,
                                          k_scale=pg.get("k_scale"),
-                                         v_scale=pg.get("v_scale"))
+                                         v_scale=pg.get("v_scale"),
+                                         tables=tables)
         x = _shared_tail(sp, scfg, cat[:, 0], o, params["group_proj"][g], x)
     h = L.rmsnorm_apply(params["ln_f"], x[:, None], cfg.norm_eps)
     logits = L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)

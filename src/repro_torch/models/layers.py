@@ -5,9 +5,9 @@ losses.
 Port of the serving and training subset of `repro.models.layers`.
 Plain functions on tensors with the reference's names and parameter
 layouts: weights are (d_in, d_out), so `x @ w` is the reference's
-product (`matmul`).  The
-reference's sharding constraints and vocab-parallel lookup have no
-counterpart on one card and are dropped.
+product (`matmul`).  The reference's training sharding constraints and
+vocab-parallel lookup have no counterpart yet (ROADMAP.md queue A, A.6
+part two); the sharded arena's walk (`cfg.mem_axis`) is here.
 
 Attention over contiguous K/V (`run_attention`, `run_decode_attention`)
 launches the flash and split-KV decode kernels for CUDA tensors,
@@ -19,14 +19,17 @@ versions.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution import collectives as C
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ops import (POS_PAD,
+                                                     paged_decode_attention)
 from repro_torch.kernels.paged_prefill.ops import paged_prefill_attention
 
 
@@ -232,36 +235,158 @@ def run_attention(cfg: ModelConfig, q, k, v, *, q_offset=0):
                                      q_offset=q_offset)
 
 
-def _check_single_arena(cfg: ModelConfig):
-    if cfg.mem_axis is not None:
-        raise NotImplementedError(
-            "sharded paged attention (cfg.mem_axis) is not ported yet: "
-            "ROADMAP.md queue A item 12")
+# ------------------------------------------------ the sharded arena walk
+#
+# Under `cfg.mem_axis` (the sharded serving step) the page leaves a hook
+# hands to the functions below are TUPLES of per-bank tensors, bank s on
+# its mesh device, and `block_table` carries GLOBAL pool page ids (pool
+# page g lives in bank g // pps at local slot g % pps; each bank's last
+# slot, pps, is its own null sink).  Each bank walks only its resident
+# pages, in partials mode, and the summaries merge on the lead device
+# (q's) through `distribution/collectives.py`.
+
+
+def localize_block_table(cfg: ModelConfig, block_table, num_local_pages,
+                         shard: int = 0):
+    """GLOBAL pool page ids -> bank `shard`'s slots for page WRITES:
+    entries the bank owns become its local slots, everything else (other
+    banks' pages, the null sentinel) its local null sink
+    (`num_local_pages`).  Identity when `cfg.mem_axis` is unset (one
+    arena: the table already is physical).  `shard` is the reference's
+    `axis_index` of the bank."""
+    if cfg.mem_axis is None:
+        return block_table
+    pps = num_local_pages
+    return torch.where(block_table // pps == shard, block_table % pps,
+                       torch.full_like(block_table, pps)).to(torch.int32)
+
+
+def _shard_local_walk(n: int, shard: int, block_table, page_size: int,
+                      local_null: int):
+    """Compact bank `shard`'s walk of a GLOBAL block table to its
+    resident stride (DESIGN.md §2): logical page j of a sequence lives
+    on bank (rot + j) % n, where rot is the sequence's rotation,
+    recovered as the bank that owns its page 0 (`block_table[:, 0] //
+    pps`); idle rows (all null) clamp to n and are masked below.  The
+    columns bank `shard` walks for row i are j = shard - rot_i (mod n).
+
+    block_table: (b, max_pages) GLOBAL ids.  Returns the (b,
+    ceil(max_pages / n)) compacted LOCAL table and its absolute page
+    positions (POS_PAD for null, foreign and absent slots, which the
+    kernels' position mask kills)."""
+    pps = local_null                       # bank size == local null slot
+    b, mp = block_table.shape
+    mp_loc = -(-mp // n)
+    rot = torch.clamp(block_table[:, 0] // pps, max=n)
+    col0 = torch.remainder(shard - rot, n).to(torch.int32)        # (b,)
+    cols = col0[:, None] + n * torch.arange(
+        mp_loc, dtype=torch.int32, device=block_table.device)[None, :]
+    safe = torch.clamp(cols, max=mp - 1)
+    gbt = torch.gather(block_table, 1, safe.long())               # (b, mp_loc)
+    resident = (cols < mp) & (gbt // pps == shard)
+    lbt = torch.where(resident, gbt % pps, torch.full_like(gbt, pps))
+    page_pos = torch.where(resident, cols * page_size,
+                           torch.full_like(cols, POS_PAD))
+    return lbt.to(torch.int32), page_pos.to(torch.int32)
+
+
+@dataclass
+class ShardTables:
+    """One step's GLOBAL block table cut for each bank, on the bank's
+    device: the write tables (`localize_block_table`) and the compacted
+    walks with their page positions (`_shard_local_walk`).  A hook
+    builds it once per call (`shard_tables`) and hands it to every
+    layer's write and walk."""
+    writes: list
+    walks: list
+    positions: list
+
+
+def shard_tables(cfg: ModelConfig, block_table, banks):
+    """`ShardTables` of `block_table` for `banks` (one page leaf's
+    per-bank tensors, any leading layer axis: (..., pps + 1, page, hkv,
+    d)); None when `cfg.mem_axis` is unset.  The global table is handed
+    to each bank's device once."""
+    if cfg.mem_axis is None:
+        return None
+    n = len(banks)
+    slots, page = banks[0].shape[-4], banks[0].shape[-3]
+    pps = slots - 1
+    out = ShardTables([], [], [])
+    for s, bank in enumerate(banks):
+        bt = C.hand(block_table, bank.device)
+        out.writes.append(localize_block_table(cfg, bt, pps, s))
+        lbt, pos = _shard_local_walk(n, s, bt, page, pps)
+        out.walks.append(lbt)
+        out.positions.append(pos)
+    return out
+
+
+def _sharded_attention(kernel, cfg: ModelConfig, q, k_pages, v_pages,
+                       block_table, lengths, k_scale, v_scale, tables):
+    """Every bank's partials-mode walk of its resident pages (the paged
+    `kernel` on the bank's device, in its current stream, with that
+    device's split scratch: `paged_attention/ops.py` keeps one per
+    device), merged on q's device.  `lengths` are the kernel's per-row
+    position arguments (decode: positions; prefill: start and
+    chunk_len)."""
+    tables = tables or shard_tables(cfg, block_table, k_pages)
+    ms, ls, accs = [], [], []
+    for s, (kb, vb) in enumerate(zip(k_pages, v_pages)):
+        dev = kb.device
+        kw = {}
+        if k_scale is not None:
+            kw = dict(k_scale=k_scale[s], v_scale=v_scale[s])
+        m, l, acc = kernel(C.hand(q, dev), kb, vb, tables.walks[s],
+                           *(C.hand(x, dev) for x in lengths),
+                           page_positions=tables.positions[s],
+                           partials=True, **kw)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return C.combine_shard_partials(ms, ls, accs, q.dtype, q.device)
 
 
 def run_paged_decode_attention(cfg: ModelConfig, q, k_pages, v_pages,
                                block_table, positions,
-                               k_scale=None, v_scale=None):
+                               k_scale=None, v_scale=None, tables=None):
     """Paged decode attention over ONE layer's arena: the CUDA kernel on
     the card, its plain version on the CPU.  q: (b, hq, d); returns
-    (b, hq*d)."""
-    _check_single_arena(cfg)
+    (b, hq*d).
+
+    With `cfg.mem_axis` set, the page leaves (scales included) are
+    per-bank tuples and `block_table` holds GLOBAL ids: each bank walks
+    its resident pages in partials mode (`tables`, or built here) and
+    the (b, hq(, d)) summaries merge on q's device."""
     b, hq, d = q.shape
-    o = paged_decode_attention(q, k_pages, v_pages, block_table, positions,
-                               k_scale=k_scale, v_scale=v_scale)
+    if cfg.mem_axis is not None:
+        o = _sharded_attention(paged_decode_attention, cfg, q, k_pages,
+                               v_pages, block_table, (positions,),
+                               k_scale, v_scale, tables)
+    else:
+        o = paged_decode_attention(q, k_pages, v_pages, block_table,
+                                   positions, k_scale=k_scale,
+                                   v_scale=v_scale)
     return o.reshape(b, hq * d)
 
 
 def run_paged_prefill_attention(cfg: ModelConfig, q, k_pages, v_pages,
                                 block_table, start, chunk_len,
-                                k_scale=None, v_scale=None):
+                                k_scale=None, v_scale=None, tables=None):
     """Causal ragged chunk-prefill attention over ONE layer's arena (the
     chunk's own K/V already written).  q: (b, c, hq, d); returns
-    (b, c, hq*d), rows past chunk_len zero."""
-    _check_single_arena(cfg)
+    (b, c, hq*d), rows past chunk_len zero.  With `cfg.mem_axis` set,
+    each bank walks its resident pages and the (b, c, hq(, d)) chunk
+    summaries merge, as in `run_paged_decode_attention`."""
     b, c, hq, d = q.shape
-    o = paged_prefill_attention(q, k_pages, v_pages, block_table, start,
-                                chunk_len, k_scale=k_scale, v_scale=v_scale)
+    if cfg.mem_axis is not None:
+        o = _sharded_attention(paged_prefill_attention, cfg, q, k_pages,
+                               v_pages, block_table, (start, chunk_len),
+                               k_scale, v_scale, tables)
+    else:
+        o = paged_prefill_attention(q, k_pages, v_pages, block_table,
+                                    start, chunk_len, k_scale=k_scale,
+                                    v_scale=v_scale)
     return o.reshape(b, c, hq * d)
 
 

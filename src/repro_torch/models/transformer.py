@@ -16,7 +16,13 @@ advances every row.
 
 The paged arena is a dict of (L, slots, page, hkv, hd) tensors (plus
 (L, slots, page, hkv) f32 scale leaves when `cfg.kv_dtype` is int8/fp8)
-whose LAST slot is the null page.
+whose LAST slot is the null page.  In the sharded serving step
+(`cfg.mem_axis`, `serve/sharded/`) each page leaf is a TUPLE of per-bank
+tensors (L, pps + 1, page, ...), bank s on its mesh device with its own
+null slot last, and the block tables hold GLOBAL pool ids: the paged
+hooks cut them per bank once per call (`layers.shard_tables`), write
+each token into the bank that owns its page only, and walk each bank's
+resident pages (`layers.run_paged_*_attention`).
 
 Both hooks update their cache IN PLACE and return it: that replaces the
 reference's functional updates, which its serving steps donate so XLA
@@ -28,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.unimem import PAGED_SCALE_KEYS, is_page_leaf, quantize_kv
+from repro_torch.distribution import collectives as C
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -272,17 +279,29 @@ def _paged_write(arena_l, kv, block_table, start, valid=None):
 
 
 def _paged_write_kv(cfg: ModelConfig, leaves, k, v, block_table, start,
-                    valid=None):
+                    valid=None, tables=None):
     """Write a chunk's K/V into one layer's page leaves (views of the
-    arena), quantizing on write when the arena stores int8/fp8."""
+    arena), quantizing on write when the arena stores int8/fp8.  Under
+    `cfg.mem_axis` the leaves are per-bank tuples: the chunk's K/V are
+    handed to every bank and written through its localized table
+    (`tables.writes`, built here if not given), where the tokens of
+    other banks' pages fall into the bank's null sink."""
+    new = {"k": k, "v": v}
     if cfg.kv_quantized:
         qk, sk = quantize_kv(k, cfg.kv_store_dtype)
         qv, sv = quantize_kv(v, cfg.kv_store_dtype)
-        _paged_write(leaves["k_scale"], sk, block_table, start, valid)
-        _paged_write(leaves["v_scale"], sv, block_table, start, valid)
-        k, v = qk, qv
-    _paged_write(leaves["k"], k, block_table, start, valid)
-    _paged_write(leaves["v"], v, block_table, start, valid)
+        new = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    if cfg.mem_axis is None:
+        for name, x in new.items():
+            _paged_write(leaves[name], x, block_table, start, valid)
+        return
+    tables = tables or L.shard_tables(cfg, block_table, leaves["k"])
+    for s, wbt in enumerate(tables.writes):
+        dev = wbt.device
+        st = C.hand(start, dev)
+        va = None if valid is None else C.hand(valid, dev)
+        for name, x in new.items():
+            _paged_write(leaves[name][s], C.hand(x, dev), wbt, st, va)
 
 
 def _last_valid(x, chunk_len):
@@ -292,7 +311,11 @@ def _last_valid(x, chunk_len):
 
 
 def _layer_leaves(arena, layer: int):
-    return {n: a[layer] for n, a in arena.items() if is_page_leaf(n)}
+    """One layer's page leaves: views of the arena (per-bank tuples of
+    views in a sharded arena)."""
+    return {n: (tuple(b[layer] for b in a) if isinstance(a, tuple)
+                else a[layer])
+            for n, a in arena.items() if is_page_leaf(n)}
 
 
 def paged_prefill_embeds(params, cfg: ModelConfig, x, arena, block_table,
@@ -307,17 +330,19 @@ def paged_prefill_embeds(params, cfg: ModelConfig, x, arena, block_table,
     rows = torch.arange(c, dtype=start.dtype, device=start.device)
     positions = start[:, None] + rows[None, :]
     valid = rows[None, :] < chunk_len[:, None]                  # (b, c)
+    tables = L.shard_tables(cfg, block_table, arena["k"])   # sharded only
     for layer, p in enumerate(params["layers"]):
         pg = _layer_leaves(arena, layer)
         hn = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, hn, positions)
-        _paged_write_kv(cfg, pg, k, v, block_table, start, valid)
+        _paged_write_kv(cfg, pg, k, v, block_table, start, valid, tables)
         # chunk queries attend through the block table IN PLACE — no
         # contiguous (b, max_pages*page, hkv, hd) copy on the kernel path
         o = L.run_paged_prefill_attention(cfg, q, pg["k"], pg["v"],
                                           block_table, start, chunk_len,
                                           k_scale=pg.get("k_scale"),
-                                          v_scale=pg.get("v_scale"))
+                                          v_scale=pg.get("v_scale"),
+                                          tables=tables)
         x = x + L.matmul(o, p["attn"]["wo"])
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, valid)
@@ -373,15 +398,17 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
     (arena, logits (b, vocab))."""
     x = L.embed_tokens(params["embed"], cfg, tokens[:, None])   # (b, 1, d)
     valid = (positions > 0)[:, None]                            # (b, 1)
+    tables = L.shard_tables(cfg, block_table, arena["k"])   # sharded only
     for layer, p in enumerate(params["layers"]):
         pg = _layer_leaves(arena, layer)
         hn = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(p["attn"], cfg, hn, positions[:, None])
-        _paged_write_kv(cfg, pg, k, v, block_table, positions)
+        _paged_write_kv(cfg, pg, k, v, block_table, positions, None, tables)
         o = L.run_paged_decode_attention(cfg, q[:, 0], pg["k"], pg["v"],
                                          block_table, positions,
                                          k_scale=pg.get("k_scale"),
-                                         v_scale=pg.get("v_scale"))
+                                         v_scale=pg.get("v_scale"),
+                                         tables=tables)
         x = x + L.matmul(o, p["attn"]["wo"])[:, None, :]
         hn = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         x = x + ffn_fn(p, cfg, hn, valid)

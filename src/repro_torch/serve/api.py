@@ -99,9 +99,11 @@ class LLMServer:
     """One engine, many concurrent token streams.
 
     `params=None` draws seeded random parameters (`seed`) on the
-    server's device.  `device=None` means CUDA and raises without a GPU.
-    Engine keyword arguments (`max_batch`, `max_seq`, `page_size`,
-    `prefill_chunk`, `prefill_decode_ratio`, `speculate_k`/`draft` for
+    server's device.  `device=None` means the mesh's first device, else
+    CUDA, and raises without a GPU.  Engine keyword arguments
+    (`max_batch`, `max_seq`, `page_size`, `prefill_chunk`, `mesh` (a
+    sharded arena, `launch/mesh.py` `make_mem_mesh`),
+    `prefill_decode_ratio`, `speculate_k`/`draft` for
     speculative decode (the tokens stay plain decode's, streams fill
     faster; `SamplingParams(speculative=False)` pins a request to plain
     decode), `prefix_cache` (the persistent prefix cache),
@@ -112,6 +114,8 @@ class LLMServer:
 
     def __init__(self, cfg: ModelConfig, params=None, *, device=None,
                  seed: int = 0, max_steps: int = 100_000, **engine_kw):
+        if device is None and engine_kw.get("mesh") is not None:
+            device = engine_kw["mesh"].devices[0]
         device = resolve_device(device)
         if params is None:
             params = registry.get_family(cfg).init(seed, cfg, device)

@@ -67,15 +67,23 @@ each tenant's weighted max-min share of the token budget
 (`serve/frontend/tenants.py`).  Contiguous admission stays first in,
 first out.
 
-The one option the reference has and the port does not yet raises
-`NotImplementedError` naming the ROADMAP.md item that will port it:
-`mesh` (item 12, and with it the sharded verify).  Families with
-per-slot recurrent state (hybrid) share prompt pages but never skip
-their compute, and never spill to the host tier, as in the reference.
+Given a `mesh` (`launch/mesh.py` `make_mem_mesh`) with more than one
+shard, the paged arena is SHARDED near-memory style (`serve/sharded/`):
+each shard owns a bank of pages on its device, the allocator stripes
+every sequence's logical pages over the banks under a per-prompt
+ROTATION (a crc32 of its first page, so short prompts spread over the
+banks and prefix partners share a bank stride), each bank's walk covers
+its resident pages only, and the softmax summaries merge on the lead
+device.  Tokens are the single arena's, up to the order of the merge's
+sums; the engine keeps talking global page ids.  A 1-shard mesh takes
+the single-arena path.  Families with per-slot recurrent state (hybrid)
+share prompt pages but never skip their compute, and never spill to the
+host tier, as in the reference.
 """
 from __future__ import annotations
 
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field, replace
 
@@ -83,6 +91,7 @@ import numpy as np
 
 from repro_torch.core.unimem import (HostParcel, HostTier, SequencePageTable,
                                      UniMemOOM, UniMemPool)
+from repro_torch.launch.mesh import MEM_AXIS
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
 from repro_torch.serve.kv_cache import PagedKVArena, clear_slot, slot_view
@@ -190,11 +199,6 @@ class _Slot:
         return self.prefill_pos < self.request.virtual_len
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue A "
-                              f"{item}")
-
-
 def _params_on(tree, device):
     if isinstance(tree, dict):
         return {k: _params_on(v, device) for k, v in tree.items()}
@@ -204,9 +208,11 @@ def _params_on(tree, device):
 
 
 class ServingEngine:
-    """Continuous-batching engine on one device (`device=None` means
-    CUDA, and raises without a GPU): paged by default, contiguous for
-    families without a paged path or on request.
+    """Continuous-batching engine driven from one device (`device=None`
+    means the mesh's first device, else CUDA, and raises without a
+    GPU): paged by default, contiguous for families without a paged path
+    or on request; with a `mesh` of several shards the paged arena is
+    split into one bank per shard, each on its mesh device.
 
     Chunk widths snap UP to `prefill_buckets` — powers of two from 8 up
     to `prefill_chunk`, plus `prefill_chunk` itself; on the card
@@ -227,8 +233,14 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  speculate_k: int = 0, draft: str | None = None,
                  tenant_weights: dict[str, float] | None = None):
-        if mesh is not None:
-            _refuse("sharded serving (mesh)", "item 12")
+        # a mesh with a >1 "mem" axis shards the arena; a 1-shard mesh is
+        # the single-arena path, every code path unchanged
+        self.mesh = None
+        if (mesh is not None and MEM_AXIS in getattr(mesh, "axis_names", ())
+                and mesh.shape[MEM_AXIS] > 1):
+            self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         if registry.get_family(cfg).decode_step is None:
             raise ValueError(f"family {cfg.family!r} cannot serve (no decode)")
         self._patch_frontend = cfg.frontend == "patch"
@@ -239,6 +251,8 @@ class ServingEngine:
         if layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown layout {layout!r}")
         self.layout = layout
+        if layout != "paged":
+            self.mesh = None            # only the arena shards
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _params_on(params, self.device)
@@ -285,17 +299,30 @@ class ServingEngine:
             self.prefill_buckets = [self.prefill_chunk]
         self.prefill_shapes: set[tuple[int, int]] = set()
 
-        if layout == "paged":
+        if layout == "paged" and self.mesh is not None:
+            from repro_torch.serve.sharded import (ShardedPagedKVArena,
+                                                   make_sharded_serve_fns)
+            n = self.mesh.shape[MEM_AXIS]
+            pool_pages = -(-pool_pages // n) * n     # round UP: never shrink
+            self.arena = ShardedPagedKVArena(cfg, num_pages=pool_pages,
+                                             page_size=page_size,
+                                             device=self.device,
+                                             max_batch=max_batch,
+                                             mesh=self.mesh)
+            self.prefill_fn, self.decode_fn = make_sharded_serve_fns(
+                cfg, self.mesh, pool_pages, device=self.device)
+        elif layout == "paged":
             self.arena = PagedKVArena(cfg, num_pages=pool_pages,
                                       page_size=page_size,
                                       device=self.device,
                                       max_batch=max_batch)
+            self.prefill_fn, self.decode_fn = make_paged_serve_fns(
+                cfg, self.device)
+        if layout == "paged":
             # families with contiguous per-slot state (hybrid conv/SSM)
             # can share page MEMORY but never skip prefill COMPUTE: the
             # skipped tokens' state would not exist for the new slot
             self._slot_state = self.arena.state_bytes > 0
-            self.prefill_fn, self.decode_fn = make_paged_serve_fns(
-                cfg, self.device)
             self.pool = self.arena.pool
             self.cache = None
             # host-DRAM cold tier: preempted slots spill their written
@@ -332,7 +359,8 @@ class ServingEngine:
         # speculative decode: a draft proposes `speculate_k`-token windows
         # and ONE batched paged-prefill verify call judges them.
         # Rewindable drafts run propose, verify and the rewind as one
-        # call (`fused_fn`); state drafts propose, verify, then roll back
+        # call (`fused_fn`); state drafts, and every draft on a mesh (the
+        # sharded verify), propose, verify, then roll back
         self.speculate_k = int(speculate_k or 0)
         self.draft = None
         self.verify_fn = None
@@ -349,9 +377,14 @@ class ServingEngine:
             self.draft = DraftModel(cfg, self.params, draft,
                                     max_batch=max_batch, max_seq=max_seq,
                                     device=self.device)
-            self.fused_fn = self.draft.fused_fn(self.speculate_k)
-            if self.fused_fn is None:
-                self.verify_fn = make_paged_verify_fn(cfg, self.device)
+            if self.mesh is not None:
+                from repro_torch.serve.sharded import make_sharded_verify_fn
+                self.verify_fn = make_sharded_verify_fn(
+                    cfg, self.mesh, self.pool.num_pages, device=self.device)
+            else:
+                self.fused_fn = self.draft.fused_fn(self.speculate_k)
+                if self.fused_fn is None:
+                    self.verify_fn = make_paged_verify_fn(cfg, self.device)
 
         self.pending: list[Request] = []
         self.slots: dict[int, _Slot] = {}        # slot index -> state
@@ -460,20 +493,37 @@ class ServingEngine:
             out.append(h)
         return out
 
+    def _rotation_of(self, req: Request) -> int:
+        """Per-prompt bank rotation (sharded pools only): a STABLE hash
+        of the first (full, if present) page's content offsets the
+        sequence's logical -> bank stride, so page 0 of many short
+        prompts spreads over the banks instead of piling onto bank 0.
+        Content-derived, so prefix partners (same first page) rotate
+        alike; crc32 (not Python's salted `hash`) keeps placement
+        reproducible across processes, and equal to the reference's."""
+        n = getattr(self.pool, "num_shards", 1)
+        if n <= 1:
+            return 0
+        head = req.virtual_bytes(0, min(self.page_size, req.virtual_len))
+        return zlib.crc32(head) % n
+
     def _match_prefix(self, req: Request):
         """Longest run of shareable full pages for this prompt, capped so
         at least one prompt position is always re-prefilled.  Returns
-        (written, adopted, hashes, store_hashes): `written` pages hold
-        published K/V the new sequence skips; `adopted` pages are being
-        written by a co-prefilling slot with identical content, or (for
-        per-slot-state families) are published pages it must still
-        recompute through.  Store matches may come from retired donors
-        (persistent cache), and even from cold host-tier parcels restored
-        on the spot; `store_hashes` names the matched entries the
-        admitting slot must acquire references on."""
+        (written, adopted, hashes, rot_hint, store_hashes): `written`
+        pages hold published K/V the new sequence skips; `adopted` pages
+        are being written by a co-prefilling slot with identical content,
+        or (for per-slot-state families) are published pages it must
+        still recompute through.  Store matches may come from retired
+        donors (persistent cache), and even from cold host-tier parcels
+        restored on the spot; `rot_hint` is the donor's bank rotation the
+        follower must adopt (None without a store match), and
+        `store_hashes` names the matched entries the admitting slot must
+        acquire references on."""
         hashes = self._page_hashes(req)
         limit = (req.virtual_len - 1) // self.page_size
         written, adopted, store_hashes = [], [], []
+        rot_hint = None
         store = self.prefix_store
         for i, h in enumerate(hashes[:limit]):
             page = store.page_of(h)
@@ -481,6 +531,8 @@ class ServingEngine:
                 # device miss: a cold copy may still sit in the host tier
                 page = store.restore_cold(h, i)
             if page is not None:
+                if rot_hint is None:
+                    rot_hint = store.rotation_of(h)
                 store_hashes.append(h)
                 if not adopted and not self._slot_state:
                     written.append(page)
@@ -494,7 +546,7 @@ class ServingEngine:
             if page is None:
                 break
             adopted.append(page)
-        return written, adopted, hashes, store_hashes
+        return written, adopted, hashes, rot_hint, store_hashes
 
     def _register_prefix(self, slot: _Slot):
         """Publish the slot's fully WRITTEN prompt pages for sharing,
@@ -509,7 +561,8 @@ class ServingEngine:
             page = store.page_of(h)
             if page is None:
                 parent = slot.page_hashes[i - 1] if i else None
-                page = store.register(h, mine, parent=parent, index=i)
+                page = store.register(h, mine, parent=parent, index=i,
+                                      rotation=slot.pages.rotation)
             if page == mine and h not in slot.store_refs:
                 store.acquire(h)
                 slot.store_refs.add(h)
@@ -558,24 +611,34 @@ class ServingEngine:
 
     # ---------------------------------------------------- cache reclaim
 
-    def _reclaim_idle(self, need: int = 1,
+    def _reclaim_idle(self, need: int = 1, start: int | None = None,
                       protect: set[int] | None = None) -> int:
         """LRU-evict idle (refcount-0) cached pages to make room: the
         watermark and OOM paths try this BEFORE preempting live slots,
         because a dropped cache page costs a future prefill while a
-        preemption costs one now.  Returns pages actually freed."""
+        preemption costs one now.  `start` aims the eviction at the
+        banks a strided alloc at that logical index would demand
+        (sharded pools); a pool-wide pass backstops it.  Returns pages
+        actually freed."""
         store = self.prefix_store
         if store is None or not len(store):
             return 0
-        return store.evict(need, protect=protect)
+        shards = None
+        n = getattr(self.pool, "num_shards", 1)
+        if start is not None and n > 1:
+            shards = {(start + k) % n for k in range(min(need, n))}
+        freed = store.evict(need, shards=shards, protect=protect)
+        if freed < need and shards is not None:
+            freed += store.evict(need - freed, protect=protect)
+        return freed
 
-    def _fits_or_reclaim(self, need: int,
+    def _fits_or_reclaim(self, start: int, need: int,
                          protect: set[int] | None = None) -> bool:
         """`pool.fits`, with idle cache pages counted as reclaimable
         headroom: evict and retry until the alloc fits or the idle set is
         dry (entries in `protect`, just matched, are never victims)."""
-        while not self.pool.fits(need):
-            if not self._reclaim_idle(need, protect=protect):
+        while not self.pool.fits(start, need):
+            if not self._reclaim_idle(need, start, protect=protect):
                 return False
         return True
 
@@ -624,13 +687,19 @@ class ServingEngine:
                 # (the replay pinned at preemption still replays the
                 # published tokens)
             plen = req.virtual_len
-            written, adopted, hashes, store_hashes = self._match_prefix(req)
+            written, adopted, hashes, rot_hint, store_hashes = \
+                self._match_prefix(req)
+            # a store hit binds the follower to the DONOR's rotation: the
+            # cached pages live in the donor's banks, and the walk
+            # recovers the rotation from the table's first column
+            rot = rot_hint if rot_hint is not None else self._rotation_of(req)
             shared_tokens = len(written) * self.page_size
             held = shared_tokens + len(adopted) * self.page_size
             first = min(self.prefill_chunk, plen - held)
             need = (self.pool.pages_for(held + first)
                     - len(written) - len(adopted))
-            if not self._fits_or_reclaim(need, protect=set(store_hashes)):
+            if not self._fits_or_reclaim(rot + len(written) + len(adopted),
+                                         need, protect=set(store_hashes)):
                 break                            # UniMem backpressure
             self.pending.pop(pidx)
             slot = free.pop(0)
@@ -638,7 +707,8 @@ class ServingEngine:
                 self.pool.share(written + adopted)
             for h in store_hashes:
                 self.prefix_store.acquire(h, reuse=True)
-            seq = SequencePageTable(self.pool, written + adopted, held)
+            seq = SequencePageTable(self.pool, written + adopted, held,
+                                    rotation=rot)
             seq.append_tokens(first)
             s = _Slot(request=req, pages=seq, admitted_at=time.perf_counter(),
                       order=self._admitted, prefill_pos=shared_tokens,
@@ -880,7 +950,7 @@ class ServingEngine:
             return
         data = self.arena.read_pages(pages)
         meta = dict(tokens=valid, prefill_pos=victim.prefill_pos,
-                    rotation=0,             # one pool: no shard rotation
+                    rotation=victim.pages.rotation,
                     generated=list(victim.generated),
                     last_token=victim.last_token,
                     page_hashes=list(victim.page_hashes))
@@ -891,13 +961,15 @@ class ServingEngine:
     def _restore_from_tier(self, req: Request, free: list[int],
                            pidx: int = 0) -> str:
         """Readmission fast path: rebuild the slot from its spilled
-        parcel (fresh pages, their contents written back from the
+        parcel (fresh pages on the SAME rotation, so in the same banks,
+        their contents written back from the
         prefetched device copy when the prefetch got to it, generation
         state resumed exactly).  Returns "restored", "wait" (the pool
         must drain first) or "recompute" (the parcel is unusable and
         dropped; the caller falls through to normal admission)."""
         tier = self.host_tier
         parcel = tier.peek(req.uid)
+        rot = parcel.meta["rotation"]
         npages = parcel.num_pages
         # thrash guard: restoring straight past the shedder's limit would
         # preempt (and re-spill) somebody next tick.  Pinned idle cache
@@ -908,7 +980,7 @@ class ServingEngine:
                    - self.pool.pinned_pages)
             if hot + npages > limit:
                 return "wait"
-        if not self._fits_or_reclaim(npages):
+        if not self._fits_or_reclaim(rot, npages):
             if self.slots:
                 return "wait"
             tier.take(req.uid)          # pool genuinely too small
@@ -920,7 +992,7 @@ class ServingEngine:
         pre = self._prefetched.pop(req.uid, None)
         self.pending.pop(pidx)
         slot = free.pop(0)
-        seq = SequencePageTable(self.pool)
+        seq = SequencePageTable(self.pool, rotation=rot)  # the same banks
         seq.append_tokens(parcel.meta["tokens"])
         if pre is not None and pre[0] is parcel:
             # the compute stream waits for the side-stream copy; dropping
@@ -1431,6 +1503,10 @@ class ServingEngine:
                                  if sp["draft_tokens"] else 0.0)
             sp["draft"] = self.draft.stats()
             out["speculative"] = sp
+        if self.mesh is not None:               # near-memory sharded arena
+            out["mesh"] = self.mesh.describe()
+            out["shards"] = self.pool.shard_stats()
+            out["shard_kv_bytes"] = self.arena.shard_kv_bytes()
         if self.host_tier is not None:          # DRAM cold tier traffic
             tier = self.host_tier.stats()
             tier["peak_bytes"] = (tier["peak_resident_pages"]

@@ -72,7 +72,7 @@ class FrontendServer:
 
     Engine keyword arguments (`device`: CUDA unless "cpu" is named;
     `max_batch`, `max_seq`, `speculate_k`, `prefix_cache`,
-    `tenant_weights`, ...) pass through to `LLMServer`.  `start()`
+    `tenant_weights`, `mesh`, ...) pass through to `LLMServer`.  `start()`
     spawns the engine thread and an event-loop thread, binds (host,
     port) — port 0 picks a free one, read it back from `self.port` —
     and returns; `stop()` tears both down.  For a caller that already

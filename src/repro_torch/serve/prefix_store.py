@@ -1,6 +1,6 @@
 """Persistent cross-request prefix cache over the UniMem pool.
 
-Port of `repro.serve.prefix_store` on one pool.  The store keeps full
+Port of `repro.serve.prefix_store`.  The store keeps full
 PROMPT pages alive after their owning sequence retires, so the next
 request with the same prefix adopts the written pages instead of
 prefilling them again.
@@ -19,12 +19,16 @@ prefilling them again.
   paths ask for headroom.  A non-persistent store (the engine default)
   drops the entry the moment refs hits 0: the donor-lifetime semantics,
   through the same code path.
-* Entries record the donor's shard `rotation`; on one pool it is always
-  0 (sharded pools arrive with ROADMAP.md queue A item 12).
+* Entries record the donor's shard `rotation`: on a sharded pool a
+  follower adopting cached pages adopts the donor's rotation, so logical
+  page j keeps serving bank (rotation + j) % n and the walk's rotation
+  recovery (`block_table[:, 0] // pages_per_shard`) stays exact.  On
+  one pool it is 0.
 * With a `HostTier` attached, eviction spills the page's exact bytes to
   a host-DRAM parcel keyed ("prefix", hash); a later lookup that misses
   device-resident entries can `restore_cold` the parcel into a fresh
-  page.  The cold copy is a fast path, never a correctness dependency:
+  page at its original logical index and rotation (so on its original
+  bank).  The cold copy is a fast path, never a correctness dependency:
   a dropped parcel just means a prefill.
 """
 from __future__ import annotations
@@ -174,13 +178,16 @@ class PrefixStore:
         self.pool.unpin(e.page)         # the pool refuses to free a pinned
         self.pool.free([e.page])        # page; this is the store's own ref
 
-    def evict(self, need: int = 1, protect: set[int] | None = None) -> int:
+    def evict(self, need: int = 1, shards: set[int] | None = None,
+              protect: set[int] | None = None) -> int:
         """Reclaim up to `need` idle pages, LRU-first among LEAF entries
         (children == 0: dropping an interior page would orphan the
         descendants that make longer matches possible) with refs == 0.
-        `protect` entries are never victims (hashes an in-flight
-        admission just matched).  Spills each victim to the host tier
-        when one is attached.  Returns pages actually freed."""
+        `shards` narrows the candidates to pages on those banks (a
+        strided admission's demand on a sharded pool); None means the
+        whole pool.  `protect` entries are never victims (hashes an
+        in-flight admission just matched).  Spills each victim to the
+        host tier when one is attached.  Returns pages actually freed."""
         freed = 0
         while freed < need:
             victim = None
@@ -188,6 +195,9 @@ class PrefixStore:
                 if e.refs or e.children:
                     continue
                 if protect is not None and h in protect:
+                    continue
+                if shards is not None and \
+                        self.pool.shard_of(e.page) not in shards:
                     continue
                 victim = h
                 break
@@ -237,10 +247,10 @@ class PrefixStore:
         if meta["index"] != index:
             self.host_tier.take(key)
             return None
-        if not self.pool.fits(1):
+        if not self.pool.fits(meta["rotation"] + index, 1):
             return None
         self.host_tier.take(key)
-        page = self.pool.alloc(1)[0]
+        page = self.pool.alloc(1, start=meta["rotation"] + index)[0]
         self.arena.write_page(page, parcel.data)
         self.register(h, page, parent=meta["parent"], index=index,
                       rotation=meta["rotation"], adopt_ref=True)

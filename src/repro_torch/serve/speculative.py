@@ -35,10 +35,10 @@ For rewindable drafts `fused_fn` runs propose, verify, accept and the
 rewind as one call with the window kept on the device, as the
 reference's fused jit does (with its optimistic rewind `pos0 + accept +
 1` on live rows); state drafts take propose, verify and `rollback`.
-The engine never calls `propose` and `rollback` on a rewindable draft:
-their rewindable branches are the two-call route that the reference
-keeps for its sharded verify, which waits here with `mesh` (ROADMAP.md
-queue A item 12), and the tests hold them against the reference.
+On one arena the engine never calls `propose` and `rollback` on a
+rewindable draft; on a mesh it takes them for every draft: the sharded
+verify (`serve/sharded/serve_step.py` `make_sharded_verify_fn`) is a
+call of its own between them, as in the reference.
 """
 from __future__ import annotations
 

@@ -8,8 +8,8 @@ GLOBAL batch is the contract: when the data-parallel width changes,
 accumulation so that `global_batch = dp_width * per_device_batch *
 grad_accum` still holds; the step-indexed learning-rate schedule stays
 aligned through the restored `step`.  `elastic_restore`, which places a
-checkpoint on a new mesh, needs process groups and goes with ROADMAP.md
-queue A item 12.
+checkpoint on a new mesh, needs process groups and goes with sharded
+training (ROADMAP.md queue A, A.6 part two (item 12)).
 """
 from __future__ import annotations
 

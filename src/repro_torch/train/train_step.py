@@ -9,7 +9,8 @@ dtype, as the reference's do); `train_step(state, batch)` clips them by
 the global norm and updates the parameters and moments in place.  Live activation memory is
 one microbatch's; remat is the model's own policy (`cfg.remat`).  The
 reference's sharding helpers (`state_shardings`, the gradients' pinning
-to the parameter sharding) go with ROADMAP.md queue A item 12.
+to the parameter sharding) go with sharded training (ROADMAP.md queue
+A, A.6 part two (item 12)).
 """
 from __future__ import annotations
 

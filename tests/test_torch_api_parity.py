@@ -6,9 +6,9 @@ public top-level name of the reference module (functions, classes,
 assignments, and in an `__init__.py` the names it re-exports; not a
 module's logger, `log = get_logger(...)`, which no caller imports) must be a
 top-level name of the port's module, unless `WAITING` lists it with the
-ROADMAP.md queue A item it waits for: A.6 (sharded serving,
-distribution and distributed training) or A.7 (the paper side's XLA
-tools).  A caller of the reference's API would otherwise get an
+ROADMAP.md queue A item it waits for: A.6 part two (distributed
+training: the training meshes, the sharding rules and collectives, the
+logical axes) or A.7 (the paper side's XLA tools).  A caller of the reference's API would otherwise get an
 ImportError or AttributeError from the port.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ ROOT = Path(__file__).resolve().parents[1]
 REF = ROOT / "src" / "repro"
 PORT = ROOT / "src" / "repro_torch"
 
-A6 = "A.6 (item 12): sharding"
+A6 = "A.6 part two (item 12): sharded training"
 A7 = "A.7 (item 14): the XLA tools"
 _AXES = "logical sharding axes, " + A6
 
@@ -38,15 +38,23 @@ WAITING = {
     "configs/sunrise_chip.py": {"TARGET": A7},
     "core/__init__.py": {"TPU_V5E": A7},
     "core/hwmodel.py": {"TPU_V5E": A7, "TpuTarget": A7},
-    "core/unimem.py": {"ShardedUniMemPool": A6},
+    "distribution/__init__.py": {n: A6 for n in (
+        "AxisRules", "DEFAULT_RULES", "use_mesh", "use_rules",
+        "current_mesh", "current_rules", "logical_to_spec",
+        "with_logical_constraint", "named_sharding", "param_shardings")},
+    "distribution/collectives.py": {n: A6 for n in (
+        "axis_size", "bucket_psum", "compressed_tree_psum",
+        "quantize_int8", "dequantize_int8", "ring_allreduce_int8")},
     "launch/__init__.py": {n: A6 for n in (
         "make_production_mesh", "make_mesh", "make_host_mesh", "dp_width")},
+    "launch/mesh.py": {n: A6 for n in (
+        "make_abstract_mesh", "make_production_mesh", "make_mesh",
+        "make_host_mesh", "dp_width")},
     "models/encoder.py": {"param_axes": _AXES},
     "models/hybrid.py": {n: _AXES for n in (
         "paged_cache_axes", "param_axes", "shared_block_axes")},
-    "models/layers.py": {**{n: _AXES for n in (
+    "models/layers.py": {n: _AXES for n in (
         "attention_axes", "embedding_axes", "mlp_axes", "rmsnorm_axes")},
-        "localize_block_table": A6},
     "models/mamba2.py": {n: _AXES for n in (
         "block_axes", "layer_axes", "param_axes")},
     "models/moe.py": {n: _AXES for n in (
@@ -57,6 +65,8 @@ WAITING = {
     "models/vlm.py": {n: _AXES for n in ("paged_cache_axes", "param_axes")},
     "serve/serve_step.py": {n: A7 for n in (
         "HLO_PROBE_GEOM", "bulk_attn_shapes", "lowered_paged_hlo")},
+    "serve/sharded/__init__.py": {"lowered_sharded_hlo": A7},
+    "serve/sharded/serve_step.py": {"lowered_sharded_hlo": A7},
     "train/elastic.py": {"elastic_restore": A6},
     "train/train_step.py": {n: A6 for n in (
         "state_logical_axes", "state_shapes", "state_shardings")},

@@ -606,9 +606,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(dense):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_engine_options_refuse(dense, kw):
+    """No engine option of the reference is refused any more (`mesh` was
+    the last): a mesh without a `mem` axis of more than one shard takes
+    the single-arena path, as in the reference (the sharded arena is
+    held in tests/test_torch_sharded_engine.py)."""
+    from repro_torch.serve.kv_cache import PagedKVArena
     cfg, _, pp = dense
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(port_cfg(cfg), pp, device="cpu", **kw)
+    eng = ServingEngine(port_cfg(cfg), pp, device="cpu", **kw)
+    assert eng.mesh is None and type(eng.arena) is PagedKVArena
 
 
 @pytest.mark.parametrize("family", ["encoder", "vlm"])
