@@ -306,6 +306,30 @@ exit at the first failure):
    the launches of the nine steps: per microbatch and layer the SSD
    kernel twice and its backward once, or the grouped matmul 3 x 2 and
    its backward 3, flash 2 and its backward 1.
+13d. train_sharded: sharded training in one world of 4 ranks sharing
+   the card (`repro_torch/benchmarks/train_sharded.py`; gloo process
+   groups: NCCL refuses two ranks on one GPU; the kernels built before
+   the ranks start): internlm2-1.8b at full width, 4 layers, bf16, on a
+   (2, 2) = data x model mesh (FSDP over data; heads, MLP columns and
+   the vocab over model), 8 x 2048 tokens, 3 steps of AdamW, against the
+   single-rank step on the same seeded weights and batches (each step's
+   loss and every leaf after step 1 within `SHARDED_BF16_TOL`); the same
+   at f32 and 2 layers, grad_accum 2, within the reference test's own
+   bounds; qwen3-moe-30b-a3b at full width, 2 layers, f32, on (1, 4)
+   under "ep" (32 resident experts a rank, a capacity that drops
+   nothing): the loss and every gradient against the single-rank
+   "grouped" step (`SHARDED_MOE_TOL`); the flash forward and backward
+   and the grouped matmul and its backward launched on every rank as
+   counted (`train_sharded.expected_launches`); the int8 ring over the 4
+   ranks under 0.02 of the exact sum; GPipe over 4 stages and 6
+   microbatches equal to the sequential forward; an elastic restart
+   (a reduced internlm2 saved at step 2 on (2, 2), restored on (4, 1) and
+   on one rank) whose losses continue the uninterrupted run's.  It
+   prints the transport (gloo; which primitives took CUDA tensors; the
+   messages staged through host memory), the bytes each collective moved
+   in a step, the step seconds of the sharded and the single-rank runs
+   and each rank's peak memory.  A failing rank, or a world past
+   `SHARDED_TIMEOUT`, fails the phase.
 13c. serve_vlm: phi-3-vision-4.2b at full width and depth (bf16,
    paged, 32 layers), the 8 prompts each behind its own seeded image
    of 576 patch rows (max_seq 1152 holds 576 + 511 + 32), one sampled,
@@ -3909,6 +3933,62 @@ def phase_train_family(torch, dev, card: str, cfg, global_batch: int,
     return launches
 
 
+# ------------------------------------------ phase 13d: train_sharded
+#
+# Sharded training in one world of 4 ranks time-sharing this card
+# (`repro_torch/benchmarks/train_sharded.py`; gloo process groups, since
+# NCCL refuses two ranks on one GPU): internlm2-1.8b at full width on
+# (2, 2) = data x model, bf16 and f32, qwen3-moe-30b-a3b at full width
+# on (1, 4) under "ep", the int8 ring, GPipe and an elastic restart, each
+# held against the single-rank step on the same card.
+# bf16 bounds: the sharded step sums the same products in other orders
+# (tensor-parallel partial sums all-reduced, the FSDP gradient
+# reduce-scattered in bf16), and AdamW's first step is about lr *
+# sign(g), so a leaf's elements whose gradient is near zero may step the
+# other way.  Measured on the card by this phase (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md section 6): the worst leaf after step 1 0.0201 (mlp wo),
+# the loss 9.0e-4 at step 3; bounded here per leaf (relative L2) and per
+# step (loss, absolute).
+SHARDED_BF16_TOL = (5e-2, 5e-3)
+# qwen3-moe-30b-a3b's gradients, f32 (relative L2 per leaf), "ep" on
+# (1, 4) against the single-rank "grouped" step: measured 5.1e-6 at
+# worst (attention wk); its loss within the reference's 2e-4.  In bf16
+# the routing of a few tokens near a top-8 tie flips with the summation
+# order and the gradients part by 5-9 % (measured), which would hide a
+# fault of that size.
+SHARDED_MOE_TOL = 1e-4
+SHARDED_TIMEOUT = 600            # seconds for the 4-rank world
+
+
+def phase_train_sharded(torch, card: str) -> dict:
+    """Phase 13d (module docstring); returns the kernels the ranks
+    launched in the dense and MoE cases, summed over the ranks."""
+    import shutil
+    from repro_torch.benchmarks import train_sharded as TSH
+    work = ROOT / "build" / "chip_smoke_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep = TSH.run(TSH.card_spec(str(work)), timeout=SHARDED_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    bad = TSH.check(rep, *SHARDED_BF16_TOL, SHARDED_MOE_TOL)
+    launches = {}
+    for case in ("dense", "dense_f32", "moe"):
+        for per_rank in rep[case]["launches"]:
+            for name, n in per_rank.items():
+                launches[name] = launches.get(name, 0) + n
+    emit({"phase": "train_sharded", "card": card, "seconds": seconds,
+          "tolerance": {"bf16_leaf_rel_l2": SHARDED_BF16_TOL[0],
+                        "bf16_loss_abs": SHARDED_BF16_TOL[1],
+                        "moe_grad_rel_l2": SHARDED_MOE_TOL},
+          "launches": launches, **rep})
+    if bad:
+        fail("train_sharded: " + "; ".join(bad))
+    return launches
+
+
 # ------------------------------------------------------ phase 14: paper
 
 def phase_paper(torch, dev):
@@ -4272,6 +4352,9 @@ def main() -> int:
             phase=phase, fixed=fixed)
         train_launches["flash_attention_backward"] += \
             fam_launches["flash_attention_backward"]
+    sharded_launches = phase_train_sharded(torch, card)
+    for name in ("flash_attention_backward", "grouped_matmul_backward"):
+        train_launches[name] += sharded_launches[name]
     paper_launches = phase_paper(torch, dev)
     phase_resnet50(torch, dev, card)
 
@@ -4356,6 +4439,7 @@ def main() -> int:
                        "serve_front": front_launches,
                        "serve_tools": tools_launches,
                        "serve_sharded": shard_launches,
+                       "train_sharded": sharded_launches,
                        **{f"serve_configs {a}": v
                           for a, v in config_launches.items()}}})
     emit({"kernels": rows})

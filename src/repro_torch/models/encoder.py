@@ -27,7 +27,7 @@ def init(seed: int, cfg: ModelConfig, device):
     layouts and standard deviations (drawn from a `torch.Generator` on
     `device`, not the reference's bits)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = L.generator(device)
     gen.manual_seed(seed)
     pd = cfg.params_dtype
     return {
@@ -39,6 +39,17 @@ def init(seed: int, cfg: ModelConfig, device):
         "ln_f": L.rmsnorm_init(cfg, device),
         "head": L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02, pd,
                           device),
+    }
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of `init`'s tree: a list of per-layer axes."""
+    return {
+        "in_proj": ("embed", "norm"),   # frontend_dim == d_model; replicate out
+        "mask_emb": ("norm",),
+        "layers": [T.layer_axes(cfg) for _ in range(cfg.num_layers)],
+        "ln_f": L.rmsnorm_axes(),
+        "head": ("embed", "vocab"),
     }
 
 

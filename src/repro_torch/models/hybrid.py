@@ -59,6 +59,16 @@ def shared_block_init(gen, cfg: ModelConfig, device):
     }
 
 
+def shared_block_axes(cfg: ModelConfig):
+    scfg = _shared_cfg(cfg)
+    return {
+        "ln1": L.rmsnorm_axes(),
+        "attn": L.attention_axes(),
+        "ln2": L.rmsnorm_axes(),
+        "mlp": L.mlp_axes(scfg),
+    }
+
+
 def _groups(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.num_layers // cfg.shared_attn_period, cfg.shared_attn_period
 
@@ -68,7 +78,7 @@ def init(seed: int, cfg: ModelConfig, device):
     layouts and standard deviations (drawn from a `torch.Generator` on
     `device`, not the reference's bits)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = L.generator(device)
     gen.manual_seed(seed)
     G, P = _groups(cfg)
     params = {
@@ -86,6 +96,24 @@ def init(seed: int, cfg: ModelConfig, device):
         params["head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), 0.02,
                                    cfg.params_dtype, device)
     return params
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of `init`'s tree in the port's layout: `mamba` a
+    G x P nested list of layer axes, `shared` and `group_proj` lists (the
+    reference's stacked leaves carry leading "stage" entries instead)."""
+    G, P = _groups(cfg)
+    axes = {
+        "embed": L.embedding_axes(),
+        "mamba": [[M.layer_axes(cfg) for _ in range(P)] for _ in range(G)],
+        "shared": [shared_block_axes(cfg)
+                   for _ in range(cfg.num_shared_blocks)],
+        "group_proj": [("heads", "embed") for _ in range(G)],
+        "ln_f": L.rmsnorm_axes(),
+    }
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
 
 
 def _select_shared(params, cfg: ModelConfig, g: int):
@@ -131,6 +159,21 @@ def cache_axes():
         "v": kv,
         "pos": ("act_batch",),
     }
+
+
+def paged_cache_axes(cfg: ModelConfig | None = None):
+    """The reference's logical axes of the paged arena (K/V pages with
+    kv heads on "model", the contiguous conv/SSM state rows)."""
+    kv = (None, None, None, "act_kv_heads", None)
+    axes = {
+        "k": kv, "v": kv,
+        "conv": (None, None, "act_batch", None, "ssm_inner"),
+        "ssm": (None, None, "act_batch", "act_ssm_heads", None, None),
+    }
+    if cfg is not None and cfg.kv_quantized:
+        for name in PAGED_SCALE_KEYS:
+            axes[name] = kv[:-1]
+    return axes
 
 
 def prefill(params, cfg: ModelConfig, batch, cache):
@@ -341,15 +384,15 @@ def forward_hidden(params, cfg: ModelConfig, x):
     x0 = x
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
-    def group(h, g):
-        for p in params["mamba"][g]:
+    def group(h, mamba, shared, proj):
+        for p in mamba:
             h = M._layer_apply(p, cfg, h)
-        return _shared_apply(_select_shared(params, cfg, g), cfg, h, x0,
-                             params["group_proj"][g], positions)
+        return _shared_apply(shared, cfg, h, x0, proj, positions)
 
     body = T._maybe_remat(group, cfg)
     for g in range(G):
-        x = body(x, g)
+        x = body(x, params["mamba"][g], _select_shared(params, cfg, g),
+                 params["group_proj"][g])
     return L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
 
 

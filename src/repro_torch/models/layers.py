@@ -2,12 +2,25 @@
 embeddings, the attention dispatch (contiguous and paged) and the LM
 losses.
 
-Port of the serving and training subset of `repro.models.layers`.
-Plain functions on tensors with the reference's names and parameter
-layouts: weights are (d_in, d_out), so `x @ w` is the reference's
-product (`matmul`).  The reference's training sharding constraints and
-vocab-parallel lookup have no counterpart yet (ROADMAP.md queue A, A.6
-part two); the sharded arena's walk (`cfg.mem_axis`) is here.
+Port of `repro.models.layers`.  Plain functions on tensors with the
+reference's names and parameter layouts: weights are (d_in, d_out), so
+`x @ w` is the reference's product (`matmul`); each block's `*_axes`
+gives the logical sharding axes of its parameters.  The sharded arena's
+walk (`cfg.mem_axis`) is here.
+
+Tensor parallelism over the mesh's "model" axis (the sharded train step,
+`train/train_step.py`): a weight the step keeps as this rank's slice is
+tagged with its model-axis group (`collectives.mark_tp`), and the blocks
+below read the tag.  Attention then projects this rank's query heads
+(columns of wq, wk, wv; kv heads replicated where there are fewer than
+ranks), runs the flash kernel over them and multiplies by its rows of wo,
+followed by one all-reduce of the activation; the MLP splits wg/wi by
+column and wo by row the same way; the embedding lookup is
+vocab-parallel (`_vocab_parallel_lookup`: a masked local gather and one
+all-reduce; the table's gradient a local scatter-add), and so are the
+head and the loss (`_vocab_parallel_ce_sum`: the softmax's max and sum
+all-reduced, the (b, s, vocab) logits never gathered).  Untagged
+weights compute as on one device.
 
 Attention over contiguous K/V (`run_attention`, `run_decode_attention`)
 launches the flash and split-KV decode kernels for CUDA tensors,
@@ -25,12 +38,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distribution import collectives as C
+from repro_torch.distribution.sharding import current_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention.ops import (POS_PAD,
                                                      paged_decode_attention)
 from repro_torch.kernels.paged_prefill.ops import paged_prefill_attention
+
+
+def generator(device) -> torch.Generator:
+    """The seeded init's generator on `device`; on "meta" (shapes only,
+    nothing allocated) a CPU generator, which meta draws ignore."""
+    device = torch.device(device)
+    return torch.Generator(device="cpu" if device.type == "meta" else device)
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device):
@@ -58,6 +79,10 @@ def matmul(x, w):
 def rmsnorm_init(cfg: ModelConfig, device, dim: int | None = None):
     return torch.ones((dim or cfg.d_model,), dtype=cfg.params_dtype,
                       device=device)
+
+
+def rmsnorm_axes():
+    return ("norm",)
 
 
 def rmsnorm_apply(scale, x, eps: float):
@@ -102,6 +127,15 @@ def attention_init(gen, cfg: ModelConfig, device):
         "wk": _normal(gen, (d, kvd), std, pd, device),
         "wv": _normal(gen, (d, kvd), std, pd, device),
         "wo": _normal(gen, (qd, d), out_std, pd, device),
+    }
+
+
+def attention_axes():
+    return {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
     }
 
 
@@ -407,6 +441,14 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: int | None = None):
     return p
 
 
+def mlp_axes(cfg: ModelConfig):
+    ax = {"wo": ("mlp", "embed")}
+    if cfg.activation == "silu_glu":
+        ax["wg"] = ("embed", "mlp")
+    ax["wi"] = ("embed", "mlp")
+    return ax
+
+
 def silu(x):
     """The reference's `jax.nn.silu`: in bf16 its logistic and product
     as XLA computes them, each of neg, exp, add, reciprocal and mul
@@ -436,6 +478,15 @@ def gelu(x):
 
 
 def mlp_apply(p, cfg: ModelConfig, x):
+    """The MLP; tensor-parallel (wg/wi by column, wo by row, one
+    all-reduce) when wi is this rank's slice."""
+    g = C.tp_group(p["wi"])
+    if g is not None:
+        return C.reduce_from_tp(_mlp(p, cfg, C.copy_to_tp(x, g)), g)
+    return _mlp(p, cfg, x)
+
+
+def _mlp(p, cfg: ModelConfig, x):
     if cfg.activation == "silu_glu":
         h = silu(matmul(x, p["wg"])) * matmul(x, p["wi"])
     elif cfg.activation == "relu2":
@@ -454,8 +505,53 @@ def embedding_init(gen, cfg: ModelConfig, device):
                    cfg.params_dtype, device)
 
 
+def embedding_axes():
+    # Vocab-parallel table; the d dim stays replicated: activations are
+    # batch-sharded, so a data-sharded table d-dim would force an
+    # all-to-all of the table (the reference's note).
+    return ("vocab", None)
+
+
+def _model_group(cfg: ModelConfig, n: int):
+    """The bound mesh's model-axis group when it has more than one rank
+    and `n` divides over it (the reference's condition), else None."""
+    mesh = current_mesh()
+    if (mesh is None or not getattr(mesh, "bound", False)
+            or "model" not in mesh.axis_names or mesh.shape["model"] < 2
+            or n % mesh.shape["model"]):
+        return None
+    return mesh.group("model")
+
+
+def _vocab_parallel_lookup(emb, cfg: ModelConfig, tokens, g):
+    """Megatron-style vocab-parallel embedding: `emb` is this rank's
+    (vocab / m, d) rows; ids outside its range give zeros (a masked
+    local gather), then one activation-sized all-reduce combines.  The
+    backward is a LOCAL scatter-add: the table's gradient never crosses
+    ranks."""
+    v_loc = emb.shape[0]
+    rel = tokens - g.index * v_loc
+    ok = (rel >= 0) & (rel < v_loc)
+    x = emb.index_select(0, torch.clamp(rel, 0, v_loc - 1).reshape(-1))
+    x = x.reshape(*tokens.shape, emb.shape[1]).to(cfg.compute_dtype)
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return C.reduce_from_tp(x, g)
+
+
 def embed_tokens(emb, cfg: ModelConfig, tokens):
-    """tokens (...) int -> (..., d) in the compute dtype."""
+    """tokens (...) int -> (..., d) in the compute dtype.  Vocab-parallel
+    when `emb` is this rank's slice of the table, or when a bound mesh
+    has a model axis over which the vocab divides (then this rank's rows
+    of the full table are looked up)."""
+    g = C.tp_group(emb)
+    if g is None and emb.shape[0] == cfg.vocab_size:
+        g = _model_group(cfg, cfg.vocab_size)
+        if g is not None:
+            v_loc = cfg.vocab_size // g.size
+            emb = emb[g.index * v_loc:(g.index + 1) * v_loc]
+    if g is not None:
+        return _vocab_parallel_lookup(emb, cfg, tokens, g)
     x = emb.index_select(0, tokens.reshape(-1))
     return x.reshape(*tokens.shape, emb.shape[1]).to(cfg.compute_dtype)
 
@@ -469,14 +565,53 @@ def logits_from_hidden(emb_or_head, cfg: ModelConfig, x):
     return matmul(x, w.to(x.dtype))
 
 
+def _local_logits(w, cfg: ModelConfig, x):
+    """x @ this rank's vocab slice of the head: (d, v_loc), or (v_loc, d)
+    for a tied embedding."""
+    w = w.to(x.dtype)
+    return matmul(x, w.t() if cfg.tie_embeddings else w)
+
+
 # ---------------------------------------------------------------- training
 
 def attention_apply(p, cfg: ModelConfig, x, positions):
-    """Full self-attention over x: (b, s, d) (the training forward)."""
+    """Full self-attention over x: (b, s, d) (the training forward);
+    tensor-parallel when wq is this rank's slice of the heads."""
+    g = C.tp_group(p["wq"])
+    if g is not None:
+        return _attention_tp(p, cfg, x, positions, g)
     b, s, _ = x.shape
     q, k, v = attention_qkv(p, cfg, x, positions)
     o = run_attention(cfg, q, k, v).reshape(b, s, cfg.q_dim)
     return matmul(o, p["wo"])
+
+
+def _attention_tp(p, cfg: ModelConfig, x, positions, g):
+    """Attention over this rank's query heads (wq's columns, wo's rows),
+    then one all-reduce of the (b, s, d) output over the model axis.  The
+    kv heads are this rank's slice when wk is tagged too; otherwise (fewer
+    kv heads than ranks: the rule's fallback replicates them) every rank
+    projects them all and keeps the ones its query heads read."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    hq = p["wq"].shape[1] // hd
+    group = cfg.num_heads // cfg.num_kv_heads
+    xt = C.copy_to_tp(x, g)
+    q = matmul(xt, p["wq"]).reshape(b, s, hq, hd)
+    if C.tp_group(p["wk"]) is not None:
+        k = matmul(xt, p["wk"]).reshape(b, s, -1, hd)
+        v = matmul(xt, p["wv"]).reshape(b, s, -1, hd)
+    else:
+        first, n = (g.index * hq) // group, max(1, hq // group)
+        kv = cfg.num_kv_heads
+        k = C.copy_to_tp(matmul(x, p["wk"]), g).reshape(b, s, kv, hd)
+        v = C.copy_to_tp(matmul(x, p["wv"]), g).reshape(b, s, kv, hd)
+        k, v = k[:, :, first:first + n], v[:, :, first:first + n]
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = run_attention(cfg, q, k, v).reshape(b, s, hq * hd)
+    return C.reduce_from_tp(matmul(o, p["wo"]), g)
 
 
 def _ce_sum(logits, labels):
@@ -524,8 +659,49 @@ def chunked_ce_loss(hidden, head, cfg: ModelConfig, labels, chunk: int):
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _vocab_parallel_ce_sum(head, cfg: ModelConfig, h, lab, g):
+    """(summed CE, count) of positions with label >= 0 from this rank's
+    vocab slice of the logits: the row max and the sum of exponentials
+    are all-reduced over the model axis (the max without a gradient: it
+    cancels), and so is the label's logit, which only the rank holding
+    that id contributes.  The (b, s, vocab) logits never exist whole."""
+    logits = _local_logits(head, cfg, C.copy_to_tp(h, g)).float()
+    v_loc = logits.shape[-1]
+    m = C.all_reduce(logits.detach().amax(dim=-1), g, op="max",
+                     name="tp_logit_max")
+    se = C.reduce_from_tp(torch.exp(logits - m[..., None]).sum(dim=-1), g)
+    lse = m + torch.log(se)
+    rel = lab.long() - g.index * v_loc
+    ok = (rel >= 0) & (rel < v_loc)
+    ll = torch.gather(logits, -1, torch.clamp(rel, 0, v_loc - 1)[..., None])
+    ll = C.reduce_from_tp(ll[..., 0] * ok, g)
+    mask = (lab >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
 def lm_loss(hidden, head, cfg: ModelConfig, labels):
-    if cfg.logits_chunk and hidden.shape[1] % cfg.logits_chunk == 0:
-        return chunked_ce_loss(hidden, head, cfg, labels, cfg.logits_chunk)
-    return cross_entropy(logits_from_hidden(head, cfg, hidden), labels)
+    """Mean CE of the head's logits over positions with label >= 0;
+    vocab-parallel when `head` is this rank's vocab slice."""
+    g = C.tp_group(head)
+    chunk = cfg.logits_chunk
+    if not (chunk and hidden.shape[1] % chunk == 0):
+        chunk = 0
+    if g is None:
+        if chunk:
+            return chunked_ce_loss(hidden, head, cfg, labels, chunk)
+        return cross_entropy(logits_from_hidden(head, cfg, hidden), labels)
+    from torch.utils.checkpoint import checkpoint
+    chunk = chunk or hidden.shape[1]
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, hidden.shape[1], chunk):
+        args = (head, cfg, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                g)
+        if torch.is_grad_enabled() and chunk < hidden.shape[1]:
+            t, n = checkpoint(_vocab_parallel_ce_sum, *args,
+                              use_reentrant=False)
+        else:
+            t, n = _vocab_parallel_ce_sum(*args)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 

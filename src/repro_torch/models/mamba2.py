@@ -290,6 +290,35 @@ def block_step(p, cfg: ModelConfig, u, conv_cache, ssm_state):
     return L.matmul(y, p["out_proj"]), conv_cache, ssm_state
 
 
+def block_axes():
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("norm", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
+def layer_axes(cfg: ModelConfig):
+    return {"ln": L.rmsnorm_axes(), "mixer": block_axes()}
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of `init`'s tree: a list of per-layer axes."""
+    axes = {
+        "embed": L.embedding_axes(),
+        "layers": [layer_axes(cfg) for _ in range(cfg.num_layers)],
+        "ln_f": L.rmsnorm_axes(),
+    }
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
+
+
 def layer_init(gen, cfg: ModelConfig, device):
     return {"ln": L.rmsnorm_init(cfg, device),
             "mixer": block_init(gen, cfg, device)}
@@ -302,7 +331,7 @@ def init(seed: int, cfg: ModelConfig, device):
     names, shapes, layouts and standard deviations (drawn from a
     `torch.Generator` on `device`, not the reference's bits)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = L.generator(device)
     gen.manual_seed(seed)
     params = {
         "embed": L.embedding_init(gen, cfg, device),

@@ -21,8 +21,13 @@ modes, as in the reference:
   * "dense" — the one-hot einsum oracle (`_moe_dense`, training);
   * "scatter" — sort-by-expert scatter into per-expert buffers, experts
     through `experts_apply`, the einsum twin;
-  * "ep" — the reference's expert-parallel shard_map, which falls back
-    to "scatter" off a mesh; the port has no mesh, so it is "scatter";
+  * "ep" — expert parallelism over the mesh's "model" axis (`_moe_ep`,
+    the reference's `_moe_ep_local`): each rank routes its own tokens over
+    all E experts, builds capacity buffers only for the experts resident
+    on it, runs them through `experts_apply_grouped` (the grouped kernel
+    and its backward on the card), and the combined outputs are
+    all-reduced over "model".  Without a bound mesh, or where E does not
+    divide over "model", it is the global "scatter";
   * "grouped" — the scatter dispatch with `experts_apply_grouped`, the
     grouped-matmul kernel (`kernels/grouped_matmul`) told each expert's
     live row count; where a gradient must flow it goes through
@@ -41,6 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution import collectives
 from repro_torch.kernels.grouped_matmul.ops import (GroupedMatmulFn,
                                                     grouped_matmul)
 from repro_torch.models.config import ModelConfig
@@ -61,6 +67,14 @@ def experts_init(gen, cfg: ModelConfig, device):
         "wg": L._normal(gen, (e, d, f), std, pd, device),
         "wi": L._normal(gen, (e, d, f), std, pd, device),
         "wo": L._normal(gen, (e, f, d), out_std, pd, device),
+    }
+
+
+def experts_axes():
+    return {
+        "wg": ("expert", "expert_in", "mlp"),
+        "wi": ("expert", "expert_in", "mlp"),
+        "wo": ("expert", "mlp", "expert_in"),
     }
 
 
@@ -203,6 +217,62 @@ def _moe_scatter(p, cfg: ModelConfig, xf, experts_fn=experts_apply,
     return y if dropless else (y, aux)
 
 
+def _moe_ep(p, cfg: ModelConfig, xf):
+    """Expert-parallel dispatch over the bound mesh's model axis; the
+    global scatter when there is no such mesh or E does not divide.  The
+    experts are this rank's E / m resident ones when the sharded step
+    tagged them (`collectives.mark_tp`); full expert stacks under a bound
+    mesh are cut to this rank's here."""
+    ex = p["experts"]
+    g = collectives.tp_group(ex["wg"])
+    if g is None:
+        g = L._model_group(cfg, cfg.num_experts)
+        if g is None or ex["wg"].shape[0] != cfg.num_experts:
+            return _moe_scatter(p, cfg, xf, dropless=False)
+        e_loc = cfg.num_experts // g.size
+        ex = {k: v[g.index * e_loc:(g.index + 1) * e_loc]
+              for k, v in ex.items()}
+    return _moe_ep_local(p["router"], ex, cfg, xf, g)
+
+
+def _moe_ep_local(router_w, ex, cfg: ModelConfig, xf, g):
+    """One rank's part of the expert-parallel dispatch.  xf: (T, d) this
+    rank's tokens (replicated over the model axis); ex: its (E_loc, ...)
+    resident experts.  Routing is over all E experts and the capacity is
+    computed on the LOCAL tokens; an assignment to a foreign expert is
+    redirected to the out-of-range bin E_loc and dropped (never wrapped
+    onto a resident expert).  The rank's partial combine is summed over
+    the model axis in f32 and rounded once.  The router loss is this
+    rank's tokens' (the sharded step weights the data-parallel ranks'
+    losses into their mean, the reference's pmean)."""
+    T_, d = xf.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    e_loc = ex["wg"].shape[0]
+    cap = _capacity(cfg, T_)
+    w, e, aux = _route(router_w, cfg, xf, with_aux=True)
+    order, e_sorted, counts, pos = _sorted_positions(e, E)
+    keep = pos < cap
+    pos = torch.clamp(pos, max=cap - 1)
+    e_rel = e_sorted - g.index * e_loc
+    mine = (e_rel >= 0) & (e_rel < e_loc)
+    e_idx = torch.where(mine, e_rel, torch.full_like(e_rel, e_loc))
+    xt = collectives.copy_to_tp(xf, g)
+    buf = torch.zeros((e_loc + 1, cap, d), dtype=xf.dtype, device=xf.device)
+    buf.index_put_((e_idx, pos),
+                   xt[order // k] * keep[:, None].to(xf.dtype),
+                   accumulate=True)
+    live = torch.clamp(counts[g.index * e_loc:(g.index + 1) * e_loc],
+                       max=cap).to(torch.int32)
+    out_buf = experts_apply_grouped(ex, buf[:e_loc], live)
+    sel = (keep & mine)[:, None].to(xf.dtype)
+    y_flat = torch.empty((T_ * k, d), dtype=xf.dtype, device=xf.device)
+    y_flat[order] = out_buf[torch.clamp(e_rel, 0, e_loc - 1), pos] * sel
+    wt = collectives.copy_to_tp(w, g)
+    y = torch.einsum("tkd,tk->td", y_flat.reshape(T_, k, d).float(),
+                     wt.to(xf.dtype).float())
+    return collectives.reduce_from_tp(y, g).to(xf.dtype), aux
+
+
 def _sorted_positions(e, E: int):
     """(order, sorted experts, their counts (E,), each sorted assignment's
     position within its expert) of the (T, k) choices `e`."""
@@ -226,10 +296,17 @@ def moe_block_init(gen, cfg: ModelConfig, device):
     return p
 
 
+def moe_block_axes(cfg: ModelConfig):
+    ax = {"router": ("embed", "norm"), "experts": experts_axes()}
+    if cfg.num_shared_experts:
+        ax["shared"] = L.mlp_axes(cfg)
+    return ax
+
+
 def moe_apply(p, cfg: ModelConfig, x, dropless: bool = False):
     """x: (b, s, d).  Training (`dropless` False) -> (y (b, s, d), aux):
     the capacity-limited dispatch `cfg.moe_dispatch` names ("ep" is
-    "scatter" off a mesh) and the router loss.  Serving (`dropless`) ->
+    "scatter" off a bound mesh) and the router loss.  Serving (`dropless`) ->
     y: the dropless scatter under every dispatch, the grouped kernel
     under "grouped", no router loss."""
     if cfg.moe_dispatch not in DISPATCHES:
@@ -242,6 +319,8 @@ def moe_apply(p, cfg: ModelConfig, x, dropless: bool = False):
         y = _moe_scatter(p, cfg, xf, experts_fn=fn)
     elif cfg.moe_dispatch == "dense":
         y, aux = _moe_dense(p, cfg, xf)
+    elif cfg.moe_dispatch == "ep":
+        y, aux = _moe_ep(p, cfg, xf)
     else:
         y, aux = _moe_scatter(p, cfg, xf, experts_fn=fn, dropless=False)
     y = y.reshape(b, s, d)
@@ -261,6 +340,27 @@ def layer_init(gen, cfg: ModelConfig, device):
     }
 
 
+def layer_axes(cfg: ModelConfig):
+    return {
+        "ln1": L.rmsnorm_axes(),
+        "attn": L.attention_axes(),
+        "ln2": L.rmsnorm_axes(),
+        "moe": moe_block_axes(cfg),
+    }
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of `init`'s tree: a list of per-layer axes."""
+    axes = {
+        "embed": L.embedding_axes(),
+        "layers": [layer_axes(cfg) for _ in range(cfg.num_layers)],
+        "ln_f": L.rmsnorm_axes(),
+    }
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
+
+
 def layer_apply(p, cfg: ModelConfig, x, positions):
     """One training layer: -> (x (b, s, d), the layer's router loss)."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
@@ -275,7 +375,7 @@ def init(seed: int, cfg: ModelConfig, device):
     layouts and standard deviations (drawn from a `torch.Generator` on
     `device`, not the reference's bits)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = L.generator(device)
     gen.manual_seed(seed)
     params = {
         "embed": L.embedding_init(gen, cfg, device),
@@ -323,6 +423,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
 # through the expert stack each step.
 
 init_paged_cache = T.init_paged_cache
+paged_cache_axes = T.paged_cache_axes
 
 
 def paged_prefill(params, cfg: ModelConfig, chunk, arena, block_table,

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.unimem import PAGED_SCALE_KEYS, is_page_leaf, quantize_kv
 from repro_torch.distribution import collectives as C
+from repro_torch.distribution.sharding import gather_layer_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -55,7 +56,7 @@ def init(seed: int, cfg: ModelConfig, device):
     layouts and standard deviations (not its random bits: the draws come
     from a `torch.Generator` on `device`)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = L.generator(device)
     gen.manual_seed(seed)
     return init_from(gen, cfg, device)
 
@@ -77,6 +78,29 @@ def init_from(gen, cfg: ModelConfig, device):
 
 def head_weights(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def layer_axes(cfg: ModelConfig):
+    return {
+        "ln1": L.rmsnorm_axes(),
+        "attn": L.attention_axes(),
+        "ln2": L.rmsnorm_axes(),
+        "mlp": L.mlp_axes(cfg),
+    }
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of `init`'s tree, in the port's layout: a list of
+    per-layer axes (the reference's stacked leaves carry a leading
+    "stage" entry the port's lists do not)."""
+    axes = {
+        "embed": L.embedding_axes(),
+        "layers": [layer_axes(cfg) for _ in range(cfg.num_layers)],
+        "ln_f": L.rmsnorm_axes(),
+    }
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
 
 
 # --------------------------------------------------------------- training
@@ -105,9 +129,19 @@ def _maybe_remat(fn, cfg: ModelConfig):
     """`cfg.remat` over one layer: "none" keeps every activation the
     backward needs, "full" keeps the layer's input only and recomputes the
     rest in the backward, "dots" keeps the projections' outputs as well
-    (`_save_dots`).  It changes memory and time, never a value."""
+    (`_save_dots`).  It changes memory and time, never a value.
+
+    In a sharded step the layer's parameter shards are gathered into the
+    weights it computes with INSIDE the remat region
+    (`distribution.sharding.gather_layer_params`), so the gathered
+    weights are freed with the layer's other activations and gathered
+    again in the backward."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(cfg.remat)
+    body = fn
+
+    def fn(*args):
+        return body(*gather_layer_params(args))
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     from torch.utils.checkpoint import (checkpoint,
@@ -163,6 +197,19 @@ def cache_axes():
     is "act_batch")."""
     kv = (None, "act_batch", "act_kv_seq", None, None)
     return {"k": kv, "v": kv, "pos": ("act_batch",)}
+
+
+def paged_cache_axes(cfg: ModelConfig | None = None):
+    """The reference's logical axes of the paged arena: one pooled arena
+    whose kv heads may shard over "model", pages whole (a page is the
+    unit of residency); scale leaves (quantized arenas) follow the same
+    layout minus the lane axis."""
+    kv = (None, None, None, "act_kv_heads", None)
+    axes = {"k": kv, "v": kv}
+    if cfg is not None and cfg.kv_quantized:
+        for name in PAGED_SCALE_KEYS:
+            axes[name] = kv[:-1]
+    return axes
 
 
 def _mlp_ffn(p, cfg: ModelConfig, hn, valid):

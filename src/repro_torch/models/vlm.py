@@ -33,7 +33,7 @@ def init(seed: int, cfg: ModelConfig, device):
     projector's two matrices, all from one `torch.Generator` on
     `device`."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = L.generator(device)
     gen.manual_seed(seed)
     params = T.init_from(gen, cfg, device)
     params["img_proj"] = {
@@ -43,6 +43,12 @@ def init(seed: int, cfg: ModelConfig, device):
                         cfg.params_dtype, device),
     }
     return params
+
+
+def param_axes(cfg: ModelConfig):
+    axes = T.param_axes(cfg)
+    axes["img_proj"] = {"w1": ("norm", "embed"), "w2": ("embed", "norm")}
+    return axes
 
 
 def _project_patches(params, cfg: ModelConfig, patch_embeds):
@@ -92,6 +98,7 @@ init_cache = T.init_cache
 cache_axes = T.cache_axes
 decode_step = T.decode_step          # the params tree is a superset
 init_paged_cache = T.init_paged_cache
+paged_cache_axes = T.paged_cache_axes
 paged_decode_step = T.paged_decode_step
 
 

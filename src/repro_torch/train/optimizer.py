@@ -20,11 +20,20 @@ since its factored moments and its RMS clip span the stack.  Parameters
 and moments are updated IN PLACE (under `torch.no_grad`), so a step never
 holds two copies of either.
 
-`state_axes` (the reference's logical sharding axes of the state) has no
-meaning on one device and is left out.
+`state_axes` gives the logical sharding axes of the state, in its
+stacked layout: a stacked leaf's axes are the per-layer parameter axes
+behind one "stage" entry per list level, as the reference's; Adafactor's
+factored moments drop the dimension they average over.  On a mesh the
+sharded train step keeps every moment as this rank's shard: AdamW and
+SGD-momentum are elementwise and need nothing more, and Adafactor's
+means and its RMS clip, which span a leaf's shards, are summed over the
+ranks holding them (`use_leaf_reduction`).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -81,11 +90,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, norm=None):
     """(grads scaled IN PLACE so their global norm is at most max_norm,
     the norm before scaling); each leaf keeps its dtype and is multiplied
-    in f32, as the reference multiplies it."""
-    norm = global_norm(grads)
+    in f32, as the reference multiplies it.  `norm` is the global norm
+    where the caller has it (the sharded step sums it over the ranks)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.minimum(torch.ones((), dtype=F32, device=norm.device),
                           max_norm / torch.clamp(norm, min=1e-9))
     with torch.no_grad():
@@ -104,6 +114,67 @@ class Optimizer:
     init: Callable[[Any], Any]
     # (grads, state, params, step) -> (params, state), both in place
     update: Callable[[Any, Any, Any, Any], tuple[Any, Any]]
+    # (param axes, state shapes) -> the state's logical axes
+    state_axes: Callable[..., Any] = None
+
+
+def stacked_axes(param_axes) -> dict:
+    """The port's parameter axes (per-layer lists) in the optimizer
+    state's stacked layout: {name path: axes}, one "stage" entry in front
+    per list level, as the reference's stacked leaves carry."""
+    out: dict = {}
+    for name, parts, lead in named_groups(param_axes):
+        _set(out, name, ("stage",) * len(lead) + tuple(parts[0]))
+    return out
+
+
+# -------------------------------------------- reductions over shards
+#
+# Under the sharded step a leaf's moments are this rank's shard.  Where
+# Adafactor averages over a dimension (its factored moments, its RMS
+# clip) the average spans every shard: `LeafReduction` sums a local sum
+# over the ranks that hold the leaf's other blocks along those dims.
+
+@dataclass(frozen=True)
+class LeafReduction:
+    """spec(name) -> the stacked leaf's spec entries (one per dim);
+    full_shape(name) -> its full stacked shape; allsum(x, axes) -> x
+    summed over the mesh axes `axes`."""
+    spec: Callable[[str], tuple]
+    full_shape: Callable[[str], tuple]
+    allsum: Callable[[torch.Tensor, tuple], torch.Tensor]
+
+
+_REDUCE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_leaf_reduction", default=None)
+
+
+@contextlib.contextmanager
+def use_leaf_reduction(red: LeafReduction):
+    token = _REDUCE.set(red)
+    try:
+        yield red
+    finally:
+        _REDUCE.reset(token)
+
+
+def _mean(x, name: str, dims: tuple[int, ...], leaf_ndim: int,
+          keepdim: bool = False):
+    """x's mean over `dims` (negative, counted from the end of the
+    stacked leaf `name`, whose dims x keeps in order from its end); over
+    every shard of the leaf under a `LeafReduction`."""
+    red = _REDUCE.get()
+    if red is None:
+        if len(dims) == x.dim() and not keepdim:
+            return torch.mean(x)
+        return x.mean(dim=dims[0] if len(dims) == 1 else dims,
+                      keepdim=keepdim)
+    from repro_torch.distribution.sharding import spec_axes
+    spec, full = red.spec(name), red.full_shape(name)
+    leaf = [leaf_ndim + d for d in dims]
+    axes = tuple(a for d in leaf if d < len(spec) for a in spec_axes(spec[d]))
+    total = red.allsum(x.sum(dim=dims, keepdim=keepdim), axes)
+    return total / math.prod(full[d] for d in leaf)
 
 
 def _set(tree: dict, name: str, value) -> None:
@@ -183,7 +254,11 @@ def _adamw(cfg: OptimizerConfig) -> Optimizer:
                 p.copy_((p.float() - step_lr * u).to(p.dtype))
         return params, state
 
-    return Optimizer(cfg, init, update)
+    def state_axes(param_axes, state_shapes=None):
+        ax = stacked_axes(param_axes)
+        return {"m": ax, "v": ax}
+
+    return Optimizer(cfg, init, update, state_axes)
 
 
 # ----------------------------------------------------------------- Adafactor
@@ -220,10 +295,13 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
             b2, one_b2 = beta2.to(dev), (_f32(1) - beta2).to(dev)
             f = _get(state["f"], name)
             g2 = torch.square(g) + _scalar(1e-30, dev)
+            nd = g.dim()
             if "vr" in f:
-                vr = b2 * f["vr"] + one_b2 * g2.mean(dim=-1)
-                vc = b2 * f["vc"] + one_b2 * g2.mean(dim=-2)
-                r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
+                vr = b2 * f["vr"] + one_b2 * _mean(g2, name, (-1,), nd)
+                vc = b2 * f["vc"] + one_b2 * _mean(g2, name, (-2,), nd)
+                # vr's last dim is the leaf's dim -2
+                r = vr / torch.clamp(_mean(vr, name, (-1,), nd - 1,
+                                           keepdim=True), min=1e-30)
                 u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :]
                          + _scalar(cfg.eps, dev))
                 nf = {"vr": vr, "vc": vc}
@@ -232,7 +310,9 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
                 u = g / (torch.sqrt(v) + _scalar(cfg.eps, dev))
                 nf = {"v": v}
             # update clipping (RMS <= 1) as in the adafactor paper
-            rms = torch.sqrt(torch.mean(torch.square(u)) + _scalar(1e-30, dev))
+            rms = torch.sqrt(_mean(torch.square(u), name,
+                                   tuple(range(-nd, 0)), nd)
+                             + _scalar(1e-30, dev))
             u = u / torch.clamp(rms, min=1.0)
             if p.dim() >= 2:
                 u = u + _scalar(cfg.weight_decay, dev) * p
@@ -242,7 +322,18 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
             _set(new_f, name, nf)
         return params, {"f": new_f}
 
-    return Optimizer(cfg, init, update)
+    def state_axes(param_axes, state_shapes):
+        """Factored leaves drop dims: vr drops the last, vc drops dim -2."""
+        out: dict = {}
+        for name, parts, lead in named_groups(param_axes):
+            ax = ("stage",) * len(lead) + tuple(parts[0])
+            if "vr" in _get(state_shapes["f"], name):
+                _set(out, name, {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]})
+            else:
+                _set(out, name, {"v": ax})
+        return {"f": out}
+
+    return Optimizer(cfg, init, update, state_axes)
 
 
 # --------------------------------------------------------------------- SGDm
@@ -265,7 +356,10 @@ def _sgdm(cfg: OptimizerConfig) -> Optimizer:
                 p.copy_((p.float() - step_lr * m).to(p.dtype))
         return params, state
 
-    return Optimizer(cfg, init, update)
+    def state_axes(param_axes, state_shapes=None):
+        return {"m": stacked_axes(param_axes)}
+
+    return Optimizer(cfg, init, update, state_axes)
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:

@@ -6,9 +6,7 @@ public top-level name of the reference module (functions, classes,
 assignments, and in an `__init__.py` the names it re-exports; not a
 module's logger, `log = get_logger(...)`, which no caller imports) must be a
 top-level name of the port's module, unless `WAITING` lists it with the
-ROADMAP.md queue A item it waits for: A.6 part two (distributed
-training: the training meshes, the sharding rules and collectives, the
-logical axes) or A.7 (the paper side's XLA tools).  A caller of the reference's API would otherwise get an
+ROADMAP.md queue A item it waits for: A.7 (the paper side's XLA tools).  A caller of the reference's API would otherwise get an
 ImportError or AttributeError from the port.
 """
 from __future__ import annotations
@@ -22,9 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 REF = ROOT / "src" / "repro"
 PORT = ROOT / "src" / "repro_torch"
 
-A6 = "A.6 part two (item 12): sharded training"
 A7 = "A.7 (item 14): the XLA tools"
-_AXES = "logical sharding axes, " + A6
 
 # module (relative path) -> {name: the queue A item it waits for}
 WAITING = {
@@ -38,38 +34,13 @@ WAITING = {
     "configs/sunrise_chip.py": {"TARGET": A7},
     "core/__init__.py": {"TPU_V5E": A7},
     "core/hwmodel.py": {"TPU_V5E": A7, "TpuTarget": A7},
-    "distribution/__init__.py": {n: A6 for n in (
-        "AxisRules", "DEFAULT_RULES", "use_mesh", "use_rules",
-        "current_mesh", "current_rules", "logical_to_spec",
-        "with_logical_constraint", "named_sharding", "param_shardings")},
-    "distribution/collectives.py": {n: A6 for n in (
-        "axis_size", "bucket_psum", "compressed_tree_psum",
-        "quantize_int8", "dequantize_int8", "ring_allreduce_int8")},
-    "launch/__init__.py": {n: A6 for n in (
-        "make_production_mesh", "make_mesh", "make_host_mesh", "dp_width")},
-    "launch/mesh.py": {n: A6 for n in (
-        "make_abstract_mesh", "make_production_mesh", "make_mesh",
-        "make_host_mesh", "dp_width")},
-    "models/encoder.py": {"param_axes": _AXES},
-    "models/hybrid.py": {n: _AXES for n in (
-        "paged_cache_axes", "param_axes", "shared_block_axes")},
-    "models/layers.py": {n: _AXES for n in (
-        "attention_axes", "embedding_axes", "mlp_axes", "rmsnorm_axes")},
-    "models/mamba2.py": {n: _AXES for n in (
-        "block_axes", "layer_axes", "param_axes")},
-    "models/moe.py": {n: _AXES for n in (
-        "experts_axes", "layer_axes", "moe_block_axes", "paged_cache_axes",
-        "param_axes")},
-    "models/transformer.py": {n: _AXES for n in (
-        "layer_axes", "paged_cache_axes", "param_axes")},
-    "models/vlm.py": {n: _AXES for n in ("paged_cache_axes", "param_axes")},
+    "launch/cells.py": {n: A7 for n in (
+        "Cell", "active_params", "attention_flops", "model_flops",
+        "build_cell", "lower_cell")},
     "serve/serve_step.py": {n: A7 for n in (
         "HLO_PROBE_GEOM", "bulk_attn_shapes", "lowered_paged_hlo")},
     "serve/sharded/__init__.py": {"lowered_sharded_hlo": A7},
     "serve/sharded/serve_step.py": {"lowered_sharded_hlo": A7},
-    "train/elastic.py": {"elastic_restore": A6},
-    "train/train_step.py": {n: A6 for n in (
-        "state_logical_axes", "state_shapes", "state_shardings")},
 }
 
 MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")
@@ -115,7 +86,7 @@ def test_every_public_name_of_the_reference_is_in_the_port(rel):
     ref = public_names(REF / rel)
     port = public_names(PORT / rel)
     waiting = WAITING.get(rel, {})
-    assert all("A.6" in item or "A.7" in item for item in waiting.values())
+    assert all("A.7" in item for item in waiting.values())
     # a name listed as waiting must be a reference name the port lacks
     missing = ref - port
     assert set(waiting) <= ref, f"{rel}: not reference names: " \

@@ -436,11 +436,13 @@ def test_train_cli_runs_the_encoder_and_vlm_archs(arch):
 
 
 def test_train_cli_wants_cuda_and_one_device(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_train.main(["--reduced", "--device", "cpu", "--mesh", "2x1"])
+    """Without --device the CLI wants CUDA, on one device and on a mesh
+    (whose ranks it places before it starts any)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--reduced", "--steps", "1", "--mesh", "2x1"])
 
 
 def test_init_train_state_defaults_to_cuda_and_raises_without_it(monkeypatch):
