@@ -349,6 +349,32 @@ exit at the first failure):
    depth (32 layers; 8 x (576 image rows + 1472 MarkovLM tokens) in 2
    microbatches): the held-out loss must fall.  Both as the family train phases (step
    seconds, positions/s, peak memory, busy share, launches).
+13e. xla_tools: the port's XLA tools on the card, each reading a trace
+   of the port's own step (`repro_torch/launch/trace.py`; the kernels'
+   counts set to 0 before the phase and read after it).  (a) Structure
+   gates at `HLO_PROBE_GEOM` and at the serving geometry (internlm2-1.8b
+   full width, bf16, batch 8, page 16, max_seq 1024): the traced paged
+   decode and prefill calls (`serve_step.lowered_paged_hlo`, traced
+   after a warm-up call, which grows the decode split scratch) hold no
+   `bulk_attn_shapes` buffer and do hold each layer's kernel launch and
+   its output; nothing is copied back to the host and no value is read
+   off the card (tokens, not logits, leave the step; the host-to-card copies in are printed); the forced
+   plain route
+   (`plain_paged_kernels`, the explicit oracle) shows the gather.
+   (b) Card records (`launch/dryrun.py run_cell`, mesh "one"): decode
+   (8 rows against a 1024-token cache) and prefill (8 x 512) at full
+   depth and a 4-layer train step (8 x 2048): step seconds (CUDA
+   events), peak memory, the profiler's top kernels, each kernel launch
+   with its own FLOPs, and the roofline row against the H100 with its
+   MFU.  (c) The sharded gate on 4 banks of the card: every cross-bank
+   move (`collectives.hand`) is summary-sized, the combine kernel merges
+   every layer; then `serve_throughput.attention_hlo` on the card (the
+   record `--json` writes): the plain route's bulk bytes above 0, the
+   kernel route's 0.  After the phase the card holds no more than
+   `XLA_HELD_LIMIT` bytes beyond what it held before: no trace keeps its
+   step's tensors alive.  (d) One production-mesh dry-run on "meta": yi-9b
+   x train_4k x single, rank 0's sharded step on dry collectives, with
+   its seconds.
 14. paper: every paper module of the port's harness
    (`repro_torch.benchmarks.run`: Tables I-VII, ResNet-50 on Sunrise,
    the dataflow sweep on the card) passes, the ws and os kernels each
@@ -3521,11 +3547,13 @@ def profiled_step(torch, step, state, batch):
     device's busy seconds, the kernels that take the most device time,
     and the device time and launches of each of the port's kernels that
     ran, `PORT_KERNEL_NAMESPACES`; the grouped backward's time also by
-    pass, checkout_ab.py's `GROUPED_BWD_PASSES`)."""
+    pass, checkout_ab.py's `GROUPED_BWD_PASSES`).  The profiler records
+    the device's activity only: every number here is read from it, and
+    the host's op events cost its processing over a minute for a
+    step of ~60k launches (zamba2-2.7b at full depth)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.benchmarks.checkout_ab import GROUPED_BWD_PASSES
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
@@ -3991,6 +4019,238 @@ def phase_train_sharded(torch, card: str) -> dict:
 
 # ------------------------------------------------------ phase 14: paper
 
+# ------------------------------------------------ phase 13e: xla tools
+
+XLA_SERVE_GEOM = dict(max_batch=8, max_seq=1024, page_size=16,
+                      prefill_chunk=64)
+XLA_CARD_CELLS = (("decode_card", None), ("prefill_card", None),
+                  ("train_card", 4))         # (shape, layers: None = all)
+XLA_DRYRUN = ("yi-9b", "train_4k", "single")
+XLA_SHARDS = 4
+# bytes the phase may leave allocated on the card: the kernels' grown
+# scratch buffers and cuBLAS's workspaces, far below one record's state
+# (the 4-layer train step's is 6.3 GB)
+XLA_HELD_LIMIT = 256 << 20
+# the kernels each card record's step must launch (bf16, contiguous
+# cache: split-KV decode and flash; training: flash and its backward)
+XLA_CELL_KERNELS = {"decode_card": ("decode_attention",),
+                    "prefill_card": ("flash_attention",),
+                    "train_card": ("flash_attention",
+                                   "flash_attention_backward")}
+
+
+class plain_paged_kernels:
+    """Within the block the paged layers call the paged kernels' plain
+    versions on the card: the explicit oracle whose gather the structure
+    gate must see, never a path of the port."""
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_attention import ops as pa
+        from repro_torch.kernels.paged_prefill import ops as pp
+        from repro_torch.models import layers
+        self.saved = [(layers, "paged_decode_attention",
+                       layers.paged_decode_attention),
+                      (layers, "paged_prefill_attention",
+                       layers.paged_prefill_attention)]
+        layers.paged_decode_attention = pa.paged_decode_attention_plain
+        layers.paged_prefill_attention = pp.paged_prefill_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+        return False
+
+
+def structure_gates(torch, dev, cfg, params, geom) -> dict:
+    """The paged steps' traces at one geometry (phase docstring, (a))."""
+    from repro_torch.launch import trace as T
+    from repro_torch.serve.serve_step import (bulk_attn_shapes,
+                                              lowered_paged_hlo)
+    shapes = bulk_attn_shapes(cfg, **geom)
+    b = geom["max_batch"]
+    out = {}
+    for which, name in (("decode", "paged_decode_attention"),
+                        ("prefill", "paged_prefill_attention")):
+        tr = lowered_paged_hlo(cfg, which, params=params, device=dev, **geom)
+        types = tr.result_types()
+        launches = [k for k in tr.kernels if k.name == name]
+        h2d = [t for t in tr.transfers if t[1:] == ("cpu", "cuda")]
+        d2h = [t for t in tr.transfers if t[2] == "cpu"]
+        tokens = T.tensor_type(tr.output[1])
+        bulk = sorted(set(shapes) & types)
+        with plain_paged_kernels():
+            plain = lowered_paged_hlo(cfg, which, params=params, device=dev,
+                                      **geom)
+        gathered = sorted(set(shapes) & plain.result_types())
+        got = {"bulk_types_kernel_route": bulk,
+               "kernel_launches": len(launches),
+               "kernel_outputs": sorted({k.outputs[0] for k in launches}),
+               "kernel_flops": sum(k.flops for k in launches),
+               "host_to_card": [t[0] for t in h2d], "card_to_host": d2h,
+               "tokens": tokens, "ops": len(tr.ops),
+               "plain_route_gathered": gathered,
+               "plain_route_kernels": len(plain.kernels),
+               "plain_bulk_bytes": sum(plain.summary().bytes_by_shape.get(
+                   k, 0.0) for k in shapes)}
+        out[which] = got
+        if bulk:
+            fail(f"xla_tools {which}: the kernel route holds {bulk}")
+        if len(launches) != cfg.num_layers or not all(
+                k.outputs and k.outputs[0] in types for k in launches):
+            fail(f"xla_tools {which}: {len(launches)} launches of {name} "
+                 f"with outputs in the trace, want {cfg.num_layers}")
+        if tokens != f"s32[{b}]" or d2h:
+            fail(f"xla_tools {which}: tokens {tokens}, copies to the host "
+                 f"{d2h}")
+        if not gathered or plain.kernels:
+            fail(f"xla_tools {which}: the plain route gathered {gathered} "
+                 f"and launched {len(plain.kernels)} kernels")
+    return out
+
+
+def card_record(torch, dev, shape: str, layers) -> dict:
+    """One card record of internlm2-1.8b (phase docstring, (b))."""
+    from repro_torch.launch import dryrun, roofline
+    over = {"num_layers": layers} if layers else None
+    rec = dryrun.run_cell("internlm2-1.8b", shape, "one", "", over,
+                          device="cuda")
+    if not rec["ok"]:
+        fail(f"xla_tools record {shape}: {rec.get('error')}")
+    row = roofline.row_from_record(rec)
+    tr = rec["trace"]
+    for name in XLA_CELL_KERNELS[shape]:
+        if not tr["kernel_launches"].get(name) \
+                or not tr["kernel_flops"].get(name, 0) > 0:
+            fail(f"xla_tools record {shape}: {name} launched "
+                 f"{tr['kernel_launches'].get(name)} times with "
+                 f"{tr['kernel_flops'].get(name)} FLOPs in the trace")
+    if not 0 < (row.mfu or 0) < 1:
+        fail(f"xla_tools record {shape}: MFU {row.mfu}")
+    m = rec["measured"]
+    free_card(torch)
+    return {"layers": rec["meta"]["num_layers"],
+            "model_flops": rec["model_flops"],
+            "flops_per_device": rec["hlo"]["flops_per_device"],
+            "hbm_bytes": rec["hlo"]["bytes_read_per_device"]
+            + rec["hlo"]["bytes_written_per_device"],
+            "step_s": m["step_s"], "steps_s": m["steps_s"],
+            "peak_memory_bytes": m["peak_memory_bytes"],
+            "busy_s": m["busy_s"], "top_kernels": m["top_kernels"][:6],
+            "kernel_launches": tr["kernel_launches"],
+            "kernel_flops": tr["kernel_flops"], "ops": tr["ops"],
+            "roofline_h100": {"compute_s": row.compute_s,
+                              "memory_s": row.memory_s,
+                              "dominant": row.dominant,
+                              "useful_ratio": row.useful_ratio},
+            "mfu": row.mfu, "trace_s": rec["timing_s"]["trace"]}
+
+
+def sharded_gate(torch, dev, cfg, params) -> dict:
+    """The summary-size gate on `XLA_SHARDS` banks of the card (phase
+    docstring, (c))."""
+    from repro_torch.launch import trace as T
+    from repro_torch.launch.mesh import make_mem_mesh
+    from repro_torch.serve.sharded import lowered_sharded_hlo
+    geom = {k: XLA_SERVE_GEOM[k] for k in ("max_batch", "max_seq",
+                                           "page_size")}
+    mesh = make_mem_mesh(XLA_SHARDS)
+    tr = lowered_sharded_hlo(cfg, mesh, "decode", params=params, device=dev,
+                             **geom)
+    hands = [c for c in tr.collectives if c.kind == T.HAND]
+    el = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    pps = (geom["max_batch"] * geom["max_seq"] // geom["page_size"]) \
+        // XLA_SHARDS
+    bank = (pps + 1) * geom["page_size"] * cfg.num_kv_heads \
+        * cfg.head_dim * el
+    bulk = geom["max_batch"] * geom["max_seq"] * cfg.num_kv_heads \
+        * cfg.head_dim * el
+    worst = max((c.result_bytes for c in hands), default=0)
+    combines = sum(k.name == "combine_splits" for k in tr.kernels)
+    walks = sum(k.name == "paged_decode_attention" for k in tr.kernels)
+    got = {"banks": XLA_SHARDS, "hands": len(hands),
+           "worst_hand_bytes": worst, "bank_layer_bytes": bank,
+           "gathered_kv_bytes": bulk,
+           "hand_types": sorted({c.result_type for c in hands}),
+           "combine_launches": combines, "bank_walks": walks,
+           "tokens": T.tensor_type(tr.output[1])}
+    if not hands or worst >= bank / 2 or worst >= bulk / 8:
+        fail(f"xla_tools sharded: a hand of {worst} bytes against a bank "
+             f"layer's {bank}")
+    if combines != cfg.num_layers or walks != XLA_SHARDS * cfg.num_layers:
+        fail(f"xla_tools sharded: {combines} combines and {walks} bank "
+             f"walks for {cfg.num_layers} layers")
+    return got
+
+
+def phase_xla_tools(torch, dev, card: str, dense) -> dict:
+    """Phase 13e (module docstring); returns its kernels' launches."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.serve.serve_step import HLO_PROBE_GEOM
+    t0 = time.perf_counter()
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    free_card(torch)
+    held_before = torch.cuda.memory_allocated(dev)
+    params = registry.get_family(dense).init(0, dense, dev)
+    out = {"phase": "xla_tools", "card": card, "structure": {}}
+    for gname, geom in (("probe", HLO_PROBE_GEOM), ("serve", XLA_SERVE_GEOM)):
+        out["structure"][gname] = structure_gates(torch, dev, dense, params,
+                                                  geom)
+    out["structure_s"] = time.perf_counter() - t0
+    out["sharded"] = sharded_gate(torch, dev, dense, params)
+    del params
+    from repro_torch.benchmarks import serve_throughput as ST
+    out["attention_hlo"] = h = ST.attention_hlo(dev)
+    if not h["ok"]:
+        fail(f"xla_tools: serve_throughput's attention_hlo gate failed: {h}")
+    free_card(torch)
+    t1 = time.perf_counter()
+    out["records"] = {shape: card_record(torch, dev, shape, layers)
+                      for shape, layers in XLA_CARD_CELLS}
+    out["records_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    arch, shape, mesh = XLA_DRYRUN
+    rec = dryrun.run_cell(arch, shape, mesh, "", device="meta")
+    if not rec["ok"] or not rec["hlo"]["flops_per_device"] > 0 \
+            or not sum(rec["hlo"]["collective_bytes_per_device"].values()):
+        fail(f"xla_tools dry-run {arch} x {shape}: {rec.get('error')}")
+    from repro_torch.launch import roofline
+    rows = {t: roofline.row_from_record(rec, target=t)
+            for t in ("h100", "tpu-v5e")}
+    out["dryrun"] = {"cell": f"{arch}__{shape}__{mesh}",
+                     "seconds": time.perf_counter() - t2,
+                     "trace_s": rec["timing_s"]["trace"],
+                     "flops_per_device": rec["hlo"]["flops_per_device"],
+                     "collective_bytes_per_device":
+                         rec["hlo"]["collective_bytes_per_device"],
+                     "argument_bytes":
+                         rec["memory_analysis"]["argument_size_in_bytes"],
+                     "temp_bytes": rec["memory_analysis"]["temp_size_in_bytes"],
+                     "step_s": {t: r.step_s for t, r in rows.items()},
+                     "dominant": {t: r.dominant for t, r in rows.items()},
+                     "useful_ratio": rows["h100"].useful_ratio}
+    launches = {n: m.launches for n, m in mods.items()}
+    out["launches"] = launches
+    # the traces and records keep none of their steps' tensors alive
+    free_card(torch)
+    out["bytes_held_after"] = held = \
+        torch.cuda.memory_allocated(dev) - held_before
+    if held > XLA_HELD_LIMIT:
+        fail(f"xla_tools: {held} bytes still held on the card after the "
+             f"phase")
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "combine_splits", "decode_attention", "flash_attention",
+                 "flash_attention_backward"):
+        if not launches[name]:
+            fail(f"xla_tools: {name} was not launched")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return launches
+
+
 def phase_paper(torch, dev):
     """Every paper module of the port's harness on the card (its
     serving tools run in `serve_tools`); returns the kernel launches of
@@ -4355,6 +4615,7 @@ def main() -> int:
     sharded_launches = phase_train_sharded(torch, card)
     for name in ("flash_attention_backward", "grouped_matmul_backward"):
         train_launches[name] += sharded_launches[name]
+    xla_launches = phase_xla_tools(torch, dev, card, dense)
     paper_launches = phase_paper(torch, dev)
     phase_resnet50(torch, dev, card)
 
@@ -4440,6 +4701,7 @@ def main() -> int:
                        "serve_tools": tools_launches,
                        "serve_sharded": shard_launches,
                        "train_sharded": sharded_launches,
+                       "xla_tools": xla_launches,
                        **{f"serve_configs {a}": v
                           for a, v in config_launches.items()}}})
     emit({"kernels": rows})

@@ -31,9 +31,13 @@ fewer prompt tokens computed, steady-state TTFT below the cold run, and
 identical greedy tokens).  `--speculate K [--draft SPEC]` adds the
 SPECULATIVE DECODE sweep (byte-identical streams, greedy AND sampled,
 at tokens/s ratio > 1).  `--json PATH` writes the record (`"schema":
-6`) without the reference's compiled-HLO attention statistics
-(`attention_hlo`), which wait for the XLA tools (ROADMAP.md queue A,
-A.7 (item 14)).  `--shards N` serves the paged side (and every sweep)
+6`) with the reference's attention statistics (`attention_hlo`, its
+keys): the bulk attention bytes of the paged steps, read from traces
+of the serving closures (`serve_step.lowered_paged_hlo`), "before" on
+the plain route (the step on the CPU, where every wrapper takes its
+plain version and gathers the K/V) and "after" on the kernel route (the
+card); without a card "after" is None and the record says why.
+`--shards N` serves the paged side (and every sweep)
 from the near-memory SHARDED arena (`serve/sharded/`): N banks, on the
 run's device when it is the CPU, else round-robin over the visible
 cards; `shard_topology` reports the shards, the axis and each bank's
@@ -187,6 +191,53 @@ def _row(cfg, params, reqs, mb, ms, oracle_cfg=None, device=None,
         row["per_shard_peak_pages"] = paged["per_shard_peak_pages"]
         row["per_shard_kv_bytes"] = paged["per_shard_kv_bytes"]
     return row
+
+
+def _attention_hlo_stats(cfg, device) -> dict:
+    """The attention traffic of the paged steps, before (the plain
+    route: per-layer gathered K/V copies) vs after (the kernel route:
+    the block-table walk in the kernel).  Bytes come from
+    `launch/trace.py` shape accounting over the ACTUAL serving closures
+    (`serve_step.lowered_paged_hlo` at `HLO_PROBE_GEOM`); the bulk keys
+    are the buffers the kernels exist to kill.  "before" runs on the
+    CPU, where every wrapper takes its plain version; "after" needs the
+    card (None without one: never a copy of "before")."""
+    from repro_torch.serve.serve_step import (HLO_PROBE_GEOM,
+                                              bulk_attn_shapes,
+                                              lowered_paged_hlo)
+
+    bulk_shapes = bulk_attn_shapes(cfg, **HLO_PROBE_GEOM)
+    on_card = device.type == "cuda"
+    out = {"bulk_attn_shapes": bulk_shapes,
+           "backend": device.type,
+           "before_device": "cpu",
+           "after_device": str(device) if on_card else None,
+           # eager traffic: every op that is not a view reads its
+           # operands and writes its result; a kernel counts what it
+           # reports
+           "hbm_bytes_note": ("whole-step totals are eager-traffic "
+                              "proxies from the trace; only the "
+                              "bulk_attn_bytes_* keys compare before/"
+                              "after meaningfully")}
+    if not on_card:
+        out["after"] = ("needs a CUDA card: the kernel route runs only "
+                        "there")
+    routes = [("before", torch.device("cpu"))]
+    if on_card:
+        routes.append(("after", device))
+    for tag, dev in routes:
+        params = registry.get_family(cfg).init(0, cfg, dev)
+        for which in ("decode", "prefill"):
+            s = lowered_paged_hlo(cfg, which, params=params, device=dev,
+                                  **HLO_PROBE_GEOM).summary()
+            bulk = sum(s.bytes_by_shape.get(k, 0.0) for k in bulk_shapes)
+            out[f"{which}_bulk_attn_bytes_{tag}"] = bulk
+            out[f"{which}_hbm_bytes_{tag}"] = s.hbm_bytes
+    if not on_card:
+        for which in ("decode", "prefill"):
+            out[f"{which}_bulk_attn_bytes_after"] = None
+            out[f"{which}_hbm_bytes_after"] = None
+    return out
 
 
 def _sampling_sweep(cfg, params, device=None, mesh=None) -> dict:
@@ -448,10 +499,6 @@ def run(families=None, impl=None, ppb=1, attn_hlo=False,
         quant: bool = False, host_tier: bool = False,
         prefix_trace: bool = False, speculate: int = 0,
         draft: str = "self:1", device=None, params_for=None) -> dict:
-    if attn_hlo:
-        raise NotImplementedError(
-            "the compiled-HLO attention statistics are not ported yet: "
-            "ROADMAP.md queue A, A.7 (item 14)")
     device = resolve_device(device)
     mesh = None
     if shards > 1:
@@ -534,7 +581,24 @@ def run(families=None, impl=None, ppb=1, attn_hlo=False,
         result["speculative"] = _speculate_sweep(speculate, draft, device,
                                                  params_for, mesh)
         result["ok"] = ok = ok and result["speculative"]["ok"]
+    if attn_hlo:
+        result["attention_hlo"] = h = attention_hlo(device)
+        result["ok"] = ok and h["ok"]
     return result
+
+
+def attention_hlo(device) -> dict:
+    """`_attention_hlo_stats` of the dense config, with its verdict
+    "ok": the plain route shows the gather (the check is not empty) and,
+    on the card, the kernel route ships ZERO bulk attention bytes."""
+    h = _attention_hlo_stats(FAMILY_CFGS["dense"], device)
+    ok = (h["decode_bulk_attn_bytes_before"] > 0
+          and h["prefill_bulk_attn_bytes_before"] > 0)
+    if device.type == "cuda":
+        ok = (ok and h["decode_bulk_attn_bytes_after"] == 0
+              and h["prefill_bulk_attn_bytes_after"] == 0)
+    h["ok"] = ok
+    return h
 
 
 def pretty(result: dict):
@@ -601,6 +665,15 @@ def pretty(result: dict):
               f"{s['sampled_tok_s']:.1f} tok/s "
               f"({s['sampled_over_greedy']:.2f}x); seed replay "
               f"{'identical' if s['deterministic'] else 'DIVERGED'}")
+    h = result.get("attention_hlo")
+    if h:
+        def kb(x):
+            return "needs a card" if x is None else f"{x/1e3:.0f}kB"
+        print("   paged-step attention traffic (traced, dense): "
+              f"decode bulk {kb(h['decode_bulk_attn_bytes_before'])}"
+              f" -> {kb(h['decode_bulk_attn_bytes_after'])}, "
+              f"prefill bulk {kb(h['prefill_bulk_attn_bytes_before'])}"
+              f" -> {kb(h['prefill_bulk_attn_bytes_after'])}")
     print(f"-> {'PASS' if result['ok'] else 'FAIL'} "
           "(identical greedy tokens; paged KV high-water <= contiguous "
           "on every family)\n")
@@ -659,7 +732,8 @@ def main(argv=None) -> int:
     ap.add_argument("--json", nargs="?", const="BENCH_serve.json",
                     default=None, metavar="PATH",
                     help="write machine-readable results (schema 6, "
-                         "without the compiled-HLO attention statistics) "
+                         "with the paged steps' attention traffic "
+                         "before/after the kernels, `attention_hlo`) "
                          "to PATH")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -672,7 +746,8 @@ def main(argv=None) -> int:
     res = {"name": "serve_throughput", "schema": SCHEMA, "ok": False,
            "error": "run() raised before completing"}
     try:
-        res = run(fams, impl=args.impl, ppb=args.ppb, shards=args.shards,
+        res = run(fams, impl=args.impl, ppb=args.ppb,
+                  attn_hlo=bool(args.json), shards=args.shards,
                   sampling=args.sampling, kv_dtype=args.kv_dtype,
                   quant=args.quant, host_tier=args.host_tier,
                   prefix_trace=args.prefix_trace,

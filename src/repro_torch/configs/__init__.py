@@ -14,7 +14,13 @@ from repro_torch.configs.base import (  # noqa: F401 (re-exported)
     ArchSpec,
     ShapeSpec,
     SHAPES,
+    shape_applicable,
+    applicable_cells,
+    input_specs,
+    param_specs,
     train_batch_specs,
+    prefill_batch_specs,
+    cache_specs,
 )
 
 

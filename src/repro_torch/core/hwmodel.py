@@ -7,8 +7,10 @@ Chip A = Graphcore IPU (16 nm) [ref 17], Chip B = Alibaba Hanguang 800
 Table IV from first principles (wafer price, gross dies, Poisson yield)
 and prints the paper's published values alongside.
 
-A copy of `repro.core.hwmodel` without its TPU roofline target, which
-only the reference's XLA roofline tool reads.
+A copy of `repro.core.hwmodel`, with its TPU v5e roofline target
+(`TpuTarget`, `TPU_V5E`) and, beside it, the port's card (`GpuTarget`,
+`H100`: the H100 SXM5 80GB datasheet's figures), which
+`launch/roofline.py` reads.
 """
 from __future__ import annotations
 
@@ -152,3 +154,44 @@ def cost_report(chip: ChipSpec) -> CostReport:
 
 def table4() -> list[CostReport]:
     return [cost_report(c) for c in ALL_CHIPS]
+
+
+# -------------------------------------------------- TPU v5e target constants
+
+@dataclass(frozen=True)
+class TpuTarget:
+    """Roofline constants for the deployment target (TPU v5e)."""
+    name: str = "tpu-v5e"
+    peak_flops_bf16: float = 197e12      # per chip
+    hbm_bw_Bps: float = 819e9            # per chip
+    hbm_bytes: float = 16e9              # per chip
+    ici_link_Bps: float = 50e9           # per link
+    ici_links: int = 4                   # 2D torus: 4 links/chip (2 axes x 2 dirs)
+    vmem_bytes: float = 128 * 2**20      # ~128 MiB VMEM
+    mxu_dim: int = 128                   # systolic array tile
+
+
+TPU_V5E = TpuTarget()
+
+
+# ------------------------------------------------------ the port's GPU target
+
+@dataclass(frozen=True)
+class GpuTarget:
+    """Roofline constants of the port's card: the NVIDIA H100 SXM5 80GB
+    datasheet's figures (dense tensor-core peaks, no sparsity), not
+    measurements.  `ici_link_Bps` is the collective term's link rate
+    under the reference's name: NVLink 4, each way."""
+    name: str = "h100-sxm5-80gb"
+    peak_flops_bf16: float = 989e12      # per card, dense bf16
+    peak_flops_f32: float = 67e12        # per card, f32 on CUDA cores
+    hbm_bw_Bps: float = 3.35e12          # HBM3
+    hbm_bytes: float = 80e9
+    ici_link_Bps: float = 450e9          # NVLink 4, each way
+
+
+H100 = GpuTarget()
+
+# roofline targets by name (`launch/roofline.py --target`, a record's
+# "target" field)
+TARGETS = {"tpu-v5e": TPU_V5E, "h100": H100}

@@ -43,7 +43,16 @@ into the exact global softmax by log-sum-exp: the combine kernel of
 plain version (`combine_splits`) on the CPU.  A bank with no resident
 page for a row contributes (m = -1e30, l = 0, acc = 0), which the merge
 weights 0.  `hand` is the one way a tensor moves between the lead device
-and a bank (on one card, nothing moves).
+and a bank (on one card, nothing moves); its bytes count in `STATS`
+under "hand".
+
+A dry group (`DRY`, `launch/mesh.py` `Mesh.bind_dry`) moves nothing: each
+primitive returns a tensor of its result's shape (on "meta", no
+storage) and counts its bytes as on a real world, so one rank's sharded
+step runs alone, without a process group, on a production mesh's 256 or
+512 positions (the dry-run, `launch/dryrun.py`).  Every primitive and
+`hand` also report a record to the active traces (`launch/trace.py`
+`collective`): its HLO kind, its counter name and its result's shape.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import (combine_splits,
                                                       combine_splits_kernel)
+from repro_torch.launch import trace as _trace
 
 
 # ------------------------------------------------------------ the groups
@@ -76,6 +86,16 @@ class AxisGroup:
 
 
 # ------------------------------------------------- transport and counting
+
+class _DryGroup:
+    """The process group of a dry mesh: nothing moves."""
+
+    def __repr__(self):
+        return "DRY"
+
+
+DRY = _DryGroup()
+
 
 class Transport:
     """The bytes each collective moved since `reset` (by name: bytes and
@@ -178,9 +198,23 @@ def _sum():
     return dist.ReduceOp.SUM
 
 
+def _dry(prim: str, g: AxisGroup, x: torch.Tensor):
+    """A dry group's result of `prim`: x's shape where the primitive
+    keeps it, the parts of an all-gather, this rank's block of a
+    reduce-scatter."""
+    if prim == "all_gather":
+        return [x] * g.size
+    if prim == "reduce_scatter":
+        return x.chunk(g.size)[g.index].clone()
+    return x.clone()
+
+
 def _run(prim: str, g: AxisGroup, x: torch.Tensor, fn):
     """fn(x) on the transport: staged through pinned host memory where
-    gloo cannot take a CUDA tensor; the result comes back to x's device."""
+    gloo cannot take a CUDA tensor; the result comes back to x's device.
+    A dry group runs nothing (`_dry`)."""
+    if g.pg is DRY:
+        return _dry(prim, g, x)
     if not _needs_staging(g, prim, x):
         return fn(x)
     STATS.staged += 1
@@ -200,6 +234,7 @@ def all_reduce(x: torch.Tensor, g: AxisGroup, op: str = "sum",
     import torch.distributed as dist
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     STATS.count(name, _nbytes(x))
+    _trace.collective("all-reduce", name, x.shape, x.dtype, g.size)
 
     def fn(buf):
         buf = buf.clone() if buf is x else buf
@@ -214,6 +249,9 @@ def all_gather(x: torch.Tensor, g: AxisGroup, dim: int = 0,
     if g is None or g.size == 1:
         return x
     STATS.count(name, _nbytes(x) * g.size)
+    shape = list(x.shape)
+    shape[dim] *= g.size
+    _trace.collective("all-gather", name, shape, x.dtype, g.size)
     parts = _run("all_gather", g, x.contiguous(),
                  lambda buf: _raw_all_gather(buf, g))
     return torch.cat(parts, dim=dim)
@@ -225,6 +263,9 @@ def reduce_scatter(x: torch.Tensor, g: AxisGroup, dim: int = 0,
     if g is None or g.size == 1:
         return x
     STATS.count(name, _nbytes(x))
+    shape = list(x.shape)
+    shape[dim] //= g.size
+    _trace.collective("reduce-scatter", name, shape, x.dtype, g.size)
     xm = x.movedim(dim, 0).contiguous()
     out = _run("reduce_scatter", g, xm,
                lambda buf: _raw_reduce_scatter(buf, g))
@@ -238,6 +279,7 @@ def ring_shift(x: torch.Tensor, g: AxisGroup, shift: int = 1,
     if g is None or g.size == 1:
         return x
     STATS.count(name, _nbytes(x))
+    _trace.collective("collective-permute", name, x.shape, x.dtype, g.size)
     return _run("send_recv", g, x.contiguous(),
                 lambda buf: _raw_shift(buf, g, shift))
 
@@ -449,7 +491,12 @@ def bucket_psum(grads, axis_name, bucket_bytes: int = 4 << 20):
 # ------------------------------------------------- near-memory LSE merge
 
 def hand(x: torch.Tensor, device) -> torch.Tensor:
-    """`x` on `device`: the same tensor where it already lies there."""
+    """`x` on `device`: the same tensor where it already lies there.
+    Every call counts x's bytes under "hand" (`STATS`, and a trace's
+    collective records): the bytes that cross between a bank and the
+    lead device where they lie on two devices."""
+    STATS.count("hand", _nbytes(x))
+    _trace.collective(_trace.HAND, "hand", x.shape, x.dtype, 1)
     return x.to(device, non_blocking=True)
 
 

@@ -199,6 +199,14 @@ def library() -> KernelLibrary:
     return _library
 
 
+
+def plain_device(t) -> bool:
+    """Whether `t` takes a kernel's plain version: a CPU tensor, or a
+    "meta" one (shapes only: no kernel runs on it, as when the dry-run
+    traces a step, `launch/trace.py`).  A CUDA tensor launches the
+    kernel or raises."""
+    return t.device.type in ("cpu", "meta")
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero CUDA error code returned by a C entry point."""
     if err != 0:

@@ -62,6 +62,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.launch import trace as _trace
 from repro_torch.kernels.paged_attention.ops import _ptr, _scratch
 
 NEG_INF = -1e30
@@ -260,7 +261,31 @@ def _launch(q, k_cache, v_cache, positions, kv_splits: int, partials: bool):
             stream)
     B.check(err, "decode_attention")
     launches += 1
+    _report(q, k_cache, positions, (out,) if merged else (m, l, acc))
     return out if merged else (m, l, acc)
+
+
+@_trace.reporter
+def _report(q, k_cache, positions, outs):
+    """A split launch's work to the active traces: each row's live cache
+    rows (position + 1, at most S) read once as K and V at 4 hq d FLOPs
+    a row; q and the positions read, the outputs written."""
+    hq, d = q.shape[1:]
+    S, hkv = k_cache.shape[1:3]
+    live = int(torch.clamp(positions.long() + 1, 0, S).sum())
+    _trace.kernel("decode_attention", flops=4 * hq * d * live,
+                  bytes_read=2 * live * hkv * d * k_cache.element_size()
+                  + _trace.tensors_bytes(q, positions),
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
+
+
+@_trace.reporter
+def _report_combine(m, l, acc, out):
+    """A combine launch's work: each split's acc scaled and summed (m
+    and l folded on the way), the summaries read, the output written."""
+    _trace.kernel("combine_splits", flops=2 * acc.numel(),
+                  bytes_read=_trace.tensors_bytes(m, l, acc),
+                  bytes_written=_trace.tensors_bytes(out), outputs=(out,))
 
 
 def decode_partials(q, k_cache, v_cache, positions, *, kv_splits=8):
@@ -268,7 +293,7 @@ def decode_partials(q, k_cache, v_cache, positions, *, kv_splits=8):
     positions: (b,) int32 inclusive newest index (at or past S: every
     row).  Returns the split summaries (m, l, acc) f32, as
     `decode_partials_plain` does."""
-    if q.device.type == "cpu":
+    if B.plain_device(q):
         return decode_partials_plain(q, k_cache, v_cache, positions,
                                      kv_splits=kv_splits)
     if q.device.type != "cuda":
@@ -310,6 +335,7 @@ def combine_splits_kernel(m, l, acc, b: int, hq: int, d: int, out_dtype):
             d, splits, DTYPE_CODES[out_dtype], stream)
     B.check(err, "combine_splits")
     COMBINE.launches += 1
+    _report_combine(m, l, acc, out)
     return out
 
 
@@ -323,6 +349,6 @@ def decode_attention(q, k_cache, v_cache, positions, *, kv_splits=8):
                        partials=False)
     m, l, acc = decode_partials(q, k_cache, v_cache, positions,
                                 kv_splits=kv_splits)
-    if q.device.type == "cpu":
+    if B.plain_device(q):
         return combine_splits(m, l, acc, b, hq, d, q.dtype)
     return combine_splits_kernel(m, l, acc, b, hq, d, q.dtype)

@@ -68,6 +68,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.launch import trace as _trace
 from repro_torch.kernels.paged_prefill.ops import (BLOCK_RESERVED_SMEM,
                                                    SM_SMEM)
 
@@ -316,7 +317,31 @@ def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
                 *args)
     B.check(err, "flash_attention")
     launches += 1
+    _report(q, k, v, causal, q_offset, (out, lse) if with_lse else (out,))
     return (out, lse) if with_lse else out
+
+
+@_trace.reporter
+def _report(q, k, v, causal, q_offset, outs):
+    """A forward launch's work to the active traces: 4 hq d FLOPs per
+    (query, key) pair seen, q, k, v read once, the outputs written."""
+    b, sq, hq, d = q.shape
+    pairs = b * _trace.seen_pairs(sq, k.shape[1], causal, q_offset)
+    _trace.kernel("flash_attention", flops=4 * hq * d * pairs,
+                  bytes_read=_trace.tensors_bytes(q, k, v),
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
+
+
+@_trace.reporter
+def _report_bwd(q, k, v, o, do, lse, causal, q_offset, outs):
+    """A backward launch's work: 2.5 x the forward's FLOPs over the pairs
+    seen, q, k, v, o, dO and lse read, dq, dk, dv written."""
+    b, sq, hq, d = q.shape
+    pairs = b * _trace.seen_pairs(sq, k.shape[1], causal, q_offset)
+    _trace.kernel("flash_attention_backward",
+                  flops=2.5 * 4 * hq * d * pairs,
+                  bytes_read=_trace.tensors_bytes(q, k, v, o, do, lse),
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
 
 
 def bwd_col_splits(d: int) -> int:
@@ -475,6 +500,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int,
             int(passes), stream)
     B.check(err, "flash_attention_backward")
     BACKWARD.launches += 1
+    _report_bwd(q, k, v, o, do, lse, causal, q_offset, (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -518,9 +544,13 @@ def backward_pass_timer(q, k, v, o, do, lse, *, causal=True, q_offset=0):
 
 
 def _device(q, what: str) -> str:
-    if q.device.type not in ("cpu", "cuda"):
+    """"cpu" where q takes the plain version (`build.plain_device`),
+    "cuda" where it launches the kernel."""
+    if B.plain_device(q):
+        return "cpu"
+    if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
-    return q.device.type
+    return "cuda"
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0):

@@ -58,6 +58,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.launch import trace as _trace
 
 # kernel launches since import (reset by callers that count a run): the
 # forward's, and the backward's (one per call of its two kernels)
@@ -293,7 +294,41 @@ def _launch(x, w, rows):
             DTYPE_CODES[x.dtype], vec, stream)
     B.check(err, "grouped_matmul")
     launches += 1
+    _report(x, w, rows, out)
     return out
+
+
+def _live_rows(x, rows) -> int:
+    E, C = x.shape[:2]
+    return E * C if rows is None else int(rows.long().sum())
+
+
+@_trace.reporter
+def _report(x, w, rows, out):
+    """A forward launch's work to the active traces: 2 K F FLOPs per
+    live row, the live rows of x and the weights of the experts with a
+    live row read once, the whole output written."""
+    E, C, K = x.shape
+    F = w.shape[2]
+    el = x.element_size()
+    live_e = E if rows is None else int((rows > 0).sum())
+    _trace.kernel("grouped_matmul", flops=2 * _live_rows(x, rows) * K * F,
+                  bytes_read=el * (_live_rows(x, rows) * K + live_e * K * F),
+                  bytes_written=_trace.tensors_bytes(out), outputs=(out,))
+
+
+@_trace.reporter
+def _report_bwd(x, w, rows, dx, dw):
+    """A backward launch's work: dX = dY w^T and dW = x^T dY over the
+    live rows (4 K F FLOPs a row), x's live rows, w and dY's live rows
+    read, dx and dw written."""
+    E, C, K = x.shape
+    F = w.shape[2]
+    n, el = _live_rows(x, rows), x.element_size()
+    _trace.kernel("grouped_matmul_backward", flops=4 * n * K * F,
+                  bytes_read=el * (n * K + E * K * F) + 4 * n * F,
+                  bytes_written=_trace.tensors_bytes(dx, dw),
+                  outputs=(dx, dw))
 
 
 def _bwd_buffers(x, w) -> dict:
@@ -338,6 +373,7 @@ def _launch_bwd(x, w, dy, rows, passes: int = BWD_ALL_PASSES,
             int(passes), stream)
     B.check(err, "grouped_matmul_backward")
     BACKWARD.launches += 1
+    _report_bwd(x, w, rows, dx, dw)
     return dx, dw
 
 
@@ -354,9 +390,13 @@ def backward_pass_timer(x, w, dy, rows=None) -> dict:
 
 
 def _device(x, what: str) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    """"cpu" where x takes the plain version (`build.plain_device`),
+    "cuda" where it launches the kernel."""
+    if B.plain_device(x):
+        return "cpu"
+    if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-    return x.device.type
+    return "cuda"
 
 
 def grouped_matmul(x, w, rows=None):
@@ -373,7 +413,7 @@ def grouped_matmul(x, w, rows=None):
 
 
 def _forward(x, w, rows):
-    if x.device.type == "cpu":
+    if B.plain_device(x):
         return grouped_matmul_plain(x, w, rows)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul runs on cuda or cpu, not {x.device}")

@@ -58,6 +58,7 @@ import math
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.launch import trace as _trace
 
 NEG_INF = -1e30
 
@@ -404,7 +405,29 @@ def _launch_decode(q, k_pages, v_pages, block_table, positions,
             int(partials), stream)
     B.check(err, "paged_decode_attention")
     launches += 1
+    _report_decode(q, k_pages, block_table, positions, k_scale,
+                   (m, l, out) if partials else (out,))
     return (m, l, out) if partials else out
+
+
+@_trace.reporter
+def _report_decode(q, k_pages, block_table, positions, k_scale, outs):
+    """The launch's work to the active traces: each row's live tokens
+    (its position + 1, at most the table's width) read once as K and V
+    (and their scales), 4 hq d FLOPs a token; q, the walked table
+    entries and the positions read, the outputs written."""
+    b, hq, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    mp = block_table.shape[1]
+    live = torch.clamp(positions.long() + 1, 0, mp * page)
+    n = int(live.sum())
+    pages = int(((live + page - 1) // page).sum())
+    kv = n * hkv * (d * k_pages.element_size()
+                    + (4 if k_scale is not None else 0))
+    _trace.kernel("paged_decode_attention", flops=4 * hq * d * n,
+                  bytes_read=2 * kv + _trace.tensors_bytes(q, positions)
+                  + 4 * pages,
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, positions, *,
@@ -425,7 +448,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, positions, *,
     bf16 q with bf16 pages takes the tensor-core design (one launch,
     split over the KV length; head dims multiples of 16 up to 256, query
     groups up to 16), every other pair the CUDA-core one (`route`)."""
-    if q.device.type == "cpu":
+    if B.plain_device(q):
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_table, positions,
             page_positions=page_positions, partials=partials,

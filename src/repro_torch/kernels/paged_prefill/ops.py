@@ -40,6 +40,7 @@ import math
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.launch import trace as _trace
 from repro_torch.kernels.paged_attention.ops import (
     CUDA_CORES, MAX_ROW_ELEMS, NEG_INF, TENSOR_CORES, _gather_kv,
     _kv_positions, _ptr, check_kernel_inputs, check_row_tile, route)
@@ -185,7 +186,30 @@ def _launch_prefill(q, k_pages, v_pages, block_table, start, chunk_len,
             int(partials), stream)
     B.check(err, "paged_prefill_attention")
     launches += 1
+    _report_prefill(q, k_pages, start, chunk_len, k_scale,
+                    (m, l, out) if partials else (out,))
     return (m, l, out) if partials else out
+
+
+@_trace.reporter
+def _report_prefill(q, k_pages, start, chunk_len, k_scale, outs):
+    """The launch's work to the active traces: each row's visible
+    (query, key) pairs at 4 hq d FLOPs a pair; the K/V tokens up to
+    start + chunk_len read once (and their scales), q and the walked
+    table entries read, the outputs written."""
+    b, c, hq, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    st, cl = start.long().cpu(), chunk_len.long().cpu()
+    need = torch.where(cl > 0, st + cl, torch.zeros_like(st))
+    pairs = int((st * cl + cl * (cl + 1) // 2).sum())
+    n = int(need.sum())
+    kv = n * hkv * (d * k_pages.element_size()
+                    + (4 if k_scale is not None else 0))
+    _trace.kernel("paged_prefill_attention", flops=4 * hq * d * pairs,
+                  bytes_read=2 * kv + _trace.tensors_bytes(q, start,
+                                                           chunk_len)
+                  + 4 * int(((need + page - 1) // page).sum()),
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, start,
@@ -201,7 +225,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, start,
     tensor, bf16 q with bf16 pages takes the tensor-core design (head
     dims multiples of 16 up to 256), every other pair the CUDA-core
     one (`route`)."""
-    if q.device.type == "cpu":
+    if B.plain_device(q):
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, block_table, start, chunk_len,
             page_positions=page_positions, partials=partials,

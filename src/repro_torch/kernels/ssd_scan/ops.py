@@ -55,6 +55,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import trace as _trace
 
 NEG_INF = -1e30
 
@@ -241,6 +242,36 @@ def _check(x, dt, A, B_, C):
     return bh, nc, l, p, n
 
 
+@_trace.reporter
+def _report(x, dt, A, B_, C, outs):
+    """A forward launch's work to the active traces: per (batch*head,
+    chunk) the scores C B^T and y over the l (l + 1) / 2 causal pairs and
+    the chunk state (2 l n p), the inputs read once, the outputs
+    written."""
+    bh, nc, l, p = x.shape
+    n = B_.shape[-1]
+    pairs = l * (l + 1) // 2
+    _trace.kernel("ssd_intra_chunk",
+                  flops=bh * nc * (2 * pairs * (n + p) + 2 * l * n * p),
+                  bytes_read=_trace.tensors_bytes(x, dt, A, B_, C),
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
+
+
+@_trace.reporter
+def _report_bwd(x, dt, A, B_, C, dy, ds, outs):
+    """A backward launch's work: the recomputed scores and their
+    gradients over the causal pairs (6 n + 4 p a pair) and the state's
+    (4 l n p), per (batch*head, chunk); the inputs and dy, ds read, the
+    gradient terms written."""
+    bh, nc, l, p = x.shape
+    n = B_.shape[-1]
+    pairs = l * (l + 1) // 2
+    _trace.kernel("ssd_intra_chunk_backward",
+                  flops=bh * nc * (pairs * (6 * n + 4 * p) + 4 * l * n * p),
+                  bytes_read=_trace.tensors_bytes(x, dt, A, B_, C, dy, ds),
+                  bytes_written=_trace.tensors_bytes(*outs), outputs=outs)
+
+
 def _launch(x, dt, A, B_, C):
     global launches
     bh, nc, l, p, n = _check(x, dt, A, B_, C)
@@ -265,6 +296,7 @@ def _launch(x, dt, A, B_, C):
             bh, nc, l, p, n, DTYPE_CODES[x.dtype], stream)
     build.check(err, "ssd_intra_chunk")
     launches += 1
+    _report(x, dt, A, B_, C, (y, s, cd))
     return y, s, cd
 
 
@@ -354,15 +386,21 @@ def _launch_bwd(x, dt, A, B_, C, dy, ds):
             DTYPE_CODES[x.dtype], stream)
     build.check(err, "ssd_intra_chunk_backward")
     BACKWARD.launches += 1
+    _report_bwd(x, dt, A, B_, C, dy, ds,
+                (dx, dB, dC, ddt, dseg_q, dseg_k, dww, dA))
     dseg = dseg_q + dseg_k
     dseg[..., -1] += dww.sum(-1)
     return dx, dB, dC, ddt, dseg, dA.sum((1, 2))
 
 
 def _device(x, what: str) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    """"cpu" where x takes the plain version (`build.plain_device`),
+    "cuda" where it launches the kernel."""
+    if build.plain_device(x):
+        return "cpu"
+    if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-    return x.device.type
+    return "cuda"
 
 
 def ssd_intra_chunk_backward(x, dt, A, B, C, dy, ds):
@@ -393,7 +431,7 @@ def ssd_intra_chunk(x, dt, A, B, C):
 
 
 def _forward(x, dt, A, B, C):
-    if x.device.type == "cpu":
+    if build.plain_device(x):
         return ssd_intra_chunk_plain(x, dt, A, B, C)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not "

@@ -35,6 +35,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.launch import trace as _trace
 
 DEF_BM, DEF_BN, DEF_BK = 128, 128, 128
 
@@ -240,6 +241,15 @@ def launched_blocks_per_sm(dtype, dataflow: str, bk: int, per: int,
     return blocks.value
 
 
+@_trace.reporter
+def _report(name, x, w, out):
+    """A launch's work to the active traces: 2 m k n FLOPs, x and w read
+    once, the f32 output written once."""
+    _trace.kernel(name, flops=2 * x.shape[0] * x.shape[1] * w.shape[1],
+                  bytes_read=_trace.tensors_bytes(x, w),
+                  bytes_written=_trace.tensors_bytes(out), outputs=(out,))
+
+
 def _launch_ws(x, w, p: Plan, splits=None):
     """The WS launch; `splits` overrides `ws_splits` (to time others)."""
     vec = _checked(x, w, p)
@@ -255,6 +265,7 @@ def _launch_ws(x, w, p: Plan, splits=None):
             p.bn, p.bk, splits, DTYPE_CODES[x.dtype], vec, _stream(x))
     B.check(err, "ws_matmul")
     WS.launches += 1
+    _report("ws_matmul", x, w, out)
     return out
 
 
@@ -270,13 +281,14 @@ def _launch_os(x, w, p: Plan):
             p.bn, DTYPE_CODES[x.dtype], vec, _stream(x))
     B.check(err, "os_matmul")
     OS.launches += 1
+    _report("os_matmul", x, w, out)
     return out
 
 
 def _run(launch, dataflow, x, w, block_m, block_n, block_k):
     p = plan(tuple(x.shape), tuple(w.shape), x.dtype, block_m, block_n,
              block_k, dataflow)
-    if x.device.type == "cpu":
+    if B.plain_device(x):
         return matmul_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"{dataflow}_matmul runs on cuda or cpu, not "

@@ -179,6 +179,27 @@ class Mesh:
             raise ValueError(f"{self!r} is not bound to process groups")
         return self._groups[axis]
 
+    def bind_dry(self, rank: int = 0) -> "Mesh":
+        """This mesh bound for rank `rank` with dry groups
+        (`collectives.DRY`): every collective returns its result's shape
+        and counts its bytes, and nothing moves.  No process group is
+        needed, so one rank of a production mesh runs its sharded step
+        alone (on "meta": the dry-run, `launch/dryrun.py`)."""
+        from repro_torch.distribution.collectives import AxisGroup, DRY
+        if self.devices is None:
+            raise ValueError("an abstract mesh cannot be bound")
+        groups = {}
+        named = [(a, (a,)) for a in self.axis_names]
+        named.append(("dp", tuple(a for a in DP_AXES if a in self.axis_names)))
+        for name, axes in named:
+            line = next(ln for ln in self.lines(axes) if rank in ln)
+            groups[name] = AxisGroup(name, DRY if len(line) > 1 else None,
+                                     tuple(line), line.index(rank))
+        groups["world"] = AxisGroup("world", DRY, tuple(range(self.size)),
+                                    rank)
+        return Mesh(self.axis_sizes, self.axis_names, self.devices, rank,
+                    groups)
+
     def bind(self, rank: int | None = None) -> "Mesh":
         """This mesh bound to process groups, for rank `rank` (default:
         this process's rank in the initialised default group, whose world

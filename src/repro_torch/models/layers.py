@@ -237,7 +237,8 @@ def run_decode_attention(cfg: ModelConfig, q, k_cache, v_cache, position):
     kernel on the card; on the CPU the XLA path above, or the kernel's
     plain version under `flash_pallas`.  Returns (b, hq * d)."""
     b, hq, d = q.shape
-    if q.device.type == "cpu" and cfg.attention_impl != "flash_pallas":
+    if q.device.type in ("cpu", "meta") \
+            and cfg.attention_impl != "flash_pallas":
         return decode_attention(q, k_cache, v_cache, position)
     return decode_ops.decode_attention(q, k_cache, v_cache,
                                        position).reshape(b, hq * d)
@@ -250,7 +251,7 @@ def run_attention(cfg: ModelConfig, q, k, v, *, q_offset=0):
     enabled and an input requires grad, the kernel route goes through
     `FlashAttentionFn` (the forward kernel with its log-sum-exp, and the
     backward kernel), so the result carries its gradient."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         if cfg.attention_impl == "dense":
             return dense_attention(q, k, v, causal=cfg.causal,
                                    q_offset=q_offset)

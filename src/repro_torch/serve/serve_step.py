@@ -17,18 +17,25 @@ sampling knobs when a row samples, cross to the device in ONE transfer,
 and
 the step returns int32 tokens on the device: reading them is the only
 synchronisation of a tick (DESIGN.md §6 — logits never leave the step).
+
+`lowered_paged_hlo` is the counterpart of the reference's compiled-HLO
+probe: the `launch/trace.py` Trace of one paged step call, whose result
+types carry the reference's HLO type strings (`bulk_attn_shapes`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.launch import trace as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
 from repro_torch.serve import prng
 from repro_torch.serve.sampling import (SamplingState, device_knobs,
-                                        expand_state, host_knobs,
-                                        sample_tokens, verify_tokens)
+                                        expand_state, greedy_state,
+                                        host_knobs, sample_tokens,
+                                        verify_tokens)
+from repro_torch.utils.device import resolve_device
 
 
 def to_device(device, *arrays: np.ndarray) -> list[torch.Tensor]:
@@ -208,3 +215,98 @@ def make_paged_verify_fn(cfg: ModelConfig, device):
         return arena, target, accept
 
     return verify
+
+
+# one probe geometry shared by the step-structure checks and the
+# serve_throughput --json gate (prefill_chunk != max_pages keeps the
+# query tile shape from colliding with the decode-partials shape)
+HLO_PROBE_GEOM = dict(max_batch=2, max_seq=64, page_size=8, prefill_chunk=4)
+
+
+def bulk_attn_shapes(cfg: ModelConfig, *, max_batch: int, max_seq: int,
+                     page_size: int, **_ignored) -> list[str]:
+    """HLO result-type strings of the bulk attention buffers the paged
+    kernels must never materialize: the gathered contiguous KV copy (its
+    (b, mp, page, hkv, hd) gather form and the flat (b, mp*page, hkv, hd)
+    view) and the (b, hkv, mp, group, hd) f32 per-page decode partials
+    of the reference's pre-fusion two-pass kernel; the reference's f32
+    strings, and where the arena holds another dtype (bf16, int8, fp8)
+    the gathered forms in that dtype too."""
+    mp = max_seq // page_size
+    hkv, g, hd = cfg.num_kv_heads, cfg.group_size, cfg.head_dim
+    out = [f"f32[{max_batch},{mp},{page_size},{hkv},{hd}]",
+           f"f32[{max_batch},{max_seq},{hkv},{hd}]",
+           f"f32[{max_batch},{hkv},{mp},{g},{hd}]"]
+    kv = T.dtype_name(cfg.kv_store_dtype)
+    if kv != "f32":
+        out += [f"{kv}[{max_batch},{mp},{page_size},{hkv},{hd}]",
+                f"{kv}[{max_batch},{max_seq},{hkv},{hd}]"]
+    return out
+
+
+def lowered_paged_hlo(cfg: ModelConfig, which: str = "decode", *,
+                      max_batch: int = 2, max_seq: int = 64,
+                      page_size: int = 8, prefill_chunk: int = 8,
+                      params=None, sampling: SamplingState | None = None,
+                      device=None) -> T.Trace:
+    """The Trace (`launch/trace.py`) of one call of the paged serving
+    step (`which` in {"decode", "prefill"}) made by
+    `make_paged_serve_fns` on a fresh arena, on `device` (the card
+    unless "cpu" is named; without a card it raises).
+
+    The structure checks read it, as the reference's read its compiled
+    HLO: on the card the kernels walk the table, so no
+    `bulk_attn_shapes` buffer exists and each kernel launch is in
+    `Trace.kernels` with its output; the plain route (the CPU) gathers
+    the K/V.  The traced call is the second: a first call grows the
+    split scratch of the bf16 decode kernel (`paged_attention/ops.py`
+    `_scratch`) to the size every later call reuses.  `Trace.output` is
+    (arena, tokens): only the (b,) int32 tokens leave the step, and
+    `Trace.transfers` shows what crossed between the host and the
+    card."""
+    device = resolve_device(device)
+    fam = registry.get_family(cfg)
+    num_pages = max_batch * max_seq // page_size
+    arena = fam.init_paged_cache(cfg, num_pages + 1, page_size, max_batch,
+                                 device=device)
+    return trace_second_call(
+        cfg, which, make_paged_serve_fns(cfg, device), arena, device,
+        params=params, sampling=sampling, max_batch=max_batch,
+        max_seq=max_seq, page_size=page_size, prefill_chunk=prefill_chunk)
+
+
+def trace_second_call(cfg: ModelConfig, which: str, fns, arena, device, *,
+                      params, sampling, max_batch: int, max_seq: int,
+                      page_size: int, prefill_chunk: int) -> T.Trace:
+    """The Trace of the second call of one paged step (`which`: "decode"
+    or "prefill" of `fns`, a (prefill, decode) pair) on `arena` with an
+    empty table and zero positions, after a first, untraced call; seeded
+    weights when `params` is None, greedy rows when `sampling` is."""
+    if params is None:
+        params = registry.get_family(cfg).init(0, cfg, device)
+    if sampling is None:
+        sampling = greedy_state(max_batch)
+    bt = np.zeros((max_batch, max_seq // page_size), np.int32)
+    zeros_b = np.zeros((max_batch,), np.int32)
+    prefill_fn, decode_fn = fns
+    if which == "decode":
+        def call():
+            return decode_fn(params, arena, bt, zeros_b, zeros_b, sampling)
+    elif which == "prefill":
+        chunk = {"tokens": np.zeros((max_batch, prefill_chunk), np.int32)}
+        if cfg.frontend == "patch":
+            chunk["patches"] = np.zeros(
+                (max_batch, prefill_chunk, cfg.frontend_dim), np.float32)
+
+        def call():
+            return prefill_fn(params, chunk, arena, bt, zeros_b, zeros_b,
+                              sampling)
+    else:
+        raise ValueError(which)
+    call()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    _, tr = T.trace_call(call)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return tr

@@ -22,16 +22,23 @@ Everything that is not attention runs once, on the lead device.  Only
 the queries, the new tokens' K/V, the block table and the summaries
 cross between a bank and the lead device: no page-sized tensor does.
 
-`lowered_sharded_hlo` (the reference's compiled-HLO probe) waits for the
-XLA tools (ROADMAP.md queue A, A.7).
+`lowered_sharded_hlo` is the counterpart of the reference's
+compiled-HLO probe: the `launch/trace.py` Trace of one sharded step
+call, whose collective records hold every `collectives.hand` (a bank's
+inputs and summaries crossing to and from the lead device).
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.launch import trace as T
 from repro_torch.launch.mesh import MEM_AXIS, MemMesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import registry
+from repro_torch.serve.sampling import SamplingState
 from repro_torch.serve.serve_step import (make_paged_serve_fns,
-                                          make_paged_verify_fn)
+                                          make_paged_verify_fn,
+                                          trace_second_call)
 
 
 def _sharded_cfg(cfg: ModelConfig, mesh: MemMesh, num_pages: int):
@@ -67,3 +74,31 @@ def make_sharded_verify_fn(cfg: ModelConfig, mesh: MemMesh, num_pages: int,
     return make_paged_verify_fn(_sharded_cfg(cfg, mesh, num_pages),
                                 device if device is not None
                                 else mesh.devices[0])
+
+
+def lowered_sharded_hlo(cfg: ModelConfig, mesh: MemMesh, which: str = "decode",
+                        *, max_batch: int = 2, max_seq: int = 64,
+                        page_size: int = 8, prefill_chunk: int = 8,
+                        params=None, sampling: SamplingState | None = None,
+                        device=None) -> T.Trace:
+    """The Trace of one call of the SHARDED serving step (`which` in
+    {"decode", "prefill"}) on a fresh `ShardedPagedKVArena` over `mesh`,
+    led from `device` (default the mesh's first).  The interconnect
+    contract reads its collective records: every `hand` between a bank
+    and the lead device is summary-sized (no page-sized tensor crosses),
+    and `Trace.output`'s tokens are int32, not logits.  The traced call
+    is the second (see `serve_step.lowered_paged_hlo`)."""
+    from repro_torch.serve.sharded.arena import ShardedPagedKVArena
+
+    device = torch.device(device) if device is not None else mesh.devices[0]
+    n = mesh.shape[MEM_AXIS]
+    num_pages = -(-max_batch * max_seq // page_size // n) * n
+    arena = ShardedPagedKVArena(cfg, num_pages=num_pages,
+                                page_size=page_size, device=device,
+                                max_batch=max_batch, mesh=mesh)
+    return trace_second_call(
+        cfg, which, make_sharded_serve_fns(cfg, mesh, num_pages,
+                                           device=device),
+        arena.kv, device, params=params, sampling=sampling,
+        max_batch=max_batch, max_seq=max_seq, page_size=page_size,
+        prefill_chunk=prefill_chunk)

@@ -6,8 +6,9 @@ public top-level name of the reference module (functions, classes,
 assignments, and in an `__init__.py` the names it re-exports; not a
 module's logger, `log = get_logger(...)`, which no caller imports) must be a
 top-level name of the port's module, unless `WAITING` lists it with the
-ROADMAP.md queue A item it waits for: A.7 (the paper side's XLA tools).  A caller of the reference's API would otherwise get an
-ImportError or AttributeError from the port.
+ROADMAP.md queue A item it waits for (none does now: the XLA tools,
+A.7, were the last).  A caller of the reference's API would otherwise
+get an ImportError or AttributeError from the port.
 """
 from __future__ import annotations
 
@@ -20,28 +21,9 @@ ROOT = Path(__file__).resolve().parents[1]
 REF = ROOT / "src" / "repro"
 PORT = ROOT / "src" / "repro_torch"
 
-A7 = "A.7 (item 14): the XLA tools"
-
-# module (relative path) -> {name: the queue A item it waits for}
-WAITING = {
-    "configs/__init__.py": {n: A7 for n in (
-        "shape_applicable", "applicable_cells", "input_specs",
-        "param_specs", "prefill_batch_specs", "cache_specs")},
-    "configs/base.py": {n: A7 for n in (
-        "shape_applicable", "applicable_cells", "input_specs",
-        "param_specs", "prefill_batch_specs", "cache_specs",
-        "decode_token_specs")},
-    "configs/sunrise_chip.py": {"TARGET": A7},
-    "core/__init__.py": {"TPU_V5E": A7},
-    "core/hwmodel.py": {"TPU_V5E": A7, "TpuTarget": A7},
-    "launch/cells.py": {n: A7 for n in (
-        "Cell", "active_params", "attention_flops", "model_flops",
-        "build_cell", "lower_cell")},
-    "serve/serve_step.py": {n: A7 for n in (
-        "HLO_PROBE_GEOM", "bulk_attn_shapes", "lowered_paged_hlo")},
-    "serve/sharded/__init__.py": {"lowered_sharded_hlo": A7},
-    "serve/sharded/serve_step.py": {"lowered_sharded_hlo": A7},
-}
+# module (relative path) -> {name: the queue A item it waits for}; every
+# item of queue A has landed, so nothing waits
+WAITING: dict = {}
 
 MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")
                  if (PORT / p.relative_to(REF)).exists())
@@ -76,7 +58,10 @@ def public_names(path: Path) -> set[str]:
 def test_the_modules_with_a_counterpart_are_found():
     assert len(MODULES) >= 40
     for rel in ("serve/kv_cache.py", "serve/serve_step.py",
-                "serve/__init__.py", "models/__init__.py"):
+                "serve/__init__.py", "models/__init__.py",
+                "launch/hlo_analysis.py", "launch/roofline.py",
+                "launch/dryrun.py", "launch/inspect.py",
+                "core/dataflow.py"):
         assert rel in MODULES
     assert set(WAITING) <= set(MODULES)
 

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of `src/repro_torch` (nor
-`chip_smoke.py`, nor the port's examples `examples/*_torch.py`) imports
+`chip_smoke.py`, nor the port's examples `examples/*_torch.py` and
+scripts `scripts/*_torch.py`, `scripts/ep_routing_probe.py`) imports
 `jax` or the reference package `repro`, and importing the serving API,
 the serving tools or the paper harness loads no JAX."""
 from __future__ import annotations
@@ -13,7 +14,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + sorted((ROOT / "scripts").glob("*_torch.py")) + [
+        ROOT / "scripts" / "ep_routing_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

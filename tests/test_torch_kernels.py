@@ -870,11 +870,11 @@ def test_cpu_tensors_take_the_split_decode_and_flash_plain_versions():
     with pytest.raises(ValueError, match="runs on cuda"):
         dk.combine_splits_kernel(*dk.decode_partials(*args), 3, 4, 16,
                                  torch.float32)
-    meta = torch.empty(2, 4, 16, device="meta")
+    other = OtherDevice(2, 4, 16)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        dk.decode_attention(meta, meta[:, None], meta[:, None], meta[:, 0])
+        dk.decode_attention(other, other, other, other)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fk.flash_attention(meta[:, None], meta[:, None], meta[:, None])
+        fk.flash_attention(other, other, other)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1146,17 +1146,30 @@ def test_cpu_tensors_take_the_grouped_and_ssd_plain_versions():
     assert (gm.launches, ssd.launches) == before
 
 
+class OtherDevice:
+    """A tensor's stand-in on a device the wrappers neither launch on nor
+    take the plain version on.  ("meta" no longer serves: a meta tensor
+    takes the plain version, as the dry-run's traces run on it,
+    `kernels/build.py` `plain_device`.)"""
+    device = torch.device("xpu")
+    requires_grad = False
+    dtype = torch.float32
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+
 def test_other_devices_are_refused():
-    q = torch.empty(2, 4, 16, device="meta")
-    kv = torch.empty(3, 4, 2, 16, device="meta")
-    idx = torch.empty(2, 2, dtype=torch.int32, device="meta")
-    pos = torch.empty(2, dtype=torch.int32, device="meta")
+    q = OtherDevice(2, 4, 16)
+    kv = OtherDevice(3, 4, 2, 16)
+    idx, pos = OtherDevice(2, 2), OtherDevice(2)
     with pytest.raises(ValueError, match="cuda or cpu"):
         pa.paged_decode_attention(q, kv, kv, idx, pos)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        pp.paged_prefill_attention(q[:, None], kv, kv, idx, pos, pos)
+        pp.paged_prefill_attention(OtherDevice(2, 1, 4, 16), kv, kv, idx,
+                                   pos, pos)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        gm.grouped_matmul(kv, kv.transpose(1, 2))
+        gm.grouped_matmul(kv, kv)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ssd.ssd_intra_chunk(kv, q, pos, kv, kv)
 

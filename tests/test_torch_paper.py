@@ -97,9 +97,14 @@ def test_hwmodel_constants_and_tables_equal_the_reference():
 
 
 def test_the_port_states_no_tpu_target():
+    # the port now states the reference's TPU v5e target (the roofline's
+    # default, `launch/roofline.py`) with the reference's constants, and
+    # its own card beside it; it states no TPU figure as the port's
     assert hasattr(JHW, "TpuTarget") and hasattr(JCFG, "TARGET")
-    assert not hasattr(PHW, "TpuTarget") and not hasattr(PHW, "TPU_V5E")
-    assert not hasattr(PCFG, "TARGET")
+    assert _fields(PHW.TPU_V5E) == _fields(JHW.TPU_V5E)
+    assert PCFG.TARGET is PHW.TPU_V5E
+    assert PHW.H100.name == "h100-sxm5-80gb" and PHW.H100.hbm_bw_Bps \
+        != JHW.TPU_V5E.hbm_bw_Bps
 
 
 # ---------------------------------------------------------- projection

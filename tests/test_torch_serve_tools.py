@@ -602,9 +602,14 @@ def test_high_agreement_zeroes_every_layer_past_the_first(dense):
 
 
 def test_serve_throughput_refuses_what_waits_for_later_items():
-    # `shards` no longer waits: the sharded arena runs (held in
-    # tests/test_torch_sharded_engine.py)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ST.run(attn_hlo=True, device="cpu")
+    # nothing waits now: `shards` runs (held in
+    # tests/test_torch_sharded_engine.py) and so does `attn_hlo`, whose
+    # kernel route ("after") needs the card and is never copied from
+    # the plain route (held in tests/test_torch_dryrun.py); without a
+    # card and a device the tool still refuses
+    h = ST._attention_hlo_stats(ST.FAMILY_CFGS["dense"], torch.device("cpu"))
+    assert h["decode_bulk_attn_bytes_before"] > 0
+    assert h["decode_bulk_attn_bytes_after"] is None
+    assert "needs a CUDA card" in h["after"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ST.run()

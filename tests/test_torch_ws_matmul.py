@@ -268,8 +268,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert (ops.WS.launches, ops.OS.launches) == before
 
 
+class OtherDevice:
+    """A tensor's stand-in on a device the wrappers neither launch on nor
+    take the plain version on ("meta" takes the plain version, as the
+    dry-run's traces run on it)."""
+    device = torch.device("xpu")
+    dtype = torch.float32
+    shape = (128, 128)
+
+
 def test_other_devices_are_refused():
-    x = torch.zeros(128, 128, device="meta")
+    x = OtherDevice()
     for fn in (ops.ws_matmul, ops.os_matmul):
         with pytest.raises(ValueError, match="cuda or cpu"):
             fn(x, x)
