@@ -55,7 +55,10 @@ exit at the first failure):
    ptxas registers and spills) and the SSD
    intra-chunk kernel at zamba2-2.7b's (640 batch*heads, p = n = 64,
    chunks of 64 and 256) and mamba2-130m's (24 heads, p 64, n 128, two
-   chunks of 256, one ragged chunk of 200 and one of 5), in bf16 and
+   chunks of 256, one ragged chunk of 200 and one of 5), and at one
+   rank's share of the sharded training step on (1, 4) (mamba2-130m's 6
+   heads a rank for 4 x 2048 tokens, zamba2's 512 positions a rank for
+   4 rows), in bf16 and
    f32, against their plain versions by the same rule; timed beside
    one `torch.bmm` (grouped; SSD has no single PyTorch call) and the
    bound.  bf16 SSD runs the tensor-core design: each case's blocks
@@ -90,11 +93,16 @@ exit at the first failure):
    qwen3-moe-30b-a3b's group (hq 32, hkv 4) at 2048, zamba2-2.7b's d
    160, nemotron-4-340b's group of 12 at d 192, hubert-xlarge's
    non-causal 16 heads of 80 and phi-3-vision-4.2b's causal 32 heads of
-   96 at their training microbatches (4 x 2048); the training
-   forward's output bit-equal to the serving forward's and its lse
-   against the plain one; a rerun of the backward bit-equal.  bf16
+   96 at their training microbatches (4 x 2048), and one rank of a
+   sequence-parallel step on (1, 4) (its 512 of 2048 positions at
+   q_offset 512, 1024 and 1536 over the keys up to its block's end:
+   yi-9b's group of 8 at d 128, zamba2-2.7b's shared block at d 160);
+   the training forward's output bit-equal to the serving forward's and
+   held, with its lse, against the plain one; a rerun of the backward
+   bit-equal.  bf16
    cases are timed beside the plain backward, SDPA's backward (its
-   forward + backward less its forward, K/V repeated) and the bound
+   forward + backward less its forward, K/V repeated) and the bound, the
+   forward beside its plain version and its bound
    (2.5 x the forward's FLOPs over the pairs seen, or the bytes), each
    with its design (`bwd_design`: wgmma at d 64 to 192 here),
    group split, blocks and each pass timed alone (D, dK/dV, the
@@ -109,7 +117,8 @@ exit at the first failure):
    SSD intra-chunk backward
    (`ssd_scan_bwd.cu`: dx, ddt, dA, dB, dC) at mamba2-130m's (96
    batch*heads, 8 chunks of 256, p 64, n 128) and zamba2-2.7b's (160,
-   p = n = 64), bf16 and f32, each per element against its plain
+   p = n = 64), and at the sharded step's rank shares (as in 3), bf16
+   and f32, each per element against its plain
    version (the SSD's also against its f64 plain version) with a
    byte-identical rerun; bf16 timed beside the plain version, two
    `torch.bmm` (grouped) and the bound, the grouped backward also pass
@@ -295,9 +304,10 @@ exit at the first failure):
    with the same loss; the flash forward launched 2 x 24 x 2 per step
    (the "dots" remat recomputes attention) and the backward 24 x 2.
    train mamba2-130m (24 layers, `ssd_impl="pallas"`, 8 x 2048 tokens
-   in 2 microbatches) and train qwen3-moe-30b-a3b (full width, 4 of 48
+   in 2 microbatches), train qwen3-moe-30b-a3b (full width, 4 of 48
    layers, `moe_dispatch="grouped"`, 4 x 2048 tokens in 2
-   microbatches), bf16, AdamW, remat "full": eight steps (the first
+   microbatches) and train zamba2-2.7b (full width, 18 of 54 layers,
+   8 x 2048 tokens in 4 microbatches), bf16, AdamW, remat "full": eight steps (the first
    loss near ln V + 0.02^2 d / 2, plus the router losses for MoE; step
    seconds, tokens/s, peak memory), one profiled step (busy share; the
    port's kernels' device time, the grouped backward's also by pass:
@@ -307,9 +317,9 @@ exit at the first failure):
    kernel twice and its backward once, or the grouped matmul 3 x 2 and
    its backward 3, flash 2 and its backward 1.
 13d. train_sharded: sharded training in one world of 4 ranks sharing
-   the card (`repro_torch/benchmarks/train_sharded.py`; gloo process
-   groups: NCCL refuses two ranks on one GPU; the kernels built before
-   the ranks start): internlm2-1.8b at full width, 4 layers, bf16, on a
+   the card (`repro_torch/benchmarks/train_sharded.py`;
+   gloo process groups: NCCL refuses two ranks on one GPU; the kernels
+   built before the ranks start): internlm2-1.8b at full width, 4 layers, bf16, on a
    (2, 2) = data x model mesh (FSDP over data; heads, MLP columns and
    the vocab over model), 8 x 2048 tokens, 3 steps of AdamW, against the
    single-rank step on the same seeded weights and batches (each step's
@@ -324,7 +334,21 @@ exit at the first failure):
    ranks under 0.02 of the exact sum; GPipe over 4 stages and 6
    microbatches equal to the sequential forward; an elastic restart
    (a reduced internlm2 saved at step 2 on (2, 2), restored on (4, 1) and
-   on one rank) whose losses continue the uninterrupted run's.  It
+   on one rank) whose losses continue the uninterrupted run's; and the
+   layouts the reference's constraints resolve to, each under its
+   config's rules on (1, 4) against the single rank: yi-9b at full
+   width, 2 layers, sequence parallel (4 x 2048 bf16, 2 steps, within
+   `SHARDED_BF16_TOL`; 4 x 256 f32 gradients),
+   zamba2-2.7b at full width, 12 layers (both shared blocks), sequence
+   parallel, bf16 gradients (`train_sharded.SSM_BF16_*`), mamba2-130m
+   at full width and depth with its heads split, bf16 gradients (each
+   leaf no farther from the f32 gradients than `SSM_BF16_F32_RATIO`
+   times the single rank's) and f32 gradients; yi-9b's f32 case and
+   mamba2-130m's are gradients within `SHARDED_MOE_TOL`; every rank launching rows 4, 4b, 6 and 6b as counted, and
+   each case's trunk cut (or not) as its rules say.  A
+   `train_sharded_layout` line per case gives step seconds sharded and
+   single, peak memory a rank, bytes per collective, rank 0's launches
+   and the constraint sites its forward logged and checked.  It
    prints the transport (gloo; which primitives took CUDA tensors; the
    messages staged through host memory), the bytes each collective moved
    in a step, the step seconds of the sharded and the single-rank runs
@@ -879,7 +903,12 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
                  ("zamba2", 8, 80, 1, 256, 64, 64),
                  ("mamba2", 1, 24, 2, 256, 64, 128),
                  ("mamba2", 1, 24, 1, 200, 64, 128),
-                 ("mamba2", 1, 24, 1, 5, 64, 128))
+                 ("mamba2", 1, 24, 1, 5, 64, 128),
+                 # one rank's share in the sharded training step on (1,
+                 # 4): mamba2-130m's 6 heads for 4 x 2048 tokens, and
+                 # zamba2's 512 of 2048 positions for 4 rows
+                 ("mamba2 heads a rank", 4, 6, 8, 256, 64, 128),
+                 ("zamba2 seq a rank", 4, 80, 2, 256, 64, 64))
     ssd_blocks = {}
     for arch, batch, heads, nc, l, p, n in ssd_cases:
         bh = batch * heads
@@ -899,9 +928,9 @@ def phase_moe_ssd_kernels(torch, dev, card: str, flush):
             if dt is bf16:
                 ssd_blocks[f"{arch} bh{bh} nc{nc} l{l}"] = ssd.num_blocks(
                     dt, bh, nc, l, n)
-            if dt is not bf16 or (arch, l) not in (("zamba2", 64),
-                                                   ("zamba2", 256),
-                                                   ("mamba2", 256)):
+            if dt is not bf16 or (arch, l) not in (
+                    ("zamba2", 64), ("zamba2", 256), ("mamba2", 256),
+                    ("mamba2 heads a rank", 256), ("zamba2 seq a rank", 256)):
                 continue
             # x, B, C in bf16, dt and A in f32 in; y, s, cd in f32 out
             rows_ = bh * nc
@@ -1169,7 +1198,22 @@ TRAIN_FLASH_CASES = (
     (1, 2048, 2048, 96, 8, 192, True, 0, "nemotron-4-340b group"),
     (4, 2048, 2048, 16, 16, 80, False, 0, "hubert-xlarge train"),
     (4, 2048, 2048, 32, 32, 96, True, 0, "phi-3-vision-4.2b train"),
+    # a rank of a sequence-parallel step on (1, 4): its 512 of 2048
+    # positions at q_offset r x 512 over the keys of [0, (r + 1) x 512)
+    (4, 512, 1024, 32, 4, 128, True, 512, "yi-9b seq rank 1"),
+    (4, 512, 1536, 32, 4, 128, True, 1024, "yi-9b seq rank 2"),
+    (4, 512, 2048, 32, 4, 128, True, 1536, "yi-9b seq rank 3"),
+    (4, 512, 2048, 32, 32, 160, True, 1536, "zamba2-2.7b seq rank 3"),
 )
+
+
+def seen_pairs(b, sq, skv, causal, off) -> int:
+    """The (query, key) pairs attention computes: under the diagonal
+    (queries at q_offset off) when causal."""
+    import torch
+    qi = torch.arange(sq)[:, None] + off
+    return b * int(((torch.arange(skv)[None, :] <= qi) if causal
+                    else torch.ones(sq, skv, dtype=torch.bool)).sum())
 
 
 def bwd_bound(b, sq, skv, hq, hkv, d, causal, off, itemsize):
@@ -1177,10 +1221,7 @@ def bwd_bound(b, sq, skv, hq, hkv, d, causal, off, itemsize):
     (4 hq d per (query, key) pair seen; causal counts the pairs under
     the diagonal, so it is halved) over the bf16 peak, or q, k, v, o,
     dO and lse read and dq, dk, dv written over the memory rate."""
-    import torch
-    qi = torch.arange(sq)[:, None] + off
-    pairs = b * int(((torch.arange(skv)[None, :] <= qi) if causal
-                     else torch.ones(sq, skv, dtype=torch.bool)).sum())
+    pairs = seen_pairs(b, sq, skv, causal, off)
     q_el, kv_el = b * sq * hq * d, b * skv * hkv * d
     nbytes = itemsize * (3 * q_el + 2 * kv_el) + 4 * b * hq * sq \
         + itemsize * (q_el + 2 * kv_el)
@@ -1213,6 +1254,8 @@ def phase_train_kernels(torch, dev, card: str, flush):
                 fail(f"flash forward with lse ({label}, {dt}) differs from "
                      f"the serving forward")
             po, plse = fk.flash_attention_lse_plain(q, k, v, **kw)
+            fwd_err = check(f"flash forward ({label}, {dt})", o, po, dt,
+                            rows)
             got = fk.flash_attention_backward(q, k, v, o, do, lse, **kw)
             want = fk.flash_attention_backward_plain(q, k, v, po, do, plse,
                                                      **kw)
@@ -1229,6 +1272,10 @@ def phase_train_kernels(torch, dev, card: str, flush):
             if dt is not bf16:
                 continue
             ms, by = bwd_bound(b, sq, skv, hq, hkv, d, causal, off, 2)
+            # q, k, v read and o written once; 4 hq d per pair seen
+            f_ms, f_by = bound(
+                2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d),
+                4 * hq * d * seen_pairs(b, sq, skv, causal, off))
             # SDPA over K/V repeated over the group, (b, h, s, d)
             qs = q.transpose(1, 2).contiguous().requires_grad_()
             ks = k.repeat_interleave(hq // hkv, 2).transpose(1, 2) \
@@ -1254,6 +1301,10 @@ def phase_train_kernels(torch, dev, card: str, flush):
                     q, k, v, o, do, lse, **kw), flush, iters=10, warmup=2),
                 forward_ms=time_ms(lambda: fk.flash_attention_lse(
                     q, k, v, **kw), flush, iters=10, warmup=2),
+                forward_plain_ms=time_ms(lambda: fk.flash_attention_lse_plain(
+                    q, k, v, **kw), flush, iters=3, warmup=1),
+                forward_bound_ms=f_ms, forward_bound_by=f_by,
+                forward_max_abs_err=fwd_err,
                 plain_ms=time_ms(lambda: fk.flash_attention_backward_plain(
                     q, k, v, o, do, lse, **kw), flush, iters=3, warmup=1),
                 library_ms=full_ms - fwd_ms, library_fwd_bwd_ms=full_ms,
@@ -1293,11 +1344,15 @@ GROUPED_BWD_CASES = ((2048, 768, "gate/up"), (768, 2048, "down"))
 # backward's 256-wide output tiles (dW of gate/up, dX of down)
 MOONSHOT_BWD = (64, 6, 480, ((2048, 1408, "moonshot-v1-16b-a3b gate/up"),
                              (1408, 2048, "moonshot-v1-16b-a3b down")))
-# (label, bh, nc, l, p, n): mamba2-130m's training microbatch (4 x 2048
-# tokens, 24 heads, chunks of 256, p 64, n 128) and zamba2-2.7b's heads
-# (80, p = n = 64) for 2 x 2048 tokens
-SSD_BWD_CASES = (("mamba2-130m", 96, 8, 256, 64, 128),
-                 ("zamba2-2.7b", 160, 8, 256, 64, 64))
+# (label, bh, heads, nc, l, p, n): mamba2-130m's training microbatch (4 x
+# 2048 tokens, 24 heads, chunks of 256, p 64, n 128) and zamba2-2.7b's
+# heads (80, p = n = 64) for 2 x 2048 tokens; then one rank's share in
+# the sharded step on (1, 4): mamba2-130m's 6 heads (its heads split)
+# and zamba2's 512 of 2048 positions (sequence parallel)
+SSD_BWD_CASES = (("mamba2-130m", 96, 24, 8, 256, 64, 128),
+                 ("zamba2-2.7b", 160, 80, 8, 256, 64, 64),
+                 ("mamba2-130m heads a rank", 24, 6, 8, 256, 64, 128),
+                 ("zamba2-2.7b seq a rank", 320, 80, 2, 256, 64, 64))
 
 
 def family_backward_kernels(torch, dev, flush, rows) -> dict:
@@ -1398,8 +1453,7 @@ def family_backward_kernels(torch, dev, flush, rows) -> dict:
                 del dyb, passes
             del x32, w32, dy, x, w
     free_card(torch)
-    for label, bh, nc, l, p, n in SSD_BWD_CASES:
-        heads = bh // (4 if label == "mamba2-130m" else 2)
+    for label, bh, heads, nc, l, p, n in SSD_BWD_CASES:
         x32 = torch.randn(bh, nc, l, p, generator=gdev, device=dev)
         B32 = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
         C32 = torch.randn(bh, nc, l, n, generator=gdev, device=dev) * 0.3
@@ -3550,7 +3604,7 @@ def profiled_step(torch, step, state, batch):
     pass, checkout_ab.py's `GROUPED_BWD_PASSES`).  The profiler records
     the device's activity only: every number here is read from it, and
     the host's op events cost its processing over a minute for a
-    step of ~60k launches (zamba2-2.7b at full depth)."""
+    step of ~60k launches (zamba2-2.7b at full depth, PR 36)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.benchmarks.checkout_ab import GROUPED_BWD_PASSES
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3702,11 +3756,14 @@ def phase_train(torch, dev, card: str, dense):
 # full width but 4 of its 48 layers (about 16 bytes a parameter for the
 # bf16 weights, the f32 accumulated gradients and AdamW's two f32
 # moments: ~10 GB a layer, ~10 GB the embedding and head); zamba2-2.7b at
-# full depth (~2.96 B parameters, ~47 GB at that rate) and its own
-# train_grad_accum 4, so a microbatch is 2 x 2048
+# full width and 18 of its 54 layers (three groups of 6, both shared
+# blocks; at full depth, ~2.96 B parameters, its ~75 s were the longest
+# training phase, and the run must keep within its time limit beside the
+# sharded phase) and its own train_grad_accum 4, so a microbatch is
+# 2 x 2048
 TRAIN_FAMILIES = (("mamba2-130m", None, 8, 2048, 2),
                   ("qwen3-moe-30b-a3b", 4, 4, 2048, 2),
-                  ("zamba2-2.7b", None, 8, 2048, 4))
+                  ("zamba2-2.7b", 18, 8, 2048, 4))
 # (arch, layers kept (None: all), global batch, sequence, microbatches,
 # phase, every step on batch 0) of the encoder's and the vlm's runs, both
 # at full depth: hubert-xlarge (0.95 B parameters), its 2048 frames a
@@ -3983,34 +4040,64 @@ SHARDED_BF16_TOL = (5e-2, 5e-3)
 # worst (attention wk); its loss within the reference's 2e-4.  In bf16
 # the routing of a few tokens near a top-8 tie flips with the summation
 # order and the gradients part by 5-9 % (measured), which would hide a
-# fault of that size.
+# fault of that size.  The f32 layout cases (yi-9b sequence parallel,
+# mamba2-130m's heads split) are held to it too: their gradients, not
+# their parameters after a step, whose AdamW update is about lr *
+# sign(g) and flips where a gradient element is near zero (on the card
+# allclose at the reference test's bounds failed on a few elements of
+# yi-9b's and mamba2-130m's parameters after one step).
 SHARDED_MOE_TOL = 1e-4
 SHARDED_TIMEOUT = 600            # seconds for the 4-rank world
 
 
 def phase_train_sharded(torch, card: str) -> dict:
     """Phase 13d (module docstring); returns the kernels the ranks
-    launched in the dense and MoE cases, summed over the ranks."""
+    launched in every case, summed over the ranks."""
     import shutil
     from repro_torch.benchmarks import train_sharded as TSH
     work = ROOT / "build" / "chip_smoke_sharded"
     shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    rep = TSH.run(TSH.card_spec(str(work)), timeout=SHARDED_TIMEOUT)
-    seconds = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    spec = TSH.card_spec(str(work))
+    rep = TSH.run(spec, timeout=SHARDED_TIMEOUT)
+    seconds = time.perf_counter() - t1
     shutil.rmtree(work, ignore_errors=True)
     bad = TSH.check(rep, *SHARDED_BF16_TOL, SHARDED_MOE_TOL)
     launches = {}
-    for case in ("dense", "dense_f32", "moe"):
+    for case in ("dense", "dense_f32", "moe") + TSH.LAYOUT_CASES:
         for per_rank in rep[case]["launches"]:
             for name, n in per_rank.items():
                 launches[name] = launches.get(name, 0) + n
+    for case in ("moe",) + TSH.LAYOUT_CASES:
+        r = rep[case]
+        emit({"phase": "train_sharded_layout", "case": case, "card": card,
+              "arch": spec[case]["arch"], "layers": spec[case]["layers"],
+              "mesh": r["mesh"], "tokens": r["tokens"] if "tokens" in r
+              else spec[case]["global_batch"] * spec[case]["seq"],
+              "trunk_split": r["trunk_split"],
+              "sharded_step_s": r.get("sharded_step_s", r.get("sharded_s")),
+              "single_step_s": r.get("single_step_s", r.get("single_s")),
+              "peak_gib_per_rank": r["peak_gib_per_rank"],
+              "single_peak_gib": r.get("single_peak_gib"),
+              "bytes_per_step_rank0": r["bytes_per_step_rank0"],
+              "launches_rank0": r["launches"][0],
+              "sites": r["sites"], "sites_checked": r["sites_checked"],
+              "worst_leaf": r["worst_leaf"],
+              "worst_rel_l2": r["worst_rel_l2"],
+              "loss_abs_diff": r["loss_abs_diff"],
+              **{f"worst_{k}": max(r[k].values())
+                 for k in ("sharded_rel_l2_to_f32", "single_rel_l2_to_f32")
+                 if k in r}})
     emit({"phase": "train_sharded", "card": card, "seconds": seconds,
           "tolerance": {"bf16_leaf_rel_l2": SHARDED_BF16_TOL[0],
                         "bf16_loss_abs": SHARDED_BF16_TOL[1],
-                        "moe_grad_rel_l2": SHARDED_MOE_TOL},
+                        "moe_grad_rel_l2": SHARDED_MOE_TOL,
+                        "ssm_bf16_grad_rel_l2": TSH.SSM_BF16_GRAD_TOL,
+                        "ssm_bf16_D_rel_l2": TSH.SSM_BF16_D_TOL,
+                        "ssm_bf16_loss_rtol": TSH.SSM_BF16_LOSS_RTOL,
+                        "ssm_bf16_to_f32_ratio": TSH.SSM_BF16_F32_RATIO},
           "launches": launches, **rep})
     if bad:
         fail("train_sharded: " + "; ".join(bad))
@@ -4613,7 +4700,8 @@ def main() -> int:
         train_launches["flash_attention_backward"] += \
             fam_launches["flash_attention_backward"]
     sharded_launches = phase_train_sharded(torch, card)
-    for name in ("flash_attention_backward", "grouped_matmul_backward"):
+    for name in ("flash_attention_backward", "grouped_matmul_backward",
+                 "ssd_intra_chunk_backward"):
         train_launches[name] += sharded_launches[name]
     xla_launches = phase_xla_tools(torch, dev, card, dense)
     paper_launches = phase_paper(torch, dev)

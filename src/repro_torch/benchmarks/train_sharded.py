@@ -15,7 +15,22 @@ these cases in turn, each on its own bound mesh (`launch/mesh.py`):
     and the kernels it launched;
   * "dense_f32": the same at f32 and two layers, grad_accum 2;
   * "moe": an MoE config (f32) with `moe_dispatch="ep"` on (1, 4) and a
-    capacity that drops nothing: the loss and every gradient;
+    capacity that drops nothing: the loss and every gradient (its
+    config's rules are sequence-parallel: the tokens are gathered over
+    "model" before routing);
+  * the layouts the reference's constraints resolve to (each under its
+    config's rules; the SSD kernel route for the Mamba families):
+    "seq_dense", a dense config under sequence parallelism on (1, 4)
+    (each rank its quarter of the positions, K/V all-gathered, the flash
+    kernel at q_offset r S / 4): training steps, and "seq_dense_f32", the
+    loss and every gradient at f32 and a shorter sequence; "seq_hybrid",
+    a hybrid config under sequence parallelism on (1, 4) (the Mamba conv
+    halo and state carried across ranks, the shared block as the dense
+    layers), and "heads_ssm" and "heads_ssm_f32", a Mamba-2 config under
+    the default rules on (1, 4) (its heads split over "model"): the loss
+    and every gradient ("heads_ssm" also measured, with the single
+    rank's, against the single rank's f32 gradients on the same
+    weights);
   * "ring": `ring_allreduce_int8` over the world against the exact sum;
   * "gpipe": `pipelined_forward` over 4 stages against the sequential
     forward;
@@ -49,6 +64,22 @@ F32_LOSS_TOL = 2e-4
 F32_PARAM_RTOL, F32_PARAM_ATOL = 2e-3, 2e-4
 RING_TOL = 0.02                  # int8 ring, relative to the exact sum
 GPIPE_TOL = 2e-5
+# bf16 gradients of the Mamba families against the single rank: the
+# bounds of the port's own bf16 hybrid test (tests/test_torch_train_hybrid
+# .py): relative L2 per leaf, mamba/mixer/D's, the loss's relative error
+SSM_BF16_GRAD_TOL, SSM_BF16_D_TOL, SSM_BF16_LOSS_RTOL = 3e-2, 0.12, 1e-2
+# mamba2-130m's head split in bf16 is held to the f32 gradients of the
+# same weights instead: at full width and depth the single rank's own
+# bf16 gradients lie 5-7 % from them (relative L2), so two bf16 runs
+# differ by as much; the sharded step's partial out_proj products are
+# rounded to bf16 before their all-reduce, one rounding more a layer than
+# the single rank's, and may lie this many times as far
+SSM_BF16_F32_RATIO = 2.0
+# the cases of the layouts the reference's constraints resolve to
+TRAIN_LAYOUT_CASES = ("seq_dense",)
+GRAD_LAYOUT_CASES = ("seq_dense_f32", "heads_ssm_f32", "seq_hybrid",
+                     "heads_ssm")
+LAYOUT_CASES = TRAIN_LAYOUT_CASES + GRAD_LAYOUT_CASES
 
 
 def card_spec(work: str) -> dict:
@@ -64,6 +95,18 @@ def card_spec(work: str) -> dict:
                       "grad_accum": 2, "f32": True},
         "moe": {"arch": "qwen3-moe-30b-a3b", "layers": 2, "mesh": (1, 4),
                 "global_batch": 4, "seq": 512, "f32": True},
+        "seq_dense": {"arch": "yi-9b", "layers": 2, "mesh": (1, 4),
+                      "global_batch": 4, "seq": 2048, "steps": 2,
+                      "grad_accum": None},
+        "seq_dense_f32": {"arch": "yi-9b", "layers": 2, "mesh": (1, 4),
+                          "global_batch": 4, "seq": 256, "f32": True},
+        "seq_hybrid": {"arch": "zamba2-2.7b", "layers": 12, "mesh": (1, 4),
+                       "global_batch": 4, "seq": 2048},
+        "heads_ssm": {"arch": "mamba2-130m", "layers": 24, "mesh": (1, 4),
+                      "global_batch": 4, "seq": 2048, "f32_truth": True},
+        "heads_ssm_f32": {"arch": "mamba2-130m", "layers": 24,
+                          "mesh": (1, 4), "global_batch": 4, "seq": 256,
+                          "f32": True},
         "ring": {"n": 1 << 20},
         "gpipe": {"layers": 8, "stages": 4, "micro": 6, "mb": 16,
                   "d": 1024},
@@ -76,8 +119,10 @@ def card_spec(work: str) -> dict:
 def cpu_spec(work: str) -> dict:
     spec = card_spec(work)
     spec["device"] = "cpu"
-    for k in ("dense", "dense_f32", "moe"):
+    for k in ("dense", "dense_f32", "moe") + LAYOUT_CASES:
         spec[k].update(reduced=True, seq=32)
+    for k in LAYOUT_CASES:
+        spec[k]["layers"] = 4 if k == "seq_hybrid" else 2
     spec["moe"]["global_batch"] = 4
     spec["ring"]["n"] = 4096
     spec["gpipe"].update(d=16, mb=4)
@@ -102,6 +147,8 @@ def _cfg(case: dict):
         # no assignment dropped: an expert's capacity covers every token
         kw.update(moe_dispatch="ep",
                   capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    if cfg.family in ("ssm", "hybrid"):
+        kw["ssd_impl"] = "pallas"        # the SSD kernel and its backward
     return cfg.replace(**kw), spec.rules
 
 
@@ -126,35 +173,62 @@ def _numpy_tree(tree) -> dict:
             for n, x in tree_flatten_with_names(tree)}
 
 
-def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
-    """|a - b| / |b| (L2; |a - b| where b is zero)."""
-    num = float(np.linalg.norm((a - b).ravel()))
-    den = float(np.linalg.norm(b.ravel()))
+def rel_l2(a, b) -> float:
+    """|a - b| / |b| (L2; |a - b| where b is zero) of two arrays or
+    tensors, computed in f32 on a's device (b is moved there)."""
+    import torch
+    a = torch.as_tensor(a).float()
+    b = torch.as_tensor(b).to(a.device, torch.float32)
+    num = float(torch.linalg.vector_norm(a - b))
+    den = float(torch.linalg.vector_norm(b))
     return num / den if den else num
+
+
+def _f32_close(a, b) -> bool:
+    """a within the reference test's f32 parameter bounds of b, on a's
+    device."""
+    import torch
+    b = torch.as_tensor(b).to(a.device, torch.float32)
+    return bool(torch.allclose(a, b, rtol=F32_PARAM_RTOL,
+                               atol=F32_PARAM_ATOL))
 
 
 def _kernel_counts(reset: bool = False) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grouped_matmul import ops as gm
+    from repro_torch.kernels.ssd_scan import ops as ssd
     if reset:
         fa.launches = fa.BACKWARD.launches = 0
         gm.launches = gm.BACKWARD.launches = 0
+        ssd.launches = ssd.BACKWARD.launches = 0
     return {"flash_attention": fa.launches,
             "flash_attention_backward": fa.BACKWARD.launches,
             "grouped_matmul": gm.launches,
-            "grouped_matmul_backward": gm.BACKWARD.launches}
+            "grouped_matmul_backward": gm.BACKWARD.launches,
+            "ssd_intra_chunk": ssd.launches,
+            "ssd_intra_chunk_backward": ssd.BACKWARD.launches}
 
 
 def expected_launches(cfg, steps: int, grad_accum: int) -> dict:
     """One rank's kernel launches in `steps` sharded steps: per
-    microbatch and layer the flash forward (twice under remat) and its
-    backward; under "ep" the three grouped products of the rank's experts
-    (twice under remat) and their backwards."""
+    microbatch and attention (each layer; the hybrid's each shared-block
+    application) the flash forward (twice under remat) and its backward;
+    under "ep" the three grouped products of the rank's experts (twice
+    under remat) and their backwards; per Mamba layer under the SSD
+    kernel route its forward (twice under remat) and backward, on the
+    rank's heads or its block of positions."""
     mbs = steps * grad_accum
     again = 1 if cfg.remat == "none" else 2
-    out = {"flash_attention": mbs * cfg.num_layers * again,
-           "flash_attention_backward": mbs * cfg.num_layers,
-           "grouped_matmul": 0, "grouped_matmul_backward": 0}
+    attn = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
+            "hybrid": cfg.num_layers // max(1, cfg.shared_attn_period)
+            }.get(cfg.family, cfg.num_layers)
+    mamba = cfg.num_layers if (cfg.family in ("ssm", "hybrid")
+                               and cfg.ssd_impl == "pallas") else 0
+    out = {"flash_attention": mbs * attn * again,
+           "flash_attention_backward": mbs * attn,
+           "grouped_matmul": 0, "grouped_matmul_backward": 0,
+           "ssd_intra_chunk": mbs * mamba * again,
+           "ssd_intra_chunk_backward": mbs * mamba}
     if cfg.family == "moe":
         out["grouped_matmul"] = 3 * mbs * cfg.num_layers * again
         out["grouped_matmul_backward"] = 3 * mbs * cfg.num_layers
@@ -195,7 +269,8 @@ def _save_shards(spec, name, rank, tree, shardings):
 
 
 def _load_full(spec, name, mesh_shape) -> dict:
-    """{leaf: full f32 array} from every rank's shards (`_save_shards`)."""
+    """{leaf: full f32 tensor on the spec's device} from every rank's
+    shards (`_save_shards`); the comparisons then run on the device."""
     import torch
     from repro_torch.distribution.sharding import NamedSharding, P
     from repro_torch.launch.mesh import make_abstract_mesh
@@ -206,11 +281,12 @@ def _load_full(spec, name, mesh_shape) -> dict:
              for r in range(RANKS)]
     out = {}
     for leaf, entries in specs.items():
-        parts = {r: torch.from_numpy(z[leaf]) for r, z in enumerate(ranks)}
+        parts = {r: torch.from_numpy(z[leaf]).to(spec["device"])
+                 for r, z in enumerate(ranks)}
         lead = parts[0].dim() - len(entries)
         sh = NamedSharding(mesh, P(*([None] * lead), *(
             tuple(e) if isinstance(e, list) else e for e in entries)))
-        out[leaf] = sh.unshard(parts).numpy()
+        out[leaf] = sh.unshard(parts)
     for z in ranks:
         z.close()
     return out
@@ -258,13 +334,23 @@ def _train_case(rank, spec, case, name):
     return {"losses": losses, "step_s": secs, "peak_gib": _peak(dev),
             "collectives": moved[-1], "launches": launches,
             "expected_launches": expected_launches(cfg, case["steps"], ga),
-            "grad_accum": ga}
+            "grad_accum": ga, **_layout_report(step.grad_fn.layout)}
 
 
-def _moe_case(rank, spec, case):
-    """The MoE config's loss and gradients under "ep" (gathered by rank
-    0 to a file), and the grouped kernels' launches on this rank."""
+def _layout_report(layout) -> dict:
+    """The last step's activation layout: whether it cut the trunk over
+    "model", the constraint sites its forwards logged and the checks
+    made (remat recomputes included)."""
+    return {"trunk_split": layout.trunk_split, "sites": len(layout.log),
+            "sites_checked": layout.checked}
+
+
+def _grad_case(rank, spec, case, name):
+    """One sharded gradient call of `case`: the loss and the gradients
+    (this rank's shards to a file), its seconds, peak memory, bytes per
+    collective, this rank's kernel launches and its layout."""
     import torch
+    from repro_torch.distribution import collectives as C
     from repro_torch.distribution.sharding import AxisRules
     from repro_torch.launch.cells import RULE_TABLES
     from repro_torch.train import train_step as TS
@@ -276,19 +362,24 @@ def _moe_case(rank, spec, case):
     state = TS.init_train_state(cfg, opt, seed=0, mesh=mesh, rules=rules)
     grad_fn = TS.make_sharded_grad_fn(cfg, opt, mesh, rules=rules)
     batch = _batches(cfg, case, 1)[0]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _kernel_counts(reset=True)
+    C.STATS.reset()
     _sync(dev)
     t0 = time.perf_counter()
     loss, grads = grad_fn(state.params, batch)
     _sync(dev)
     secs = time.perf_counter() - t0
     launches = _kernel_counts()
-    _save_shards(spec, "moe_grads", rank, grads,
+    moved = C.STATS.report()
+    _save_shards(spec, f"{name}_grads", rank, grads,
                  grad_fn.plan.shardings.params)
     del grads
     return {"loss": float(loss), "step_s": secs, "peak_gib": _peak(dev),
-            "launches": launches,
-            "expected_launches": expected_launches(cfg, 1, 1)}
+            "collectives": moved, "launches": launches,
+            "expected_launches": expected_launches(cfg, 1, 1),
+            **_layout_report(grad_fn.layout)}
 
 
 def _ring_case(rank, spec, case):
@@ -387,10 +478,14 @@ def rank_main(rank: int, spec: dict) -> dict:
                                            "dense")),
              ("dense_f32", lambda: _train_case(rank, spec, spec["dense_f32"],
                                                "dense_f32")),
-             ("moe", lambda: _moe_case(rank, spec, spec["moe"])),
+             ("moe", lambda: _grad_case(rank, spec, spec["moe"], "moe")),
              ("ring", lambda: _ring_case(rank, spec, spec["ring"])),
              ("gpipe", lambda: _gpipe_case(rank, spec, spec["gpipe"])),
              ("elastic", lambda: _elastic_case(rank, spec, spec["elastic"]))]
+    cases += [(k, lambda k=k: _train_case(rank, spec, spec[k], k))
+              for k in TRAIN_LAYOUT_CASES]
+    cases += [(k, lambda k=k: _grad_case(rank, spec, spec[k], k))
+              for k in GRAD_LAYOUT_CASES]
     for name, fn in cases:
         t0 = time.perf_counter()
         out[name] = fn()
@@ -432,12 +527,21 @@ def _single_train(spec, case, n_steps):
     return losses, secs, peak, after1
 
 
-def _single_moe(spec, case):
+def _single_grads(spec, case):
+    """(loss, gradients, seconds, launches, peak GiB, the gradients at
+    f32 or None) of the single-rank gradient call on the same weights and
+    batch (an MoE config under "grouped": the kernel route of one
+    device); with `case["f32_truth"]` the bf16 weights are also upcast to
+    f32 and their f32 gradients returned, against which both bf16 runs
+    are measured."""
     import torch
     from repro_torch.train import train_step as TS
     dev = torch.device(spec["device"])
     cfg, _ = _cfg(case)
-    cfg = cfg.replace(moe_dispatch="grouped")
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_dispatch="grouped")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     opt = _opt(case)
     state = TS.init_train_state(cfg, opt, seed=0, device=dev)
     batch = TS.batch_to(_batches(cfg, case, 1)[0], dev)
@@ -447,9 +551,18 @@ def _single_moe(spec, case):
     loss, grads = TS.make_grad_fn(cfg)(state.params, batch)
     _sync(dev)
     secs = time.perf_counter() - t0
-    out = float(loss), _numpy_tree(grads), secs, _kernel_counts()
-    del state, grads
-    return out
+    out = (float(loss), _numpy_tree(grads), secs, _kernel_counts(),
+           _peak(dev))
+    del grads
+    exact = None
+    if case.get("f32_truth") and cfg.compute_dtype != torch.float32:
+        from repro_torch.utils.tree import tree_map
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        params = tree_map(lambda p: p.detach().float().requires_grad_(),
+                          state.params)
+        del state
+        exact = _numpy_tree(TS.make_grad_fn(cfg32)(params, batch)[1])
+    return out + (exact,)
 
 
 def _single_elastic(spec, case):
@@ -480,6 +593,83 @@ def _single_elastic(spec, case):
     return ref, one
 
 
+def _train_report(spec, name, ranks, single_s) -> dict:
+    """A training case held against the single-rank steps: losses,
+    every leaf after step 1, times, memory, bytes, launches, layout."""
+    case, r0 = spec[name], ranks[0]
+    t1 = time.perf_counter()
+    losses, secs, peak, after1 = _single_train(spec, case, case["steps"])
+    single_s[name] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    sharded = _load_full(spec, name, case["mesh"])
+    errs = {k: rel_l2(sharded[k], after1[k]) for k in after1}
+    close = {k: _f32_close(sharded[k], after1[k]) for k in after1}
+    del sharded
+    compare_s = time.perf_counter() - t2
+    return {
+        "mesh": case["mesh"], "layers": case["layers"],
+        "tokens": case["global_batch"] * case["seq"],
+        "grad_accum": r0[name]["grad_accum"],
+        "sharded_losses": r0[name]["losses"], "single_losses": losses,
+        "loss_abs_diff": [abs(a - b) for a, b in
+                          zip(r0[name]["losses"], losses)],
+        "leaf_rel_l2_after_step1": errs,
+        "worst_leaf": max(errs, key=errs.get),
+        "worst_rel_l2": max(errs.values()),
+        "allclose_f32_bounds": all(close.values()), "compare_s": compare_s,
+        "sharded_step_s": [r[name]["step_s"] for r in ranks],
+        "single_step_s": secs,
+        "peak_gib_per_rank": [r[name]["peak_gib"] for r in ranks],
+        "single_peak_gib": peak,
+        "bytes_per_step_rank0": r0[name]["collectives"]["bytes"],
+        "calls_per_step_rank0": r0[name]["collectives"]["calls"],
+        "launches": [r[name]["launches"] for r in ranks],
+        "expected_launches": r0[name]["expected_launches"],
+        **{k: r0[name].get(k) for k in ("trunk_split", "sites",
+                                        "sites_checked")}}
+
+
+def _grad_report(spec, name, ranks, single_s) -> dict:
+    """A gradient case held against the single rank's gradients."""
+    import torch
+    case, r0 = spec[name], ranks[0]
+    t1 = time.perf_counter()
+    loss, grads, secs, single_launches, peak, exact = _single_grads(spec,
+                                                                    case)
+    single_s[name] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    sharded = _load_full(spec, f"{name}_grads", case["mesh"])
+    errs = {k: rel_l2(sharded[k], grads[k]) for k in grads}
+    to_f32 = {}
+    if exact is not None:
+        to_f32 = {"sharded_rel_l2_to_f32": {k: rel_l2(sharded[k], exact[k])
+                                            for k in exact},
+                  "single_rel_l2_to_f32": {
+                      k: rel_l2(torch.as_tensor(grads[k]).to(
+                          spec["device"]), exact[k]) for k in exact}}
+    del sharded
+    compare_s = time.perf_counter() - t2
+    return {
+        "mesh": case["mesh"], "layers": case["layers"],
+        "tokens": case["global_batch"] * case["seq"],
+        "sharded_loss": r0[name]["loss"], "single_loss": loss,
+        "loss_abs_diff": abs(r0[name]["loss"] - loss),
+        "grad_rel_l2": errs, "worst_leaf": max(errs, key=errs.get),
+        "worst_rel_l2": max(errs.values()),
+        "sharded_s": [r[name]["step_s"] for r in ranks],
+        "single_s": secs,
+        "peak_gib_per_rank": [r[name]["peak_gib"] for r in ranks],
+        "single_peak_gib": peak,
+        "bytes_per_step_rank0": r0[name]["collectives"]["bytes"],
+        "calls_per_step_rank0": r0[name]["collectives"]["calls"],
+        "launches": [r[name]["launches"] for r in ranks],
+        "expected_launches": r0[name]["expected_launches"],
+        "single_launches": single_launches, **to_f32,
+        "compare_s": compare_s,
+        **{k: r0[name].get(k) for k in ("trunk_split", "sites",
+                                        "sites_checked")}}
+
+
 def run(spec: dict, timeout: float = 900.0) -> dict:
     """The world's cases, then the single-rank references; the report."""
     import torch
@@ -500,52 +690,12 @@ def run(spec: dict, timeout: float = 900.0) -> dict:
            "staged_through_host": [r["staged_through_host"] for r in ranks],
            "world_s": world_s}
     single_s = {}
-    for name in ("dense", "dense_f32"):
-        case = spec[name]
-        t1 = time.perf_counter()
-        losses, secs, peak, after1 = _single_train(spec, case, case["steps"])
-        single_s[name] = time.perf_counter() - t1
-        sharded = _load_full(spec, name, case["mesh"])
-        errs = {k: rel_l2(sharded[k], after1[k]) for k in after1}
-        close = {k: bool(np.allclose(sharded[k], after1[k],
-                                     rtol=F32_PARAM_RTOL,
-                                     atol=F32_PARAM_ATOL)) for k in after1}
-        rep[name] = {
-            "mesh": case["mesh"], "layers": case["layers"],
-            "tokens": case["global_batch"] * case["seq"],
-            "grad_accum": r0[name]["grad_accum"],
-            "sharded_losses": r0[name]["losses"], "single_losses": losses,
-            "loss_abs_diff": [abs(a - b) for a, b in
-                              zip(r0[name]["losses"], losses)],
-            "leaf_rel_l2_after_step1": errs,
-            "worst_leaf": max(errs, key=errs.get),
-            "worst_rel_l2": max(errs.values()),
-            "allclose_f32_bounds": all(close.values()),
-            "sharded_step_s": [r[name]["step_s"] for r in ranks],
-            "single_step_s": secs,
-            "peak_gib_per_rank": [r[name]["peak_gib"] for r in ranks],
-            "single_peak_gib": peak,
-            "bytes_per_step_rank0": r0[name]["collectives"]["bytes"],
-            "calls_per_step_rank0": r0[name]["collectives"]["calls"],
-            "launches": [r[name]["launches"] for r in ranks],
-            "expected_launches": r0[name]["expected_launches"]}
-    t1 = time.perf_counter()
-    loss, grads, secs, single_launches = _single_moe(spec, spec["moe"])
-    single_s["moe"] = time.perf_counter() - t1
-    sharded = _load_full(spec, "moe_grads", spec["moe"]["mesh"])
-    errs = {k: rel_l2(sharded[k], grads[k]) for k in grads}
-    rep["moe"] = {
-        "mesh": spec["moe"]["mesh"], "layers": spec["moe"]["layers"],
-        "sharded_loss": r0["moe"]["loss"], "single_loss": loss,
-        "loss_abs_diff": abs(r0["moe"]["loss"] - loss),
-        "grad_rel_l2": errs, "worst_leaf": max(errs, key=errs.get),
-        "worst_rel_l2": max(errs.values()),
-        "sharded_s": [r["moe"]["step_s"] for r in ranks],
-        "single_s": secs,
-        "peak_gib_per_rank": [r["moe"]["peak_gib"] for r in ranks],
-        "launches": [r["moe"]["launches"] for r in ranks],
-        "expected_launches": r0["moe"]["expected_launches"],
-        "single_launches": single_launches}
+    for name in ("dense", "dense_f32") + TRAIN_LAYOUT_CASES:
+        rep[name] = _train_report(spec, name, ranks, single_s)
+        _free(spec)
+    for name in ("moe",) + GRAD_LAYOUT_CASES:
+        rep[name] = _grad_report(spec, name, ranks, single_s)
+        _free(spec)
     rep["ring"] = {"rel_err": [r["ring"]["rel_err"] for r in ranks],
                    "n": spec["ring"]["n"]}
     rep["gpipe"] = {"max_abs_err": max(r["gpipe"]["max_abs_err"]
@@ -566,28 +716,71 @@ def run(spec: dict, timeout: float = 900.0) -> dict:
     return rep
 
 
+def _free(spec):
+    import gc
+    import torch
+    gc.collect()
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+
+
 def check(rep: dict, bf16_leaf_tol: float, bf16_loss_tol: float,
-          moe_tol: float) -> list[str]:
-    """What failed: the bf16 dense run beyond `bf16_*`, the f32 run
-    beyond the reference test's bounds, the (f32) MoE gradients beyond
-    `moe_tol` or its loss beyond the reference's loss bound, launches
-    other than expected, the ring, GPipe or the elastic trajectories."""
+          f32_grad_tol: float) -> list[str]:
+    """What failed: the bf16 dense runs beyond `bf16_*`, the f32 dense
+    run beyond the reference test's bounds, the f32 gradients (MoE and
+    the f32 layout cases) beyond `f32_grad_tol` or their loss beyond the
+    reference's loss bound, the bf16 hybrid's gradients beyond
+    `SSM_BF16_*`, the bf16 Mamba head split's farther from the f32
+    gradients than `SSM_BF16_F32_RATIO` times the single rank's, a
+    layout case whose trunk was (or was not) cut as its
+    rules say, launches other than expected, the ring, GPipe or the
+    elastic trajectories."""
     bad = []
-    d = rep["dense"]
-    if max(d["loss_abs_diff"]) > bf16_loss_tol:
-        bad.append(f"dense loss diff {max(d['loss_abs_diff'])}")
-    if d["worst_rel_l2"] > bf16_leaf_tol:
-        bad.append(f"dense leaf {d['worst_leaf']} rel L2 {d['worst_rel_l2']}")
+    for name in ("dense", "seq_dense"):
+        d = rep[name]
+        if max(d["loss_abs_diff"]) > bf16_loss_tol:
+            bad.append(f"{name} loss diff {max(d['loss_abs_diff'])}")
+        if d["worst_rel_l2"] > bf16_leaf_tol:
+            bad.append(f"{name} leaf {d['worst_leaf']} rel L2 "
+                       f"{d['worst_rel_l2']}")
     f = rep["dense_f32"]
     if max(f["loss_abs_diff"]) > F32_LOSS_TOL or not f["allclose_f32_bounds"]:
         bad.append(f"dense_f32 beyond the reference's bounds: "
                    f"{f['loss_abs_diff']}, worst leaf {f['worst_leaf']} "
                    f"{f['worst_rel_l2']}")
-    m = rep["moe"]
-    if m["worst_rel_l2"] > moe_tol or m["loss_abs_diff"] > F32_LOSS_TOL:
-        bad.append(f"moe grad {m['worst_leaf']} rel L2 {m['worst_rel_l2']}, "
-                   f"loss diff {m['loss_abs_diff']}")
-    for name in ("dense", "dense_f32", "moe"):
+    for name in ("moe", "seq_dense_f32", "heads_ssm_f32"):
+        m = rep[name]
+        if m["worst_rel_l2"] > f32_grad_tol \
+                or m["loss_abs_diff"] > F32_LOSS_TOL:
+            bad.append(f"{name} grad {m['worst_leaf']} rel L2 "
+                       f"{m['worst_rel_l2']}, loss diff {m['loss_abs_diff']}")
+    g = rep["seq_hybrid"]
+    for leaf, err in g["grad_rel_l2"].items():
+        tol = (SSM_BF16_D_TOL if leaf.endswith("mixer/D")
+               else SSM_BF16_GRAD_TOL)
+        if err > tol:
+            bad.append(f"seq_hybrid grad {leaf} rel L2 {err} > {tol}")
+    h = rep["heads_ssm"]
+    for leaf, err in h.get("sharded_rel_l2_to_f32", {}).items():
+        own = h["single_rel_l2_to_f32"][leaf]
+        if err > SSM_BF16_F32_RATIO * own:
+            bad.append(f"heads_ssm grad {leaf} {err} from f32, the single "
+                       f"rank's {own}")
+    if "sharded_rel_l2_to_f32" not in h and h["worst_rel_l2"] > f32_grad_tol:
+        bad.append(f"heads_ssm (f32) grad {h['worst_leaf']} rel L2 "
+                   f"{h['worst_rel_l2']}")
+    for name in ("seq_hybrid", "heads_ssm"):
+        g = rep[name]
+        if g["loss_abs_diff"] > SSM_BF16_LOSS_RTOL * abs(g["single_loss"]):
+            bad.append(f"{name} loss diff {g['loss_abs_diff']}")
+    want_split = {"seq_dense": True, "seq_dense_f32": True,
+                  "seq_hybrid": True, "heads_ssm": False,
+                  "heads_ssm_f32": False, "moe": True}
+    for name, split in want_split.items():
+        if rep[name]["trunk_split"] is not split:
+            bad.append(f"{name} trunk cut {rep[name]['trunk_split']}, "
+                       f"its rules say {split}")
+    for name in ("dense", "dense_f32", "moe") + LAYOUT_CASES:
         if rep["device"] != "cuda":       # the CPU launches no kernel
             continue
         for r, got in enumerate(rep[name]["launches"]):

@@ -25,7 +25,13 @@ Autograd sees these collectives, as `torch.autograd.Function`s:
   * `ReduceFromTP`: the row-parallel all-reduce of a partial activation;
     its backward is the identity;
   * `CopyToTP`: the copy of a replicated activation into a
-    tensor-parallel region; its backward is the all-reduce.
+    tensor-parallel region; its backward is the all-reduce;
+  * `ReduceScatter`: the sum of a sequence-parallel region's partial
+    outputs cut to this rank's positions; its backward is the
+    all-gather;
+  * `RingShift`: a block handed one rank on along the ring (the Mamba
+    conv's halo under sequence parallelism); its backward hands the
+    gradient back.
 `mark_tp` tags a weight that the step keeps as this rank's tensor-parallel
 slice (its model-axis group); the layers read the tag (`tp_group`).
 
@@ -293,21 +299,52 @@ class AllGather(torch.autograd.Function):
     the input (the sharded step's deferred reduction)."""
 
     @staticmethod
-    def forward(ctx, x, gathers, sink):
-        ctx.gathers, ctx.sink = gathers, sink
+    def forward(ctx, x, gathers, sink, names):
+        ctx.gathers, ctx.sink, ctx.names = gathers, sink, names
         y = x
         for g, dim in gathers:
-            y = all_gather(y, g, dim, name="fsdp_all_gather")
+            y = all_gather(y, g, dim, name=names[0])
         return y.view_as(y) if y is x else y
 
     @staticmethod
     def backward(ctx, dy):
         if ctx.sink is not None:
             ctx.sink(dy)
-            return None, None, None
+            return None, None, None, None
         for g, dim in reversed(ctx.gathers):
-            dy = reduce_scatter(dy, g, dim)
-        return dy, None, None
+            dy = reduce_scatter(dy, g, dim, name=ctx.names[1])
+        return dy, None, None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """This rank's block along `dim` of the sum over the group (a
+    sequence-parallel region's partial outputs, summed and cut to the
+    rank's positions); backward: the all-gather of the blocks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return reduce_scatter(x, g, dim, name="seq_reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_gather(dy, ctx.g, ctx.dim,
+                          name="seq_reduce_scatter_grad"), None, None
+
+
+class RingShift(torch.autograd.Function):
+    """`ring_shift` by `shift`; backward: the gradient shifted back."""
+
+    @staticmethod
+    def forward(ctx, x, g, shift):
+        ctx.g, ctx.shift = g, shift
+        return ring_shift(x, g, shift, name="seq_halo")
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ring_shift(dy, ctx.g, -ctx.shift,
+                          name="seq_halo_grad"), None, None
 
 
 class ReduceFromTP(torch.autograd.Function):
@@ -338,9 +375,25 @@ class CopyToTP(torch.autograd.Function):
         return all_reduce(dy, ctx.g, name="tp_grad_all_reduce"), None
 
 
-def all_gather_grad(x, gathers, sink=None):
-    """`AllGather` of x over [(group, dim), ...]."""
-    return AllGather.apply(x, tuple(gathers), sink)
+def all_gather_grad(x, gathers, sink=None,
+                    names=("fsdp_all_gather", "reduce_scatter")):
+    """`AllGather` of x over [(group, dim), ...]; `names` are the
+    counters of the gathers and of their backward's reduce-scatters."""
+    return AllGather.apply(x, tuple(gathers), sink, names)
+
+
+def reduce_scatter_grad(x, g: AxisGroup, dim: int):
+    """`ReduceScatter` of x along `dim` (x itself on one rank)."""
+    if g is None or g.size == 1:
+        return x
+    return ReduceScatter.apply(x, g, dim)
+
+
+def ring_shift_grad(x, g: AxisGroup, shift: int = 1):
+    """`RingShift` of x (x itself on one rank)."""
+    if g is None or g.size == 1:
+        return x
+    return RingShift.apply(x, g, shift)
 
 
 def reduce_from_tp(x, g: AxisGroup):

@@ -24,7 +24,9 @@ which one rank cuts its shard of a full tensor (`NamedSharding.shard`)
 and from which the full tensor is put back together (`unshard` from
 every rank's shard, `gather` over the process groups of a bound mesh).
 Every cross-rank move is made explicitly, by `distribution/collectives.py`,
-in the sharded train step (`train/train_step.py`).
+in the sharded train step (`train/train_step.py`), which computes each
+activation in the layout the rules resolve to; `with_logical_constraint`
+checks it there (`Layout`).
 """
 from __future__ import annotations
 
@@ -66,9 +68,10 @@ DEFAULT_RULES: dict[str, tuple[str, ...] | None] = {
     "act_patch": None,
 }
 
-# Sequence-parallel variant: norm/residual regions sharded along seq over
-# the model axis.  Its specs resolve as the reference's do; the port's
-# step computes with the default activation layout (the same numbers).
+# Sequence-parallel variant: activations sharded along seq over the model
+# axis ("act_seq" resolves first, so it takes "model" from the heads, MLP
+# columns, vocab and SSM heads).  The sharded step computes in that
+# layout (`train/train_step.py`).
 SEQUENCE_PARALLEL_RULES = dict(DEFAULT_RULES, **{"act_seq": ("model",)})
 
 
@@ -102,13 +105,14 @@ class AxisRules:
 
 
 class _Active:
-    """The active mesh, rules and weight gather: process-wide, not per
-    thread or context.  The autograd engine runs a CUDA backward, and the
+    """The active mesh, rules, weight gather and activation layout:
+    process-wide, not per thread or context.  The autograd engine runs a CUDA backward, and the
     recompute of a remat region in it, on a thread of its own, which
     must see the step's mesh and gather as its forward did."""
     mesh = None
     rules = AxisRules()
     gather = None
+    layout = None
 
 
 @contextlib.contextmanager
@@ -272,17 +276,141 @@ def named_sharding(axes, shape=None, mesh=None,
     return NamedSharding(mesh, logical_to_spec(axes, shape, mesh, rules))
 
 
-def with_logical_constraint(x, *axes: str | None):
+# ------------------------------------------------ the activation layout
+#
+# The reference hands each activation's annotation to XLA, which lays the
+# tensor out to the resolved spec.  The port has no partitioner: its
+# sharded step computes each activation in the layout the rules resolve to
+# itself (`train/train_step.py`), and `with_logical_constraint` checks,
+# inside the step, that the tensor it is given IS this rank's block of
+# that spec.
+
+
+@dataclass
+class Layout:
+    """The sharded step's activation layout (`use_layout`).
+
+    `mesh` is the bound mesh (None: one device, where every spec is
+    replicated and a site only records).  `seq_split` / `trunk_split`
+    say whether the batch's sequence and the sequence the layers run on
+    (the vlm's trunk is [image rows | text]; every other family's is its
+    batch's) are cut over "model" in equal contiguous blocks, rank r
+    holding block r.
+    Every checked site counts in `checked`; while `record` is true it
+    also appends (site axes, local shape, spec) to `log`."""
+    mesh: object = None
+    rules: AxisRules = field(default_factory=AxisRules)
+    seq_split: bool = False
+    trunk_split: bool = False
+    record: bool = True
+    log: list = field(default_factory=list)
+    checked: int = 0
+
+    def model_group(self):
+        if self.mesh is None or "model" not in self.mesh.axis_names:
+            return None
+        return self.mesh.group("model")
+
+    def global_shape(self, x, axes, shape=None) -> tuple[int, ...]:
+        """The global shape of this rank's block `x`: an entry of
+        `shape` where it is given, else the local size times the ranks
+        that hold blocks of that dimension ("act_batch": the
+        data-parallel ranks, "act_seq": the model ranks where the trunk
+        is split); other dimensions are whole."""
+        out = []
+        for i, (ax, n) in enumerate(zip(axes, x.shape)):
+            if shape is not None and shape[i] is not None:
+                out.append(int(shape[i]))
+            elif self.mesh is not None and ax == "act_batch":
+                out.append(n * self.mesh.group("dp").size)
+            elif self.mesh is not None and ax == "act_seq" \
+                    and self.trunk_split:
+                out.append(n * self.mesh.shape["model"])
+            else:
+                out.append(n)
+        return tuple(out)
+
+    def check(self, x, axes, shape=None):
+        full = self.global_shape(x, axes, shape)
+        if self.mesh is None:
+            spec = P(*([None] * len(axes)))
+            want = full
+        else:
+            spec = logical_to_spec(tuple(axes), full, self.mesh, self.rules)
+            want = NamedSharding(self.mesh, spec).shard_shape(full)
+        if tuple(x.shape) != tuple(want):
+            raise AssertionError(
+                f"activation {tuple(axes)} of global shape {full} is "
+                f"{tuple(x.shape)} on this rank; its spec {spec} gives "
+                f"blocks of {tuple(want)}")
+        self.checked += 1
+        if self.record:
+            self.log.append((tuple(axes), tuple(x.shape), spec))
+
+
+def use_layout(layout: Layout | None):
+    """Inside, `with_logical_constraint` checks and records against
+    `layout` (process-wide, as the mesh and rules are: a remat region's
+    recompute on the autograd engine's thread sees it too)."""
+    return _using("layout", layout)
+
+
+def current_layout() -> Layout | None:
+    return _Active.layout
+
+
+@contextlib.contextmanager
+def record_sites():
+    """A single-device run's constraint sites: yields the list that the
+    run's `with_logical_constraint` calls append (site axes, shape,
+    replicated spec) to."""
+    lay = Layout()
+    with use_layout(lay):
+        yield lay.log
+
+
+def seq_splits(length: int, mesh, rules: AxisRules) -> bool:
+    """Whether a sequence of `length` positions is cut over "model" under
+    `rules` on `mesh` (the reference's ladder on ("act_seq",))."""
+    if mesh is None or mesh.shape.get("model", 1) < 2:
+        return False
+    entry = logical_to_spec(("act_seq",), (length,), mesh, rules)[0]
+    return "model" in spec_axes(entry)
+
+
+def seq_shard(which: str = "trunk"):
+    """The model-axis group over which the current step cuts the trunk
+    (or, with "seq", the batch's sequence); None where it stays whole."""
+    lay = _Active.layout
+    if lay is None or not getattr(lay, f"{which}_split"):
+        return None
+    return lay.model_group()
+
+
+def seq_block(x, g):
+    """Rank g.index's block of x's sequence (dim 1) cut into g.size equal
+    contiguous blocks."""
+    n = x.shape[1] // g.size
+    return x[:, g.index * n:(g.index + 1) * n]
+
+
+def with_logical_constraint(x, *axes: str | None, shape=None):
     """Annotate an activation with logical axes.
 
-    The reference hands the annotation to XLA's partitioner, which may
-    move data to honour it.  The port moves nothing implicitly: every
-    cross-rank move is an explicit collective of the sharded step, so this
-    returns `x` unchanged.  It still resolves the annotation against the
-    active mesh (an unknown logical axis raises, as in the reference) and
-    checks that it names one axis per dimension."""
+    Inside the sharded step (`use_layout`) the annotation is a check,
+    not a move: the axes are resolved on the activation's GLOBAL shape
+    (`shape`'s entries where given, else `Layout.global_shape`), `x`
+    must be this rank's block under the resolved spec (AssertionError
+    otherwise), and the site is logged.  Outside it, `x` is returned
+    unchanged after resolving the annotation against the active mesh (an
+    unknown logical axis raises, as in the reference).  Every move is an
+    explicit collective of the step, made before the site."""
     if len(axes) != x.dim():
         raise ValueError(f"{len(axes)} logical axes for a {x.dim()}-d tensor")
+    lay = _Active.layout
+    if lay is not None:
+        lay.check(x, axes, shape)
+        return x
     mesh = current_mesh()
     if mesh is not None:
         logical_to_spec(tuple(axes), tuple(x.shape), mesh)

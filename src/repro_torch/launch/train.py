@@ -24,7 +24,9 @@ every rank has a card of its own, else gloo.  Each rank binds the mesh,
 holds its shards of the state (`train_step.init_train_state(...,
 mesh=)`, or `train.elastic.elastic_restore` on --resume, whatever mesh
 wrote the checkpoint) and trains on its rows of each global batch
-(`elastic_plan` over the mesh's data-parallel width); every rank's step
+(`elastic_plan` over the mesh's data-parallel width) in the layout the
+arch's rule table resolves to (`ArchSpec.rules`: under "seq_parallel"
+each model rank computes its block of the positions); every rank's step
 time feeds rank 0's straggler monitor, and rank 0 writes the checkpoints
 from the gathered full arrays.  The kernels are built in this process
 before the ranks start.  A rank that fails, or a world that outlasts

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distribution.sharding import \
+    with_logical_constraint as constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -59,8 +61,9 @@ def _encode(params, cfg: ModelConfig, frames, mask=None):
     x = L.matmul(frames.to(cfg.compute_dtype), params["in_proj"])
     if mask is not None:
         x = torch.where(mask[..., None], params["mask_emb"].to(x.dtype), x)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return T.forward_hidden(params, cfg, x, positions)
+    x = constrain(x, "act_batch", "act_seq", "act_embed")
+    return T.forward_hidden(params, cfg, x, L.positions_of(x.shape[1],
+                                                           x.device))
 
 
 def forward(params, cfg: ModelConfig, batch):

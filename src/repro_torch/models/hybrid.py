@@ -363,14 +363,18 @@ def paged_decode_step(params, cfg: ModelConfig, arena, block_table,
 
 def _shared_apply(sp, cfg: ModelConfig, h, x0, proj_g, positions):
     """The shared block on concat([h, x0]) at width 2d, projected back
-    onto h (the reference's `_shared_apply`, in its op order)."""
+    onto h (the reference's `_shared_apply`, in its op order).  Its
+    attention and MLP are the layers' (`layers.attention_apply`,
+    `mlp_apply`): in a sharded step, heads and MLP columns split over
+    "model" under the default rules, and the rank's block of positions
+    under sequence parallelism."""
     scfg = _shared_cfg(cfg)
-    b, s, _ = h.shape
     cat = torch.cat([h, x0], dim=-1)
     hn = L.rmsnorm_apply(sp["ln1"], cat, cfg.norm_eps)
-    q, k, v = L.attention_qkv(sp["attn"], scfg, hn, positions)
-    o = L.run_attention(scfg, q, k, v).reshape(b, s, scfg.q_dim)
-    return _shared_tail(sp, scfg, cat, o, proj_g, h)
+    cat = cat + L.attention_apply(sp["attn"], scfg, hn, positions)
+    h2 = L.rmsnorm_apply(sp["ln2"], cat, scfg.norm_eps)
+    cat = cat + L.mlp_apply(sp["mlp"], scfg, h2)
+    return h + L.matmul(cat, proj_g)
 
 
 def forward_hidden(params, cfg: ModelConfig, x):
@@ -382,7 +386,7 @@ def forward_hidden(params, cfg: ModelConfig, x):
     applications."""
     G, _ = _groups(cfg)
     x0 = x
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = L.positions_of(x.shape[1], x.device)
 
     def group(h, mamba, shared, proj):
         for p in mamba:

@@ -20,7 +20,14 @@ vocab-parallel (`_vocab_parallel_lookup`: a masked local gather and one
 all-reduce; the table's gradient a local scatter-add), and so are the
 head and the loss (`_vocab_parallel_ce_sum`: the softmax's max and sum
 all-reduced, the (b, s, vocab) logits never gathered).  Untagged
-weights compute as on one device.
+weights compute as on one device.  Where the sharded step cuts the
+sequence over "model" (`sharding.seq_shard`, sequence-parallel rules),
+every block runs on this rank's positions with whole weights: attention
+all-gathers K/V along the sequence and runs at q_offset r s
+(`positions_of` gives the rotary positions), the loss takes 1/m of each
+of the reference's logit chunks.  Each block checks its activations at
+the reference's constraint sites (`with_logical_constraint`, imported as
+`constrain`).
 
 Attention over contiguous K/V (`run_attention`, `run_decode_attention`)
 launches the flash and split-KV decode kernels for CUDA tensors,
@@ -38,7 +45,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distribution import collectives as C
-from repro_torch.distribution.sharding import current_mesh
+from repro_torch.distribution.sharding import (current_layout, current_mesh,
+                                               seq_shard)
+from repro_torch.distribution.sharding import \
+    with_logical_constraint as constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -148,7 +158,25 @@ def attention_qkv(p, cfg: ModelConfig, x, positions):
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_batch", "act_seq", "act_heads", None)
+    k = constrain(k, "act_batch", "act_seq", "act_kv_heads", None)
+    v = constrain(v, "act_batch", "act_seq", "act_kv_heads", None)
     return q, k, v
+
+
+def positions_of(s: int, device):
+    """(1, s) positions of this rank's s rows of the trunk: from r s
+    where the current sharded step cuts the trunk over "model" (rank r
+    holds block r), else from 0."""
+    g = seq_shard()
+    first = g.index * s if g is not None else 0
+    return torch.arange(first, first + s, device=device)[None, :]
+
+
+def _seq_parallel() -> bool:
+    """Whether the current sharded step cuts a sequence over "model"."""
+    lay = current_layout()
+    return lay is not None and (lay.trunk_split or lay.seq_split)
 
 
 # --------------------------------------------------------------- attention
@@ -483,11 +511,17 @@ def mlp_apply(p, cfg: ModelConfig, x):
     all-reduce) when wi is this rank's slice."""
     g = C.tp_group(p["wi"])
     if g is not None:
-        return C.reduce_from_tp(_mlp(p, cfg, C.copy_to_tp(x, g)), g)
-    return _mlp(p, cfg, x)
+        y = C.reduce_from_tp(_mlp(p, cfg, C.copy_to_tp(x, g), g.size), g)
+    else:
+        y = _mlp(p, cfg, x)
+    if y.dim() != 3:              # a decode step's (b, d) rows
+        return y
+    return constrain(y, "act_batch", "act_seq", "act_embed")
 
 
-def _mlp(p, cfg: ModelConfig, x):
+def _mlp(p, cfg: ModelConfig, x, m: int = 1):
+    """The MLP's body on x; its hidden is this rank's 1/m of the
+    columns."""
     if cfg.activation == "silu_glu":
         h = silu(matmul(x, p["wg"])) * matmul(x, p["wi"])
     elif cfg.activation == "relu2":
@@ -496,6 +530,9 @@ def _mlp(p, cfg: ModelConfig, x):
         h = gelu(matmul(x, p["wi"]))
     else:
         raise ValueError(cfg.activation)
+    if h.dim() == 3:
+        h = constrain(h, "act_batch", "act_seq", "act_mlp",
+                      shape=(None, None, h.shape[-1] * m))
     return matmul(h, p["wo"])
 
 
@@ -544,17 +581,27 @@ def embed_tokens(emb, cfg: ModelConfig, tokens):
     """tokens (...) int -> (..., d) in the compute dtype.  Vocab-parallel
     when `emb` is this rank's slice of the table, or when a bound mesh
     has a model axis over which the vocab divides (then this rank's rows
-    of the full table are looked up)."""
+    of the full table are looked up), unless the sharded step cuts the
+    sequence: then each rank looks its own positions up in the whole
+    table."""
     g = C.tp_group(emb)
-    if g is None and emb.shape[0] == cfg.vocab_size:
+    if g is None and emb.shape[0] == cfg.vocab_size \
+            and not _seq_parallel():
         g = _model_group(cfg, cfg.vocab_size)
         if g is not None:
             v_loc = cfg.vocab_size // g.size
             emb = emb[g.index * v_loc:(g.index + 1) * v_loc]
     if g is not None:
-        return _vocab_parallel_lookup(emb, cfg, tokens, g)
-    x = emb.index_select(0, tokens.reshape(-1))
-    return x.reshape(*tokens.shape, emb.shape[1]).to(cfg.compute_dtype)
+        x = _vocab_parallel_lookup(emb, cfg, tokens, g)
+    else:
+        x = emb.index_select(0, tokens.reshape(-1))
+        x = x.reshape(*tokens.shape, emb.shape[1]).to(cfg.compute_dtype)
+    if x.dim() != 3:
+        return x
+    sg = seq_shard("seq")
+    s = x.shape[1] * (sg.size if sg is not None else 1)
+    return constrain(x, "act_batch", "act_seq", "act_embed",
+                     shape=(None, s, None))
 
 
 def logits_from_hidden(emb_or_head, cfg: ModelConfig, x):
@@ -562,29 +609,51 @@ def logits_from_hidden(emb_or_head, cfg: ModelConfig, x):
     tied is detected by `w.shape[0] == vocab_size`, as in the reference."""
     w = emb_or_head
     if w.shape[0] == cfg.vocab_size:          # tied: (vocab, d)
-        return matmul(x, w.to(x.dtype).t())
-    return matmul(x, w.to(x.dtype))
+        logits = matmul(x, w.to(x.dtype).t())
+    else:
+        logits = matmul(x, w.to(x.dtype))
+    if logits.dim() != 3:
+        return logits
+    return constrain(logits, "act_batch", "act_seq", "act_vocab")
 
 
 def _local_logits(w, cfg: ModelConfig, x):
     """x @ this rank's vocab slice of the head: (d, v_loc), or (v_loc, d)
     for a tied embedding."""
     w = w.to(x.dtype)
-    return matmul(x, w.t() if cfg.tie_embeddings else w)
+    logits = matmul(x, w.t() if cfg.tie_embeddings else w)
+    return constrain(logits, "act_batch", "act_seq", "act_vocab",
+                     shape=(None, None, cfg.vocab_size))
 
 
 # ---------------------------------------------------------------- training
 
 def attention_apply(p, cfg: ModelConfig, x, positions):
     """Full self-attention over x: (b, s, d) (the training forward);
-    tensor-parallel when wq is this rank's slice of the heads."""
+    tensor-parallel when wq is this rank's slice of the heads.  Where the
+    sharded step cuts the trunk over "model", x is this rank's block of
+    positions: q stays local, K and V are all-gathered along the sequence
+    (their backward: the reduce-scatter), causal attention reads them up
+    to the block's end, and the flash kernel runs at q_offset r s."""
     g = C.tp_group(p["wq"])
     if g is not None:
-        return _attention_tp(p, cfg, x, positions, g)
-    b, s, _ = x.shape
-    q, k, v = attention_qkv(p, cfg, x, positions)
-    o = run_attention(cfg, q, k, v).reshape(b, s, cfg.q_dim)
-    return matmul(o, p["wo"])
+        y = _attention_tp(p, cfg, x, positions, g)
+    else:
+        b, s, _ = x.shape
+        q, k, v = attention_qkv(p, cfg, x, positions)
+        sg = seq_shard()
+        q_offset = 0
+        if sg is not None:
+            kv = C.all_gather_grad(torch.stack([k, v]), [(sg, 2)],
+                                   names=("seq_all_gather",
+                                          "seq_reduce_scatter"))
+            if cfg.causal:
+                kv = kv[:, :, :(sg.index + 1) * s]
+            k, v = kv[0].contiguous(), kv[1].contiguous()
+            q_offset = sg.index * s
+        o = run_attention(cfg, q, k, v, q_offset=q_offset)
+        y = matmul(o.reshape(b, s, cfg.q_dim), p["wo"])
+    return constrain(y, "act_batch", "act_seq", "act_embed")
 
 
 def _attention_tp(p, cfg: ModelConfig, x, positions, g):
@@ -599,17 +668,25 @@ def _attention_tp(p, cfg: ModelConfig, x, positions, g):
     group = cfg.num_heads // cfg.num_kv_heads
     xt = C.copy_to_tp(x, g)
     q = matmul(xt, p["wq"]).reshape(b, s, hq, hd)
-    if C.tp_group(p["wk"]) is not None:
+    tp_kv = C.tp_group(p["wk"]) is not None
+    if tp_kv:
         k = matmul(xt, p["wk"]).reshape(b, s, -1, hd)
         v = matmul(xt, p["wv"]).reshape(b, s, -1, hd)
     else:
-        first, n = (g.index * hq) // group, max(1, hq // group)
         kv = cfg.num_kv_heads
         k = C.copy_to_tp(matmul(x, p["wk"]), g).reshape(b, s, kv, hd)
         v = C.copy_to_tp(matmul(x, p["wv"]), g).reshape(b, s, kv, hd)
-        k, v = k[:, :, first:first + n], v[:, :, first:first + n]
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
+    hkv = (None, None, cfg.num_kv_heads, None)
+    q = constrain(q, "act_batch", "act_seq", "act_heads", None,
+                  shape=(None, None, cfg.num_heads, None))
+    k = constrain(k, "act_batch", "act_seq", "act_kv_heads", None, shape=hkv)
+    v = constrain(v, "act_batch", "act_seq", "act_kv_heads", None, shape=hkv)
+    if not tp_kv:
+        first, n = (g.index * hq) // group, max(1, hq // group)
+        k, v = k[:, :, first:first + n], v[:, :, first:first + n]
+    if cfg.rope_theta > 0:
         k = apply_rope(k, positions, cfg.rope_theta)
     o = run_attention(cfg, q, k, v).reshape(b, s, hq * hd)
     return C.reduce_from_tp(matmul(o, p["wo"]), g)
@@ -685,7 +762,14 @@ def lm_loss(hidden, head, cfg: ModelConfig, labels):
     vocab-parallel when `head` is this rank's vocab slice."""
     g = C.tp_group(head)
     chunk = cfg.logits_chunk
-    if not (chunk and hidden.shape[1] % chunk == 0):
+    sg = seq_shard()
+    if sg is not None:
+        # the trunk is cut over "model": the reference's chunks of the
+        # whole sequence, each rank computing its 1/m of every chunk
+        whole = hidden.shape[1] * sg.size
+        chunk = (chunk // sg.size if chunk and whole % chunk == 0
+                 and chunk % sg.size == 0 else 0)
+    elif not (chunk and hidden.shape[1] % chunk == 0):
         chunk = 0
     if g is None:
         if chunk:

@@ -13,7 +13,10 @@ through the SSD kernel (`kernels/ssd_scan` `SsdIntraChunkFn`, whose
 backward is the SSD backward kernel on the card), `"xla"` through the
 plain torch form of the reference's XLA branch.  Both are
 differentiable; the inter-chunk recurrence and its output stay torch
-ops, as the reference keeps them in XLA.
+ops, as the reference keeps them in XLA.  In a sharded training step
+the mixer runs on this rank's heads (default rules) or on its block of
+positions, the state and the conv's halo carried across ranks
+(sequence-parallel rules): `block_apply`.
 
 The ssm family's state is O(1) per sequence, so it has nothing to page:
 it serves from the contiguous layout (`init_cache`: per-layer conv
@@ -30,6 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution import collectives as C
+from repro_torch.distribution.sharding import seq_shard
+from repro_torch.distribution.sharding import \
+    with_logical_constraint as constrain
 from repro_torch.kernels.ssd_scan.ops import SsdIntraChunkFn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
@@ -112,6 +119,32 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None, impl="xla"):
                            torch.exp(seg).to(x.dtype))
     y = (y_intra + y_inter).reshape(b, s, h, p)
     return y[:, :s_orig], S
+
+
+def ssd_initial_term(C, dt, A, state):
+    """y's term from an initial state: exp(seg_i) C_i . state, seg_i the
+    decay summed from the sequence's first position through i.  The scan
+    is linear in its initial state, so `ssd_chunked(..., initial_state)`
+    is `ssd_chunked(...)` from zero plus this term (up to summation
+    order).  C: (b, s, h, n); dt: (b, s, h) f32; state: (b, h, p, n)."""
+    seg = torch.cumsum(dt * A, dim=1)
+    return torch.einsum("bshn,bhpn,bsh->bshp", C, state.to(C.dtype),
+                        torch.exp(seg).to(C.dtype))
+
+
+def carry_in(states, log_decays, r: int):
+    """The state entering block r of a sequence cut into blocks, from
+    every block's final state from zero, `states` (m, b, h, p, n), and
+    its summed log decay, `log_decays` (m, b, h): I_r = sum_{j<r}
+    (prod_{j<k<r} D_k) S_j, D_k = exp(log_decays[k]).  Every block's
+    entries take part (those at or past r times 0), so the gradient
+    reaches all of them on every rank alike."""
+    init = torch.zeros_like(states[0])
+    for j in range(states.shape[0]):
+        keep = float(j < r)
+        dec = torch.exp(log_decays[j] * keep).to(init.dtype)
+        init = init * dec[..., None, None] + states[j] * keep
+    return init
 
 
 def ssd_step(state, x, dt, A, B, C):
@@ -206,25 +239,146 @@ def block_apply(p, cfg: ModelConfig, u, initial_state=None,
                 return_state=False):
     """u: (b, s, d) -> (b, s, d), a whole sequence (prefill).  With
     `return_state` also (final SSM state (b, h, p, n), conv tail (b,
-    width-1, channels))."""
+    width-1, channels)).  In a sharded training step the mixer runs on
+    this rank's heads where the step keeps them sliced (`_block_heads`),
+    or on its block of positions where the step cuts the sequence
+    (`_block_seq`)."""
+    if initial_state is None and not return_state:
+        g = C.tp_group(p["dt_bias"])
+        if g is not None:
+            return _block_heads(p, cfg, u, g)
+        g = seq_shard()
+        if g is not None:
+            return _block_seq(p, cfg, u, g)
     b, s, _ = u.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC, dt = _split_proj(cfg, L.matmul(u, p["in_proj"]))
     xBC = L.silu(causal_conv_apply(p["conv_w"], p["conv_b"], xBC))
-    x, B, C = _split_xbc(cfg, xBC)
+    x, B, Cm = _split_xbc(cfg, xBC)
     x = x.reshape(b, s, h, pdim)
+    x = constrain(x, "act_batch", "act_seq", "act_ssm_heads", None)
     B = _expand_groups(cfg, B)
-    C = _expand_groups(cfg, C)
+    Cm = _expand_groups(cfg, Cm)
     dt, A = _dt_and_A(p, dt)
-    y, S = ssd_chunked(x, dt, A, B, C, cfg.ssm_chunk, initial_state,
+    y, S = ssd_chunked(x, dt, A, B, Cm, cfg.ssm_chunk, initial_state,
                        impl=cfg.ssd_impl)
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(b, s, cfg.ssm_inner)
     y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
-    out = L.matmul(y, p["out_proj"])
+    out = constrain(L.matmul(y, p["out_proj"]),
+                    "act_batch", "act_seq", "act_embed")
     if return_state:
         return out, (S, _conv_tail(cfg, u, p))
     return out
+
+
+def _columns(w, spans):
+    """w's last-dim columns [a, a + n) for each (a, n), concatenated."""
+    return torch.cat([w.narrow(-1, a, n) for a, n in spans], dim=-1)
+
+
+def _head_spans(cfg: ModelConfig, m: int, r: int):
+    """(in_proj column spans, conv channel spans, this rank's B/C groups)
+    of rank r's ssm_heads / m heads, the heads split contiguously: its z,
+    x and dt columns; all of B and C when ssm_groups < m (or does not
+    divide), else its ssm_groups / m groups'."""
+    di, cc, h = cfg.ssm_inner, cfg.conv_channels, cfg.ssm_heads
+    G, n = cfg.ssm_groups, cfg.ssm_state
+    hl, dil = h // m, di // m
+    gl, g0 = (G // m, r * (G // m)) if G % m == 0 else (G, 0)
+    conv = [(r * dil, dil), (di + g0 * n, gl * n),
+            (di + G * n + g0 * n, gl * n)]
+    proj = ([(r * dil, dil)] + [(di + a, k) for a, k in conv]
+            + [(di + cc + r * hl, hl)])
+    return proj, conv, gl
+
+
+def _gated_norm_tp(scale, t, eps: float, width: int, g):
+    """`rmsnorm_apply` over `width` channels of which t holds this rank's
+    block: the per-token sum of squares is all-reduced over `g` in f32
+    (its backward: the all-reduce of the ranks' gradients)."""
+    dtype = t.dtype
+    t = t.float()
+    ss = C.copy_to_tp(C.reduce_from_tp(t.square().sum(dim=-1, keepdim=True),
+                                       g), g)
+    y = t * torch.rsqrt(ss / width + eps)
+    return (y * scale.float()).to(dtype)
+
+
+def _block_heads(p, cfg: ModelConfig, u, g):
+    """The mixer on this rank's ssm_heads / m heads (the reference's
+    "act_ssm_heads" over "model"): dt_bias, A_log, D, the norm scale and
+    out_proj's rows are this rank's slices; in_proj and the conv are
+    whole (their split does not follow heads), and the rank takes its
+    heads' columns (`_head_spans`).  The SSD kernel runs on its heads; the
+    gated norm's sum of squares and out_proj's row-parallel product are
+    all-reduced over "model"."""
+    b, s, _ = u.shape
+    m, r = g.size, g.index
+    hl, pdim = cfg.ssm_heads // m, cfg.ssm_head_dim
+    dil, n = cfg.ssm_inner // m, cfg.ssm_state
+    proj, conv, gl = _head_spans(cfg, m, r)
+    zxbcdt = L.matmul(C.copy_to_tp(u, g), _columns(p["in_proj"], proj))
+    z, xBC = zxbcdt[..., :dil], zxbcdt[..., dil:2 * dil + 2 * gl * n]
+    dt = zxbcdt[..., 2 * dil + 2 * gl * n:]
+    xBC = L.silu(causal_conv_apply(_columns(p["conv_w"], conv),
+                                   _columns(p["conv_b"], conv), xBC))
+    x = xBC[..., :dil].reshape(b, s, hl, pdim)
+    x = constrain(x, "act_batch", "act_seq", "act_ssm_heads", None,
+                  shape=(None, None, cfg.ssm_heads, None))
+
+    def heads(bc):
+        if gl == cfg.ssm_groups:         # every group: expand, keep ours
+            return _expand_groups(cfg, bc)[:, :, r * hl:(r + 1) * hl]
+        return bc.reshape(b, s, gl, n).repeat_interleave(
+            cfg.ssm_heads // cfg.ssm_groups, dim=2)
+    B = heads(xBC[..., dil:dil + gl * n])
+    Cm = heads(xBC[..., dil + gl * n:])
+    dt, A = _dt_and_A(p, dt)
+    y, _ = ssd_chunked(x, dt, A, B, Cm, cfg.ssm_chunk, impl=cfg.ssd_impl)
+    y = y + p["D"].to(y.dtype)[:, None] * x
+    y = _gated_norm_tp(p["norm"], y.reshape(b, s, dil) * L.silu(z),
+                       cfg.norm_eps, cfg.ssm_inner, g)
+    out = C.reduce_from_tp(L.matmul(y, p["out_proj"]), g)
+    return constrain(out, "act_batch", "act_seq", "act_embed")
+
+
+def _block_seq(p, cfg: ModelConfig, u, g):
+    """The mixer on this rank's block of positions (the reference's
+    "act_seq" over "model"), weights whole.  Two things cross ranks: the
+    conv's halo, the previous rank's last width - 1 pre-conv rows (zeros
+    on rank 0), handed on by a ring shift; and the scan's state.  The
+    SSD runs once on the rank's chunks from a zero state; every rank's
+    final state and summed decay are all-gathered, the state entering
+    this block is formed from them (`carry_in`), and its term is added
+    to y (`ssd_initial_term`).  Gradients flow back through the gather
+    and the shift."""
+    b, s, _ = u.shape
+    w1 = cfg.conv_width - 1
+    if s < w1:
+        raise ValueError(f"a block of {s} positions is shorter than the "
+                         f"conv's halo of {w1}")
+    z, xBC, dt = _split_proj(cfg, L.matmul(u, p["in_proj"]))
+    halo = C.ring_shift_grad(xBC[:, s - w1:], g, 1) * float(g.index > 0)
+    xBC = L.silu(_depthwise(torch.cat([halo, xBC], dim=1), p["conv_w"],
+                            p["conv_b"], s))
+    x, B, Cm = _split_xbc(cfg, xBC)
+    x = x.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    x = constrain(x, "act_batch", "act_seq", "act_ssm_heads", None)
+    B = _expand_groups(cfg, B)
+    Cm = _expand_groups(cfg, Cm)
+    dt, A = _dt_and_A(p, dt)
+    y, S0 = ssd_chunked(x, dt, A, B, Cm, cfg.ssm_chunk, impl=cfg.ssd_impl)
+    names = ("seq_all_gather", "seq_reduce_scatter")
+    states = C.all_gather_grad(S0[None], [(g, 0)], names=names)
+    decays = C.all_gather_grad((dt * A).sum(dim=1)[None], [(g, 0)],
+                               names=names)
+    y = y + ssd_initial_term(Cm, dt, A, carry_in(states, decays, g.index))
+    y = y + p["D"].to(y.dtype)[:, None] * x
+    y = y.reshape(b, s, cfg.ssm_inner)
+    y = L.rmsnorm_apply(p["norm"], y * L.silu(z), cfg.norm_eps)
+    out = L.matmul(y, p["out_proj"])
+    return constrain(out, "act_batch", "act_seq", "act_embed")
 
 
 def _conv_tail(cfg: ModelConfig, u, p):

@@ -47,6 +47,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distribution import collectives
+from repro_torch.distribution.sharding import (current_layout, seq_block,
+                                               seq_shard)
+from repro_torch.distribution.sharding import \
+    with_logical_constraint as constrain
 from repro_torch.kernels.grouped_matmul.ops import (GroupedMatmulFn,
                                                     grouped_matmul)
 from repro_torch.models.config import ModelConfig
@@ -85,7 +89,21 @@ def experts_apply(p, buf, rows=None):
     del rows
     h = L.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["wi"])
-    return torch.einsum("ecf,efd->ecd", h, p["wo"])
+    h = _buffer_site(h, "act_expert", "act_cap", "act_mlp")
+    out = torch.einsum("ecf,efd->ecd", h, p["wo"])
+    return _buffer_site(out, "act_expert", "act_cap", None)
+
+
+def _buffer_site(t, *axes):
+    """The reference's constraint on an expert buffer.  In a sharded
+    step the scatter dispatches build each data-parallel rank's buffers
+    with the rank's own capacity, where the reference's capacity is the
+    global batch's, so the buffers have no counterpart layout and are not
+    checked there."""
+    lay = current_layout()
+    if lay is not None and lay.mesh is not None:
+        return t
+    return constrain(t, *axes)
 
 
 def experts_apply_grouped(p, buf, rows=None):
@@ -209,6 +227,7 @@ def _moe_scatter(p, cfg: ModelConfig, xf, experts_fn=experts_apply,
     buf = torch.zeros((E, C, d), dtype=xf.dtype, device=xf.device)
     buf.index_put_((e_sorted, pos), xf[order // k] if dropless
                    else xf[order // k] * keep, accumulate=not dropless)
+    buf = _buffer_site(buf, "act_expert", "act_cap", None)
     out_buf = experts_fn(p["experts"], buf, counts.to(torch.int32))
     y_flat = torch.empty((T_ * k, d), dtype=xf.dtype, device=xf.device)
     y_flat[order] = (out_buf[e_sorted, pos] if dropless
@@ -217,32 +236,40 @@ def _moe_scatter(p, cfg: ModelConfig, xf, experts_fn=experts_apply,
     return y if dropless else (y, aux)
 
 
-def _moe_ep(p, cfg: ModelConfig, xf):
+def _moe_ep(p, cfg: ModelConfig, xf, reduce: bool = True):
     """Expert-parallel dispatch over the bound mesh's model axis; the
     global scatter when there is no such mesh or E does not divide.  The
     experts are this rank's E / m resident ones when the sharded step
     tagged them (`collectives.mark_tp`); full expert stacks under a bound
-    mesh are cut to this rank's here."""
+    mesh are cut to this rank's here.  -> (y, aux, whether y is this
+    rank's partial f32 sum, left unreduced as `reduce` False asks)."""
     ex = p["experts"]
     g = collectives.tp_group(ex["wg"])
     if g is None:
         g = L._model_group(cfg, cfg.num_experts)
         if g is None or ex["wg"].shape[0] != cfg.num_experts:
-            return _moe_scatter(p, cfg, xf, dropless=False)
+            y, aux = _moe_scatter(p, cfg, xf, dropless=False)
+            return y, aux, False
         e_loc = cfg.num_experts // g.size
         ex = {k: v[g.index * e_loc:(g.index + 1) * e_loc]
               for k, v in ex.items()}
-    return _moe_ep_local(p["router"], ex, cfg, xf, g)
+    y, aux = _moe_ep_local(p["router"], ex, cfg, xf, g, reduce)
+    return y, aux, not reduce
 
 
-def _moe_ep_local(router_w, ex, cfg: ModelConfig, xf, g):
+def _moe_ep_local(router_w, ex, cfg: ModelConfig, xf, g,
+                  reduce: bool = True):
     """One rank's part of the expert-parallel dispatch.  xf: (T, d) this
     rank's tokens (replicated over the model axis); ex: its (E_loc, ...)
     resident experts.  Routing is over all E experts and the capacity is
     computed on the LOCAL tokens; an assignment to a foreign expert is
     redirected to the out-of-range bin E_loc and dropped (never wrapped
     onto a resident expert).  The rank's partial combine is summed over
-    the model axis in f32 and rounded once.  The router loss is this
+    the model axis in f32 and rounded once; with `reduce` False it is
+    returned unsummed, in f32, and xf's rows are the same on every model
+    rank but each rank's gradient of them is its own (the sequence
+    parallel layout: the caller reduce-scatters y, and xf's gather sums
+    the gradients).  The router loss is this
     rank's tokens' (the sharded step weights the data-parallel ranks'
     losses into their mean, the reference's pmean)."""
     T_, d = xf.shape
@@ -256,7 +283,7 @@ def _moe_ep_local(router_w, ex, cfg: ModelConfig, xf, g):
     e_rel = e_sorted - g.index * e_loc
     mine = (e_rel >= 0) & (e_rel < e_loc)
     e_idx = torch.where(mine, e_rel, torch.full_like(e_rel, e_loc))
-    xt = collectives.copy_to_tp(xf, g)
+    xt = collectives.copy_to_tp(xf, g) if reduce else xf
     buf = torch.zeros((e_loc + 1, cap, d), dtype=xf.dtype, device=xf.device)
     buf.index_put_((e_idx, pos),
                    xt[order // k] * keep[:, None].to(xf.dtype),
@@ -267,9 +294,11 @@ def _moe_ep_local(router_w, ex, cfg: ModelConfig, xf, g):
     sel = (keep & mine)[:, None].to(xf.dtype)
     y_flat = torch.empty((T_ * k, d), dtype=xf.dtype, device=xf.device)
     y_flat[order] = out_buf[torch.clamp(e_rel, 0, e_loc - 1), pos] * sel
-    wt = collectives.copy_to_tp(w, g)
+    wt = collectives.copy_to_tp(w, g) if reduce else w
     y = torch.einsum("tkd,tk->td", y_flat.reshape(T_, k, d).float(),
                      wt.to(xf.dtype).float())
+    if not reduce:
+        return y, aux
     return collectives.reduce_from_tp(y, g).to(xf.dtype), aux
 
 
@@ -312,20 +341,34 @@ def moe_apply(p, cfg: ModelConfig, x, dropless: bool = False):
     if cfg.moe_dispatch not in DISPATCHES:
         raise ValueError(cfg.moe_dispatch)
     b, s, d = x.shape
-    xf = x.reshape(b * s, d)
+    # where the sharded step cuts the sequence over "model", the
+    # reference's tokens ("act_batch", None) are the rank's rows whole:
+    # the blocks are all-gathered before routing (in (b, s) order), so
+    # capacity and drops are the unsplit layout's
+    sg = None if dropless else seq_shard()
+    xs = x if sg is None else collectives.all_gather_grad(
+        x, [(sg, 1)], names=("seq_all_gather", "seq_reduce_scatter"))
+    xf = constrain(xs.reshape(-1, d), "act_batch", None)
     fn = (experts_apply_grouped if cfg.moe_dispatch == "grouped"
           else experts_apply)
+    partial = False
     if dropless:
         y = _moe_scatter(p, cfg, xf, experts_fn=fn)
     elif cfg.moe_dispatch == "dense":
         y, aux = _moe_dense(p, cfg, xf)
     elif cfg.moe_dispatch == "ep":
-        y, aux = _moe_ep(p, cfg, xf)
+        y, aux, partial = _moe_ep(p, cfg, xf, reduce=sg is None)
     else:
         y, aux = _moe_scatter(p, cfg, xf, experts_fn=fn, dropless=False)
-    y = y.reshape(b, s, d)
+    y = y.reshape(xs.shape)
+    if partial:
+        # the experts' partial sums, summed and cut to this rank's block
+        y = collectives.reduce_scatter_grad(y, sg, 1).to(x.dtype)
+    elif sg is not None:
+        y = seq_block(y, sg)
     if cfg.num_shared_experts:
         y = y + L.mlp_apply(p["shared"], cfg, x)
+    y = constrain(y, "act_batch", "act_seq", "act_embed")
     return y if dropless else (y, aux)
 
 
@@ -471,7 +514,7 @@ def forward(params, cfg: ModelConfig, batch):
     """batch: {"tokens": (b, s)} -> logits (b, s, vocab) (the training
     dispatch)."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = L.positions_of(tokens.shape[1], tokens.device)
     x = L.embed_tokens(params["embed"], cfg, tokens)
     h, _ = forward_hidden(params, cfg, x, positions)
     return L.logits_from_hidden(T.head_weights(params, cfg), cfg, h)
@@ -481,7 +524,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
     """batch: {"tokens", "labels": (b, s)} -> mean next-token CE plus the
     router losses (f32 scalar; labels < 0 are ignored)."""
     tokens, labels = batch["tokens"], batch["labels"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = L.positions_of(tokens.shape[1], tokens.device)
     x = L.embed_tokens(params["embed"], cfg, tokens)
     h, aux = forward_hidden(params, cfg, x, positions)
     return L.lm_loss(h, T.head_weights(params, cfg), cfg, labels) + aux

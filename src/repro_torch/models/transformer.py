@@ -36,6 +36,8 @@ import torch
 from repro_torch.core.unimem import PAGED_SCALE_KEYS, is_page_leaf, quantize_kv
 from repro_torch.distribution import collectives as C
 from repro_torch.distribution.sharding import gather_layer_params
+from repro_torch.distribution.sharding import \
+    with_logical_constraint as constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -109,7 +111,8 @@ def layer_apply(p, cfg: ModelConfig, x, positions):
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     x = x + L.attention_apply(p["attn"], cfg, h, positions)
     h = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], cfg, h)
+    x = x + L.mlp_apply(p["mlp"], cfg, h)
+    return constrain(x, "act_batch", "act_seq", "act_embed")
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -165,7 +168,7 @@ def forward_hidden(params, cfg: ModelConfig, x, positions):
 def forward(params, cfg: ModelConfig, batch):
     """batch: {"tokens": (b, s)} -> logits (b, s, vocab)."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = L.positions_of(tokens.shape[1], tokens.device)
     x = L.embed_tokens(params["embed"], cfg, tokens)
     h = forward_hidden(params, cfg, x, positions)
     return L.logits_from_hidden(head_weights(params, cfg), cfg, h)
@@ -175,7 +178,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
     """batch: {"tokens", "labels": (b, s)} -> mean next-token CE (f32
     scalar; labels < 0 are ignored)."""
     tokens, labels = batch["tokens"], batch["labels"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = L.positions_of(tokens.shape[1], tokens.device)
     x = L.embed_tokens(params["embed"], cfg, tokens)
     h = forward_hidden(params, cfg, x, positions)
     return L.lm_loss(h, head_weights(params, cfg), cfg, labels)
@@ -240,6 +243,7 @@ def prefill_embeds(params, cfg: ModelConfig, x, cache, ffn_fn=_mlp_ffn):
         x = x + ffn_fn(p, cfg, hn, None)
         cache["k"][layer, :, :s].copy_(k)
         cache["v"][layer, :, :s].copy_(v)
+        x = constrain(x, "act_batch", "act_seq", "act_embed")
     cache["pos"].fill_(s)
     h = L.rmsnorm_apply(params["ln_f"], x[:, -1:], cfg.norm_eps)
     logits = L.logits_from_hidden(head_weights(params, cfg), cfg, h)

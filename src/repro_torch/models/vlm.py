@@ -22,6 +22,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distribution import collectives as C
+from repro_torch.distribution.sharding import seq_block, seq_shard
+from repro_torch.distribution.sharding import \
+    with_logical_constraint as constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -57,20 +61,39 @@ def _project_patches(params, cfg: ModelConfig, patch_embeds):
     `layers.gelu`)."""
     p = params["img_proj"]
     h = L.matmul(patch_embeds.to(cfg.compute_dtype), p["w1"])
-    return L.matmul(L.gelu(h), p["w2"])
+    h = L.matmul(L.gelu(h), p["w2"])
+    if h.dim() != 3:
+        return h
+    return constrain(h, "act_batch", "act_patch", "act_embed")
 
 
 def _fused_input(params, cfg: ModelConfig, batch):
-    """[projected patches | token embeddings]: (b, num_patches + s, d)."""
+    """[projected patches | token embeddings]: (b, num_patches + s, d).
+    In a sharded step that cuts the text over "model" each rank embeds
+    its block of the tokens, and the blocks are all-gathered along the
+    sequence; the patch rows are projected whole ("act_patch" is
+    replicated).  Where the step cuts the trunk, each rank keeps its
+    block of the fused rows."""
     img = _project_patches(params, cfg, batch["patch_embeds"])
-    txt = L.embed_tokens(params["embed"], cfg, batch["tokens"])
-    return torch.cat([img, txt], dim=1)
+    tokens = batch["tokens"]
+    sg = seq_shard("seq")
+    if sg is not None:
+        tokens = seq_block(tokens, sg)
+    txt = L.embed_tokens(params["embed"], cfg, tokens)
+    if sg is not None:
+        txt = C.all_gather_grad(txt, [(sg, 1)], names=(
+            "seq_all_gather", "seq_reduce_scatter"))
+    x = torch.cat([img, txt], dim=1)
+    tg = seq_shard()
+    if tg is not None:
+        x = seq_block(x, tg)
+    return constrain(x, "act_batch", "act_seq", "act_embed")
 
 
 def _hidden(params, cfg: ModelConfig, batch):
     x = _fused_input(params, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return T.forward_hidden(params, cfg, x, positions)
+    return T.forward_hidden(params, cfg, x, L.positions_of(x.shape[1],
+                                                           x.device))
 
 
 def forward(params, cfg: ModelConfig, batch):
@@ -89,6 +112,9 @@ def loss_fn(params, cfg: ModelConfig, batch):
     img_ignore = torch.full((labels.shape[0], p), -1, dtype=labels.dtype,
                             device=labels.device)
     labels = torch.cat([img_ignore, labels], dim=1)
+    tg = seq_shard()
+    if tg is not None:
+        labels = seq_block(labels, tg)
     return L.lm_loss(h, T.head_weights(params, cfg), cfg, labels)
 
 

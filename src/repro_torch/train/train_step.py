@@ -27,12 +27,20 @@ explicitly (`distribution/collectives.py`):
     over the microbatches and reduce-scattered back to the shard once
     after the accumulation (the reference's `_pin` / `constrain_grads`:
     one reduction, not one per microbatch);
-  * tensor parallel over "model", weights stationary: attention heads,
-    MLP columns, the vocab (lookup, head and loss) and, under the "ep"
-    dispatch, the experts stay this rank's slice (tagged for the layers,
-    `collectives.mark_tp`); every other model-sharded leaf (the Mamba
-    mixer, the hybrid's shared block) is all-gathered over "model" like
-    an FSDP shard and computed replicated;
+  * over "model", the layout the rules resolve the activations to
+    (`step_layout`; every constraint site checks it, `sharding.Layout`).
+    Under the default rules, tensor parallel, weights stationary:
+    attention heads (the hybrid's shared block's too), MLP columns, the
+    vocab (lookup, head and loss), the Mamba mixer's heads and, under
+    the "ep" dispatch, the experts stay this rank's slice (tagged for the
+    layers, `collectives.mark_tp`); other model-sharded leaves are
+    all-gathered over "model" like FSDP shards (`_tp_axes`).  Under
+    sequence-parallel rules, where the sequence divides over "model",
+    each rank computes its block of positions with whole weights (only
+    the "ep" experts stay sliced), attention all-gathers K/V along the
+    sequence, the MoE gathers its rows' tokens before routing, the Mamba
+    scan carries its state and conv halo across ranks, and every
+    gradient sums over "model" too;
   * clipping sums each leaf's squares once: a leaf replicated over an
     axis counts only on the rank at index 0 of that axis.
 """
@@ -46,12 +54,14 @@ import numpy as np
 import torch
 
 from repro_torch.distribution import collectives as C
-from repro_torch.distribution.sharding import (NamedSharding, P,
+from repro_torch.distribution.sharding import (AxisRules, Layout,
+                                               NamedSharding, P,
                                                current_rules,
-                                               logical_to_spec, spec_axes,
-                                               param_shardings,
+                                               param_shardings, seq_block,
+                                               seq_splits, spec_axes,
+                                               use_layout,
                                                use_mesh, use_param_gather,
-                                               use_rules, AxisRules)
+                                               use_rules)
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (LeafReduction, Optimizer,
@@ -312,43 +322,74 @@ def local_rows(global_batch: int, grad_accum: int, dp_index: int,
             for r in range(per)]
 
 
-def _tp_axes(cfg: ModelConfig, name: str, m: int) -> set[str]:
-    """The logical axes that leaf `name` (its path, list indices dropped)
-    keeps as this rank's model-axis slice in compute, on a model axis of
-    `m` ranks; its other model-sharded dims are gathered.  Attention
-    splits whole heads: its columns stay sliced only where the head count
-    divides over the axis (the rule resolves on the columns, hq * hd,
-    which may divide where the heads do not); kv heads that do not divide
-    are gathered and computed replicated."""
+_MIXER_SLICES = {"dt_bias": "ssm_heads", "A_log": "ssm_heads",
+                "D": "ssm_heads", "norm": "ssm_inner",
+                "out_proj": "ssm_inner"}
+
+
+def _tp_axes(cfg: ModelConfig, name: str, m: int,
+             seq: bool = False) -> tuple[set[str], bool]:
+    """(the logical axes that leaf `name` (its path, list indices
+    dropped) keeps as this rank's model-axis slice in compute, on a model
+    axis of `m` ranks; whether its compute weight's gradient is partial
+    on each model rank and sums over "model").  Its other model-sharded
+    dims are gathered.
+
+    Under the default layout, attention splits whole heads: its columns
+    stay sliced only where the head count divides over the axis (the rule
+    resolves on the columns, hq * hd, which may divide where the heads do
+    not); kv heads that do not divide are gathered and computed
+    replicated.  The MLP keeps its columns, the vocab (lookup, head,
+    loss) its rows, the "ep" experts theirs, the hybrid's shared block
+    as the layers.  The Mamba mixer keeps its heads' dt_bias, A_log, D,
+    norm and out_proj rows where the heads divide; its in_proj and conv,
+    whose split does not follow heads, are gathered, each rank computes
+    its heads' columns of them, and their gradients sum over "model".
+
+    Under a sequence-parallel layout (`seq`) every rank computes its
+    positions with whole weights: only the "ep" experts stay sliced (the
+    expert buffers still resolve expert over "model"), and every other
+    gradient is partial (the rank's positions) and sums over "model"."""
     path = name.split("/")
+    ep = (path[0] == "layers" and path[1:3] == ["moe", "experts"]
+          and cfg.moe_dispatch == "ep")
+    if seq:
+        return ({"expert"}, False) if ep else (set(), True)
     if name in ("embed", "head"):
-        return {"vocab"}
-    if path[0] != "layers":
-        return set()
+        return {"vocab"}, False
+    if ep:
+        return {"expert"}, False
+    if path[0] in ("mamba", "layers") and path[1] == "mixer":
+        if cfg.ssm_heads % m:
+            return set(), False
+        if path[2] in _MIXER_SLICES:
+            return {_MIXER_SLICES[path[2]]}, False
+        return set(), True
+    if path[0] not in ("layers", "shared"):
+        return set(), False
     if path[1] == "attn":
         if cfg.num_heads % m:
-            return set()
-        return {"heads", "kv_heads"} if cfg.num_kv_heads % m == 0 \
-            else {"heads"}
+            return set(), False
+        return ({"heads", "kv_heads"} if cfg.num_kv_heads % m == 0
+                else {"heads"}), False
     if path[1] == "mlp" or path[1:3] == ["moe", "shared"]:
-        return {"mlp"}
-    if path[1:3] == ["moe", "experts"] and cfg.moe_dispatch == "ep":
-        return {"expert"}
-    return set()
+        return {"mlp"}, False
+    return set(), False
 
 
 class _Leaf:
     """One parameter leaf's plan: its storage sharding, the gathers
-    (dim, mesh axis) that make its compute weight, in order, and whether
-    the compute weight is a tensor-parallel slice."""
+    (dim, mesh axis) that make its compute weight, in order, whether the
+    compute weight is a tensor-parallel slice, and whether its gradient
+    sums over "model" (`_tp_axes`)."""
 
-    def __init__(self, name, sharding, gathers, tp):
+    def __init__(self, name, sharding, gathers, tp, model_sum):
         self.name, self.sharding = name, sharding
-        self.gathers, self.tp = gathers, tp
+        self.gathers, self.tp, self.model_sum = gathers, tp, model_sum
 
 
-def _plan_leaf(cfg, mesh, name, axes, sharding) -> _Leaf:
-    keep = _tp_axes(cfg, name, mesh.shape.get("model", 1))
+def _plan_leaf(cfg, mesh, name, axes, sharding, seq=False) -> _Leaf:
+    keep, model_sum = _tp_axes(cfg, name, mesh.shape.get("model", 1), seq)
     gathers, tp = [], False
     for dim, (ax, entry) in enumerate(zip(axes, sharding.spec)):
         for a in reversed(spec_axes(entry)):          # minor axis first
@@ -356,7 +397,7 @@ def _plan_leaf(cfg, mesh, name, axes, sharding) -> _Leaf:
                 tp = True
             else:
                 gathers.append((dim, a))
-    return _Leaf(name, sharding, gathers, tp)
+    return _Leaf(name, sharding, gathers, tp, model_sum)
 
 
 def _data_axes(mesh) -> list[str]:
@@ -366,18 +407,22 @@ def _data_axes(mesh) -> list[str]:
 def _finalize_grad(full, leaf: _Leaf, mesh):
     """The accumulated whole gradient of a compute weight -> the
     gradient of this rank's shard: a model-axis gather of a weight every
-    model rank computed alike takes this rank's block; a data-axis gather
-    is reduce-scattered; a leaf replicated over a data axis is summed
-    over it."""
+    model rank computed alike takes this rank's block; a data-axis gather,
+    and a model-axis gather of a gradient that is partial on each model
+    rank (`leaf.model_sum`), is reduce-scattered; a leaf replicated over
+    a data axis (or, with `model_sum`, over "model") is summed over it."""
     g = full
     for dim, axis in reversed(leaf.gathers):          # major axis first
         grp = mesh.group(axis)
-        if axis == "model":
+        if axis == "model" and not leaf.model_sum:
             n = g.shape[dim] // grp.size
             g = g.narrow(dim, grp.index * n, n)
         else:
             g = C.reduce_scatter(g, grp, dim, name="fsdp_reduce_scatter")
-    for axis in _data_axes(mesh):
+    summed = _data_axes(mesh)
+    if leaf.model_sum and "model" in mesh.axis_names:
+        summed = summed + ["model"]
+    for axis in summed:
         if leaf.sharding.is_replicated_over(axis):
             g = C.all_reduce(g, mesh.group(axis), name="dp_all_reduce")
     return g.contiguous()
@@ -405,16 +450,26 @@ class _ShardedParams:
         ax = {n: parts[0] for n, parts, _ in named_groups(axes.params)}
         full = {n: (lead, parts[0].shape)
                 for n, parts, lead in named_groups(self.shapes.params)}
-        self.leaves = {}
+        # the default layout's plan, and the sequence-parallel one (used
+        # where the rules cut the batch's trunk over "model")
+        self.leaves, self.seq_leaves = {}, {}
         for name, parts, _ in named_groups(self.shardings.params):
             self.leaves[name] = _plan_leaf(cfg, mesh, name, ax[name],
                                            parts[0])
+            self.seq_leaves[name] = _plan_leaf(cfg, mesh, name, ax[name],
+                                               parts[0], seq=True)
         self.full_shape = {n: tuple(lead) + tuple(shape)
                            for n, (lead, shape) in full.items()}
 
-    def by_shard(self, params) -> dict:
+    def plan(self, seq: bool) -> dict:
+        """name -> leaf plan of the default (or sequence-parallel)
+        layout."""
+        return self.seq_leaves if seq else self.leaves
+
+    def by_shard(self, params, seq: bool = False) -> dict:
         """id(shard) -> its leaf plan, for this state's shard tensors."""
-        return {id(p): self.leaves[name]
+        leaves = self.plan(seq)
+        return {id(p): leaves[name]
                 for name, parts, _ in named_groups(params) for p in parts}
 
     def reduction(self) -> LeafReduction:
@@ -432,6 +487,44 @@ class _ShardedParams:
             allsum=allsum)
 
 
+# batch leaves cut along their sequence (dim 1) where the trunk is split
+SEQ_KEYS = ("tokens", "labels", "frames", "mask")
+
+
+def _trunk_labels(batch: dict):
+    """The labels of the sequence the layers run on: the vlm's trunk is
+    [image rows | text], its image rows unlabelled (-1); every other
+    family's is its batch's."""
+    labels = batch["labels"]
+    if "patch_embeds" in batch:
+        pad = torch.full((labels.shape[0], batch["patch_embeds"].shape[1]),
+                         -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return labels
+
+
+def step_layout(batch: dict, mesh, rules) -> Layout:
+    """The activation layout of a sharded step on `batch` (the GLOBAL
+    batch): whether the rules cut the batch's sequence and the trunk over
+    "model" (`sharding.seq_splits`).  A sequence that does not divide
+    stays whole, as the reference's ladder leaves it, and then the
+    default layout's heads, columns and vocab take "model"."""
+    key = "tokens" if "tokens" in batch else "frames"
+    seq = batch[key].shape[1]
+    trunk = seq + (batch["patch_embeds"].shape[1]
+                   if "patch_embeds" in batch else 0)
+    layout = Layout(mesh=mesh, rules=rules,
+                    seq_split=seq_splits(seq, mesh, rules),
+                    trunk_split=seq_splits(trunk, mesh, rules))
+    if layout.seq_split != layout.trunk_split:
+        # the vlm's text divides over "model" and its trunk does not, or
+        # the other way round (never where the patch count divides)
+        raise NotImplementedError(
+            f"text of {seq} and trunk of {trunk} positions: one divides "
+            f"over the model axis and the other does not")
+    return layout
+
+
 def make_sharded_grad_fn(cfg: ModelConfig, optimizer: Optimizer, mesh, *,
                          grad_accum: int = 1, rules=None):
     """The sharded step's gradient part on a bound mesh: `grad_fn(params,
@@ -439,10 +532,19 @@ def make_sharded_grad_fn(cfg: ModelConfig, optimizer: Optimizer, mesh, *,
     batch; loss the global mean (the same on every rank), grads the
     gradients of this rank's shards, reduced over the data-parallel ranks
     and averaged over the microbatches (f32 when there are several, as
-    `make_grad_fn`'s).  `grad_fn.plan` is the parameter plan."""
+    `make_grad_fn`'s).  `grad_fn.plan` is the parameter plan and
+    `grad_fn.layout` the last call's activation layout, whose `log` holds
+    the constraint sites of its forwards (`sharding.Layout`).
+
+    Under a sequence-parallel layout (`step_layout`) each model rank
+    takes the block [r S / m, (r + 1) S / m) of its rows' sequence
+    (`SEQ_KEYS`; the vlm cuts its trunk itself) and every rank's loss is
+    weighted by its share of the labelled positions over the data x
+    model ranks."""
     plan = _ShardedParams(cfg, optimizer, mesh, rules)
     fam = registry.get_family(cfg)
     dp = mesh.group("dp")
+    world = mesh.group("world")
     model_group = mesh.group("model") if "model" in mesh.axis_names else None
 
     def grad_fn(params, batch):
@@ -453,12 +555,25 @@ def make_sharded_grad_fn(cfg: ModelConfig, optimizer: Optimizer, mesh, *,
         local = {k: torch.as_tensor(np.asarray(v) if not isinstance(
                      v, torch.Tensor) else v)[rows].to(dev)
                  for k, v in batch.items()}
+        layout = step_layout(local, mesh, plan.rules)
+        seq = layout.trunk_split
+        grad_fn.layout = layout
         mbs = (_split_microbatches(local, grad_accum) if grad_accum > 1
                else [local])
-        n = torch.stack([(mb["labels"] >= 0).sum() for mb in mbs]).float()
-        weights = n / torch.clamp(C.all_reduce(n, dp, name="dp_count"),
-                                  min=1.0)
-        by_shard = plan.by_shard(params)
+        if seq:
+            labels = [_trunk_labels(mb) for mb in mbs]
+            if layout.seq_split and "patch_embeds" not in local:
+                mbs = [{k: (seq_block(v, model_group) if k in SEQ_KEYS
+                            else v) for k, v in mb.items()} for mb in mbs]
+            n = torch.stack([(seq_block(l, model_group) >= 0).sum()
+                             for l in labels]).float()
+            n_all = C.all_reduce(n, world, name="dp_count")
+        else:
+            n = torch.stack([(mb["labels"] >= 0).sum() for mb in mbs]).float()
+            n_all = C.all_reduce(n, dp, name="dp_count")
+        weights = n / torch.clamp(n_all, min=1.0)
+        leaves = plan.plan(seq)
+        by_shard = plan.by_shard(params, seq)
         acc: dict = {}
         acc_dtype = torch.float32 if grad_accum > 1 else None
 
@@ -480,19 +595,22 @@ def make_sharded_grad_fn(cfg: ModelConfig, optimizer: Optimizer, mesh, *,
             return w
 
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        with use_mesh(mesh), use_rules(plan.rules), \
+        with use_mesh(mesh), use_rules(plan.rules), use_layout(layout), \
                 use_param_gather(weight_of):
             for j, mb in enumerate(mbs):
                 cparams = {k: (v if k in LAYER_KEYS else
                                tree_map(weight_of, v))
                            for k, v in params.items()}
+                layout.record = True
                 l = fam.loss_fn(cparams, cfg, mb)
+                layout.record = False          # remat recomputes: unlogged
                 (l * weights[j]).backward()
                 loss = loss + l.detach().float() * weights[j]
-        loss = C.all_reduce(loss, dp, name="dp_loss") / grad_accum
+        loss = C.all_reduce(loss, world if seq else dp,
+                            name="dp_loss") / grad_accum
         grads_by_id = {}
         for name, parts, _ in named_groups(params):
-            leaf = plan.leaves[name]
+            leaf = leaves[name]
             for p in parts:
                 full = acc.pop(id(p), None)
                 if full is None:       # a leaf this batch did not use
@@ -504,6 +622,7 @@ def make_sharded_grad_fn(cfg: ModelConfig, optimizer: Optimizer, mesh, *,
         return loss, tree_map(lambda p: grads_by_id[id(p)], params)
 
     grad_fn.plan = plan
+    grad_fn.layout = None
     return grad_fn
 
 
@@ -539,6 +658,7 @@ def _make_sharded_step(cfg, optimizer, grad_accum, mesh, rules):
                           opt_state=opt_state), metrics
 
     train_step.plan = plan
+    train_step.grad_fn = grad_fn
     return train_step
 
 

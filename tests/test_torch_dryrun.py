@@ -440,8 +440,12 @@ def test_the_stationarity_audit_of_a_sharded_step():
 
 
 def test_inspect_prints_the_top_tables(capsys):
+    # yi-9b's own rules are sequence-parallel, whose step all-reduces no
+    # activation over "model"; the default rules' tensor-parallel one
+    # does (tp_all_reduce)
     s = port_inspect.profile("yi-9b", "train_4k", "single",
-                             {"num_layers": 1}, top=5, device="meta")
+                             {"num_layers": 1, "rules": "default"}, top=5,
+                             device="meta")
     out = capsys.readouterr().out
     for part in ("terms (h100-sxm5-80gb)", "top collectives",
                  "top traffic", "top matmuls", "tp_all_reduce"):

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of `src/repro_torch` (nor
 `chip_smoke.py`, nor the port's examples `examples/*_torch.py` and
-scripts `scripts/*_torch.py`, `scripts/ep_routing_probe.py`) imports
+scripts `scripts/*_torch.py`, `scripts/ep_routing_probe.py`, nor the
+spawned ranks of the port's worlds `tests/torch_*_ranks.py` and the card
+tests `tests/test_torch_*_card.py`) imports
 `jax` or the reference package `repro`, and importing the serving API,
 the serving tools or the paper harness loads no JAX."""
 from __future__ import annotations
@@ -16,7 +18,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
     + sorted((ROOT / "scripts").glob("*_torch.py")) + [
-        ROOT / "scripts" / "ep_routing_probe.py"]
+        ROOT / "scripts" / "ep_routing_probe.py"] \
+    + sorted((ROOT / "tests").glob("torch_*_ranks.py")) \
+    + sorted((ROOT / "tests").glob("test_torch_*_card.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
